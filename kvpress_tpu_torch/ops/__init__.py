@@ -1,0 +1,2 @@
+"""Attention: dense paths (attention.py) and the Hopper kernel wrappers
+(flash.py, decode.py)."""
