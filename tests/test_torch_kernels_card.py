@@ -76,8 +76,22 @@ def cuda():
     return torch.device("cuda")
 
 
+# The worst output row (one query head at one position) may differ from the
+# plain version by at most this share of that row's largest value, as in
+# chip_smoke.py: rows over few keys are large, rows over many keys small.
+ROW_LIMIT = 2e-2
+
+
+def _row_error(got, ref):
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs().amax(-1)
+    return (diff / ref.abs().amax(-1).clamp_min(1e-3)).max().item()
+
+
 def _close(got, ref):
-    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    assert torch.isfinite(got).all()
+    err = _row_error(got, ref)
+    assert err <= ROW_LIMIT, f"worst row differs by {err:.3e} of its scale"
 
 
 @pytest.mark.cuda
@@ -94,7 +108,7 @@ def test_flash_kernel_matches_plain_on_card(cuda, case):
     ref, ref_lse = tfl.flash_attention_plain(q, k, v, prior, mask, sm_scale=D ** -0.5,
                                              window=window, softcap=softcap, return_lse=True)
     _close(got, ref)
-    torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=1e-3)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
 @pytest.mark.cuda
