@@ -1,5 +1,5 @@
 // Shared pieces of the Hopper attention kernels (flash.cu, flash_quant.cu,
-// decode.cu): bf16 m16n8k16 tensor-core products (mma.sync), a two-stage
+// decode.cu, decode_headwise.cu, observed_colsum.cu): bf16 m16n8k16 tensor-core products (mma.sync), a two-stage
 // cp.async pipeline that brings K/V tiles of a bf16, int8 or packed-int4 cache
 // into shared memory while the previous tile is being used, and the per-warp
 // online-softmax step over a run of keys.
@@ -96,6 +96,41 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// A fragments of 16 rows of D bf16 channels read straight from device memory:
+// row0 is row g, row1 row g + 8 (null = a row of zeros).
+template <int D>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], const __nv_bfloat16* row0,
+                                            const __nv_bfloat16* row1, int tq) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 + 2 * tq;
+    a[kk][0] = row0 ? *reinterpret_cast<const uint32_t*>(row0 + c) : 0u;
+    a[kk][1] = row1 ? *reinterpret_cast<const uint32_t*>(row1 + c) : 0u;
+    a[kk][2] = row0 ? *reinterpret_cast<const uint32_t*>(row0 + c + 8) : 0u;
+    a[kk][3] = row1 ? *reinterpret_cast<const uint32_t*>(row1 + c + 8) : 0u;
+  }
+}
+
+// s (16 x NC, f32) = A (16 x D) * B^T, where B is NC rows of a row-major
+// shared-memory tile with a pitch of D + 8 elements, read from `tile`.
+template <int D, int NC>
+__device__ __forceinline__ void mma_rows(float (&s)[NC / 8][4], const uint32_t (&a)[D / 16][4],
+                                         const __nv_bfloat16* tile, int lane) {
+  constexpr int KP = D + 8;
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NC / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int n = 0; n < NC / 8; ++n) {
+      const __nv_bfloat16* br = tile + (n * 8 + g) * KP + kk * 16 + 2 * tq;
+      mma16816(s[n], a[kk], *reinterpret_cast<const uint32_t*>(br),
+               *reinterpret_cast<const uint32_t*>(br + 8));
+    }
+  }
 }
 
 // One (batch, kv head)'s cache rows in device memory.
@@ -256,14 +291,7 @@ struct WarpState {
 
   __device__ __forceinline__ void init(const __nv_bfloat16* row0,
                                        const __nv_bfloat16* row1, int tq) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * tq;
-      qa[kk][0] = row0 ? *reinterpret_cast<const uint32_t*>(row0 + c) : 0u;
-      qa[kk][1] = row1 ? *reinterpret_cast<const uint32_t*>(row1 + c) : 0u;
-      qa[kk][2] = row0 ? *reinterpret_cast<const uint32_t*>(row0 + c + 8) : 0u;
-      qa[kk][3] = row1 ? *reinterpret_cast<const uint32_t*>(row1 + c + 8) : 0u;
-    }
+    load_a_rows<D>(qa, row0, row1, tq);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
     m[0] = m[1] = -INFINITY;
@@ -285,19 +313,9 @@ template <int D, int NC, int KIND>
 __device__ __forceinline__ void attend(WarpState<D>& st, const TileView& t, int c0, int key0,
                                        const MaskArgs& a, int lane) {
   constexpr int KP = D + 8;
-  const int g = lane >> 2, tq = lane & 3;
+  const int tq = lane & 3;
   float s[NC / 8][4];
-#pragma unroll
-  for (int n = 0; n < NC / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int n = 0; n < NC / 8; ++n) {
-      const __nv_bfloat16* kr = t.k + (c0 + n * 8 + g) * KP + kk * 16 + 2 * tq;
-      mma16816(s[n], st.qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-               *reinterpret_cast<const uint32_t*>(kr + 8));
-    }
-  }
+  mma_rows<D, NC>(s, st.qa, t.k + c0 * KP, lane);
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
   for (int n = 0; n < NC / 8; ++n) {
@@ -361,6 +379,64 @@ __device__ __forceinline__ void attend(WarpState<D>& st, const TileView& t, int 
       mma16816(st.o[n + 1], pa, b[2], b[3]);
     }
   }
+}
+
+// Epilogue of the few-token kernels (decode.cu, decode_headwise.cu): the
+// block's WARPS warps each hold a partial softmax state of the same 16 rows
+// (row group rg of a kv head's `rows` (group, time) rows, `out` pointing at
+// the first of them). Merges the states through shared memory (cm/cl (warp,
+// row), co (warp, row, dim), laid over the K/V tiles) and stores the rows.
+// A row that met no key at all (m = -inf) stores 0.
+template <int D, int WARPS>
+__device__ __forceinline__ void merge_warps_store(WarpState<D>& st, unsigned char* smem,
+                                                  __nv_bfloat16* out, int rg, int rows,
+                                                  int tid, int nthreads) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  cp_async_wait<0>();
+  __syncthreads();
+  float* cm = reinterpret_cast<float*>(smem);
+  float* cl = cm + WARPS * 16;
+  float* co = cl + WARPS * 16;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(st.l[r]);
+    const int row = g + 8 * r;
+    if (tq == 0) {
+      cm[warp * 16 + row] = st.m[r];
+      cl[warp * 16 + row] = l;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      co[(warp * 16 + row) * D + n * 8 + 2 * tq] = st.o[n][2 * r];
+      co[(warp * 16 + row) * D + n * 8 + 2 * tq + 1] = st.o[n][2 * r + 1];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < 16 * D; idx += nthreads) {
+    const int row = idx / D, col = idx % D;
+    const int r = rg * 16 + row;
+    if (r >= rows) continue;
+    float m = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, cm[w * 16 + row]);
+    float l = 0.f, acc = 0.f;
+    if (m != -INFINITY) {  // -inf only when no key step was walked
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const float a = __expf(cm[w * 16 + row] - m);
+        l += a * cl[w * 16 + row];
+        acc += a * co[(w * 16 + row) * D + col];
+      }
+    }
+    out[(size_t)r * D + col] = __float2bfloat16(acc * ((l == 0.f) ? 1.f : 1.f / l));
+  }
+}
+
+// Shared memory the merge needs.
+template <int D, int WARPS>
+__host__ __device__ constexpr size_t merge_bytes() {
+  return (size_t)WARPS * 16 * (D + 2) * sizeof(float);
 }
 
 // Multi-token flash attention, one block per (q-tile, kv-head, batch). The

@@ -98,53 +98,13 @@ __global__ void __launch_bounds__(32 * DEC_WARPS) decode_kernel(const DecodePara
     attend<D, NCW, KIND>(st, view, warp * NCW, key_of(s), ma, lane);
     __syncthreads();
   }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Merge the warps' partial softmax states: cm/cl (warp, row), co (warp,
-  // row, dim), laid over the tiles' shared memory.
-  float* cm = reinterpret_cast<float*>(smem);
-  float* cl = cm + DEC_WARPS * 16;
-  float* co = cl + DEC_WARPS * 16;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(st.l[r]);
-    const int row = g + 8 * r;
-    if (tq == 0) {
-      cm[warp * 16 + row] = st.m[r];
-      cl[warp * 16 + row] = l;
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      co[(warp * 16 + row) * D + n * 8 + 2 * tq] = st.o[n][2 * r];
-      co[(warp * 16 + row) * D + n * 8 + 2 * tq + 1] = st.o[n][2 * r + 1];
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < 16 * D; idx += nthreads) {
-    const int row = idx / D, col = idx % D;
-    const int r = rg * 16 + row;
-    if (r >= rows) continue;
-    float m = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) m = fmaxf(m, cm[w * 16 + row]);
-    float l = 0.f, acc = 0.f;
-    if (m != -INFINITY) {  // -inf only when no tile was live
-#pragma unroll
-      for (int w = 0; w < DEC_WARPS; ++w) {
-        const float a = __expf(cm[w * 16 + row] - m);
-        l += a * cl[w * 16 + row];
-        acc += a * co[(w * 16 + row) * D + col];
-      }
-    }
-    p.out[(qoff + r) * D + col] = __float2bfloat16(acc * ((l == 0.f) ? 1.f : 1.f / l));
-  }
+  merge_warps_store<D, DEC_WARPS>(st, smem, p.out + qoff * D, rg, rows, tid, nthreads);
 }
 
 template <int D, int KIND>
 cudaError_t launch_decode(const DecodeParams& p, cudaStream_t stream) {
   if (p.block_k % dec_keys<D>() != 0) return cudaErrorInvalidValue;
-  constexpr size_t merge = (size_t)DEC_WARPS * 16 * (D + 2) * sizeof(float);
+  constexpr size_t merge = merge_bytes<D, DEC_WARPS>();
   const size_t tiles = KvTiles<D, dec_keys<D>(), KIND>::BYTES + (size_t)p.nb * sizeof(int);
   const size_t smem = tiles > merge ? tiles : merge;
   cudaError_t err = cudaFuncSetAttribute(decode_kernel<D, KIND>,

@@ -7,13 +7,16 @@ Weights live in an ``nn.Module`` (``LlamaModel``: embedding, a
 over stacked layers is a Python loop over layers; the press runs inside the
 layer body during prefill, with the same ``LayerCtx``.
 
-Attention routing is the JAX runner's (``llama.py:448-683``): multi-token
-calls go to ``ops.flash.flash_attention`` (or ``flash_attention_quant`` for
-an int8 cache with no press applied), few-token calls (T <= 128 and
-T*G <= 512) to ``ops.decode.decode_attention`` when ``decode_kernel`` is set,
-everything else to the dense paths of ``ops.attention``. Those wrappers
-launch the Hopper kernels on CUDA tensors and run their plain versions on
-CPU tensors.
+Attention routing is the JAX runner's (``llama.py:446-683``): a press that
+wants attention probabilities gets the dense path; other multi-token calls
+go to ``ops.flash.flash_attention`` (with the row LSE for a press that wants
+it; ``flash_attention_quant`` for an int8 cache with no press applied);
+few-token calls (T <= 128 and T*G <= 512) go to
+``ops.decode.decode_attention`` when ``decode_kernel`` is set, or, for one
+token over a bf16 cache with ``headwise_kernel`` set and the decode kernel
+off, to ``ops.decode_headwise.decode_attention_headwise``; everything else
+goes to the dense paths of ``ops.attention``. Those wrappers launch the
+Hopper kernels on CUDA tensors and run their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..config import ModelConfig
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import attention_bias, gqa_attention, quant_gqa_attention
 from ..ops.decode import decode_attention
+from ..ops.decode_headwise import decode_attention_headwise, prefix_tail_from_mask
 from ..ops.flash import flash_attention, flash_attention_quant
 from ..presses.base import BasePress, LayerCtx
 from ..rope import apply_rope, compute_inv_freq, rope_cos_sin
@@ -225,15 +229,20 @@ class Runner:
     # dequant). Only meaningful with attn_impl="flash".
     decode_kernel: bool = False
     decode_block_k: int = 2048
+    # One-token decode over per-head prefixes through ops/decode_headwise.py
+    # (caches compacted head by head, AdaKV ``compact=True``). Only
+    # meaningful with attn_impl="flash" and the decode kernel off.
+    headwise_kernel: bool = False
 
     @staticmethod
     def create(cfg: ModelConfig, attn_impl: str = "auto",
                decode_kernel: Optional[bool] = None, decode_block_k: int = 2048,
-               device: DeviceLike = "cuda") -> "Runner":
+               headwise_kernel: bool = False, device: DeviceLike = "cuda") -> "Runner":
         """``attn_impl="auto"`` is "flash" on CUDA and "xla" on the CPU;
         ``decode_kernel=None`` turns the decode kernel on for CUDA. (The JAX
         runner leaves it off for a TPU-only reason: Mosaic's per-grid-cell
-        overhead.)"""
+        overhead.) The decode kernel takes every few-token call it can, so
+        ``headwise_kernel=True`` routes only with ``decode_kernel=False``."""
         _unsupported(cfg)
         device = resolve_device(device)
         inv, scaling = compute_inv_freq(cfg)
@@ -243,7 +252,8 @@ class Runner:
             decode_kernel = device.type == "cuda"
         return Runner(cfg=cfg, attention_scaling=scaling, device=device,
                       inv_freq=torch.from_numpy(inv).to(device), attn_impl=attn_impl,
-                      decode_kernel=decode_kernel, decode_block_k=decode_block_k)
+                      decode_kernel=decode_kernel, decode_block_k=decode_block_k,
+                      headwise_kernel=headwise_kernel)
 
     # ------------------------------------------------------------------ #
 
@@ -278,15 +288,19 @@ class Runner:
         quantized = cache_layer.get("key_scales") is not None
         scale = (cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar is not None
                  else cfg.head_dim ** -0.5)
-        return_probs = press is not None and apply_press and press.wants_probs(T)
-        if return_probs:
-            raise NotImplementedError("attention-probability presses come with ROADMAP "
-                                      "Queue A item 10")
+        return_probs = apply_press and press.wants_probs(T)
+        want_lse = apply_press and press.wants_lse(T)
 
         G = cfg.num_heads // cfg.num_kv_heads
         use_decode_kernel = (
             self.attn_impl == "flash" and self.decode_kernel and not return_probs
             and T <= 128 and T * G <= 512
+        )
+        # One token only: appended tokens that a head's all-live prefix
+        # absorbs are visible to every row of the call.
+        use_headwise = (
+            self.attn_impl == "flash" and self.headwise_kernel and not use_decode_kernel
+            and not return_probs and not apply_press and not quantized and T == 1
         )
         S_buf = cache_layer["keys"].shape[2]
         start = clamp_start(prior_len, T, S_buf)
@@ -311,7 +325,7 @@ class Runner:
                 self.attn_impl == "flash" and T > 1 and kv_bits == 8
                 and not use_decode_kernel and not apply_press
             )
-            needs_dense = apply_press or (
+            needs_dense = apply_press or return_probs or (
                 self.attn_impl == "flash" and T > 1
                 and not use_decode_kernel and not use_quant_flash
             )
@@ -332,8 +346,14 @@ class Runner:
         # Newly appended tokens are attendable by every head.
         mask[:, :, start:start + T] = True
 
-        use_flash = self.attn_impl == "flash" and T > 1 and not use_decode_kernel
-        if use_decode_kernel:
+        use_flash = (self.attn_impl == "flash" and not return_probs and T > 1
+                     and not use_decode_kernel)
+        probs = attn_lse = None
+        if use_headwise:
+            pfx, tail_start, tail_len = prefix_tail_from_mask(mask, new_len)
+            attn_out = decode_attention_headwise(q, keys, values, pfx, tail_start, tail_len,
+                                                 sm_scale=scale, softcap=cfg.logit_softcap)
+        elif use_decode_kernel:
             if quantized:
                 attn_out = decode_attention(
                     q, qkeys, qvalues, new_len, key_scales, value_scales, mask,
@@ -349,24 +369,27 @@ class Runner:
                     q, qkeys, qvalues, key_scales, value_scales, prior_len, mask,
                     bits=kv_bits, sm_scale=scale, softcap=cfg.logit_softcap)
             else:
-                attn_out = flash_attention(q, keys, values, prior_len, mask,
-                                           sm_scale=scale, softcap=cfg.logit_softcap)
+                attn_out = flash_attention(q, keys, values, prior_len, mask, sm_scale=scale,
+                                           softcap=cfg.logit_softcap, return_lse=want_lse)
+                if want_lse:
+                    attn_out, attn_lse = attn_out
         else:
             bias = attention_bias(prior_len, T, S_buf, head_mask=mask)
             if quantized and keys is None:
                 attn_out = quant_gqa_attention(q, qkeys, qvalues, key_scales, value_scales,
                                                bias, scale, kv_bits, softcap=cfg.logit_softcap)
             else:
-                attn_out, _ = gqa_attention(q, keys, values, bias, scale,
-                                            softcap=cfg.logit_softcap)
+                attn_out, probs = gqa_attention(q, keys, values, bias, scale,
+                                                softcap=cfg.logit_softcap,
+                                                return_probs=return_probs)
 
         new_state = press_state
         if apply_press:
             ctx = LayerCtx(
                 layer_idx=layer_idx, hidden=h, queries=q, queries_prerope=q_pre,
-                keys_prerope=k_pre, positions=positions, attn_probs=None,
+                keys_prerope=k_pre, positions=positions, attn_probs=probs,
                 layer_params=layer, inv_freq=self.inv_freq, cfg=cfg,
-                attention_scaling=self.attention_scaling,
+                attention_scaling=self.attention_scaling, attn_lse=attn_lse,
             )
             # Prefill into an empty cache: compress over the first T slots.
             nk, nv, new_len, nmask, new_state = press.layer_compress(

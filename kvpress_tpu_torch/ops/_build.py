@@ -23,26 +23,30 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash", "flash_quant", "decode")
+SOURCES = ("flash", "flash_quant", "decode", "observed_colsum", "decode_headwise")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argtypes of each library's entry point (ctypes would cut a pointer passed
+# argtypes of each library's entry points (ctypes would cut a pointer passed
 # without them to 32 bits).
 SIGNATURES = {
-    "flash": ("kvp_flash_attention",
-              (P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P)),
-    "flash_quant": ("kvp_flash_attention_quant",
-                    (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, I, P)),
-    "decode": ("kvp_decode_attention",
-               (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, F, I, P)),
+    "flash": {"kvp_flash_attention":
+              (P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P)},
+    "flash_quant": {"kvp_flash_attention_quant":
+                    (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, I, P)},
+    "decode": {"kvp_decode_attention":
+               (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, F, I, P)},
+    "observed_colsum": {"kvp_observed_lse": (P, P, P, I, I, I, I, I, F, F, P),
+                        "kvp_observed_colsum": (P, P, P, P, I, I, I, I, I, F, F, P)},
+    "decode_headwise": {"kvp_decode_attention_headwise":
+                        (P, P, P, P, P, P, I, I, I, I, I, I, F, F, P)},
 }
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes._CFuncPtr] = {}
+_loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def build_dir() -> Path:
@@ -96,22 +100,26 @@ def build(names=SOURCES) -> dict[str, float]:
     return seconds
 
 
-def entry(name: str):
-    """The ctypes function of ``csrc/<name>.cu``, building it if needed."""
-    fn = _loaded.get(name)
+def entry(name: str, symbol: str | None = None):
+    """The ctypes function ``symbol`` of ``csrc/<name>.cu`` (its only entry
+    point when ``symbol`` is None), building the library if needed."""
+    if symbol is None:
+        (symbol,) = SIGNATURES[name]
+    fn = _loaded.get((name, symbol))
     if fn is not None:
         return fn
     with _lock:
-        if name not in _loaded:
+        if (name, symbol) not in _loaded:
             lib = _library_path(name)
             if not lib.exists():
                 build((name,))
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(str(lib)), symbol)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-            _loaded[name] = fn
-    return _loaded[name]
+            cdll = ctypes.CDLL(str(lib))
+            for sym, argtypes in SIGNATURES[name].items():
+                fn = getattr(cdll, sym)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                _loaded[(name, sym)] = fn
+    return _loaded[(name, symbol)]
 
 
 def check(err: int, what: str) -> None:

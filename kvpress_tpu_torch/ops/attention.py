@@ -148,3 +148,118 @@ def quant_pv_out(
     v_lo, v_hi = unpack_int4(v_payload, dtype)
     return torch.cat([torch.einsum("bhrs,bhsd->bhrd", pv, v_lo),
                       torch.einsum("bhrs,bhsd->bhrd", pv, v_hi)], dim=-1)
+
+
+# ---------------------------------------------------------------------- #
+# Attention probabilities for the scoring presses, rebuilt from post-RoPE
+# queries without the S x S matrix (port of kvpress_tpu/ops/attention.py:
+# 199-378). The JAX package computes these outside any Pallas kernel, so
+# they are plain PyTorch here too.
+
+
+def _window_logit_chunks(q_window, k, scale, prior_length, chunk, softcap=None):
+    """Yield (c0, logits (B, Hkv, G, W, n) float32, allowed (W, n)) over runs
+    of ``chunk`` keys: scaled (softcapped) logits of the window queries, the
+    first of which sits at slot ``prior_length``."""
+    B, Hq, W, D = q_window.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    qg = q_window.reshape(B, Hkv, Hq // Hkv, W, D).float()
+    q_slot = int(prior_length) + torch.arange(W, device=k.device)[:, None]
+    for c0 in range(0, S, chunk):
+        kc = k[:, :, c0:c0 + chunk].float()
+        s = torch.einsum("bhgtd,bhsd->bhgts", qg, kc) * scale
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        yield c0, s, (c0 + torch.arange(kc.shape[2], device=k.device))[None, :] <= q_slot
+
+
+def chunked_window_probs_mean(
+    q_window: torch.Tensor,      # (B, Hq, W, D)
+    k: torch.Tensor,             # (B, Hkv, S, D)
+    scale: float,
+    prior_length: int,
+    chunk: int = 4096,
+) -> torch.Tensor:
+    """Column means over the window of softmax probs, (B, Hq, S), in
+    O(W * chunk) memory: a two-pass online softmax over key chunks (running
+    max and sum, then normalized columns). Takes no softcap, as in the JAX
+    package."""
+    B, Hq, W, _ = q_window.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=k.device)
+    m = torch.full((B, Hkv, Hq // Hkv, W), float("-inf"), device=k.device)
+    l = torch.zeros_like(m)
+    for _, s, allowed in _window_logit_chunks(q_window, k, scale, prior_length, chunk):
+        s = torch.where(allowed, s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(dim=-1)
+        m = m_new
+    inv_l = torch.where(l == 0, torch.zeros_like(l), 1.0 / l)
+    cols = []
+    for _, s, allowed in _window_logit_chunks(q_window, k, scale, prior_length, chunk):
+        p = torch.exp(torch.where(allowed, s, neg) - m[..., None]) * inv_l[..., None]
+        cols.append(p.mean(dim=-2))                       # (B, Hkv, G, n)
+    return torch.cat(cols, dim=-1).reshape(B, Hq, S)
+
+
+def window_probs_mean_from_lse(
+    q_window: torch.Tensor,      # (B, Hq, W, D): the last W post-RoPE queries
+    k: torch.Tensor,             # (B, Hkv, S, D)
+    lse_window: torch.Tensor,    # (B, Hq, W) f32: their row logsumexp from the
+                                 # flash prefill (the tail of ctx.attn_lse)
+    scale: float,
+    prior_length: int,           # causal offset of the first window row
+    softcap: Optional[float] = None,
+    chunk: int = 4096,
+) -> torch.Tensor:
+    """Column means over the window, (B, Hq, S), in one sweep over K: with
+    the exact row logsumexp, probs are ``exp(s - lse)``. ``softcap`` must be
+    that of the attention that produced the lse."""
+    B, Hq, W, _ = q_window.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    lse = lse_window.reshape(B, Hkv, Hq // Hkv, W, 1)
+    zero = torch.zeros((), dtype=torch.float32, device=k.device)
+    cols = [torch.where(allowed, torch.exp(s - lse), zero).mean(dim=-2)
+            for _, s, allowed in _window_logit_chunks(q_window, k, scale, prior_length, chunk,
+                                                      softcap)]
+    return torch.cat(cols, dim=-1).reshape(B, Hq, S)
+
+
+def chunked_observed_colsums(
+    queries: torch.Tensor,       # (B, Hq, S, D): all post-RoPE prefill queries
+    keys: torch.Tensor,          # (B, Hkv, S, D)
+    scale: float,
+    softcap: Optional[float] = None,
+    chunk: int = 64,
+) -> torch.Tensor:
+    """Causal column sums of the full softmax attention matrix, (B, Hq, S),
+    without materializing it: ``chunk`` query rows at a time are softmaxed
+    over the whole key axis and column-summed into an accumulator.
+    O(Hq * chunk * S) memory, the same S^2 * D operations as attention."""
+    B, Hq, S, D = queries.shape
+    Hkv = keys.shape[1]
+    qg = queries.reshape(B, Hkv, Hq // Hkv, S, D).float()
+    kf = keys.float()
+    acc = torch.zeros((B, Hkv, Hq // Hkv, S), dtype=torch.float32, device=keys.device)
+    for c0 in range(0, S, chunk):
+        s = torch.einsum("bhgtd,bhsd->bhgts", qg[:, :, :, c0:c0 + chunk], kf) * scale
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        s = s + attention_bias(c0, s.shape[3], S, device=keys.device)
+        acc += torch.softmax(s, dim=-1).sum(dim=-2)
+    return acc.reshape(B, Hq, S)
+
+
+def window_attention_probs(
+    q_window: torch.Tensor,      # (B, Hq, W, D): the last W queries (post-RoPE)
+    k: torch.Tensor,             # (B, Hkv, S, D)
+    scale: float,
+    prior_length: int,           # causal offset of the first window query
+) -> torch.Tensor:
+    """Softmax probs of the last W queries over all S keys: (B, Hq, W, S)."""
+    B, Hq, W, D = q_window.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    qg = q_window.reshape(B, Hkv, Hq // Hkv, W, D).float()
+    logits = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float()) * scale
+    logits = logits + attention_bias(int(prior_length), W, S, device=k.device)
+    return torch.softmax(logits, dim=-1).reshape(B, Hq, W, S)

@@ -32,6 +32,16 @@ class LayerCtx:
     inv_freq: torch.Tensor               # (D/2,) f32
     cfg: ModelConfig = None
     attention_scaling: float = 1.0
+    kv_len: Optional[int] = None         # valid length under bucketed prefill
+    attn_lse: Optional[torch.Tensor] = None   # (B, Hq, S) f32 row logsumexp of
+    # the flash prefill (press.wants_lse): column-sum scoring then skips its
+    # own LSE pass (ops/observed_colsum.py)
+
+    @property
+    def scale(self) -> float:
+        if self.cfg.query_pre_attn_scalar is not None:
+            return self.cfg.query_pre_attn_scalar ** -0.5
+        return self.cfg.head_dim ** -0.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +54,14 @@ class BasePress:
     compresses_decode = False
 
     def wants_probs(self, q_len: int) -> bool:
+        """Whether the runner should take the attention path that
+        materializes probabilities (O(S^2) memory) for a ``q_len``-token call."""
         return self.needs_attn_probs
+
+    def wants_lse(self, q_len: int) -> bool:
+        """Whether the flash prefill should also give the per-row logsumexp
+        (``ctx.attn_lse``)."""
+        return False
 
     def init_state(self, cfg: ModelConfig, batch: int, seq_len: int):
         """Per-layer press state (a list over layers), or None if stateless."""
@@ -96,13 +113,28 @@ class ScorerPress(BasePress):
     def max_kept(self, seq_len: int, cfg: ModelConfig) -> int:
         return self.n_kept(seq_len)
 
+    def exact_kept(self, seq_len: int) -> Optional[int]:
+        """The kept length where it is known without the data or the layer,
+        else None."""
+        return self.n_kept(seq_len)
+
     def budget(self, ctx: LayerCtx, seq_len: int) -> int:
         """Per-layer kept count; budget-shaping presses (PyramidKV) override."""
         return self.n_kept(seq_len)
 
+    def dynamic_score(self, ctx: LayerCtx, keys, values, length):
+        raise NotImplementedError("scoring against a valid length comes with bucketed "
+                                  "prefill (ROADMAP Queue A item 10)")
+
+    def dynamic_budget(self, ctx: LayerCtx, length):
+        raise NotImplementedError("budgets from a valid length come with bucketed "
+                                  "prefill (ROADMAP Queue A item 10)")
+
     def layer_compress(self, ctx, keys, values, length, mask, state=None):
         if self.compression_ratio == 0.0:
             return keys, values, length, mask, state
+        if ctx.kv_len is not None:
+            raise NotImplementedError("bucketed prefill comes with ROADMAP Queue A item 10")
         B, H, S, _ = keys.shape
         n_top = self.max_kept(S, ctx.cfg)
         scores = self.score(ctx, keys, values).to(torch.float32)

@@ -15,7 +15,9 @@ import torch
 
 from kvpress_tpu_torch.cache import quantize_kv
 from kvpress_tpu_torch.ops import decode as tdec
+from kvpress_tpu_torch.ops import decode_headwise as thw
 from kvpress_tpu_torch.ops import flash as tfl
+from kvpress_tpu_torch.ops import observed_colsum as toc
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -44,6 +46,25 @@ DECODE_CASES = [
     (1, 4, 4, 1, 512, 400, 64, 128, None, False),
     (1, 4, 2, 1, 512, 333, 64, None, 30.0, True),
     (1, 2, 2, 2, 384, 200, 128, None, None, True),
+]
+COLSUM_CASES = [
+    # B, Hq, Hkv, S, D, softcap
+    (2, 4, 2, 50, 64, None),
+    (2, 4, 2, 200, 64, 30.0),
+    (1, 8, 2, 300, 64, None),
+    (1, 8, 1, 200, 64, None),
+    (1, 4, 4, 257, 64, None),
+    (1, 8, 1, 130, 128, 30.0),
+    (1, 4, 2, 1000, 128, None),
+]
+HEADWISE_CASES = [
+    # B, Hq, Hkv, T, S, D, tail, softcap, empty head, longest head absorbs the tail
+    (2, 4, 2, 1, 96, 64, 6, None, False, False),
+    (2, 4, 2, 4, 96, 64, 6, None, False, False),
+    (2, 8, 2, 1, 700, 64, 3, None, True, False),
+    (1, 4, 2, 1, 700, 64, 5, 30.0, False, True),
+    (4, 32, 8, 1, 1200, 64, 9, None, True, True),
+    (1, 2, 2, 2, 400, 128, 4, None, False, False),
 ]
 
 
@@ -146,3 +167,78 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, bits):
     got = tdec.decode_attention(q, k, v, length, ks, vs, mask, block_k=256, **kw)
     ref = tdec.decode_attention_plain(q, k, v, length, ks, vs, mask, **kw)
     _close(got, ref)
+
+
+def _sums_close(got, ref):
+    """Column sums (and row LSE) are one number per slot: each is held to
+    ROW_LIMIT of its own size."""
+    assert torch.isfinite(got).all()
+    err = ((got - ref).abs() / ref.abs().clamp_min(1e-3)).max().item()
+    assert err <= ROW_LIMIT, f"worst entry differs by {err:.3e} of its size"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COLSUM_CASES,
+                         ids=[f"Hq{c[1]}Hkv{c[2]}S{c[3]}D{c[4]}" for c in COLSUM_CASES])
+def test_observed_colsum_kernels_match_plain_on_card(cuda, case):
+    B, Hq, Hkv, S, D, softcap = case
+    q, k, v, _ = (_t(a).to(cuda) for a in _inputs(4, B, Hq, Hkv, S, S, D))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kw = dict(sm_scale=D ** -0.5, softcap=softcap)
+    n_lse, n_sum = toc.observed_lse.launches, toc.observed_colsums_flash.launches
+    lse = toc.observed_lse(q, k, **kw)
+    got = toc.observed_colsums_flash(q, k, **kw)
+    torch.cuda.synchronize()
+    assert toc.observed_lse.launches == n_lse + 2
+    assert toc.observed_colsums_flash.launches == n_sum + 1
+    torch.testing.assert_close(lse, toc.observed_lse_plain(q, k, **kw), atol=1e-3, rtol=1e-4)
+    ref = toc.observed_colsums_plain(q, k, **kw)
+    _sums_close(got, ref)
+    # the same bits on every run (the sums feed a top-k)
+    assert torch.equal(got, toc.observed_colsums_flash(q, k, **kw))
+    # with the flash prefill kernel's row LSE, pass 1 is skipped
+    _, flash_lse = tfl.flash_attention(q, k, v, 0, sm_scale=D ** -0.5, softcap=softcap,
+                                       return_lse=True)
+    n_lse = toc.observed_lse.launches
+    _sums_close(toc.observed_colsums_flash(q, k, flash_lse, **kw), ref)
+    assert toc.observed_lse.launches == n_lse
+    # a row that saw no key (lse = -inf) adds nothing, and nothing is NaN
+    holed = flash_lse.clone()
+    holed[:, :, S // 2] = float("-inf")
+    _sums_close(toc.observed_colsums_flash(q, k, holed, **kw),
+                toc.observed_colsums_plain(q, k, holed, **kw))
+
+
+def _headwise_case(seed, B, Hkv, S, tail, empty, absorbed):
+    """A cache compacted head by head: prefix lengths, then a shared tail."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(5, S - tail - 8, (B, Hkv)).astype(np.int32)
+    tail_start = int(prefix.max()) + (0 if absorbed else 7)
+    if empty:
+        prefix[0, 0] = 0
+    length = tail_start + tail
+    mask = np.arange(S)[None, None] < prefix[..., None]
+    mask[:, :, tail_start:length] = True
+    mask[:, :, length:] = rng.random((B, Hkv, S - length)) < 0.5     # stale bits
+    return mask, length
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HEADWISE_CASES,
+                         ids=[f"B{c[0]}T{c[3]}S{c[4]}D{c[5]}e{int(c[8])}a{int(c[9])}"
+                              for c in HEADWISE_CASES])
+def test_headwise_kernel_matches_plain_on_card(cuda, case):
+    B, Hq, Hkv, T, S, D, tail, softcap, empty, absorbed = case
+    q, k, v, _ = (_t(a).to(cuda) for a in _inputs(5, B, Hq, Hkv, T, S, D))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    mask, length = _headwise_case(6, B, Hkv, S, tail, empty, absorbed)
+    ranges = thw.prefix_tail_from_mask(_t(mask).to(cuda), length)
+    kw = dict(sm_scale=D ** -0.5, softcap=softcap)
+    n = thw.decode_attention_headwise.launches
+    got = thw.decode_attention_headwise(q, k, v, *ranges, **kw)
+    torch.cuda.synchronize()
+    assert thw.decode_attention_headwise.launches == n + 1
+    _close(got, thw.decode_attention_headwise_plain(q, k, v, *ranges, **kw))
+    if T == 1:
+        # the ranges say what the mask says: dense attention under the mask
+        _close(got, tdec.decode_attention_plain(q, k, v, length, mask=_t(mask).to(cuda), **kw))
