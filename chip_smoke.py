@@ -6,9 +6,13 @@
 1. Device line: ``nvidia-smi --query-gpu=name,power.limit``; every time
    printed after it was taken on that card.
 2. Build the six Hopper kernels (csrc/*.cu, one nvcc per source, in
-   parallel) and hold each against its plain PyTorch version on the card at
-   the shapes the paths give it (GQA 32/8, head_dim 64), in bf16. Each check
-   must reject a planted fault.
+   parallel; the two flash kernels must spill nothing and hold wgmma
+   instructions) and hold each against its plain PyTorch version on the card
+   at the shapes the paths give it (GQA 32/8, head_dim 64), in bf16. The
+   flash kernels are also held at the 32K prefill itself, at a question's
+   shape over a half-live cache, at head_dim 128 and where their tile logic
+   can go wrong, launched twice with equal bits. Each check must reject its
+   planted faults.
 3. The paths at full width, through ``KVPressPipeline`` on the 1B-class
    flagship shape (16 layers, seeded random weights), a 32,768-token context
    and two questions (one longer than 128 tokens):
@@ -46,6 +50,7 @@ import dataclasses
 import inspect
 import json
 import logging
+import re
 import statistics
 import subprocess
 import sys
@@ -119,19 +124,25 @@ def device_kernels(fn, iters: int):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / iters
-    kernels = {}
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.key] = (dev / 1e3 / iters, ev.count / iters)
+    # A trace now and then comes back without a single device event (seen once
+    # in several hundred traces on the H100): that is the profiler's
+    # failure, not a reading, and the trace is taken again.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+        kernels = {}
+        for ev in prof.key_averages():
+            dev = getattr(ev, "self_device_time_total", None)
+            if dev is None:
+                dev = getattr(ev, "self_cuda_time_total", 0.0)
+            if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+                kernels[ev.key] = (dev / 1e3 / iters, ev.count / iters)
+        if kernels:
+            break
     return wall, kernels
 
 
@@ -175,6 +186,8 @@ def visible_pairs(mask, prior: int, T: int, length: int | None = None) -> int:
 def kernel_checks(kt, torch, report):
     from kvpress_tpu_torch.cache import dequantize_kv, quantize_kv
     from kvpress_tpu_torch.ops import decode as dec
+    from kvpress_tpu_torch.ops.attention import (NEG_INF, attention_bias, gqa_attention,
+                                                 quant_gqa_attention)
     from kvpress_tpu_torch.ops import decode_headwise as hw
     from kvpress_tpu_torch.ops import flash as fl
     from kvpress_tpu_torch.ops import observed_colsum as oc
@@ -266,23 +279,165 @@ def kernel_checks(kt, torch, report):
         failures.extend(f"{name}[{variant}]: the limit passes {what} ({x:.3e} <= {limit})"
                         for what, x in fault_rows.items() if not x > limit)
 
-    # flash_attention: prefill-shaped, B=1, T=S=8192, random keep-mask.
+    def timed(fn):
+        """(fn(), its milliseconds on the card: one run, CUDA events)."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def plain_rows(plain, q, kv, prior, mask, lo, hi, chunk, **kw):
+        """(out, lse) of query rows lo..hi-1 of a flash kernel's plain version,
+        ``chunk`` rows at a time (the plain version holds a chunk's whole logit
+        matrix), each over the slots its rows can see. ``kv`` are the
+        arguments with the slot axis at dim 2."""
+        outs, lses = [], []
+        for r0 in range(lo, hi, chunk):
+            r1 = min(hi, r0 + chunk)
+            end = prior + r1
+            o, l = plain(q[:, :, r0:r1], *(t[:, :, :end] for t in kv), prior + r0,
+                         mask[:, :, :end], return_lse=True, **kw)
+            outs.append(o)
+            lses.append(l)
+        return torch.cat(outs, 2), torch.cat(lses, 2)
+
+    def flash_case(name, variant, bits, q, kv, prior, mask, *, chunk, iters, lib_mask=True,
+                   logic_faults=False, **kw):
+        """One shape of a flash kernel: launched twice (equal bits), output and
+        LSE against the plain version, the planted faults, and the times."""
+        B, _, T, D_ = q.shape
+        S = kv[0].shape[2]
+        G_ = q.shape[1] // kv[0].shape[1]
+        kw = dict(sm_scale=D_ ** -0.5, **kw)
+        if bits is None:
+            kernel, plain = fl.flash_attention, fl.flash_attention_plain
+        else:
+            kernel, plain, kw["bits"] = fl.flash_attention_quant, fl.flash_attention_quant_plain, bits
+        call = lambda: kernel(q, *kv, prior, mask, return_lse=True, **kw)
+        got, lse = call()
+        torch.cuda.synchronize()
+        again, lse_again = call()
+        torch.cuda.synchronize()
+        label = f"{name}[{variant}]"
+        if not (torch.equal(got, again) and torch.equal(lse, lse_again)):
+            failures.append(f"{label}: two launches differ")
+        (ref, ref_lse), plain_ms = timed(
+            lambda: plain_rows(plain, q, kv, prior, mask, 0, T, chunk, **kw))
+        if chunk >= T:      # small enough to repeat: a median, as for the other kernels
+            plain_ms = cuda_ms(lambda: plain(q, *kv, prior, mask, **kw), 3, 1)
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not lse_err <= LSE_LIMIT:
+            failures.append(f"{label}: row logsumexp differs by {lse_err:.3e} > {LSE_LIMIT}")
+
+        def with_rows(lo, hi, rows):
+            f = ref.clone()
+            f[:, :, lo:hi] = rows
+            return f
+
+        # Fault: a 256-key step that every later row sees, skipped; read on the
+        # rows right behind it, which it moves most.
+        hole = prior // 2 if prior else min(512, T // 4)
+        lo = max(0, hole + 256 - prior)
+        hi = min(T, lo + 512)
+        faults = {"one skipped key step": with_rows(lo, hi, plain_rows(
+            plain, q, kv, prior, fault_mask(mask, B, S, hole), lo, hi, chunk, **kw)[0])}
+        if logic_faults:
+            # Faults of the tile logic. A diagonal tile taken for an interior
+            # one: the q-tile at row T/2 sees the whole key tile it sits in.
+            # A clear keep-bit in an otherwise live tile taken for set.
+            bq, nk = 128 // G_, fl.key_tile(D_)
+            r0 = T // 2 // bq * bq
+            end = ((prior + r0) // nk + 1) * nk
+            assert end <= S
+            m = mask[:, :, :end]
+            bias = attention_bias(prior + r0, bq, end, head_mask=m, device=dev)
+            bias[..., end - nk:] = torch.where(m[:, :, None, end - nk:], 0.0, NEG_INF)
+            qr, kr = q[:, :, r0:r0 + bq], [t[:, :, :end] for t in kv]
+            if bits is None:
+                rows = gqa_attention(qr, *kr, bias, kw["sm_scale"])[0]
+            else:
+                rows = quant_gqa_attention(qr, *kr, bias, kw["sm_scale"], bits)
+            faults["a diagonal tile taken for an interior one"] = with_rows(r0, r0 + bq, rows)
+            faults["a clear keep-bit taken for set"] = plain_rows(
+                plain, q, kv, prior, torch.ones_like(mask), 0, T, chunk, **kw)[0]
+        ms = kernel_ms(call, "flash_sm90", iters)
+        lib = None
+        if lib_mask:
+            kd, vd = kv[:2] if bits is None else (
+                dequantize_kv(kv[0], kv[2], bits, torch.bfloat16),
+                dequantize_kv(kv[1], kv[3], bits, torch.bfloat16))
+            if lib_mask == "causal":    # all-live mask, no prior: the causal call is the same
+                kr, vr = kd.repeat_interleave(G_, 1), vd.repeat_interleave(G_, 1)
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, kr, vr, is_causal=True, scale=kw["sm_scale"]), 3)
+            else:
+                kr, vr = kd.repeat_interleave(G_, 1), vd.repeat_interleave(G_, 1)
+                allowed = allowed_mask(mask, B, prior, T, S)
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, kr, vr, attn_mask=allowed, scale=kw["sm_scale"]), 5)
+        flops = 4 * D_ * G_ * visible_pairs(mask, prior, T)
+        record(name, variant, got, ref, faults, ms, plain_ms, nbytes(q, *kv, mask, got), flops, lib)
+        report(f"    launched twice with equal bits; row logsumexp max_abs_err {lse_err:.3e} "
+               f"(limit {LSE_LIMIT}); key ranges a q-tile: "
+               f"{fl.flash_splits(B, kv[0].shape[1], G_, T, S, D_, prior, kw.get('window'))}")
+
+    def quantized(kd, vd, bits):
+        (kq, ks), (vq, vs) = quantize_kv(kd, bits), quantize_kv(vd, bits)
+        return [kq, vq, ks, vs]
+
+    # flash_attention: prefill-shaped, B=1, T=S=8192, random keep-mask (every
+    # tile takes the keep-bit test).
     B, T = 1, 8192
     q, k, v = rnd(B, Hq, T, D), rnd(B, Hkv, T, D), rnd(B, Hkv, T, D)
+    flash_case("flash_attention", "bf16 B1 T8192 S8192 masked", None, q, [k, v], 0,
+               keep_mask(B, T), chunk=T, iters=10)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # Both flash kernels at the 32K prefill itself (all-live mask: only the
+    # diagonal tiles take a test), at a question's shape (152 new tokens over
+    # 16K slots of which half are live, as after a press without compaction),
+    # and where the tile logic can go wrong (every keep-bit set but one).
+    T = CONTEXT_TOKENS
+    q, k, v = rnd(B, Hq, T, D), rnd(B, Hkv, T, D), rnd(B, Hkv, T, D)
+    live = torch.ones((B, Hkv, T), dtype=torch.bool, device=dev)
+    flash_case("flash_attention", "bf16 B1 T32768 S32768 all-live", None, q, [k, v], 0, live,
+               chunk=1024, iters=3, lib_mask="causal")
+    flash_case("flash_attention_quant", "int8 B1 T32768 S32768 all-live", 8, q,
+               quantized(k, v, 8), 0, live, chunk=1024, iters=3, lib_mask="causal")
+    del q, k, v, live
+    torch.cuda.empty_cache()
+
+    T, prior = 152, 16384
+    S = prior + T
+    q, kd, vd = rnd(B, Hq, T, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+    half = keep_mask(B, S, p=0.5)
+    flash_case("flash_attention", f"bf16 B1 T{T} prior{prior} half live", None, q, [kd, vd],
+               prior, half, chunk=T, iters=20)
+    flash_case("flash_attention_quant", f"int8 B1 T{T} prior{prior} half live", 8, q,
+               quantized(kd, vd, 8), prior, half, chunk=T, iters=20)
+
+    T = 1024
+    q, kd, vd = rnd(B, Hq, T, D), rnd(B, Hkv, T, D), rnd(B, Hkv, T, D)
+    one_clear = torch.ones((B, Hkv, T), dtype=torch.bool, device=dev)
+    one_clear[:, :, 5] = False
+    flash_case("flash_attention", f"bf16 B1 T{T} S{T} one clear bit", None, q, [kd, vd], 0,
+               one_clear, chunk=T, iters=10, logic_faults=True)
+    for bits in (8, 4):
+        flash_case("flash_attention_quant", f"int{bits} B1 T{T} S{T} one clear bit", bits, q,
+                   quantized(kd, vd, bits), 0, one_clear, chunk=T, iters=10, logic_faults=True)
+
+    # head_dim 128, G = 4 (the other instantiation: 64-key tiles, two panels).
+    T, D2 = 4096, 128
+    q, kd, vd = rnd(B, Hq, T, D2), rnd(B, Hkv, T, D2), rnd(B, Hkv, T, D2)
     mask = keep_mask(B, T)
-    got = fl.flash_attention(q, k, v, 0, mask, sm_scale=scale)
-    torch.cuda.synchronize()
-    ref = fl.flash_attention_plain(q, k, v, 0, mask, sm_scale=scale)
-    fault = fl.flash_attention_plain(q, k, v, 0, fault_mask(mask, B, T, 512), sm_scale=scale)
-    torch.cuda.synchronize()
-    ms = kernel_ms(lambda: fl.flash_attention(q, k, v, 0, mask, sm_scale=scale),
-                   "flash_fwd_kernel", 10)
-    plain = cuda_ms(lambda: fl.flash_attention_plain(q, k, v, 0, mask, sm_scale=scale), 3, 1)
-    lib = sdpa_ms(q, k, v, allowed_mask(mask, B, 0, T, T), 5)
-    flops = 4 * D * G * visible_pairs(mask, 0, T)
-    record("flash_attention", "bf16 B1 T8192 S8192 masked", got, ref,
-           {"one skipped key step": fault}, ms, plain, nbytes(q, k, v, mask, got), flops, lib)
-    del q, k, v, got, ref, fault
+    flash_case("flash_attention", f"bf16 B1 T{T} S{T} D128 masked", None, q, [kd, vd], 0, mask,
+               chunk=1024, iters=5)
+    flash_case("flash_attention_quant", f"int8 B1 T{T} S{T} D128 masked", 8, q,
+               quantized(kd, vd, 8), 0, mask, chunk=1024, iters=5)
+    del q, kd, vd
     torch.cuda.empty_cache()
 
     # flash_attention_quant: question forward over a compressed cache.
@@ -292,27 +447,8 @@ def kernel_checks(kt, torch, report):
     kd, vd = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
     mask = keep_mask(B, S)
     for bits in (8, 4):
-        kq, ks = quantize_kv(kd, bits)
-        vq, vs = quantize_kv(vd, bits)
-        call = lambda: fl.flash_attention_quant(q, kq, vq, ks, vs, prior, mask, bits=bits,
-                                                sm_scale=scale)
-        got = call()
-        torch.cuda.synchronize()
-        ref = fl.flash_attention_quant_plain(q, kq, vq, ks, vs, prior, mask, bits=bits,
-                                             sm_scale=scale)
-        fault = fl.flash_attention_quant_plain(q, kq, vq, ks, vs, prior,
-                                               fault_mask(mask, B, S, 8192), bits=bits,
-                                               sm_scale=scale)
-        ms = kernel_ms(call, "flash_fwd_kernel", 20)
-        plain = cuda_ms(lambda: fl.flash_attention_quant_plain(
-            q, kq, vq, ks, vs, prior, mask, bits=bits, sm_scale=scale), 3, 1)
-        lib = sdpa_ms(q, dequantize_kv(kq, ks, bits, torch.bfloat16),
-                      dequantize_kv(vq, vs, bits, torch.bfloat16),
-                      allowed_mask(mask, B, prior, T, S), 5)
-        flops = 4 * D * G * visible_pairs(mask, prior, T)
-        record("flash_attention_quant", f"int{bits} B1 T{T} prior{prior}", got, ref,
-               {"one skipped key step": fault}, ms, plain,
-               nbytes(q, kq, vq, ks, vs, mask, got), flops, lib)
+        flash_case("flash_attention_quant", f"int{bits} B1 T{T} prior{prior}", bits, q,
+                   quantized(kd, vd, bits), prior, mask, chunk=T, iters=20)
 
     # decode_attention: B=4, T=1, 16K live slots (+1 new), masked and not.
     B, T = DECODE_BATCH, 1
@@ -998,6 +1134,32 @@ SOURCES = {
 }
 
 
+def build_report(_build, report):
+    """What the compiler said of each kernel: registers, shared memory and
+    spills, and every ptxas remark about wgmma (it says so when it has to
+    serialise ``wgmma.mma_async``). The two flash kernels must spill nothing
+    and must hold wgmma instructions (HGMMA in the machine code)."""
+    failures = []
+    for log in sorted(_build.build_dir().glob("*.log")):
+        name = log.stem.split("-")[0].removeprefix("lib")
+        for line in log.read_text().splitlines():
+            if any(word in line for word in ("registers", "spill", "wgmma", "serialized")):
+                report(f"  {name}: {line.strip()[:300]}")
+            spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if name.startswith("flash") and spilled and any(int(x) for x in spilled.groups()):
+                failures.append(f"{name} spills: {line.strip()}")
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    for name in ("flash", "flash_quant"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._library_path(name))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        count = sass.count("HGMMA")
+        report(f"  {name}: {count} wgmma instructions (HGMMA) in the machine code")
+        if count == 0:
+            failures.append(f"{name} holds no wgmma instruction")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main() -> int:
     import torch
 
@@ -1024,10 +1186,7 @@ def main() -> int:
     report("phase 2: build kernels")
     built = _build.build()
     report(f"  nvcc seconds (parallel): { {k: round(v, 1) for k, v in built.items()} }")
-    for log in sorted(_build.build_dir().glob("*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                report(f"  {log.stem.split('-')[0]}: {line.strip()}")
+    build_report(_build, report)
     report(f"phase 2: kernels vs plain on {card}")
     checks = kernel_checks(kt, torch, report)
 

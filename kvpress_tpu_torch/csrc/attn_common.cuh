@@ -1,16 +1,21 @@
-// Shared pieces of the Hopper attention kernels (flash.cu, flash_quant.cu,
-// decode.cu, decode_headwise.cu, observed_colsum.cu): bf16 m16n8k16 tensor-core products (mma.sync), a two-stage
+// Shared pieces of the Hopper attention kernels. The few-token and column-sum
+// kernels (decode.cu, decode_headwise.cu, observed_colsum.cu) are built from
+// all of them: bf16 m16n8k16 tensor-core products (mma.sync), a two-stage
 // cp.async pipeline that brings K/V tiles of a bf16, int8 or packed-int4 cache
 // into shared memory while the previous tile is being used, and the per-warp
-// online-softmax step over a run of keys.
+// online-softmax step over a run of keys. The multi-token flash kernels
+// (flash.cu, flash_quant.cu) have a main loop of their own, flash_sm90.cuh
+// (wgmma, a four-stage ring behind mbarriers), and take from here only the
+// small pieces: cache kinds and row widths, bf16 packing, the cp.async
+// wrappers and the quad reductions.
 //
 // Numerics follow the Pallas kernels of kvpress_tpu/ops/flash.py and
 // ops/decode.py: logits and softmax statistics in float32, bf16 operands for
-// both products; masked logits take the finite NEG_INF = -2e38 (not -inf), and
-// a row whose running sum is 0 stores 0. A run of keys that is wholly masked
-// adds exp(0) terms that the next live run's rescale factor wipes out, so a
-// real row (one that sees a live key) matches the dense path and a row that
-// never does is padding, never NaN.
+// both products; in the kernels built on `attend`, masked logits take the
+// finite NEG_INF = -2e38 (not -inf), and a row whose running sum is 0 stores
+// 0. A run of keys that is wholly masked adds exp(0) terms that the next live
+// run's rescale factor wipes out, so a real row (one that sees a live key)
+// matches the dense path and a row that never does is padding, never NaN.
 //
 // Quantized caches (cache.quantize_kv layout) are copied at payload width and
 // widened to bf16 in shared memory: int8 payloads and the +8-offset nibbles of
@@ -439,106 +444,8 @@ __host__ __device__ constexpr size_t merge_bytes() {
   return (size_t)WARPS * 16 * (D + 2) * sizeof(float);
 }
 
-// Multi-token flash attention, one block per (q-tile, kv-head, batch). The
-// block holds all G query heads of its q-tile (warp w: head w / (bq/16),
-// 16 rows), so each K/V tile is read from device memory once per kv head.
-// The KV axis, a sequential grid axis on the TPU, is a loop inside the block
-// that skips tiles above the causal diagonal (and below the window), with
-// the next tile's copy in flight while the current one is used.
-struct FlashParams {
-  const __nv_bfloat16* q;  // (B, Hq, T, D)
-  const void* k;           // (B, Hkv, S, D) bf16/int8 | (B, Hkv, S, D/2) uint8
-  const void* v;
-  const float* ks;         // (B, Hkv, S) f32 or null
-  const float* vs;
-  const uint8_t* mask;     // (B, Hkv, mask_pitch) or null
-  __nv_bfloat16* out;      // (B, Hq, T, D)
-  float* lse;              // (B, Hq, T) or null
-  int B, Hq, Hkv, T, S, G, bq, prior, window, mask_pitch;
-  float sm_scale, softcap;
-};
-
-constexpr int FLASH_KEYS = 64;
-
-template <int D, int KIND>
-__global__ void __launch_bounds__(256) flash_fwd_kernel(const FlashParams p) {
-  constexpr int NK = FLASH_KEYS;
-  constexpr int ROW = row_bytes<D, KIND>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  KvTiles<D, NK, KIND> tiles{smem};
-  // Causal work grows with the q-tile index: start the longest tiles first.
-  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wph = p.bq >> 4;  // warps per query head
-  const int hq = h * p.G + warp / wph;
-  const int t0 = qt * p.bq;
-  const int trow = t0 + (warp % wph) * 16 + g;
-
-  const size_t qoff = ((size_t)b * p.Hq + hq) * p.T;
-  const __nv_bfloat16* row0 = trow < p.T ? p.q + (qoff + trow) * D : nullptr;
-  const __nv_bfloat16* row1 = trow + 8 < p.T ? p.q + (qoff + trow + 8) * D : nullptr;
-  WarpState<D> st;
-  st.init(row0, row1, tq);
-
-  const size_t kvh = (size_t)b * p.Hkv + h;
-  KvSource src{reinterpret_cast<const char*>(p.k) + kvh * p.S * ROW,
-               reinterpret_cast<const char*>(p.v) + kvh * p.S * ROW,
-               p.ks ? p.ks + kvh * p.S : nullptr, p.vs ? p.vs + kvh * p.S : nullptr,
-               p.mask ? p.mask + kvh * p.mask_pitch : nullptr, p.S, p.mask_pitch};
-
-  const int last_t = min(t0 + p.bq, p.T) - 1;
-  const int kend = min(p.S, p.prior + last_t + 1);
-  int kfirst = 0;
-  if (p.window > 0) kfirst = max(0, p.prior + t0 - p.window + 1);
-  kfirst = (kfirst / NK) * NK;
-  const int nsteps = kend > kfirst ? (kend - kfirst + NK - 1) / NK : 0;
-  MaskArgs ma{p.prior + trow, p.prior + trow + 8, p.S, p.window, p.sm_scale, p.softcap};
-
-  if (nsteps > 0) tiles.issue(src, 0, kfirst, tid, nthreads);
-  cp_async_commit();
-  for (int s = 0; s < nsteps; ++s) {
-    if (s + 1 < nsteps) tiles.issue(src, (s + 1) & 1, kfirst + (s + 1) * NK, tid, nthreads);
-    cp_async_commit();
-    const TileView view = ready(tiles, s & 1, src.mask != nullptr, tid, nthreads);
-    attend<D, NK, KIND>(st, view, 0, kfirst + s * NK, ma, lane);
-    __syncthreads();  // the stage is refilled two steps on
-  }
-  cp_async_wait<0>();
-
-  const __nv_bfloat16* rows[2] = {row0, row1};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(st.l[r]);
-    if (rows[r] == nullptr) continue;
-    const float inv = (l == 0.f) ? 1.f : 1.f / l;
-    __nv_bfloat16* orow = p.out + (qoff + trow + 8 * r) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * tq) =
-          pack_bf16x2(st.o[n][2 * r] * inv, st.o[n][2 * r + 1] * inv);
-    if (p.lse != nullptr && tq == 0)
-      p.lse[qoff + trow + 8 * r] = (l > 0.f) ? st.m[r] + logf(l) : -INFINITY;
-  }
-}
-
-// Host side: block geometry shared by both flash entry points. bq query rows
+// Block geometry of the column-sum kernels (observed_colsum.cu): bq query rows
 // per head, G heads, 16 rows per warp: at most 8 warps (G <= 8).
 inline int flash_block_q(int G) { return 16 * (G >= 8 ? 1 : 8 / G); }
-
-template <int D, int KIND>
-inline cudaError_t launch_flash(const FlashParams& p, cudaStream_t stream) {
-  constexpr size_t smem = KvTiles<D, FLASH_KEYS, KIND>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, KIND>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  FlashParams q = p;
-  q.bq = flash_block_q(p.G);
-  const int warps = p.G * q.bq / 16;
-  dim3 grid((p.T + q.bq - 1) / q.bq, p.Hkv, p.B);
-  flash_fwd_kernel<D, KIND><<<grid, warps * 32, smem, stream>>>(q);
-  return cudaGetLastError();
-}
 
 }  // namespace kvp

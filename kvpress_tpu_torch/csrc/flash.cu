@@ -8,21 +8,22 @@
 // What bounds it on the H100: at the main-path prefill shape (GQA 32/8,
 // D 64, T = S = 32K, causal) the products need 4*D FLOPs per visible
 // (query head, key) pair, ~70 TFLOP for 16 layers, against ~4 GB of q/k/v/o
-// bytes: tensor-core operations, not memory, bound it (989 TFLOP/s bf16).
-// What the design does about it: both products run on the tensor cores
-// (mma.sync m16n8k16, f32 accumulate); one block holds all G query heads of
-// a q-tile so a K/V tile leaves device memory once per kv head; tiles above
-// the causal diagonal are never loaded, and the next tile's copy (cp.async)
-// is in flight while the current one is used. Not yet done (later work):
-// wgmma, TMA, a deeper shared-memory ring and warp specialisation.
-#include "attn_common.cuh"
+// bytes: tensor-core operations, not memory, bound it (989 TFLOP/s bf16), and
+// at D 64 the exponential unit is as tight a ceiling. What the design does
+// about it is the main loop of flash_sm90.cuh, instantiated here for a bf16
+// cache: wgmma for both products, K/V tiles copied by a producer warpgroup
+// into a four-stage swizzled ring behind per-stage mbarriers, two consumer
+// warpgroups whose exponentials and products overlap, masking only in tiles
+// that need it, and a split of the key range (merged by a second kernel) when
+// the launch has too few q-tiles to fill the card.
+#include "flash_sm90.cuh"
 
 extern "C" int kvp_flash_attention(const void* q, const void* k, const void* v,
-                                   const void* mask, void* out, void* lse, int B,
-                                   int Hq, int Hkv, int T, int S, int D, int prior,
-                                   int mask_pitch, float sm_scale, float softcap,
-                                   int window, void* stream) {
-  kvp::FlashParams p{};
+                                   const void* mask, void* out, void* lse, void* part_o,
+                                   void* part_ml, int B, int Hq, int Hkv, int T, int S, int D,
+                                   int prior, int mask_pitch, int nsplit, float sm_scale,
+                                   float softcap, int window, void* stream) {
+  kvp::sm90::FlashParams p{};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = k;
   p.v = v;
@@ -31,13 +32,15 @@ extern "C" int kvp_flash_attention(const void* q, const void* k, const void* v,
   p.mask = static_cast<const uint8_t*>(mask);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse = static_cast<float*>(lse);
+  p.part_o = static_cast<float*>(part_o);
+  p.part_ml = static_cast<float*>(part_ml);
   p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.T = T; p.S = S; p.G = Hq / Hkv;
-  p.prior = prior; p.mask_pitch = mask_pitch; p.window = window;
+  p.prior = prior; p.mask_pitch = mask_pitch; p.window = window; p.nsplit = nsplit;
   p.sm_scale = sm_scale; p.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return kvp::launch_flash<64, kvp::KV_BF16>(p, st);
-    case 128: return kvp::launch_flash<128, kvp::KV_BF16>(p, st);
+    case 64: return kvp::sm90::launch_flash<64, kvp::KV_BF16>(p, st);
+    case 128: return kvp::sm90::launch_flash<128, kvp::KV_BF16>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -88,7 +88,7 @@ __device__ __forceinline__ float scaled_logit(float x, float sm_scale, float sof
   return softcap > 0.f ? tanhf(x / softcap) * softcap : x;
 }
 
-// Pass 1. Block geometry as flash_fwd_kernel: warp w holds 16 rows of query
+// Pass 1. Block geometry (flash_block_q): warp w holds 16 rows of query
 // head w / (bq / 16).
 template <int D>
 __global__ void __launch_bounds__(256) observed_lse_kernel(const ColsumParams p) {

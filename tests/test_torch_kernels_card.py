@@ -24,19 +24,46 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 FLASH_CASES = [
-    # B, Hq, Hkv, T, S, D, prior, window, softcap
-    (1, 4, 2, 256, 256, 64, 0, None, None),
-    (2, 8, 4, 200, 200, 64, 0, None, None),
-    (1, 4, 2, 128, 640, 128, 512, None, None),
-    (1, 4, 4, 256, 256, 64, 0, 64, None),
-    (1, 4, 2, 130, 130, 64, 0, None, 30.0),
+    # B, Hq, Hkv, T, S, D, prior, window, softcap, keep-mask
+    (1, 4, 2, 256, 256, 64, 0, None, None, "random"),
+    (2, 8, 4, 200, 200, 64, 0, None, None, "random"),
+    (1, 4, 2, 128, 640, 128, 512, None, None, "random"),
+    (1, 4, 4, 256, 256, 64, 0, 64, None, "random"),
+    (1, 4, 2, 130, 130, 64, 0, None, 30.0, "random"),
+    # the edges of the kernel's tiles: a prior that is no multiple of 64, 8
+    # and 1 query heads per kv head, a whole 128-slot run clear, one clear bit
+    # in a live run, rows without a live key, a window across a tile edge
+    # behind a prior, head_dim 128 with ragged T
+    (1, 4, 2, 100, 400, 64, 300, None, None, "random"),
+    (1, 8, 1, 64, 192, 64, 128, None, None, "random"),
+    (1, 2, 2, 130, 130, 64, 0, None, None, "one-clear"),
+    (1, 4, 2, 200, 456, 64, 256, None, None, "run-clear"),
+    (1, 4, 2, 100, 100, 64, 0, None, None, "dead-rows"),
+    (1, 4, 2, 100, 500, 64, 400, 130, None, "random"),
+    (1, 4, 2, 77, 333, 128, 256, None, None, "random"),
+    # few query rows over a long cache: the key range of a q-tile is split
+    (1, 8, 2, 152, 4248, 64, 4096, None, None, "random"),
+    # a handful of rows over a ragged buffer; 5 and 7 query heads per kv head
+    (3, 8, 2, 5, 37, 64, 32, None, None, "random"),
+    (1, 10, 2, 77, 203, 64, 126, None, None, "random"),
+    (2, 7, 1, 33, 1000, 128, 967, 300, 20.0, "random"),
 ]
 QUANT_CASES = [
-    # bits, B, Hq, Hkv, T, S, D, prior, window, softcap
-    (8, 1, 4, 2, 128, 128, 64, 0, None, None),
-    (4, 1, 4, 2, 128, 128, 64, 0, None, None),
-    (8, 2, 8, 4, 100, 356, 64, 256, None, None),
-    (4, 1, 4, 2, 130, 386, 128, 256, 64, 30.0),
+    # bits, B, Hq, Hkv, T, S, D, prior, window, softcap, keep-mask
+    (8, 1, 4, 2, 128, 128, 64, 0, None, None, "random"),
+    (4, 1, 4, 2, 128, 128, 64, 0, None, None, "random"),
+    (8, 2, 8, 4, 100, 356, 64, 256, None, None, "random"),
+    (4, 1, 4, 2, 130, 386, 128, 256, 64, 30.0, "random"),
+    (8, 1, 8, 1, 64, 364, 64, 300, None, None, "random"),
+    (4, 1, 2, 2, 130, 130, 64, 0, None, None, "one-clear"),
+    (8, 1, 4, 2, 200, 456, 64, 256, None, None, "run-clear"),
+    (4, 1, 4, 2, 100, 100, 64, 0, None, None, "dead-rows"),
+    (8, 1, 4, 2, 100, 500, 64, 400, 130, None, "random"),
+    (8, 1, 4, 2, 77, 333, 128, 256, None, None, "random"),
+    (8, 1, 8, 2, 152, 4248, 64, 4096, None, None, "random"),
+    (4, 3, 8, 2, 5, 37, 64, 32, None, None, "random"),
+    (8, 1, 10, 2, 77, 203, 64, 126, None, None, "random"),
+    (4, 2, 7, 1, 33, 1000, 128, 967, 300, 20.0, "random"),
 ]
 DECODE_CASES = [
     # B, Hq, Hkv, T, S, length, D, window, softcap, masked
@@ -82,6 +109,28 @@ def _inputs(seed, B, Hq, Hkv, T, S, D, p_keep=0.8):
     return q, k, v, mask
 
 
+def _shape_mask(kind, mask, prior):
+    """The keep-mask of a case. "random": as drawn. "run-clear": every bit set
+    but a whole 128-slot run. "one-clear": every bit set but one. "dead-rows":
+    as drawn, with every slot the first 10 query rows can see cleared, so
+    those rows meet no live key."""
+    if kind == "run-clear":
+        mask = np.ones_like(mask)
+        mask[:, :, 128:256] = False
+    elif kind == "one-clear":
+        mask = np.ones_like(mask)
+        mask[:, :, 70] = False
+    elif kind == "dead-rows":
+        mask = mask.copy()
+        mask[:, :, :prior + 10] = False
+        mask[:, :, prior + 10] = True
+    return mask
+
+
+def _case_id(T, S, prior, kind):
+    return f"T{T}S{S}p{prior}" + ("" if kind == "random" else f"-{kind}")
+
+
 def _decode_mask(mask, length, T, masked):
     if not masked:
         return None
@@ -115,36 +164,72 @@ def _close(got, ref):
     assert err <= ROW_LIMIT, f"worst row differs by {err:.3e} of its scale"
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", FLASH_CASES, ids=[f"T{c[3]}S{c[4]}p{c[6]}" for c in FLASH_CASES])
-def test_flash_kernel_matches_plain_on_card(cuda, case):
-    B, Hq, Hkv, T, S, D, prior, window, softcap = case
-    q, k, v, mask = (_t(a).to(cuda) for a in _inputs(1, B, Hq, Hkv, T, S, D))
-    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
-    n = tfl.flash_attention.launches
-    got, lse = tfl.flash_attention(q, k, v, prior, mask, sm_scale=D ** -0.5, window=window,
-                                   softcap=softcap, return_lse=True)
-    torch.cuda.synchronize()
-    assert tfl.flash_attention.launches == n + 1
-    ref, ref_lse = tfl.flash_attention_plain(q, k, v, prior, mask, sm_scale=D ** -0.5,
-                                             window=window, softcap=softcap, return_lse=True)
+def _flash_close(kind, got, lse, ref, ref_lse):
+    """Output and row logsumexp against the plain version. A row that meets
+    no live key is padding: the kernel stores 0 and logsumexp -inf there."""
+    if kind == "dead-rows":
+        assert (got[:, :, :10] == 0).all()
+        assert (lse[:, :, :10] == float("-inf")).all()
+        got, lse, ref, ref_lse = (x[:, :, 10:] for x in (got, lse, ref, ref_lse))
     _close(got, ref)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[_case_id(c[3], c[4], c[6], c[9]) for c in FLASH_CASES])
+def test_flash_kernel_matches_plain_on_card(cuda, case):
+    B, Hq, Hkv, T, S, D, prior, window, softcap, kind = case
+    q, k, v, mask = _inputs(1, B, Hq, Hkv, T, S, D)
+    q, k, v, mask = (_t(a).to(cuda) for a in (q, k, v, _shape_mask(kind, mask, prior)))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kw = dict(sm_scale=D ** -0.5, window=window, softcap=softcap, return_lse=True)
+    n = tfl.flash_attention.launches
+    got, lse = tfl.flash_attention(q, k, v, prior, mask, **kw)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention.launches == n + 1
+    _flash_close(kind, got, lse, *tfl.flash_attention_plain(q, k, v, prior, mask, **kw))
+    # the same bits on every launch (a split launch merges its key ranges in order)
+    again, lse_again = tfl.flash_attention(q, k, v, prior, mask, **kw)
+    assert torch.equal(got, again) and torch.equal(lse, lse_again)
+    # without a keep-mask: every slot of the buffer is live
+    _close(tfl.flash_attention(q, k, v, prior, **kw)[0],
+           tfl.flash_attention_plain(q, k, v, prior, **kw)[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", QUANT_CASES,
-                         ids=[f"b{c[0]}T{c[4]}S{c[5]}p{c[7]}" for c in QUANT_CASES])
+                         ids=[f"b{c[0]}" + _case_id(c[4], c[5], c[7], c[10])
+                              for c in QUANT_CASES])
 def test_flash_quant_kernel_matches_plain_on_card(cuda, case):
-    bits, B, Hq, Hkv, T, S, D, prior, window, softcap = case
-    q, k, v, mask = (_t(a).to(cuda) for a in _inputs(2, B, Hq, Hkv, T, S, D))
+    bits, B, Hq, Hkv, T, S, D, prior, window, softcap, kind = case
+    q, k, v, mask = _inputs(2, B, Hq, Hkv, T, S, D)
+    q, k, v, mask = (_t(a).to(cuda) for a in (q, k, v, _shape_mask(kind, mask, prior)))
     q = q.to(torch.bfloat16)
     (kq, ks), (vq, vs) = quantize_kv(k, bits), quantize_kv(v, bits)
-    got = tfl.flash_attention_quant(q, kq, vq, ks, vs, prior, mask, bits=bits,
-                                    sm_scale=D ** -0.5, window=window, softcap=softcap)
-    ref = tfl.flash_attention_quant_plain(q, kq, vq, ks, vs, prior, mask, bits=bits,
-                                          sm_scale=D ** -0.5, window=window, softcap=softcap)
-    _close(got, ref)
+    kw = dict(bits=bits, sm_scale=D ** -0.5, window=window, softcap=softcap, return_lse=True)
+    n = tfl.flash_attention_quant.launches
+    got, lse = tfl.flash_attention_quant(q, kq, vq, ks, vs, prior, mask, **kw)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention_quant.launches == n + 1
+    _flash_close(kind, got, lse,
+                 *tfl.flash_attention_quant_plain(q, kq, vq, ks, vs, prior, mask, **kw))
+    again, lse_again = tfl.flash_attention_quant(q, kq, vq, ks, vs, prior, mask, **kw)
+    assert torch.equal(got, again) and torch.equal(lse, lse_again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_split_plain_matches_unsplit_on_card(cuda, splits):
+    """The plain version of a split launch against the unsplit plain version,
+    in float32 on the card."""
+    B, Hq, Hkv, T, S, D, prior = 2, 8, 2, 70, 900, 64, 830
+    q, k, v, mask = (_t(a).to(cuda) for a in _inputs(splits, B, Hq, Hkv, T, S, D, p_keep=0.6))
+    kw = dict(sm_scale=D ** -0.5, return_lse=True)
+    ref, ref_lse = tfl.flash_attention_plain(q, k, v, prior, mask, **kw)
+    got, lse = tfl.flash_attention_split_plain(q, k, v, prior, mask, splits=splits, **kw)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda

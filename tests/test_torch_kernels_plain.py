@@ -37,26 +37,69 @@ def _inputs(seed, B, Hq, Hkv, T, S, D, p_keep=0.8):
     return q, k, v, mask
 
 
+def _shape_mask(kind, mask, prior):
+    """The keep-mask of a case. "random": as drawn. "run-clear": every bit set
+    but a whole 128-slot run. "one-clear": every bit set but one. "dead-rows":
+    as drawn, with every slot the first 10 query rows can see cleared, so
+    those rows meet no live key."""
+    if kind == "run-clear":
+        mask = np.ones_like(mask)
+        mask[:, :, 128:256] = False
+    elif kind == "one-clear":
+        mask = np.ones_like(mask)
+        mask[:, :, 70] = False
+    elif kind == "dead-rows":
+        mask = mask.copy()
+        mask[:, :, :prior + 10] = False
+        mask[:, :, prior + 10] = True
+    return mask
+
+
+def _live_rows(kind):
+    """Rows held against the Pallas kernel: a row that meets no live key is
+    padding, which the two fill differently (both with finite values)."""
+    return slice(10, None) if kind == "dead-rows" else slice(None)
+
+
+def _case_id(T, S, prior, kind):
+    return f"T{T}S{S}p{prior}" + ("" if kind == "random" else f"-{kind}")
+
+
 FLASH_CASES = [
-    # B, Hq, Hkv, T, S, D, prior, window, softcap
-    (1, 4, 2, 256, 256, 64, 0, None, None),
-    (2, 8, 4, 200, 200, 64, 0, None, None),
-    (1, 4, 2, 128, 640, 128, 512, None, None),
-    (1, 4, 4, 256, 256, 64, 0, 64, None),
-    (1, 4, 2, 130, 130, 64, 0, None, 30.0),
+    # B, Hq, Hkv, T, S, D, prior, window, softcap, keep-mask
+    (1, 4, 2, 256, 256, 64, 0, None, None, "random"),
+    (2, 8, 4, 200, 200, 64, 0, None, None, "random"),
+    (1, 4, 2, 128, 640, 128, 512, None, None, "random"),
+    (1, 4, 4, 256, 256, 64, 0, 64, None, "random"),
+    (1, 4, 2, 130, 130, 64, 0, None, 30.0, "random"),
+    # the edges of the Hopper kernel's tiles: a prior that is no multiple of
+    # 64, 8 and 1 query heads per kv head, a whole 128-slot run clear, one
+    # clear bit in a live run, rows without a live key, a window across a tile
+    # edge behind a prior, head_dim 128 with ragged T
+    (1, 4, 2, 100, 400, 64, 300, None, None, "random"),
+    (1, 8, 1, 64, 192, 64, 128, None, None, "random"),
+    (1, 2, 2, 130, 130, 64, 0, None, None, "one-clear"),
+    (1, 4, 2, 200, 456, 64, 256, None, None, "run-clear"),
+    (1, 4, 2, 100, 100, 64, 0, None, None, "dead-rows"),
+    (1, 4, 2, 100, 500, 64, 400, 130, None, "random"),
+    (1, 4, 2, 77, 333, 128, 256, None, None, "random"),
 ]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES, ids=[f"T{c[3]}S{c[4]}p{c[6]}" for c in FLASH_CASES])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[_case_id(c[3], c[4], c[6], c[9]) for c in FLASH_CASES])
 def test_flash_plain_matches_pallas(case):
-    B, Hq, Hkv, T, S, D, prior, window, softcap = case
+    B, Hq, Hkv, T, S, D, prior, window, softcap, kind = case
     q, k, v, mask = _inputs(T + S + prior, B, Hq, Hkv, T, S, D)
+    mask = _shape_mask(kind, mask, prior)
     want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(prior, jnp.int32),
                   jnp.asarray(mask), sm_scale=D ** -0.5, window=window, softcap=softcap,
                   block_q=64, block_k=128, interpret=True)
     got = tfl.flash_attention(_t(q), _t(k), _t(v), prior, _t(mask), sm_scale=D ** -0.5,
                               window=window, softcap=softcap)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    assert np.isfinite(got.numpy()).all()
+    rows = _live_rows(kind)
+    np.testing.assert_allclose(got.numpy()[:, :, rows], np.asarray(want)[:, :, rows], atol=2e-5)
 
 
 def test_flash_plain_lse_matches_pallas():
@@ -72,19 +115,28 @@ def test_flash_plain_lse_matches_pallas():
 
 
 QUANT_CASES = [
-    # bits, B, Hq, Hkv, T, S, D, prior, window, softcap
-    (8, 1, 4, 2, 128, 128, 64, 0, None, None),
-    (4, 1, 4, 2, 128, 128, 64, 0, None, None),
-    (8, 2, 8, 4, 100, 356, 64, 256, None, None),
-    (4, 1, 4, 2, 130, 386, 128, 256, 64, 30.0),
+    # bits, B, Hq, Hkv, T, S, D, prior, window, softcap, keep-mask
+    (8, 1, 4, 2, 128, 128, 64, 0, None, None, "random"),
+    (4, 1, 4, 2, 128, 128, 64, 0, None, None, "random"),
+    (8, 2, 8, 4, 100, 356, 64, 256, None, None, "random"),
+    (4, 1, 4, 2, 130, 386, 128, 256, 64, 30.0, "random"),
+    # the tile edges, as for the bf16 kernel
+    (8, 1, 8, 1, 64, 364, 64, 300, None, None, "random"),
+    (4, 1, 2, 2, 130, 130, 64, 0, None, None, "one-clear"),
+    (8, 1, 4, 2, 200, 456, 64, 256, None, None, "run-clear"),
+    (4, 1, 4, 2, 100, 100, 64, 0, None, None, "dead-rows"),
+    (8, 1, 4, 2, 100, 500, 64, 400, 130, None, "random"),
+    (8, 1, 4, 2, 77, 333, 128, 256, None, None, "random"),
 ]
 
 
 @pytest.mark.parametrize("case", QUANT_CASES,
-                         ids=[f"b{c[0]}T{c[4]}S{c[5]}p{c[7]}" for c in QUANT_CASES])
+                         ids=[f"b{c[0]}" + _case_id(c[4], c[5], c[7], c[10])
+                              for c in QUANT_CASES])
 def test_flash_quant_plain_matches_pallas(case):
-    bits, B, Hq, Hkv, T, S, D, prior, window, softcap = case
+    bits, B, Hq, Hkv, T, S, D, prior, window, softcap, kind = case
     q, k, v, mask = _inputs(bits + T + S, B, Hq, Hkv, T, S, D)
+    mask = _shape_mask(kind, mask, prior)
     jk, jks = jquantize(jnp.asarray(k), bits)
     jv, jvs = jquantize(jnp.asarray(v), bits)
     tk, tks = quantize_kv(_t(k), bits)
@@ -95,7 +147,62 @@ def test_flash_quant_plain_matches_pallas(case):
                         softcap=softcap, block_q=64, block_k=128, interpret=True)
     got = tfl.flash_attention_quant(_t(q), tk, tv, tks, tvs, prior, _t(mask), bits=bits,
                                     sm_scale=D ** -0.5, window=window, softcap=softcap)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+    assert np.isfinite(got.numpy()).all()
+    rows = _live_rows(kind)
+    np.testing.assert_allclose(got.numpy()[:, :, rows], np.asarray(want)[:, :, rows], atol=3e-5)
+
+
+# A launch with few query rows cuts the key range of a q-tile into several
+# ranges and merges them. The plain version of that arithmetic differs from
+# the unsplit one only in the order of its float32 sums.
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("bits", [None, 8, 4])
+def test_split_plain_matches_unsplit(bits, splits):
+    B, Hq, Hkv, T, S, D, prior = 2, 8, 2, 70, 900, 64, 830
+    q, k, v, mask = _inputs(splits, B, Hq, Hkv, T, S, D, p_keep=0.6)
+    kw = dict(sm_scale=D ** -0.5, window=700, softcap=30.0, return_lse=True)
+    if bits is None:
+        args = (_t(q), _t(k), _t(v), prior, _t(mask))
+        ref, ref_lse = tfl.flash_attention_plain(*args, **kw)
+        got, lse = tfl.flash_attention_split_plain(*args, splits=splits, **kw)
+    else:
+        (tk, tks), (tv, tvs) = quantize_kv(_t(k), bits), quantize_kv(_t(v), bits)
+        args = (_t(q), tk, tv, tks, tvs, prior, _t(mask))
+        ref, ref_lse = tfl.flash_attention_quant_plain(*args, bits=bits, **kw)
+        got, lse = tfl.flash_attention_quant_split_plain(*args, bits=bits, splits=splits, **kw)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=1e-5)
+
+
+def test_merge_of_ranges_without_a_live_key():
+    """A range that met no live key (max -inf, sum 0) adds nothing, and a row
+    that met none in any range comes out 0 with logsumexp -inf."""
+    inf = float("inf")
+    o = torch.tensor([[[1.0, 2.0], [0.0, 0.0]], [[0.0, 0.0], [0.0, 0.0]]])     # (2 ranges, 2 rows, D 2)
+    m = torch.tensor([[0.5, -inf], [-inf, -inf]])
+    l = torch.tensor([[2.0, 0.0], [0.0, 0.0]])
+    out, lse = tfl.merge_key_ranges(o, m, l)
+    np.testing.assert_allclose(out.numpy(), [[0.5, 1.0], [0.0, 0.0]])
+    np.testing.assert_allclose(lse.numpy(), [0.5 + np.log(2.0), -inf])
+
+
+SPLIT_SHAPES = [
+    # B, Hkv, G, T, S, D, prior, window -> key ranges a q-tile
+    ((1, 8, 4, 32768, 32768, 64, 0, None), 1),        # the 32K prefill: q-tiles fill the card
+    ((1, 8, 4, 152, 16536, 64, 16384, None), 7),      # a question over a compressed cache
+    ((1, 8, 4, 256, 16640, 64, 16384, None), 5),
+    ((4, 8, 4, 152, 16536, 64, 16384, None), 2),      # four of them
+    ((1, 1, 1, 8, 100, 64, 0, None), 1),              # no more ranges than key tiles
+    ((1, 2, 4, 64, 4160, 128, 4096, None), 16),       # at most MAX_SPLITS
+    ((1, 2, 4, 64, 4160, 128, 4096, 200), 4),         # a window leaves 4 tiles of 64 keys
+]
+
+
+@pytest.mark.parametrize("shape,want", SPLIT_SHAPES,
+                         ids=[f"B{s[0]}T{s[3]}S{s[4]}D{s[5]}w{s[7]}" for s, _ in SPLIT_SHAPES])
+def test_flash_splits_at_the_paths_shapes(shape, want):
+    B, Hkv, G, T, S, D, prior, window = shape
+    assert tfl.flash_splits(B, Hkv, G, T, S, D, prior, window) == want
 
 
 DECODE_CASES = [

@@ -4,21 +4,25 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes four copies of the port in a temporary directory, each with one
+# It makes seven copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (a query tile dropped from the
 # column sums, a key tile dropped from the row logsumexp, the tail and one
-# prefix step dropped from the head-wise decode), and runs
+# prefix step dropped from the head-wise decode; in the flash main loop a
+# diagonal tile's causal test dropped, every tile taken for all-live, and the
+# first key range dropped from the merge of a split launch), and runs
 # chip_smoke.kernel_checks in each. Every copy must be rejected; the script
 # exits 1 if one passes or if a mutation did not apply.
 set -u
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 status=0
-for m in colsum_query_tile lse_key_tile headwise_tail headwise_prefix_step; do
+for m in colsum_query_tile lse_key_tile headwise_tail headwise_prefix_step \
+         flash_diagonal_tile flash_all_live flash_merge_range; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
   cp -r kvpress_tpu_torch tests chip_smoke.py "$d"/
   oc=$d/kvpress_tpu_torch/csrc/observed_colsum.cu
   hw=$d/kvpress_tpu_torch/csrc/decode_headwise.cu
+  fl=$d/kvpress_tpu_torch/csrc/flash_sm90.cuh
   case $m in
     colsum_query_tile)
       sed -i 's/const bool ok = !edge || (kslot <= qslot \&\& qslot < p.S);/const bool ok = (!edge || (kslot <= qslot \&\& qslot < p.S)) \&\& qt != nq - 2;/' "$oc" ;;
@@ -28,6 +32,12 @@ for m in colsum_query_tile lse_key_tile headwise_tail headwise_prefix_step; do
       sed -i 's/const int n_tail = tail_end > tail_lo ? (tail_end - tail_lo + NK - 1) \/ NK : 0;/const int n_tail = 0;/' "$hw" ;;
     headwise_prefix_step)
       sed -i 's/pref ? prefix_len : tail_end, 0,/s == 4 ? 0 : (pref ? prefix_len : tail_end), 0,/' "$hw" ;;
+    flash_diagonal_tile)
+      sed -i 's/const bool below_diagonal = key0 + NK - 1 <= qmin;/const bool below_diagonal = true;/' "$fl" ;;
+    flash_all_live)
+      sed -i 's/const bool all_live = (flags \& ALL_LIVE) != 0u;/const bool all_live = true;/' "$fl" ;;
+    flash_merge_range)
+      sed -i 's/    for (int s = 0; s < nsplit; ++s) {/    for (int s = 1; s < nsplit; ++s) {/' "$fl" ;;
   esac
   changed=$(diff -r kvpress_tpu_torch/csrc "$d/kvpress_tpu_torch/csrc" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
