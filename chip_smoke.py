@@ -6,13 +6,14 @@
 1. Device line: ``nvidia-smi --query-gpu=name,power.limit``; every time
    printed after it was taken on that card.
 2. Build the six Hopper kernels (csrc/*.cu, one nvcc per source, in
-   parallel; the two flash kernels must spill nothing and hold wgmma
-   instructions) and hold each against its plain PyTorch version on the card
-   at the shapes the paths give it (GQA 32/8, head_dim 64), in bf16. The
-   flash kernels are also held at the 32K prefill itself, at a question's
-   shape over a half-live cache, at head_dim 128 and where their tile logic
-   can go wrong, launched twice with equal bits. Each check must reject its
-   planted faults.
+   parallel; the two flash kernels and the column-sum library must spill
+   nothing and hold wgmma instructions) and hold each against its plain
+   PyTorch version on the card at the shapes the paths give it (GQA 32/8,
+   head_dim 64), in bf16. The flash kernels are also held at the 32K prefill
+   itself, at a question's shape over a half-live cache, at head_dim 128 and
+   where their tile logic can go wrong, and the column-sum passes at 8K, a
+   ragged 8,000 and the 32K prefill; all are launched twice with equal bits.
+   Each check must reject its planted faults.
 3. The paths at full width, through ``KVPressPipeline`` on the 1B-class
    flagship shape (16 layers, seeded random weights), a 32,768-token context
    and two questions (one longer than 128 tokens):
@@ -34,8 +35,10 @@
    clock, medians, with profiler breakdowns (device busy time, idle share,
    largest kernels). Per kernel (phase 2): its device time from the
    profiler beside its bound, its plain version's time and, where one
-   PyTorch call computes the same, ``scaled_dot_product_attention``'s
-   (CUDA events).
+   PyTorch call computes the same, that call's: ``scaled_dot_product_attention``
+   for the attention kernels, the row LSE of
+   ``aten._scaled_dot_product_flash_attention`` for ``observed_lse`` (CUDA
+   events).
 
 The last two lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero with no result
@@ -75,9 +78,11 @@ ROW_LIMIT = 2e-2
 # SUM_LIMIT of itself. Both are set from the readings: the kernels read about
 # 1e-5 (the products are exact in float32; the sums are taken in another
 # order and the kernel's exp is the fast one), one skipped 64-row tile 0.1
-# or more (PERF.md).
+# or more, a diagonal tile or stage without its causal test more still
+# (PERF.md).
 LSE_LIMIT = 1e-3
 SUM_LIMIT = 2e-3
+LN2 = 0.6931471805599453
 
 
 def flagship_config(num_layers: int = 16):
@@ -236,6 +241,30 @@ def kernel_checks(kt, torch, report):
         return (torch.cat([q[:, :, :lo], q[:, :, hi:]], dim=2).contiguous(),
                 torch.cat([k[:, :, :lo], k[:, :, hi:]], dim=2).contiguous())
 
+    def above_diagonal(q, k, run, softcap, axis, lse=None):
+        """What a kernel that drops the causal test inside each aligned run of
+        ``run`` keys adds: for a row i, the keys j > i of its run. "rows": the
+        log of their sum of exp(s_ij) per query row; "columns": their sum of
+        exp(s_ij - lse_i) per key (rows whose LSE is -inf add nothing)."""
+        B_, Hq_, S_, D_ = q.shape
+        pad = -S_ % run
+        qp, kp = (F.pad(t, (0, 0, 0, pad)).float() for t in (q, k))
+        nb = (S_ + pad) // run
+        qb = qp.reshape(B_, Hkv, Hq_ // Hkv, nb, run, D_)
+        kb = kp.reshape(B_, Hkv, nb, run, D_)
+        s_ = torch.einsum("bhgnid,bhnjd->bhgnij", qb, kb) * D_ ** -0.5
+        if softcap is not None:
+            s_ = torch.tanh(s_ / softcap) * softcap
+        pos = torch.arange(S_ + pad, device=dev).reshape(nb, run)
+        upper = (pos[:, None, :] > pos[:, :, None]) & (pos[:, None, :] < S_)   # (n, i, j): j > i
+        if axis == "rows":
+            s_ = s_.masked_fill(~upper, float("-inf"))
+            return torch.logsumexp(s_, -1).reshape(B_, Hq_, S_ + pad)[..., :S_]
+        l = F.pad(torch.where(torch.isinf(lse), float("inf"), lse), (0, pad), value=float("inf"))
+        l = l.reshape(B_, Hkv, Hq_ // Hkv, nb, run, 1)
+        e = torch.where(upper, torch.exp(s_ - l), 0.0)
+        return e.sum(-2).reshape(B_, Hq_, S_ + pad)[..., :S_]
+
     def compare(got, ref):
         """(max |got - ref|, the worst row's max |got - ref| / max |ref|)."""
         got, ref = got.float(), ref.float()
@@ -272,7 +301,7 @@ def kernel_checks(kt, torch, report):
         report(f"  {name}[{variant}]: max_abs_err {err:.3e}, worst row {row:.3e} (limit {limit}; "
                + "; ".join(f"{what}: {x:.3e}" for what, x in fault_rows.items())
                + f"), kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by}), "
-               + ("no library call" if lib is None else f"sdpa {lib:.4f} ms"))
+               + ("no library call" if lib is None else f"library {lib:.4f} ms"))
         if not row <= limit:
             failures.append(f"{name}[{variant}] disagrees with its plain version: "
                             f"worst row {row:.3e} > {limit}")
@@ -497,50 +526,81 @@ def kernel_checks(kt, torch, report):
     torch.cuda.empty_cache()
 
     # observed_lse / observed_colsums_flash: a prefill's queries against its
-    # own keys, B=1, whole and ragged tiles, with and without softcap. The
-    # column sums are taken with the kernel's own LSE pass and with the
-    # flash prefill kernel's LSE.
+    # own keys, B=1, whole and ragged tiles, with and without softcap, and the
+    # 32K prefill itself. The column sums are taken with the kernel's own LSE
+    # pass and with the flash prefill kernel's LSE.
     B = 1
-    for S in (8192, 8000):
+    for S, softcaps, iters in ((8192, (None, 30.0), 5), (8000, (None, 30.0), 5),
+                               (CONTEXT_TOKENS, (None,), 3)):
         q, k, v = rnd(B, Hq, S, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
         pairs = B * Hq * S * (S + 1) // 2            # visible (query head, key) pairs
-        for softcap in (None, 30.0):
+        kr, vr = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+        for softcap in softcaps:
             kw = dict(sm_scale=scale, softcap=softcap)
             variant = f"B{B} S{S}" + ("" if softcap is None else f" softcap {softcap:g}")
             lse = oc.observed_lse(q, k, **kw)
             torch.cuda.synchronize()
-            lse_ref = oc.observed_lse_plain(q, k, **kw)
-            # Fault: keys 512..575 skipped (the rows below them, computed
-            # without them).
+            if not torch.equal(lse, oc.observed_lse(q, k, **kw)):
+                failures.append(f"observed_lse[{variant}]: two launches differ")
+            lse_ref, plain = timed(lambda: oc.observed_lse_plain(q, k, **kw))
+            if S < CONTEXT_TOKENS:      # small enough to repeat: a median
+                plain = cuda_ms(lambda: oc.observed_lse_plain(q, k, **kw), 3, 1)
+            # Faults: keys 512..575 skipped (the rows below them, computed
+            # without them); the key tile across each row's diagonal taken
+            # whole (a diagonal tile without the causal test).
             skipped = oc.observed_lse_plain(*without_keys(q, k, 512, 576), **kw)
             lse_fault = lse_ref.clone()
             lse_fault[:, :, 576:] = skipped[:, :, 512:]
-            ms = kernel_ms(lambda: oc.observed_lse(q, k, **kw), "observed_lse_kernel", 5)
-            plain = cuda_ms(lambda: oc.observed_lse_plain(q, k, **kw), 3, 1)
-            record("observed_lse", variant, lse, lse_ref, {"one skipped key tile": lse_fault},
-                   ms, plain, nbytes(q, k, lse), 2 * D * pairs, None, LSE_LIMIT, compare_lse)
+            faults = {"one skipped key tile": lse_fault,
+                      "a diagonal tile taken for an interior one": torch.logaddexp(
+                          lse_ref, above_diagonal(q, k, fl.key_tile(D), softcap, "rows"))}
+            ms = kernel_ms(lambda: oc.observed_lse(q, k, **kw), "observed_lse_kernel", iters)
+            lib = None
+            if softcap is None:
+                # One PyTorch call gives the same row LSE: the library's causal
+                # flash attention (its output besides), natural log.
+                sdpa = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                    q, kr, vr, 0.0, True, False, scale=scale)
+                lib_lse = sdpa()[1]
+                lib_err = (lib_lse - lse_ref).abs().max().item()
+                report(f"    library LSE (_scaled_dot_product_flash_attention, is_causal) against "
+                       f"the plain version: {lib_err:.3e} natural-log units, "
+                       f"{(lib_lse - lse_ref / LN2).abs().max().item():.3e} base-2 units")
+                if not lib_err <= LSE_LIMIT:
+                    failures.append(f"observed_lse[{variant}]: the library call is not the "
+                                    f"same function ({lib_err:.3e})")
+                lib = cuda_ms(sdpa, iters)
+            record("observed_lse", variant, lse, lse_ref, faults, ms, plain, nbytes(q, k, lse),
+                   2 * D * pairs, lib, LSE_LIMIT, compare_lse)
+            del skipped, lse_fault, faults
 
             _, flash_lse = fl.flash_attention(q, k, v, 0, sm_scale=scale, softcap=softcap,
                                               return_lse=True)
             ms = kernel_ms(lambda: oc.observed_colsums_flash(q, k, flash_lse, **kw),
-                           "observed_colsum_kernel", 5)
-            plain = cuda_ms(lambda: oc.observed_colsums_plain(q, k, lse_ref, **kw), 3, 1)
-            for source, given in (("own lse", None), ("flash lse", flash_lse)):
+                           "observed_colsum_kernel", iters)
+            for source, given, rows in (("own lse", None, lse_ref),
+                                        ("flash lse", flash_lse, flash_lse)):
                 got = oc.observed_colsums_flash(q, k, given, **kw)
                 torch.cuda.synchronize()
                 if not torch.equal(got, oc.observed_colsums_flash(q, k, given, **kw)):
                     failures.append(f"observed_colsum[{source}, {variant}]: two launches differ")
-                rows = lse_ref if given is None else given
-                ref = oc.observed_colsums_plain(q, k, rows, **kw)
-                # Fault: one tile of 64 query rows near the end skipped (rows
-                # whose LSE is -inf add nothing).
+                ref, plain = timed(lambda: oc.observed_colsums_plain(q, k, rows, **kw))
+                if S < CONTEXT_TOKENS:
+                    plain = cuda_ms(lambda: oc.observed_colsums_plain(q, k, rows, **kw), 3, 1)
+                # Faults: one tile of 64 query rows near the end skipped (rows
+                # whose LSE is -inf add nothing); every query stage taken
+                # without the causal test (each key also gathers the rows
+                # before it in its 64-key run, a consumer warpgroup's keys).
                 holed = rows.clone()
                 holed[:, :, S - 128:S - 64] = float("-inf")
-                fault = oc.observed_colsums_plain(q, k, holed, **kw)
-                record("observed_colsum", f"{source}, {variant}", got, ref,
-                       {"one skipped query tile": fault}, ms, plain, nbytes(q, k, rows, got),
-                       2 * D * pairs, None, SUM_LIMIT, compare_sums)
-        del q, k, v
+                faults = {"one skipped query tile": oc.observed_colsums_plain(q, k, holed, **kw),
+                          "a diagonal stage taken for an interior one":
+                              ref + above_diagonal(q, k, 64, softcap, "columns", rows)}
+                record("observed_colsum", f"{source}, {variant}", got, ref, faults, ms, plain,
+                       nbytes(q, k, rows, got), 2 * D * pairs, None, SUM_LIMIT, compare_sums)
+                del got, ref, holed, faults
+            del lse, lse_ref, flash_lse
+        del q, k, v, kr, vr
         torch.cuda.empty_cache()
 
     # decode_attention_headwise: B=4, 16K slots, ragged prefixes (one head
@@ -1134,28 +1194,59 @@ SOURCES = {
 }
 
 
+# The kernels built on wgmma, by library: every instantiation of each must
+# hold HGMMA instructions in its own machine code.
+WGMMA_KERNELS = {"flash": ("flash_sm90_kernel",), "flash_quant": ("flash_sm90_kernel",),
+                 "observed_colsum": ("observed_colsum_kernel", "observed_lse_kernel")}
+
+
+def hgmma_by_function(sass: str) -> dict:
+    """The number of HGMMA instructions in each function of a library's
+    ``cuobjdump -sass`` listing, by mangled name."""
+    counts, function = {}, None
+    for line in sass.splitlines():
+        header = re.match(r"\s*Function : (\S+)", line)
+        if header:
+            function = header.group(1)
+            counts[function] = 0
+        elif function is not None and "HGMMA" in line:
+            counts[function] += 1
+    return counts
+
+
 def build_report(_build, report):
     """What the compiler said of each kernel: registers, shared memory and
     spills, and every ptxas remark about wgmma (it says so when it has to
-    serialise ``wgmma.mma_async``). The two flash kernels must spill nothing
-    and must hold wgmma instructions (HGMMA in the machine code)."""
+    serialise ``wgmma.mma_async``). The kernels built on wgmma (the two flash
+    kernels and the two column-sum passes) must spill nothing, and every
+    instantiation of them must hold wgmma instructions (HGMMA in its own
+    machine code)."""
+    wgmma_libs = tuple(WGMMA_KERNELS)
     failures = []
     for log in sorted(_build.build_dir().glob("*.log")):
         name = log.stem.split("-")[0].removeprefix("lib")
+        function = name
         for line in log.read_text().splitlines():
+            if "Function properties for" in line:
+                function = line.rsplit(" ", 1)[-1]
             if any(word in line for word in ("registers", "spill", "wgmma", "serialized")):
                 report(f"  {name}: {line.strip()[:300]}")
             spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if name.startswith("flash") and spilled and any(int(x) for x in spilled.groups()):
-                failures.append(f"{name} spills: {line.strip()}")
+            if name in wgmma_libs and spilled and any(int(x) for x in spilled.groups()):
+                failures.append(f"{name} spills in {function}: {line.strip()}")
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    for name in ("flash", "flash_quant"):
+    for name in wgmma_libs:
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build._library_path(name))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
-        count = sass.count("HGMMA")
-        report(f"  {name}: {count} wgmma instructions (HGMMA) in the machine code")
-        if count == 0:
-            failures.append(f"{name} holds no wgmma instruction")
+        counts = hgmma_by_function(sass)
+        for kernel in WGMMA_KERNELS[name]:
+            mine = {fn: n for fn, n in counts.items() if kernel in fn}
+            report(f"  {name}: {sum(mine.values())} wgmma instructions (HGMMA) in the machine "
+                   f"code of {len(mine)} instantiations of {kernel}")
+            if not mine:
+                failures.append(f"{name} holds no function {kernel}")
+            failures += [f"{name}: {fn} holds no wgmma instruction"
+                         for fn, n in mine.items() if n == 0]
     if failures:
         raise AssertionError("; ".join(failures))
 

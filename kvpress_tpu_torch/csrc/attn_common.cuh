@@ -1,13 +1,12 @@
-// Shared pieces of the Hopper attention kernels. The few-token and column-sum
-// kernels (decode.cu, decode_headwise.cu, observed_colsum.cu) are built from
-// all of them: bf16 m16n8k16 tensor-core products (mma.sync), a two-stage
+// Shared pieces of the Hopper attention kernels. The few-token kernels
+// (decode.cu, decode_headwise.cu) are built from all of them: bf16 m16n8k16 tensor-core products (mma.sync), a two-stage
 // cp.async pipeline that brings K/V tiles of a bf16, int8 or packed-int4 cache
 // into shared memory while the previous tile is being used, and the per-warp
 // online-softmax step over a run of keys. The multi-token flash kernels
-// (flash.cu, flash_quant.cu) have a main loop of their own, flash_sm90.cuh
-// (wgmma, a four-stage ring behind mbarriers), and take from here only the
-// small pieces: cache kinds and row widths, bf16 packing, the cp.async
-// wrappers and the quad reductions.
+// (flash.cu, flash_quant.cu) and the column sums (observed_colsum.cu) are
+// built on flash_sm90.cuh (wgmma, rings of stages behind mbarriers), and take
+// from here only the small pieces: cache kinds and row widths, bf16 packing,
+// the cp.async wrappers and the quad reductions.
 //
 // Numerics follow the Pallas kernels of kvpress_tpu/ops/flash.py and
 // ops/decode.py: logits and softmax statistics in float32, bf16 operands for
@@ -443,9 +442,5 @@ template <int D, int WARPS>
 __host__ __device__ constexpr size_t merge_bytes() {
   return (size_t)WARPS * 16 * (D + 2) * sizeof(float);
 }
-
-// Block geometry of the column-sum kernels (observed_colsum.cu): bq query rows
-// per head, G heads, 16 rows per warp: at most 8 warps (G <= 8).
-inline int flash_block_q(int G) { return 16 * (G >= 8 ? 1 : 8 / G); }
 
 }  // namespace kvp

@@ -55,6 +55,11 @@
 // softmax statistics in float32, bf16 operands for both products. A masked
 // logit is -inf and the running max of a row that has met no live key stays
 // -inf (its exponent is taken against 0), so such a row stores 0 and LSE -inf.
+//
+// The same loop without V is the row logsumexp pass of the column sums
+// (observed_colsum.cu): KIND = LSE_ONLY drops the V stages, the P.V product
+// and output rescale, the keep-mask bytes (a tile is classified from its
+// position alone) and the output store, and writes only the LSE.
 #pragma once
 
 #include "attn_common.cuh"
@@ -69,6 +74,7 @@ constexpr int LAG = 2;           // quantized caches: raw tiles in flight behind
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr uint32_t ANY_LIVE = 1u, ALL_LIVE = 2u;
+constexpr int LSE_ONLY = 3;      // KIND of the row-logsumexp instantiation: bf16 K, no V
 
 struct FlashParams {
   const __nv_bfloat16* q;  // (B, Hq, T, D)
@@ -260,32 +266,37 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4
 // ----------------------------------------------------------------------- //
 // Shared memory of a block
 
-// Q (128 rows), a ring of STAGES bf16 K/V stages of NK keys, per-stage key
-// and value scales (quantized caches) and keep-mask bytes, and the stages'
-// barriers. A quantized cache adds a ring of raw payload slots that
-// only the producer warps touch. Every tile is a whole number of 1,024-byte
-// swizzle atoms; head_dim 128 is two 64-channel panels, one after the other.
+// Q (128 rows), a ring of STAGES bf16 K/V stages of NK keys (K alone for the
+// row-logsumexp pass), per-stage key and value scales (quantized caches) and
+// keep-mask bytes, and the stages' barriers. A quantized cache adds a ring of
+// raw payload slots that only the producer warps touch. Every tile is a whole
+// number of 1,024-byte swizzle atoms; head_dim 128 is two 64-channel panels,
+// one after the other. The row-logsumexp pass reads neither scales nor
+// keep-mask bytes but keeps their room: without it the pass measured slower
+// on the H100, and a ring of eight K stages no faster (PERF.md).
 template <int D, int KIND>
 struct Ring {
   static constexpr int NK = D == 64 ? 128 : 64;
   static constexpr int STAGES = 4;
-  static constexpr int RAW_SLOTS = KIND == KV_BF16 ? 0 : LAG + 1;
-  static constexpr int ROW = row_bytes<D, KIND>();
+  static constexpr bool BF16 = KIND == KV_BF16 || KIND == LSE_ONLY;  // copied as it is
+  static constexpr int KV = KIND == LSE_ONLY ? 1 : 2;                // tiles of a stage
+  static constexpr int RAW_SLOTS = BF16 ? 0 : LAG + 1;
+  static constexpr int ROW = row_bytes<D, BF16 ? KV_BF16 : KIND>();
   static constexpr int PANELS = D / 64;
   static constexpr int Q_PANEL = BLOCK_ROWS * 128;
   static constexpr int KV_PANEL = NK * 128;
   static constexpr int TILE = PANELS * KV_PANEL;  // one bf16 K or V tile
   static constexpr int RAW = 2 * NK * ROW;        // one raw K and V payload tile
   static constexpr int OFF_STAGE = PANELS * Q_PANEL;
-  static constexpr int OFF_RAW = OFF_STAGE + STAGES * 2 * TILE;
+  static constexpr int OFF_RAW = OFF_STAGE + STAGES * KV * TILE;
   static constexpr int OFF_SCALE = OFF_RAW + RAW_SLOTS * RAW;
   static constexpr int OFF_RAW_SCALE = OFF_SCALE + STAGES * 2 * NK * 4;
   static constexpr int OFF_MASK = OFF_RAW_SCALE + RAW_SLOTS * 2 * NK * 4;
   static constexpr int OFF_RAW_MASK = OFF_MASK + STAGES * NK;
   static constexpr int OFF_BAR = OFF_RAW_MASK + RAW_SLOTS * NK;
   // Arrivals that complete a stage's full barrier: every producer thread
-  // (through its copies, for a bf16 tile) and, for a bf16 tile, the thread
-  // that wrote the keep-mask bytes.
+  // (through its copies, for a bf16 tile) and, for a bf16 tile with a
+  // keep-mask, the thread that wrote the keep-mask bytes.
   static constexpr int FULL_ARRIVALS = KIND == KV_BF16 ? 129 : 128;
   static constexpr int BYTES = OFF_BAR + 2 * STAGES * 8;
   static_assert(BYTES + 1024 <= 232448, "a block has 227 KB of shared memory");
@@ -293,7 +304,7 @@ struct Ring {
   unsigned char* base;  // 1,024-byte aligned
 
   __device__ unsigned char* q() const { return base; }
-  __device__ unsigned char* k(int s) const { return base + OFF_STAGE + s * 2 * TILE; }
+  __device__ unsigned char* k(int s) const { return base + OFF_STAGE + s * KV * TILE; }
   __device__ unsigned char* v(int s) const { return k(s) + TILE; }
   __device__ float* ks(int s) const { return reinterpret_cast<float*>(base + OFF_SCALE) + s * 2 * NK; }
   __device__ float* vs(int s) const { return ks(s) + NK; }
@@ -411,7 +422,7 @@ __device__ __forceinline__ void produce(const FlashParams& p, const Ring<D, KIND
   const char* vg = reinterpret_cast<const char*>(p.v) + kvh * p.S * ROW;
   const uint8_t* mg = p.mask ? p.mask + kvh * p.mask_pitch : nullptr;
   const int ntiles = w.i1 - w.i0;
-  if constexpr (KIND == KV_BF16) {
+  if constexpr (R::BF16) {
     // Thread pt copies chunk pt % CPR of rows pt / CPR + RPI * it: RPI is a
     // multiple of 8, so the swizzle phase is the thread's own.
     constexpr int CPR = D / 8;      // 16-byte chunks of a bf16 row
@@ -428,11 +439,15 @@ __device__ __forceinline__ void produce(const FlashParams& p, const Ring<D, KIND
         const bool in = key0 + r0 + RPI * it < p.S;
         const long long off = in ? src + (long long)it * RPI * ROW : 0;
         cp_async16_to(kt + it * RPI * 128, kg + off, in);
-        cp_async16_to(vt + it * RPI * 128, vg + off, in);
+        if constexpr (KIND == KV_BF16) cp_async16_to(vt + it * RPI * 128, vg + off, in);
       }
-      if (pt == 0) load_mask<NK>(ring.mask(stage), mg, key0, p);
+      if constexpr (KIND == KV_BF16) {
+        if (pt == 0) load_mask<NK>(ring.mask(stage), mg, key0, p);
+      }
       cp_async_arrive(ring.full(stage));
-      if (pt == 0) mbar_arrive(ring.full(stage));  // orders the mask bytes written by hand
+      if constexpr (KIND == KV_BF16) {
+        if (pt == 0) mbar_arrive(ring.full(stage));  // orders the mask bytes written by hand
+      }
     }
   } else {
     for (int n = 0; n < ntiles + LAG; ++n) {
@@ -766,13 +781,153 @@ __device__ __forceinline__ void consume(const FlashParams& p, const Ring<D, KIND
   }
 }
 
+// A consumer warpgroup of the row-logsumexp pass (KIND = LSE_ONLY): the loop
+// above with S = Q.K^T alone. Per logit: a max, one FMA, one ex2 and one add.
+// The queries are slot-aligned with the keys (prior 0, no window, no
+// keep-mask), so a tile is classified from its position: wholly below the
+// diagonal of the warpgroup's rows (no test) or across it (the causal test;
+// a tile past every row is masked whole). With no P.V to overlap, the
+// warpgroup keeps two S accumulators and starts the next tile's product
+// before this tile's exponentials; the warpgroups do not take turns (both
+// measured faster on the card: PERF.md).
+template <int D>
+__device__ __forceinline__ void consume_lse(const FlashParams& p, const Ring<D, LSE_ONLY>& ring,
+                                            const Walk& w, int tid) {
+  using R = Ring<D, LSE_ONLY>;
+  constexpr int NK = R::NK, STAGES = R::STAGES;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+
+  bool valid[2];
+  int qs[2];
+  size_t orow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wg * 64 + warp * 16 + g + 8 * r;
+    const int gi = row / p.bq, t = w.t0 + row % p.bq;
+    valid[r] = gi < p.G && t < p.T;
+    qs[r] = valid[r] ? t : -(1 << 30);
+    orow[r] = ((size_t)w.b * p.Hq + w.h * p.G + (valid[r] ? gi : 0)) * p.T + (valid[r] ? t : 0);
+  }
+  // The first position of the warpgroup's rows (loose where its rows span
+  // two heads; the per-element test is exact).
+  const int lo = wg * 64, hi = min(lo + 63, p.G * p.bq - 1);
+  const int qmin = w.t0 + (hi >= lo && lo / p.bq == hi / p.bq ? lo % p.bq : 0);
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  const bool capped = p.softcap > 0.f;
+  const float c = (capped ? 1.f : p.sm_scale) * LOG2E;
+  const float cap_scale = capped ? p.sm_scale / p.softcap : 0.f;
+  const uint64_t qdesc = tile_desc(ring.q() + wg * 64 * 128);
+  float sa[NK / 2], sb[NK / 2];
+
+  auto start = [&](float (&s)[NK / 2], int i) {
+    const int n = i - w.i0, stage = n % STAGES;
+    mbar_wait(ring.full(stage), (n / STAGES) & 1);
+    const uint64_t kdesc = tile_desc(ring.k(stage));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t qoff = ((kk >> 2) * R::Q_PANEL + (kk & 3) * 32) >> 4;
+      const uint64_t koff = ((kk >> 2) * R::KV_PANEL + (kk & 3) * 32) >> 4;
+      wgmma_ss(s, qdesc + qoff, kdesc + koff, kk > 0);
+    }
+    wgmma_commit();
+  };
+  // The tile's logits (in s, product done) into the running max and sum;
+  // then its stage is released.
+  auto finish = [&](float (&s)[NK / 2], int i) {
+    const int key0 = w.kfirst + i * NK;
+    if (capped) {
+#pragma unroll
+      for (int e = 0; e < NK / 2; ++e) s[e] = tanhf(s[e] * cap_scale) * p.softcap;
+    }
+    if (key0 + NK - 1 > qmin) {  // across the diagonal: column x of a row is visible iff x <= lim
+      int lim[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) lim[r] = qs[r] - key0 - 2 * tq;
+#pragma unroll
+      for (int e = 0; e < NK / 2; ++e)
+        s[e] = (e >> 2) * 8 + (e & 1) <= lim[(e >> 1) & 1] ? s[e] : -INFINITY;
+    }
+    float mx[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) mx[r][u] = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < NK / 2; ++e)
+      mx[(e >> 1) & 1][(e >> 2) & 3] = fmaxf(mx[(e >> 1) & 1][(e >> 2) & 3], s[e]);
+    float mc[2], sum[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mrow = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+      const float mnew = fmaxf(m[r], quad_max(mrow));
+      const float msafe = mnew == -INFINITY ? 0.f : mnew;
+      l[r] *= ex2((m[r] - msafe) * c);
+      mc[r] = msafe * c;
+      m[r] = mnew;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) sum[r][u] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < NK / 2; ++e)
+      sum[(e >> 1) & 1][(e >> 2) & 3] += ex2(fmaf(s[e], c, -mc[(e >> 1) & 1]));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] += (sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.empty((i - w.i0) % STAGES));
+  };
+
+  // Two tiles a turn of the loop, sa and sb in turn, so that every start and
+  // every wait lies in straight-line code (ptxas serialises wgmma groups it
+  // cannot follow across branches).
+  int i = w.i0;
+  if (i < w.i1) {
+    start(sa, i);
+    for (; i + 2 < w.i1; i += 2) {
+      start(sb, i + 1);
+      wgmma_wait<1>();
+      keep(sa);
+      finish(sa, i);
+      start(sa, i + 2);
+      wgmma_wait<1>();
+      keep(sb);
+      finish(sb, i + 1);
+    }
+    if (i + 1 < w.i1) {
+      start(sb, i + 1);
+      wgmma_wait<1>();
+      keep(sa);
+      finish(sa, i);
+      wgmma_wait<0>();
+      keep(sb);
+      finish(sb, i + 1);
+    } else {
+      wgmma_wait<0>();
+      keep(sa);
+      finish(sa, i);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lsum = quad_sum(l[r]);
+    if (valid[r] && tq == 0)
+      p.lse[orow[r]] = lsum > 0.f ? m[r] * (c * LN2) + logf(lsum) : -INFINITY;
+  }
+}
+
 // ----------------------------------------------------------------------- //
 // The kernels
 
 // One block per (q-tile, key range, kv head, batch row). Causal work grows
-// with the q-tile index: the longest q-tiles start first.
+// with the q-tile index: the longest q-tiles start first. The body of
+// flash_sm90_kernel and of observed_colsum.cu's observed_lse_kernel.
 template <int D, int KIND>
-__global__ void __launch_bounds__(THREADS, 1) flash_sm90_kernel(const FlashParams p) {
+__device__ __forceinline__ void flash_block(const FlashParams& p) {
   using R = Ring<D, KIND>;
   constexpr int NK = R::NK;
   extern __shared__ unsigned char smem_dyn[];
@@ -821,8 +976,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_sm90_kernel(const FlashParam
     produce<D, KIND>(p, ring, w, tid - CONSUMERS);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    consume<D, KIND>(p, ring, w, tid);
+    if constexpr (KIND == LSE_ONLY) consume_lse<D>(p, ring, w, tid);
+    else consume<D, KIND>(p, ring, w, tid);
   }
+}
+
+template <int D, int KIND>
+__global__ void __launch_bounds__(THREADS, 1) flash_sm90_kernel(const FlashParams p) {
+  flash_block<D, KIND>(p);
 }
 
 // Merge of the key ranges of a split launch, ranges in index order: one thread

@@ -15,6 +15,12 @@ On CUDA tensors the two wrappers launch the hand-written Hopper kernels of
 ``csrc/observed_colsum.cu`` and add one to their ``launches`` counts; anything
 the kernels do not take raises. On CPU tensors they run the plain PyTorch
 versions beside them. There is no fall-back from one to the other.
+
+Pass 1 is the flash main loop (``csrc/flash_sm90.cuh``) without V. Pass 2
+gives a block 192 keys of one kv head and streams the query rows at or below
+them through a ring of stages of 128 rows: all G query heads by 128 / G
+positions. Its query offsets within a kv head's G query heads are 32-bit, so
+it takes G * S * D below 2**31.
 """
 
 from __future__ import annotations
@@ -29,6 +35,17 @@ from .flash import MAX_GROUP, _lse_from_logits, _opt
 
 PLAIN_ROWS = 512      # query rows per step of the plain versions
 COLSUM_GROUPS = (1, 2, 4, 8)    # query heads per kv head pass 2 is built for
+
+
+def _check_colsum(G: int, S: int, D: int) -> None:
+    """Raise on a shape pass 2 is not built for: G query heads per kv head
+    outside ``COLSUM_GROUPS``, or G * S * D elements of query rows in a group
+    that its 32-bit offsets cannot reach."""
+    if G not in COLSUM_GROUPS:
+        raise ValueError(f"kernel takes {COLSUM_GROUPS} query heads per kv head, got {G}")
+    if G * S * D >= 2**31:
+        raise ValueError(f"kernel takes G * S * D below 2**31 (32-bit query offsets), "
+                         f"got {G} * {S} * {D}")
 
 
 def _row_chunks(q, k, sm_scale, softcap):
@@ -126,9 +143,7 @@ def observed_colsums_flash(
     if not q.is_cuda:
         return observed_colsums_plain(q, k, lse, sm_scale=sm_scale, softcap=softcap)
     B, Hq, Hkv, S, D = _check(q, k, lse)
-    if Hq // Hkv not in COLSUM_GROUPS:
-        raise ValueError(f"kernel takes {COLSUM_GROUPS} query heads per kv head, "
-                         f"got {Hq // Hkv}")
+    _check_colsum(Hq // Hkv, S, D)
     if lse is None:
         lse = observed_lse(q, k, sm_scale=sm_scale, softcap=softcap)
     out = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)

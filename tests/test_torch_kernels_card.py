@@ -83,6 +83,22 @@ COLSUM_CASES = [
     (1, 4, 4, 257, 64, None),
     (1, 8, 1, 130, 128, 30.0),
     (1, 4, 2, 1000, 128, None),
+    # tile edges: the row-logsumexp pass's key tiles (128 keys at head_dim 64),
+    # the column-sum kernel's key blocks (192 keys, 64 a consumer warpgroup)
+    # and its query stages of 128 / G positions; 1 and 8 query heads per kv
+    # head, head_dim 128, and a key block of its own past 4,096
+    (1, 4, 2, 127, 64, None),
+    (1, 4, 2, 128, 64, None),
+    (1, 4, 2, 129, 64, None),
+    (1, 4, 2, 257, 64, None),
+    (1, 4, 2, 191, 64, None),
+    (1, 4, 2, 192, 64, None),
+    (1, 4, 2, 193, 64, None),
+    (1, 4, 2, 385, 64, None),
+    (1, 8, 1, 193, 128, None),
+    (1, 2, 2, 257, 128, 30.0),
+    (1, 8, 1, 129, 128, None),
+    (1, 32, 8, 4097, 64, None),
 ]
 HEADWISE_CASES = [
     # B, Hq, Hkv, T, S, D, tail, softcap, empty head, longest head absorbs the tail
@@ -292,6 +308,24 @@ def test_observed_colsum_kernels_match_plain_on_card(cuda, case):
     holed[:, :, S // 2] = float("-inf")
     _sums_close(toc.observed_colsums_flash(q, k, holed, **kw),
                 toc.observed_colsums_plain(q, k, holed, **kw))
+
+
+@pytest.mark.cuda
+def test_observed_colsum_refuses_offsets_past_32_bits(cuda):
+    # 8 query heads of 2**21 positions at head_dim 128: 2**31 query elements
+    # in one kv head's group, past the column-sum producer's 32-bit offsets
+    S = 2**21
+    q = torch.empty((1, 8, S, 128), dtype=torch.bfloat16, device=cuda)
+    k = torch.empty((1, 1, S, 128), dtype=torch.bfloat16, device=cuda)
+    n_lse, n_sum = toc.observed_lse.launches, toc.observed_colsums_flash.launches
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        toc.observed_colsums_flash(q, k, sm_scale=0.1)
+    assert (toc.observed_lse.launches, toc.observed_colsums_flash.launches) == (n_lse, n_sum)
+    # the C entry point refuses it too, before it launches
+    spare = torch.empty(16, device=cuda)
+    fn = toc._build.entry("observed_colsum", "kvp_observed_colsum")
+    assert fn(q.data_ptr(), k.data_ptr(), spare.data_ptr(), spare.data_ptr(), 1, 8, 1, S, 128,
+              0.1, 0.0, torch.cuda.current_stream(cuda).cuda_stream) != 0
 
 
 def _headwise_case(seed, B, Hkv, S, tail, empty, absorbed):

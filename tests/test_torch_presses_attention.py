@@ -151,6 +151,49 @@ def test_observed_colsums_plain_with_flash_lse_matches_pallas(S, bq, bk):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
 
 
+# Tile edges: the Pallas kernels' key tiles of 128 and the flash loop's (128
+# keys at head_dim 64, so the row-logsumexp pass's), query stages of 128 / G
+# positions, 1 and 8 query heads per kv head, head_dim 128.
+COLSUM_EDGE_CASES = [
+    # S, Hq, Hkv, D, bq, bk
+    (127, 4, 2, 16, 32, 128),
+    (128, 4, 2, 16, 32, 128),
+    (129, 4, 2, 16, 32, 128),
+    (257, 4, 2, 16, 64, 128),
+    (129, 2, 2, 16, 64, 128),
+    (257, 8, 1, 16, 16, 128),
+    (200, 4, 2, 128, 64, 128),
+]
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,D,bq,bk", COLSUM_EDGE_CASES)
+def test_observed_colsums_plain_matches_pallas_at_tile_edges(S, Hq, Hkv, D, bq, bk):
+    q, k = _qk(9, B=1, Hq=Hq, Hkv=Hkv, S=S, D=D)
+    scale = D ** -0.5
+    np.testing.assert_allclose(toc.observed_lse_plain(_t(q), _t(k), sm_scale=scale).numpy(),
+                               _row_lse(q, k, scale), atol=2e-5, rtol=2e-5)
+    got = toc.observed_colsums_flash(_t(q), _t(k), sm_scale=scale)
+    want = jcolsums(jnp.asarray(q), jnp.asarray(k), sm_scale=scale, block_q=bq, block_k=bk,
+                    interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("G,S,D,takes", [
+    (4, 32768, 64, True),          # the flagship prefill
+    (8, 2**21 - 1, 128, True),     # the longest S at G 8, head_dim 128
+    (8, 2**21, 128, False),        # 2**31 query elements in a group
+    (1, 2**25, 64, False),
+    (3, 1024, 64, False),          # a group the kernel is not built for
+    (16, 1024, 64, False),
+])
+def test_colsum_kernel_refuses_shapes_past_its_offsets(G, S, D, takes):
+    if takes:
+        toc._check_colsum(G, S, D)
+    else:
+        with pytest.raises(ValueError):
+            toc._check_colsum(G, S, D)
+
+
 def test_observed_colsums_plain_row_without_keys_adds_nothing():
     q, k = _qk(8, S=40)
     lse = toc.observed_lse_plain(_t(q), _t(k), sm_scale=0.25)

@@ -4,18 +4,19 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes seven copies of the port in a temporary directory, each with one
-# kernel deliberately broken in its CUDA source (a query tile dropped from the
-# column sums, a key tile dropped from the row logsumexp, the tail and one
-# prefix step dropped from the head-wise decode; in the flash main loop a
-# diagonal tile's causal test dropped, every tile taken for all-live, and the
-# first key range dropped from the merge of a split launch), and runs
-# chip_smoke.kernel_checks in each. Every copy must be rejected; the script
-# exits 1 if one passes or if a mutation did not apply.
+# It makes eight copies of the port in a temporary directory, each with one
+# kernel deliberately broken in its CUDA source (in the column sums a query
+# stage dropped and every stage taken without the causal test, a key tile
+# dropped from the row logsumexp, the tail and one prefix step dropped from
+# the head-wise decode; in the flash main loop a diagonal tile's causal test
+# dropped, every tile taken for all-live, and the first key range dropped from
+# the merge of a split launch), and runs chip_smoke.kernel_checks in each.
+# Every copy must be rejected; the script exits 1 if one passes or if a
+# mutation did not apply.
 set -u
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 status=0
-for m in colsum_query_tile lse_key_tile headwise_tail headwise_prefix_step \
+for m in colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_prefix_step \
          flash_diagonal_tile flash_all_live flash_merge_range; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
@@ -25,9 +26,11 @@ for m in colsum_query_tile lse_key_tile headwise_tail headwise_prefix_step \
   fl=$d/kvpress_tpu_torch/csrc/flash_sm90.cuh
   case $m in
     colsum_query_tile)
-      sed -i 's/const bool ok = !edge || (kslot <= qslot \&\& qslot < p.S);/const bool ok = (!edge || (kslot <= qslot \&\& qslot < p.S)) \&\& qt != nq - 2;/' "$oc" ;;
+      sed -i 's/    if (t0 + BQ - 1 >= kw) {/    if (t0 + BQ - 1 >= kw \&\& n != w.nst - 3) {/' "$oc" ;;
+    colsum_diagonal)
+      sed -i 's/add(ring.lse(stage), t0, t0 < kw + 63);/add(ring.lse(stage), t0, false);/' "$oc" ;;
     lse_key_tile)
-      sed -i 's/sc\[n\]\[i\] = (kslot <= qslot \&\& kslot < p.S) ? x : NEG_INF;/sc[n][i] = (kslot <= qslot \&\& kslot < p.S \&\& s != 8) ? x : NEG_INF;/' "$oc" ;;
+      sed -i 's/      sum\[(e >> 1) \& 1\]\[(e >> 2) \& 3\] += ex2(/      sum[(e >> 1) \& 1][(e >> 2) \& 3] += i == 4 ? 0.f : ex2(/' "$fl" ;;
     headwise_tail)
       sed -i 's/const int n_tail = tail_end > tail_lo ? (tail_end - tail_lo + NK - 1) \/ NK : 0;/const int n_tail = 0;/' "$hw" ;;
     headwise_prefix_step)
@@ -46,6 +49,9 @@ for m in colsum_query_tile lse_key_tile headwise_tail headwise_prefix_step \
 import sys, torch
 sys.path.insert(0, "."); sys.path.insert(0, "tests")
 import chip_smoke, kvpress_tpu_torch as kt
+# A copy must be rejected by its readings: time with CUDA events, so that a
+# profiler trace that comes back empty cannot reject it.
+chip_smoke.kernel_ms = lambda fn, symbol, iters: chip_smoke.cuda_ms(fn, 1, 1)
 try:
     chip_smoke.kernel_checks(kt, torch, lambda m: None)
 except AssertionError as e:

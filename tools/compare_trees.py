@@ -15,13 +15,16 @@ times the 32K prefill of the flagship shape under ``KnormPress(0.5)``,
 ``ObservedAttentionPress(0.5)`` (path A) and
 ``AdaKVPress(ObservedAttentionPress(0.5), compact=True)`` (path B): median of
 three on a synchronized host clock, and the device time of the flash kernels
-in one such prefill from the profiler. Every process prints one JSON line,
+and of the column-sum kernels (``observed_lse_kernel``,
+``observed_colsum_kernel``) in one such prefill from the profiler. Each
+process prints one JSON line:
 ``{"tree": ..., "card": ..., "kernels": {...}, "prefill": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -73,7 +76,10 @@ def measure(root: Path) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         _, by_name = chip_smoke.device_kernels(call, 1)
         flash = sum(ms for name, (ms, _) in by_name.items() if "flash_" in name)
+        observed_ms = {re.search(r"observed_\w+", name).group(0): ms
+                       for name, (ms, _) in by_name.items() if "observed_" in name}
         prefill[label] = {"wall_ms": statistics.median(times), "flash_kernel_ms": flash,
+                          "observed_kernel_ms": observed_ms,
                           "device_busy_ms": sum(ms for ms, _ in by_name.values())}
     return {"tree": str(root), "card": card, "kernels": kernels, "prefill": prefill}
 
