@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from .config import ModelConfig
+from .device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass
@@ -62,8 +63,11 @@ def init_cache(
     dtype: torch.dtype = torch.bfloat16,
     quantized: bool = False,
     bits: int = 8,
-    device: torch.device | str = "cpu",
+    device: DeviceLike = "cuda",
 ) -> KVCache:
+    """An empty cache on ``device``: the card unless the caller passes
+    ``device="cpu"`` (no card and no ``device=`` raises)."""
+    device = resolve_device(device)
     L, H, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     if quantized:
         if bits not in (8, 4):

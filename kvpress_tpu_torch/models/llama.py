@@ -225,7 +225,7 @@ class Runner:
     # "flash": kernel wrappers for multi-token calls; "xla": dense paths (the
     # name is the JAX package's, kept so both runners take the same options).
     attn_impl: str = "xla"
-    # Few-token calls through ops/decode.py (live-tile skipping, fused
+    # Few-token calls through ops/decode.py (live-step skipping, fused
     # dequant). Only meaningful with attn_impl="flash".
     decode_kernel: bool = False
     decode_block_k: int = 2048

@@ -38,11 +38,11 @@ SIGNATURES = {
     "flash_quant": {"kvp_flash_attention_quant":
                     (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F, I, P)},
     "decode": {"kvp_decode_attention":
-               (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, F, I, P)},
+               (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, I, P)},
     "observed_colsum": {"kvp_observed_lse": (P, P, P, I, I, I, I, I, F, F, P),
                         "kvp_observed_colsum": (P, P, P, P, I, I, I, I, I, F, F, P)},
     "decode_headwise": {"kvp_decode_attention_headwise":
-                        (P, P, P, P, P, P, I, I, I, I, I, I, F, F, P)},
+                        (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, P)},
 }
 
 _lock = threading.Lock()

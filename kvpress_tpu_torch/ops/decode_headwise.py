@@ -23,8 +23,11 @@ here.) A head with nothing to read gives zeros.
 On CUDA tensors ``decode_attention_headwise`` launches the hand-written Hopper
 kernel (``csrc/decode_headwise.cu``), which takes the ranges as device tensors
 (no host round trip), and adds one to its ``launches`` count; anything the
-kernel does not take raises. On CPU tensors it runs
-``decode_attention_headwise_plain``.
+kernel does not take raises. The kernel lays each head's live set out as a
+list of steps and cuts it into ``decode_splits`` chunks of a length fixed by
+S, one block each, merged in a second kernel of the same launch;
+``decode_attention_headwise_split_plain`` is the plain version of that
+arithmetic. On CPU tensors it runs ``decode_attention_headwise_plain``.
 """
 
 from __future__ import annotations
@@ -33,9 +36,10 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, decode
 from .attention import NEG_INF, gqa_attention
-from .flash import MAX_GROUP, _opt
+from .decode import MAX_SPLITS, step_keys
+from .flash import MAX_GROUP, _check_scale, _opt, _split_scratch, merge_key_ranges
 
 
 def prefix_tail_from_mask(mask: torch.Tensor, length):
@@ -73,6 +77,53 @@ def decode_attention_headwise_plain(q, k, v, prefix_lens, tail_start, tail_len, 
     return out.masked_fill(empty.repeat_interleave(G, dim=1)[..., None], 0.0)
 
 
+def headwise_chunks(prefix_lens, tail_start, tail_len, S: int, block: int, splits: int):
+    """(B, Hkv, S) int64: the chunk of a split launch that reads each slot,
+    -1 where the slot is not in its head's live set. A head's steps are its
+    prefix steps of ``block`` keys, then its tail steps from the first tail
+    slot the prefix does not cover; chunks are runs of
+    ``ceil((ceil(S / block) + 1) / splits)`` steps."""
+    col = torch.arange(S, device=prefix_lens.device)
+    pl = prefix_lens.clamp(max=S).to(torch.int64)[..., None]
+    tail_end = torch.clamp(tail_start + tail_len, max=S).to(torch.int64)
+    tail_lo = torch.maximum(tail_start.to(torch.int64), pl)
+    n_pref = -(-pl // block)
+    step = torch.where(col < pl, col // block,
+                       torch.where((col >= tail_lo) & (col < tail_end),
+                                   n_pref + (col - tail_lo) // block, -1))
+    per = -(-(-(-S // block) + 1) // splits)
+    return torch.where(step >= 0, step // per, -1)
+
+
+def decode_attention_headwise_split_plain(q, k, v, prefix_lens, tail_start, tail_len, *,
+                                          splits, sm_scale, softcap=None):
+    """The plain PyTorch version of ``decode_attention_headwise`` launched over
+    ``splits`` chunks (``headwise_chunks``): a partial softmax over each
+    chunk's slots, merged in chunk order with ``flash.merge_key_ranges``."""
+    B, Hq, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    col = torch.arange(S, device=q.device)
+    tail_end = tail_start + tail_len
+    row_limit = tail_end - T + torch.arange(T, device=q.device)[:, None]      # (T, 1)
+    in_tail = (col >= tail_start) & (col < tail_end) & (col <= row_limit)     # (T, S)
+    live = (col < prefix_lens[..., None])[:, :, None, :] | in_tail            # (B, Hkv, T, S)
+    logits = torch.einsum("bhgtd,bhsd->bhgts", q.reshape(B, Hkv, G, T, D).float(),
+                          k.float()) * sm_scale
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    chunk = headwise_chunks(prefix_lens, tail_start, tail_len, S, step_keys(D, None), splits)
+    parts = []
+    for i in range(splits):
+        x = logits.masked_fill(~(live & (chunk == i)[:, :, None])[:, :, None], float("-inf"))
+        m = x.amax(-1)
+        safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.exp(x - safe[..., None])
+        parts.append((torch.einsum("bhgts,bhsd->bhgtd", p, v.float()), m, p.sum(-1)))
+    out, _ = merge_key_ranges(*(torch.stack(t) for t in zip(*parts)))
+    return out.reshape(B, Hq, T, D).to(q.dtype)
+
+
 def decode_attention_headwise(
     q: torch.Tensor,                 # (B, Hq, T, D) bf16, T small
     k: torch.Tensor,                 # (B, Hkv, S, D) bf16
@@ -84,6 +135,9 @@ def decode_attention_headwise(
     sm_scale: float,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
+    """A head's live set is cut into ``decode.decode_splits`` chunks, counted
+    over the whole buffer (the tests and ``tools/decode_sweep.py`` substitute
+    that function to reach the edges of the merge)."""
     if not q.is_cuda:
         return decode_attention_headwise_plain(q, k, v, prefix_lens, tail_start, tail_len,
                                                sm_scale=sm_scale, softcap=softcap)
@@ -97,6 +151,7 @@ def decode_attention_headwise(
     for name, t in (("k", k), ("v", v)):
         if tuple(t.shape) != (B, Hkv, S, D):
             raise ValueError(f"{name}: expected {(B, Hkv, S, D)}, got {tuple(t.shape)}")
+    _check_scale(sm_scale)
     if tuple(prefix_lens.shape) != (B, Hkv) or tail_start.dim() or tail_len.dim():
         raise ValueError(f"expected prefix_lens {(B, Hkv)} and scalar tail_start, tail_len")
     tail = torch.stack([tail_start, tail_len]).to(torch.int32)
@@ -104,10 +159,18 @@ def decode_attention_headwise(
     for name, t in (("q", q), ("k", k), ("v", v), ("prefix_lens", prefix_lens), ("tail", tail)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name}: kernel inputs must be contiguous on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: kernel inputs must start on a 16-byte boundary")
+    splits = decode.decode_splits(B, Hkv, Hq // Hkv, T, S, D, S, step_keys(D, None))
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits must be 1..{MAX_SPLITS}, got {splits}")
+    part_o, part_ml = _split_scratch(q, splits)
     out = torch.empty_like(q)
     fn = _build.entry("decode_headwise")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), prefix_lens.data_ptr(), tail.data_ptr(),
-             out.data_ptr(), B, Hq, Hkv, T, S, D, float(sm_scale), float(_opt(softcap, 0.0)),
+             out.data_ptr(), _build.ptr(part_o), _build.ptr(part_ml), B, Hq, Hkv, T, S, D,
+             splits, float(sm_scale), float(_opt(softcap, 0.0)),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention_headwise")
     decode_attention_headwise.launches += 1

@@ -117,21 +117,24 @@ def merge_key_ranges(part_o, part_m, part_l):
     return out, lse
 
 
-def _split_merge(logits, bias, pv, splits, nk):
+def key_ranges(S: int, nk: int, splits: int) -> list[tuple[int, int]]:
+    """The (lo, hi) slot ranges of a split flash launch: the key tiles of
+    ``nk`` keys cut into ``splits`` contiguous runs."""
+    per = -(-(-(-S // nk)) // splits) * nk
+    return [(min(S, i * per), min(S, i * per + per)) for i in range(splits)]
+
+
+def _split_merge(logits, bias, pv, ranges):
     """Attention from biased logits (B, Hkv, G, T, S) as a split launch takes
-    it: the key tiles (``nk`` keys each) cut into ``splits`` contiguous
-    ranges, a partial softmax over each (``pv(p, lo, hi)`` multiplies the
-    unnormalised probabilities of keys lo..hi-1 into the values), then the
-    merge. Returns (out (B, Hkv, G, T, D) float32, lse (B, Hkv, G, T))."""
-    S = logits.shape[-1]
+    it: a partial softmax over each (lo, hi) slot range of ``ranges``
+    (``pv(p, lo, hi)`` multiplies the unnormalised probabilities of keys
+    lo..hi-1 into the values), then the merge. Returns (out (B, Hkv, G, T, D)
+    float32, lse (B, Hkv, G, T))."""
     allowed = (bias > NEG_INF / 2)
     allowed = allowed[None, None, None] if bias.dim() == 2 else allowed[:, :, None]
-    per = -(-(-(-S // nk)) // splits) * nk
     neg = torch.full((), float("-inf"), dtype=torch.float32, device=logits.device)
     parts = []
-    for i in range(splits):
-        lo = min(S, i * per)
-        hi = min(S, lo + per)
+    for lo, hi in ranges:
         x = torch.where(allowed[..., lo:hi], logits[..., lo:hi], neg)
         m = x.amax(-1) if hi > lo else torch.full(logits.shape[:-1], float("-inf"),
                                                   device=logits.device)
@@ -156,7 +159,7 @@ def flash_attention_split_plain(q, k, v, prior_length, head_mask=None, *, splits
     out, lse = _split_merge(
         logits, bias,
         lambda p, lo, hi: torch.einsum("bhgts,bhsd->bhgtd", p, v[:, :, lo:hi].float()),
-        splits, key_tile(D))
+        key_ranges(S, key_tile(D), splits))
     out = out.reshape(B, Hq, T, D).to(q.dtype)
     return (out, lse.reshape(B, Hq, T)) if return_lse else out
 
@@ -181,7 +184,7 @@ def flash_attention_quant_split_plain(q, k, v, k_scales, v_scales, prior_length,
                             v_scales[:, :, lo:hi], bits, torch.float32
                             ).reshape(B, Hkv, G, T, D)
 
-    out, lse = _split_merge(logits, bias, pv, splits, key_tile(D))
+    out, lse = _split_merge(logits, bias, pv, key_ranges(S, key_tile(D), splits))
     out = out.reshape(B, Hq, T, D).to(q.dtype)
     return (out, lse.reshape(B, Hq, T)) if return_lse else out
 

@@ -185,3 +185,18 @@ def test_quant_gqa_attention_matches_jax(case, bits):
     to = tattn.quant_gqa_attention(_t(q), tk, tv, tks, tvs, tb, D ** -0.5, bits,
                                    softcap=softcap)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-5)
+
+
+def test_init_cache_defaults_to_the_card():
+    """Like every entry point of the port, ``init_cache`` builds on the card
+    unless the caller asks for the CPU: without a card that is an error, not
+    a cache on the CPU."""
+    cfg = tiny_config()
+    if torch.cuda.is_available():
+        assert tcache.init_cache(cfg, 2, 24).keys.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tcache.init_cache(cfg, 2, 24)
+    built = tcache.init_cache(cfg, 2, 24, quantized=True, bits=4, device="cpu")
+    assert built.keys.device.type == "cpu" and built.key_scales.device.type == "cpu"
+    assert built.keys.shape == (cfg.num_layers, 2, cfg.num_kv_heads, 24, cfg.head_dim // 2)

@@ -361,3 +361,113 @@ def test_headwise_kernel_matches_plain_on_card(cuda, case):
     if T == 1:
         # the ranges say what the mask says: dense attention under the mask
         _close(got, tdec.decode_attention_plain(q, k, v, length, mask=_t(mask).to(cuda), **kw))
+
+
+# The edges of a split launch (key ranges of whole kernel steps, merged in
+# order), as tests/test_torch_kernels_plain.py holds the split plain version
+# against the Pallas kernel: 1, 2, 3 and 7 ranges; range edges inside live
+# runs; a range with no live step ("dead-range"); window and softcap; int8
+# and int4; T = 1 and 4; head_dim 128; S not a multiple of 16 or 4 (keep-mask
+# bytes and scales copied by hand), S a multiple of 16 with a length that
+# ends inside a step; and the default split count at a shape near the paths'.
+DECODE_SPLIT_CASES = [
+    # bits, B, Hq, Hkv, T, S, length, D, window, softcap, splits, keep-mask
+    (None, 1, 4, 2, 1, 900, 833, 64, None, None, 1, "random"),
+    (None, 2, 8, 2, 4, 900, 833, 64, None, None, 2, "random"),
+    (8, 1, 4, 2, 1, 900, 833, 64, 300, 30.0, 3, "random"),
+    (4, 2, 8, 2, 4, 1000, 997, 64, None, None, 7, "random"),
+    (None, 1, 4, 2, 1, 900, 833, 64, None, None, 3, "dead-range"),
+    (8, 1, 8, 2, 4, 1100, 1090, 64, None, 30.0, 7, "dead-range"),
+    (4, 1, 4, 2, 4, 700, 650, 128, 260, None, 2, "random"),
+    (8, 1, 2, 2, 1, 517, 517, 64, 200, None, 2, "none"),
+    (4, 1, 8, 2, 1, 1024, 1000, 64, None, None, 3, "random"),
+    (None, 1, 32, 8, 1, 4160, 4097, 64, None, None, None, "random"),
+    (4, 1, 32, 8, 4, 4160, 4100, 64, None, None, None, "dead-range"),
+]
+
+
+def _split_case_mask(kind, mask, length, T, window, bits, D, splits):
+    if kind == "none":
+        return None
+    mask = mask.copy()
+    if kind == "dead-range":
+        lo, hi = tdec.decode_key_ranges(length, T, window, tdec.step_keys(D, bits), splits)[1]
+        mask[:, :, lo:hi] = False
+    mask[:, :, length - T:length] = True
+    return mask
+
+
+def _fix_splits(monkeypatch, splits, *shape):
+    """The key ranges of the next launches: ``splits``, or (None) the count
+    ``decode_splits`` gives for ``shape``."""
+    if splits is None:
+        return tdec.decode_splits(*shape)
+    monkeypatch.setattr(tdec, "decode_splits", lambda *args: splits)
+    return splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_SPLIT_CASES,
+                         ids=[f"b{c[0]}T{c[4]}L{c[6]}D{c[7]}n{c[10]}-{c[11]}"
+                              for c in DECODE_SPLIT_CASES])
+def test_decode_kernel_split_edges_on_card(cuda, monkeypatch, case):
+    bits, B, Hq, Hkv, T, S, length, D, window, softcap, splits, kind = case
+    q, k, v, mask = _inputs(7, B, Hq, Hkv, T, S, D, p_keep=0.6)
+    splits = _fix_splits(monkeypatch, splits, B, Hkv, Hq // Hkv, T, S, D, length,
+                         tdec.step_keys(D, bits))
+    mask = _split_case_mask(kind, mask, length, T, window, bits, D, splits)
+    q, k, v = (_t(a).to(cuda) for a in (q, k, v))
+    mask = None if mask is None else _t(mask).to(cuda)
+    q = q.to(torch.bfloat16)
+    ks = vs = None
+    if bits is None:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    else:
+        (k, ks), (v, vs) = quantize_kv(k, bits), quantize_kv(v, bits)
+    kw = dict(bits=bits, sm_scale=D ** -0.5, window=window, softcap=softcap)
+    n = tdec.decode_attention.launches
+    got = tdec.decode_attention(q, k, v, length, ks, vs, mask, **kw)
+    torch.cuda.synchronize()
+    again = tdec.decode_attention(q, k, v, length, ks, vs, mask, **kw)
+    assert tdec.decode_attention.launches == n + 2
+    assert torch.equal(got, again)
+    _close(got, tdec.decode_attention_split_plain(q, k, v, length, ks, vs, mask,
+                                                  splits=splits, **kw))
+    _close(got, tdec.decode_attention_plain(q, k, v, length, ks, vs, mask, **kw))
+
+
+HEADWISE_SPLIT_CASES = [
+    # B, Hq, Hkv, T, S, D, tail, softcap, empty head, absorbed tail, splits
+    (2, 4, 2, 1, 700, 64, 6, None, False, False, 1),
+    (2, 8, 2, 4, 700, 64, 6, None, True, False, 2),
+    (1, 4, 2, 1, 700, 64, 70, 30.0, False, True, 3),
+    (2, 4, 2, 4, 900, 64, 9, None, True, True, 7),
+    (1, 8, 1, 1, 500, 128, 3, 30.0, True, False, 7),
+    (4, 32, 8, 1, 4160, 64, 33, None, True, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HEADWISE_SPLIT_CASES,
+                         ids=[f"T{c[3]}S{c[4]}D{c[5]}e{int(c[8])}a{int(c[9])}n{c[10]}"
+                              for c in HEADWISE_SPLIT_CASES])
+def test_headwise_kernel_split_edges_on_card(cuda, monkeypatch, case):
+    B, Hq, Hkv, T, S, D, tail, softcap, empty, absorbed, splits = case
+    splits = _fix_splits(monkeypatch, splits, B, Hkv, Hq // Hkv, T, S, D, S,
+                         tdec.step_keys(D, None))
+    q, k, v, _ = (_t(a).to(cuda) for a in _inputs(8, B, Hq, Hkv, T, S, D))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    mask, length = _headwise_case(9, B, Hkv, S, tail, empty, absorbed)
+    ranges = thw.prefix_tail_from_mask(_t(mask).to(cuda), length)
+    kw = dict(sm_scale=D ** -0.5, softcap=softcap)
+    n = thw.decode_attention_headwise.launches
+    got = thw.decode_attention_headwise(q, k, v, *ranges, **kw)
+    torch.cuda.synchronize()
+    again = thw.decode_attention_headwise(q, k, v, *ranges, **kw)
+    assert thw.decode_attention_headwise.launches == n + 2
+    assert torch.equal(got, again)
+    _close(got, thw.decode_attention_headwise_split_plain(q, k, v, *ranges,
+                                                          splits=splits, **kw))
+    _close(got, thw.decode_attention_headwise_plain(q, k, v, *ranges, **kw))
+    if T == 1:
+        _close(got, tdec.decode_attention_plain(q, k, v, length, mask=_t(mask).to(cuda), **kw))

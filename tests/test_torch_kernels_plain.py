@@ -12,10 +12,13 @@ import torch
 from kvpress_tpu.cache import quantize_kv as jquantize
 from kvpress_tpu.ops.decode import decode_attention as jdecode
 from kvpress_tpu.ops.decode import live_block_table as jtable
+from kvpress_tpu.ops.decode_headwise import decode_attention_headwise as jheadwise
+from kvpress_tpu.ops.decode_headwise import prefix_tail_from_mask as jprefix_tail
 from kvpress_tpu.ops.flash import flash_attention as jflash
 from kvpress_tpu.ops.flash import flash_attention_quant as jflash_quant
 from kvpress_tpu_torch.cache import quantize_kv
 from kvpress_tpu_torch.ops import decode as tdec
+from kvpress_tpu_torch.ops import decode_headwise as thw
 from kvpress_tpu_torch.ops import flash as tfl
 
 torch.set_num_threads(2)
@@ -282,3 +285,157 @@ def test_wrappers_refuse_the_or_mask():
     with pytest.raises(NotImplementedError):
         tfl.flash_attention(_t(q), _t(k), _t(v), 0, q_groups=torch.zeros(1, 4, dtype=torch.int32),
                             sm_scale=0.25)
+
+
+# A decode launch cuts the key range of a kv head into key ranges of whole
+# kernel steps (64 keys at bf16, 128 at int8, 256 at int4, head_dim 64) and
+# merges them. Its plain version is held against the Pallas kernel (live
+# tiles of 128 keys, so a range edge at a 64-key step lies inside a live
+# tile). "dead-range": every keep-bit of range 1 cleared but the new tokens',
+# so that range has no live step. Tolerance: float32 on both sides, sums
+# taken in another order (as for the unsplit plain version).
+DECODE_SPLIT_CASES = [
+    # bits, B, Hq, Hkv, T, S, length, D, window, softcap, splits, keep-mask
+    (None, 1, 4, 2, 1, 900, 833, 64, None, None, 1, "random"),
+    (None, 2, 8, 2, 4, 900, 833, 64, None, None, 2, "random"),
+    (8, 1, 4, 2, 1, 900, 833, 64, 300, 30.0, 3, "random"),
+    (4, 2, 8, 2, 4, 1000, 997, 64, None, None, 7, "random"),
+    (None, 1, 4, 2, 1, 900, 833, 64, None, None, 3, "dead-range"),
+    (8, 1, 8, 2, 4, 1100, 1090, 64, None, 30.0, 7, "dead-range"),
+    (4, 1, 4, 2, 4, 700, 650, 128, 260, None, 2, "random"),
+    (8, 1, 2, 2, 1, 517, 517, 64, 200, None, 2, "none"),
+]
+
+
+def _split_case_mask(kind, mask, length, T, window, bits, D, splits):
+    if kind == "none":
+        return None
+    mask = mask.copy()
+    if kind == "dead-range":
+        lo, hi = tdec.decode_key_ranges(length, T, window, tdec.step_keys(D, bits), splits)[1]
+        mask[:, :, lo:hi] = False
+    mask[:, :, length - T:length] = True
+    return mask
+
+
+@pytest.mark.parametrize("case", DECODE_SPLIT_CASES,
+                         ids=[f"b{c[0]}T{c[4]}L{c[6]}D{c[7]}n{c[10]}-{c[11]}"
+                              for c in DECODE_SPLIT_CASES])
+def test_decode_split_plain_matches_pallas(case):
+    bits, B, Hq, Hkv, T, S, length, D, window, softcap, splits, kind = case
+    q, k, v, mask = _inputs(splits + length, B, Hq, Hkv, T, S, D, p_keep=0.6)
+    mask = _split_case_mask(kind, mask, length, T, window, bits, D, splits)
+    jm = None if mask is None else jnp.asarray(mask)
+    tm = None if mask is None else _t(mask)
+    kw = dict(sm_scale=D ** -0.5, window=window, softcap=softcap)
+    if bits is None:
+        want = jdecode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       jnp.asarray(length, jnp.int32), mask=jm, block_k=128, interpret=True, **kw)
+        got = tdec.decode_attention_split_plain(_t(q), _t(k), _t(v), length, mask=tm,
+                                                splits=splits, **kw)
+    else:
+        (jk, jks), (jv, jvs) = jquantize(jnp.asarray(k), bits), jquantize(jnp.asarray(v), bits)
+        (tk, tks), (tv, tvs) = quantize_kv(_t(k), bits), quantize_kv(_t(v), bits)
+        want = jdecode(jnp.asarray(q), jk, jv, jnp.asarray(length, jnp.int32), k_scales=jks,
+                       v_scales=jvs, mask=jm, bits=bits, block_k=128, interpret=True, **kw)
+        got = tdec.decode_attention_split_plain(_t(q), tk, tv, length, tks, tvs, tm, bits=bits,
+                                                splits=splits, **kw)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+
+
+def test_decode_key_ranges_cover_the_visible_slots_in_whole_steps():
+    ranges = tdec.decode_key_ranges(833, 1, None, 64, 3)
+    assert ranges == [(0, 320), (320, 640), (640, 833)]
+    # a window starts the first step at the step holding the first visible slot
+    assert tdec.decode_key_ranges(833, 1, 300, 64, 2) == [(512, 704), (704, 833)]
+    # more ranges than steps: the last ones are empty
+    assert tdec.decode_key_ranges(100, 1, None, 64, 7)[2:] == [(100, 100)] * 5
+
+
+DECODE_SPLIT_SHAPES = [
+    # B, Hkv, G, T, S, D, length, step keys -> key ranges a kv head
+    ((1, 8, 4, 1, 33000, 64, 33000, 256), 32),    # a half-live 33K buffer, int4, B1
+    ((1, 8, 4, 1, 33000, 64, 33000, 64), 32),     # the same in bf16
+    ((4, 8, 4, 1, 16448, 64, 16385, 256), 8),     # phase-2 rows, int4 B4
+    ((4, 8, 4, 1, 16448, 64, 16385, 64), 8),      # phase-2 rows, bf16 B4
+    ((4, 8, 4, 1, 16920, 64, 16920, 64), 8),      # the path B cache at B4 (head-wise)
+    ((1, 8, 4, 1, 65600, 64, 65600, 64), 32),     # a longer buffer: no more ranges
+    ((1, 8, 4, 1, 2048, 64, 2048, 64), 8),        # a ring of steps a range at most
+    ((1, 8, 4, 4, 16600, 64, 16500, 128), 32),    # a 4-token question, int8
+    ((4, 8, 4, 128, 16640, 64, 16512, 64), 1),    # 128 tokens: row groups fill the card
+    ((1, 1, 1, 1, 100, 64, 100, 64), 1),          # fewer steps than a ring
+]
+
+
+@pytest.mark.parametrize("shape,want", DECODE_SPLIT_SHAPES,
+                         ids=[f"B{s[0]}T{s[3]}S{s[4]}k{s[7]}" for s, _ in DECODE_SPLIT_SHAPES])
+def test_decode_splits_at_the_paths_shapes(shape, want):
+    assert tdec.decode_splits(*shape) == want
+
+
+def test_decode_step_keys_follow_the_payload():
+    assert [tdec.step_keys(64, b) for b in (None, 8, 4)] == [64, 128, 256]
+    assert [tdec.step_keys(128, b) for b in (None, 8, 4)] == [64, 64, 128]
+
+
+def _headwise_ranges(seed, B, Hkv, S, tail, empty, absorbed):
+    """A cache compacted head by head (prefix lengths, then a shared tail of
+    ``tail`` slots) as a keep-mask, and its valid length."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(5, S - tail - 8, (B, Hkv)).astype(np.int32)
+    if empty:
+        prefix[0, 0] = 0
+    tail_start = int(prefix.max()) + (0 if absorbed else 7)
+    length = tail_start + tail
+    mask = np.arange(S)[None, None] < prefix[..., None]
+    mask[:, :, tail_start:length] = True
+    mask[:, :, length:] = rng.random((B, Hkv, S - length)) < 0.5     # stale bits
+    return mask, length
+
+
+# The head-wise launch cuts each head's steps (prefix, then tail) into chunks
+# of a length fixed by S. Its plain version against the Pallas kernel, at
+# head_dim 64 (64-key steps), so chunk edges fall inside heads' prefixes and
+# tails; a head with an empty prefix, a tail the longest prefix absorbs. The
+# JAX kernel reads an absorbed tail twice (ROADMAP Queue C), so those cases
+# are held against dense attention under the mask (T = 1) and the unsplit
+# plain version instead. Tolerance as tests/test_torch_headwise.py holds the
+# unsplit version.
+HEADWISE_SPLIT_CASES = [
+    # B, Hq, Hkv, T, S, tail, softcap, empty head, absorbed tail, splits
+    (2, 4, 2, 1, 700, 6, None, False, False, 1),
+    (2, 8, 2, 4, 700, 6, None, True, False, 2),
+    (1, 4, 2, 1, 700, 70, 30.0, False, True, 3),
+    (2, 4, 2, 4, 900, 9, None, True, True, 7),
+    (1, 8, 1, 1, 500, 3, 30.0, True, False, 7),
+]
+
+
+@pytest.mark.parametrize("case", HEADWISE_SPLIT_CASES,
+                         ids=[f"T{c[3]}S{c[4]}e{int(c[7])}a{int(c[8])}n{c[9]}"
+                              for c in HEADWISE_SPLIT_CASES])
+def test_headwise_split_plain_matches_pallas(case):
+    B, Hq, Hkv, T, S, tail, softcap, empty, absorbed, splits = case
+    D = 64
+    q, k, v, _ = _inputs(splits + S, B, Hq, Hkv, T, S, D)
+    mask, length = _headwise_ranges(splits, B, Hkv, S, tail, empty, absorbed)
+    ranges = thw.prefix_tail_from_mask(_t(mask), length)
+    if empty:
+        assert int(ranges[0][0, 0]) == 0
+    if absorbed:
+        assert int(ranges[0].max()) == length
+    kw = dict(sm_scale=D ** -0.5, softcap=softcap)
+    got = thw.decode_attention_headwise_split_plain(_t(q), _t(k), _t(v), *ranges,
+                                                    splits=splits, **kw)
+    assert np.isfinite(got.numpy()).all()
+    if absorbed:
+        want = thw.decode_attention_headwise_plain(_t(q), _t(k), _t(v), *ranges, **kw)
+        if T == 1:
+            dense = tdec.decode_attention_plain(_t(q), _t(k), _t(v), length, mask=_t(mask), **kw)
+            np.testing.assert_allclose(got.numpy(), dense.numpy(), atol=2e-5, rtol=2e-5)
+    else:
+        want = jheadwise(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         *jprefix_tail(jnp.asarray(mask), jnp.asarray(length)),
+                         block_k=128, interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)

@@ -4,25 +4,31 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes eight copies of the port in a temporary directory, each with one
+# It makes twelve copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (in the column sums a query
 # stage dropped and every stage taken without the causal test, a key tile
-# dropped from the row logsumexp, the tail and one prefix step dropped from
-# the head-wise decode; in the flash main loop a diagonal tile's causal test
-# dropped, every tile taken for all-live, and the first key range dropped from
-# the merge of a split launch), and runs chip_smoke.kernel_checks in each.
+# dropped from the row logsumexp; in the head-wise decode the tail, one
+# prefix step and one chunk of every head dropped; in the decode one live
+# step taken for dead and one key range dropped; in the decode kernels'
+# merge one range given no weight; in the flash main loop a diagonal tile's
+# causal test dropped, every tile taken for all-live, and the first key range
+# dropped from the merge of a split launch), and runs chip_smoke.kernel_checks
+# in each.
 # Every copy must be rejected; the script exits 1 if one passes or if a
 # mutation did not apply.
 set -u
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 status=0
 for m in colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_prefix_step \
+         headwise_chunk decode_live_step decode_split_range decode_merge_range \
          flash_diagonal_tile flash_all_live flash_merge_range; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
   cp -r kvpress_tpu_torch tests chip_smoke.py "$d"/
   oc=$d/kvpress_tpu_torch/csrc/observed_colsum.cu
   hw=$d/kvpress_tpu_torch/csrc/decode_headwise.cu
+  dc=$d/kvpress_tpu_torch/csrc/decode.cu
+  dm=$d/kvpress_tpu_torch/csrc/decode_sm90.cuh
   fl=$d/kvpress_tpu_torch/csrc/flash_sm90.cuh
   case $m in
     colsum_query_tile)
@@ -34,7 +40,15 @@ for m in colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
     headwise_tail)
       sed -i 's/const int n_tail = tail_end > tail_lo ? (tail_end - tail_lo + NK - 1) \/ NK : 0;/const int n_tail = 0;/' "$hw" ;;
     headwise_prefix_step)
-      sed -i 's/pref ? prefix_len : tail_end, 0,/s == 4 ? 0 : (pref ? prefix_len : tail_end), 0,/' "$hw" ;;
+      sed -i 's/Step{j \* NK, prefix_len, 0, (j + 1) \* NK <= prefix_len ? DENSE : EDGE}/Step{j * NK, j == 4 ? 4 * NK + 1 : prefix_len, 0, (j + 1) * NK <= prefix_len \&\& j != 4 ? DENSE : EDGE}/' "$hw" ;;
+    headwise_chunk)
+      sed -i 's/  const int n = min(n_pref + n_tail, i0 + per) - i0;/  const int n = split == 1 ? 0 : min(n_pref + n_tail, i0 + per) - i0;/' "$hw" ;;
+    decode_live_step)
+      sed -i 's/    if (lane == 0) live\[j\] = any ? 1 + all : 0;/    if (lane == 0) live[j] = any \&\& j != 2 ? 1 + all : 0;/' "$dc" ;;
+    decode_split_range)
+      sed -i 's/  const int n = min(nst, i0 + per) - i0;/  const int n = split == 1 ? 0 : min(nst, i0 + per) - i0;/' "$dc" ;;
+    decode_merge_range)
+      sed -i 's/  if (tid < nsplit) wgt\[tid\] = mmax == -INFINITY ? 0.f/  if (tid < nsplit) wgt[tid] = mmax == -INFINITY || tid == 1 ? 0.f/' "$dm" ;;
     flash_diagonal_tile)
       sed -i 's/const bool below_diagonal = key0 + NK - 1 <= qmin;/const bool below_diagonal = true;/' "$fl" ;;
     flash_all_live)

@@ -16,13 +16,23 @@ times the 32K prefill of the flagship shape under ``KnormPress(0.5)``,
 ``AdaKVPress(ObservedAttentionPress(0.5), compact=True)`` (path B): median of
 three on a synchronized host clock, and the device time of the flash kernels
 and of the column-sum kernels (``observed_lse_kernel``,
-``observed_colsum_kernel``) in one such prefill from the profiler. Each
-process prints one JSON line:
-``{"tree": ..., "card": ..., "kernels": {...}, "prefill": {...}}``.
+``observed_colsum_kernel``) in one such prefill from the profiler. Its
+decode section, built on the public entry points alone (``Runner.create``,
+``prefill``, ``forward``) so that any tree can run it, prefills 32K under
+``KnormPress(0.5)`` at B=4 (int4 KV, int8 weights) and at B=1 (bf16 KV), and
+under path B's press at B=4, and times 32 decode steps over each cache: wall
+ms per step and tok/s (median of three passes, synchronized host clock),
+and from the profiler the device busy ms per step, the decode kernels'
+device ms per step (every kernel whose name holds ``decode_kernel`` or
+``decode_headwise_kernel``: a split launch's merge included) and the idle
+share. Each process prints one JSON line:
+``{"tree": ..., "card": ..., "kernels": {...}, "wrapper_notes": {...},
+"prefill": {...}, "decode": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -45,11 +55,14 @@ def measure(root: Path) -> dict:
         raise SystemExit("compare_trees: no CUDA device")
     card = chip_smoke.device_line()
     _build.build()
-    checks = chip_smoke.kernel_checks(kt, torch, lambda msg: None)
+    notes = []
+    checks = chip_smoke.kernel_checks(kt, torch, notes.append)
     kernels = {}
     for name, variants in checks.items():
         for variant, row in variants.items():
-            kernels[f"{name}[{variant}]"] = {k: row[k] for k in ("ms", "bound_ms", "library_ms")}
+            kernels[f"{name}[{variant}]"] = {
+                k: row.get(k) for k in ("ms", "bound_ms", "steps_bound_ms", "wrapper_ms",
+                                        "ranges_ms", "plain_ms", "library_ms")}
 
     cfg = chip_smoke.flagship_config(16)
     dev = torch.device("cuda")
@@ -81,7 +94,72 @@ def measure(root: Path) -> dict:
         prefill[label] = {"wall_ms": statistics.median(times), "flash_kernel_ms": flash,
                           "observed_kernel_ms": observed_ms,
                           "device_busy_ms": sum(ms for ms, _ in by_name.values())}
-    return {"tree": str(root), "card": card, "kernels": kernels, "prefill": prefill}
+    # The report lines that give a wrapper's time (CUDA events around the
+    # wrapper), under the kernel line they follow: a tree whose checks keep
+    # no wrapper time in their rows still prints it.
+    wrappers, last = {}, None
+    for line in notes:
+        if line.lstrip().startswith(("decode_attention[", "decode_headwise[")):
+            last = line.split(":")[0].strip()
+        elif ("wrapper" in line or "prefix_tail_from_mask" in line) and last is not None:
+            wrappers[last] = line.strip()
+    return {"tree": str(root), "card": card, "kernels": kernels, "wrapper_notes": wrappers,
+            "prefill": prefill, "decode": decode_steps(torch, kt, chip_smoke, cfg, params, gen)}
+
+
+DECODE_STEPS = 32
+
+
+def decode_steps(torch, kt, chip_smoke, cfg, params, gen) -> dict:
+    """Per decode step over a 32K prefill's compressed cache, for each route:
+    wall ms and tok/s (median of three passes of DECODE_STEPS steps), device
+    busy ms, the decode kernels' device ms and the idle share (profiler, one
+    pass)."""
+    dev = torch.device("cuda")
+    params8 = kt.quantize_params_int8(params)
+    knorm = kt.KnormPress(0.5)
+    adakv = kt.AdaKVPress(kt.ObservedAttentionPress(0.5), compact=True)
+    runner = kt.Runner.create(cfg, device=dev)
+    headwise = kt.Runner.create(cfg, decode_kernel=False, headwise_kernel=True, device=dev)
+    routes = {"Knorm B4 int4 KV + int8 weights": (runner, params8, knorm, 4,
+                                                  dict(quantized=True, kv_bits=4)),
+              "Knorm B1 bf16 KV": (runner, params, knorm, 1, {}),
+              "path B B4 bf16 KV": (headwise, params, adakv, 4, {})}
+    out = {}
+    for label, (r, p, press, B, kw) in routes.items():
+        ids = torch.randint(3, cfg.vocab_size, (B, chip_smoke.CONTEXT_TOKENS), generator=gen,
+                            device=dev)
+        _, cache, _ = r.prefill(p, ids, press=press, **kw)
+        cache = kt.resize(cache, int(cache.length.max()) + DECODE_STEPS + 1)
+        base_len, base_off = cache.length, cache.offset
+        tok0 = ids[:, -1:]
+
+        def steps():
+            c = dataclasses.replace(cache, length=base_len, offset=base_off)
+            tok = tok0
+            for _ in range(DECODE_STEPS):
+                logits, c, _ = r.forward(p, tok, c, logits_last_only=True)
+                tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+
+        steps()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / DECODE_STEPS)
+        wall, by_name = chip_smoke.device_kernels(steps, 1)
+        busy = sum(ms for ms, _ in by_name.values()) / DECODE_STEPS
+        kernel = sum(ms for name, (ms, _) in by_name.items()
+                     if "decode_kernel" in name or "decode_headwise_kernel" in name)
+        out[label] = {"slots": cache.keys.shape[-2], "wall_ms": statistics.median(times),
+                      "tok_s": B * 1e3 / statistics.median(times), "device_busy_ms": busy,
+                      "decode_kernel_ms": kernel / DECODE_STEPS,
+                      "idle_share": 1 - busy * DECODE_STEPS / wall}
+        del cache
+        torch.cuda.empty_cache()
+    return out
 
 
 def main(argv: list[str]) -> int:
