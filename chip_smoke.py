@@ -12,9 +12,15 @@
    the card at the shapes the paths give it (GQA 32/8, head_dim 64), in
    bf16. The flash kernels are also held at the 32K prefill itself, at a
    question's shape over a half-live cache, at head_dim 128 and where their
-   tile logic can go wrong, the column-sum passes at 8K, a ragged 8,000 and
-   the 32K prefill, the decode kernels at the pipeline's decode shapes (a
-   half-live 33K buffer at B=1 and B=4; path B's cache at B=4); all are
+   tile logic can go wrong, and at chunked prefill's shapes
+   (``flash_attention_quant`` at int4: 8,192 queries over a 32K buffer after
+   0, 8K, 16K and 24K slots; ``flash_attention``: the last 8,192-query chunk
+   of the 32K flagship with no keep-mask and with every bit set, and of the
+   8B-class body at head_dim 128 over 131,072 slots), the column-sum passes
+   at 8K, a ragged 8,000 and the 32K prefill, the decode kernels at the
+   pipeline's decode shapes (a half-live 33K buffer at B=1 and B=4; the
+   8B-class body's int4 cache at head_dim 128, B=1 over 66K slots; path B's
+   cache at B=4); all are
    launched twice with equal bits. Each check must reject its planted
    faults (for the decode kernels: a skipped key run, one live step taken
    for dead, one key range or chunk dropped from the merge).
@@ -27,12 +33,25 @@
      LSE and the column-sum kernel scores from it;
    - path B, ``AdaKVPress(ObservedAttentionPress(0.5), compact=True)`` on a
      runner with ``headwise_kernel=True, decode_kernel=False``: both
-     column-sum passes in prefill, then decode over per-head prefixes.
-   The launch counts are set to 0 before each run and read after it, and
-   every kernel of a path must have been launched in it. A 2,048-token run
-   of each kernel path is also held against the dense path on the same
-   weights, stage by stage, at depth 1 and 16 (``reference_check``).
-4. Timings: prefill at 32K under each press, and decode at batch 4 x 32K
+     column-sum passes in prefill, then decode over per-head prefixes;
+   - chunked prefill, ``context_chunk=8192``: Knorm with int8 KV (every
+     chunk through ``flash_attention_quant``), SnapKV with int4 KV and int4
+     weights (the dense route: ``flash_attention`` on each layer's
+     dequantized buffer), compacting ``AdaKVPress(KnormPress(0.5))`` on the
+     head-wise runner.
+   Then ``Runner.prefill_chunked`` at 32K over int4 KV on its fused route
+   (``flash_attention_quant`` at 4 bits) held against its dense route
+   (``fused_int4_check``; also the peak memory of chunked and one-shot
+   prefill), and a Llama-3.1-8B-class body (32 layers, random int4 weights)
+   through the pipeline with int4 KV, Knorm and a 131,072-token context in
+   chunks of 8,192 (``long_context_run``). Every prefill's wall time and
+   peak memory are printed. The launch counts are set to 0 before each run
+   and read after it, and every kernel of a path must have been launched in
+   it. A 2,048-token run of each kernel path is also held against the dense
+   path on the same weights, stage by stage, at depth 1 and 16
+   (``reference_check``; chunked prefill in chunks of 512 too).
+4. Timings: prefill at 32K under each press and chunked (int8 KV; int4 KV
+   on both routes), and decode at batch 4 x 32K
    context, ratio 0.5 (Knorm: int4 KV + int8 weights, decode kernel on and
    off; path B: bf16 KV at batch 1 and 4, head-wise kernel against the dense
    route and the decode kernel over the same cache), on a synchronized host
@@ -68,6 +87,8 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
 CONTEXT_TOKENS = 32768
+CHUNK_TOKENS = 8192          # context_chunk of the chunked runs
+LONG_CONTEXT_TOKENS = 131072   # the 8B-class body's context
 DECODE_BATCH = 4
 # Phase 2: a kernel passes when its worst output row (one query head at one
 # position: D values) differs from the plain version's by at most ROW_LIMIT
@@ -87,6 +108,17 @@ ROW_LIMIT = 2e-2
 LSE_LIMIT = 1e-3
 SUM_LIMIT = 2e-3
 LN2 = 0.6931471805599453
+
+
+def llama31_8b_config(num_layers: int = 32):
+    """Llama-3.1-8B body (GQA 32/8, head_dim 128, 4096 hidden; vocabulary
+    trimmed to 32,768): the copy of ``tools/bench_8b.py:llama31_8b_config``
+    that the port runs."""
+    from kvpress_tpu_torch.config import ModelConfig
+
+    return ModelConfig(vocab_size=32768, hidden_size=4096, intermediate_size=14336,
+                       num_layers=num_layers, num_heads=32, num_kv_heads=8,
+                       head_dim=128, rope_theta=500000.0)
 
 
 def flagship_config(num_layers: int = 16):
@@ -333,7 +365,7 @@ def kernel_checks(kt, torch, report):
             r1 = min(hi, r0 + chunk)
             end = prior + r1
             o, l = plain(q[:, :, r0:r1], *(t[:, :, :end] for t in kv), prior + r0,
-                         mask[:, :, :end], return_lse=True, **kw)
+                         None if mask is None else mask[:, :, :end], return_lse=True, **kw)
             outs.append(o)
             lses.append(l)
         return torch.cat(outs, 2), torch.cat(lses, 2)
@@ -378,6 +410,7 @@ def kernel_checks(kt, torch, report):
         hi = min(T, lo + 512)
         faults = {"one skipped key step": with_rows(lo, hi, plain_rows(
             plain, q, kv, prior, fault_mask(mask, B, S, hole), lo, hi, chunk, **kw)[0])}
+        live = torch.ones((B, kv[0].shape[1], S), dtype=torch.bool, device=dev)
         if logic_faults:
             # Faults of the tile logic. A diagonal tile taken for an interior
             # one: the q-tile at row T/2 sees the whole key tile it sits in.
@@ -407,12 +440,23 @@ def kernel_checks(kt, torch, report):
                 kr, vr = kd.repeat_interleave(G_, 1), vd.repeat_interleave(G_, 1)
                 lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, kr, vr, is_causal=True, scale=kw["sm_scale"]), 3)
+            elif lib_mask == "lower_right":
+                # No keep-mask, a prior: the causal mask aligned to the last of
+                # the slots the rows can see (prior + T) is the same.
+                from torch.nn.attention.bias import causal_lower_right
+
+                end = prior + T
+                kr = kd[:, :, :end].repeat_interleave(G_, 1)
+                vr = vd[:, :, :end].repeat_interleave(G_, 1)
+                lower_right = causal_lower_right(T, end)
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, kr, vr, attn_mask=lower_right, scale=kw["sm_scale"]), 3)
             else:
                 kr, vr = kd.repeat_interleave(G_, 1), vd.repeat_interleave(G_, 1)
                 allowed = allowed_mask(mask, B, prior, T, S)
                 lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, kr, vr, attn_mask=allowed, scale=kw["sm_scale"]), 5)
-        flops = 4 * D_ * G_ * visible_pairs(mask, prior, T)
+        flops = 4 * D_ * G_ * visible_pairs(live if mask is None else mask, prior, T)
         record(name, variant, got, ref, faults, ms, plain_ms, nbytes(q, *kv, mask, got), flops, lib)
         report(f"    launched twice with equal bits; row logsumexp max_abs_err {lse_err:.3e} "
                f"(limit {LSE_LIMIT}); key ranges a q-tile: "
@@ -472,6 +516,45 @@ def kernel_checks(kt, torch, report):
                chunk=1024, iters=5)
     flash_case("flash_attention_quant", f"int8 B1 T{T} S{T} D128 masked", 8, q,
                quantized(kd, vd, 8), 0, mask, chunk=1024, iters=5)
+    del q, kd, vd
+    torch.cuda.empty_cache()
+
+    # flash_attention_quant at int4 as chunked prefill launches it on its
+    # fused route: 8,192 new queries over a 32K buffer of which ``prior``
+    # slots came before, no keep-mask.
+    T = CHUNK_TOKENS
+    q = rnd(B, Hq, T, D)
+    kd, vd = rnd(B, Hkv, CONTEXT_TOKENS, D), rnd(B, Hkv, CONTEXT_TOKENS, D)
+    kv4 = quantized(kd, vd, 4)
+    del kd, vd
+    for prior in range(0, CONTEXT_TOKENS, CHUNK_TOKENS):
+        flash_case("flash_attention_quant", f"int4 B1 T{T} prior{prior} S{CONTEXT_TOKENS} chunk",
+                   4, q, kv4, prior, None, chunk=1024, iters=5, lib_mask="lower_right")
+    del q, kv4
+
+    # flash_attention as chunked prefill's dense route launches it: the last
+    # chunk of 8,192 queries over the 24,576 slots before it, with no
+    # keep-mask (int4 KV, dequantized) and with every keep-bit set (the
+    # head-wise cache of AdaKV).
+    prior = CONTEXT_TOKENS - T
+    q = rnd(B, Hq, T, D)
+    kd, vd = rnd(B, Hkv, CONTEXT_TOKENS, D), rnd(B, Hkv, CONTEXT_TOKENS, D)
+    for label, mask in (("no mask", None),
+                        ("all set", torch.ones((B, Hkv, CONTEXT_TOKENS), dtype=torch.bool,
+                                               device=dev))):
+        flash_case("flash_attention", f"bf16 B1 T{T} prior{prior} S{CONTEXT_TOKENS} chunk {label}",
+                   None, q, [kd, vd], prior, mask, chunk=1024, iters=5, lib_mask="lower_right")
+    del q, kd, vd, mask
+
+    # The 8B-class body's last chunk (head_dim 128): 8,192 queries over the
+    # 122,880 slots before them, the dense route's 131,072 dequantized slots,
+    # no keep-mask.
+    D2 = 128
+    prior = LONG_CONTEXT_TOKENS - T
+    q = rnd(B, Hq, T, D2)
+    kd, vd = rnd(B, Hkv, LONG_CONTEXT_TOKENS, D2), rnd(B, Hkv, LONG_CONTEXT_TOKENS, D2)
+    flash_case("flash_attention", f"bf16 B1 T{T} prior{prior} S{LONG_CONTEXT_TOKENS} D128 chunk",
+               None, q, [kd, vd], prior, None, chunk=256, iters=3, lib_mask="lower_right")
     del q, kd, vd
     torch.cuda.empty_cache()
 
@@ -562,6 +645,14 @@ def kernel_checks(kt, torch, report):
         for bits in (None, 4):
             name = "bf16" if bits is None else f"int{bits}"
             decode_case(f"{name} B{B} 33K half live", q, kd, vd, length, mask, bits, iters=20)
+    # The 8B-class body's decode (head_dim 128): B=1 over the int4 cache that
+    # Knorm leaves of 131,072 tokens (65,536 kept slots, compacted), a
+    # 152-token question and the new token; room for 32 more.
+    length = LONG_CONTEXT_TOKENS // 2 + 152 + 1
+    S = length + 32
+    q = rnd(1, Hq, 1, 128)
+    kd, vd = rnd(1, Hkv, S, 128), rnd(1, Hkv, S, 128)
+    decode_case("int4 B1 66K D128", q, kd, vd, length, None, 4, iters=20)
     del q, kd, vd, mask
     torch.cuda.empty_cache()
 
@@ -744,24 +835,73 @@ def counters():
 def reset_counts():
     for fn in counters().values():
         fn.launches = 0
+    counters()["flash_attention_quant"].launches_by_bits.update({8: 0, 4: 0})
 
 
 def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
+QUESTIONS = ["summarise " + " ".join(f"w{i}" for i in range(0, 300, 2)) + " ?",   # 152 words
+             "what follows w7 ?"]
+
+
+def timed_runner(kt, torch, runner, log: list):
+    """``runner`` with each prefill (one-shot or chunked) timed on a
+    synchronized host clock and its peak device memory read: appends
+    (seconds, peak bytes, bytes held before) to ``log``."""
+    class Timed(kt.Runner):
+        def _measure(self, call):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - start, torch.cuda.max_memory_allocated(), held))
+            return out
+
+        def prefill(self, *args, **kw):
+            return self._measure(lambda: super(Timed, self).prefill(*args, **kw))
+
+        def prefill_chunked(self, *args, **kw):
+            return self._measure(lambda: super(Timed, self).prefill_chunked(*args, **kw))
+
+    return Timed(**{f.name: getattr(runner, f.name) for f in dataclasses.fields(runner)})
+
+
+def prefill_reading(log) -> str:
+    seconds, peak, held = log[-1]
+    return (f"prefill {seconds * 1e3:.1f} ms, peak memory {peak / 2**30:.3f} GiB "
+            f"({(peak - held) / 2**30:.3f} GiB over the {held / 2**30:.3f} GiB held before)")
+
+
+def check_run(label, counts, needed, unwanted):
+    """The kernels of a run that had to be launched were, and those that must
+    not be were not."""
+    for name in needed:
+        if counts[name] == 0:
+            raise AssertionError(f"{label}: {name} was never launched")
+    for name in unwanted:
+        if counts[name] != 0:
+            raise AssertionError(f"{label}: {name} was launched {counts[name]} times")
+
+
 def main_path(kt, torch, tokenizer_cls, report):
     """Every path once through the pipeline at 32K and full depth, the launch
-    counts set to 0 before each run and read after it."""
+    counts set to 0 before each run and read after it: the one-shot prefill
+    (Knorm with bf16, int8 and int4 KV; paths A and B) and chunked prefill
+    (``context_chunk=8192``: Knorm with int8 KV, SnapKV with int4 KV and int4
+    weights, AdaKV(Knorm) compact on the head-wise runner)."""
     cfg = flagship_config(16)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     params = kt.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
     params8 = kt.quantize_params_int8(params)
+    params4 = kt.quantize_params_int4(params)
     tok = tokenizer_cls(vocab_size=cfg.vocab_size)
     context = " ".join(f"w{i}" for i in range(CONTEXT_TOKENS))
-    long_q = "summarise " + " ".join(f"w{i}" for i in range(0, 300, 2))   # 151 words
-    questions = [long_q + " ?", "what follows w7 ?"]
+    questions = QUESTIONS
     lengths = _LengthLog()
     logging.getLogger("kvpress_tpu_torch.pipeline").addHandler(lengths)
     logging.getLogger("kvpress_tpu_torch.pipeline").setLevel(logging.DEBUG)
@@ -793,10 +933,25 @@ def main_path(kt, torch, tokenizer_cls, report):
             headwise, params, kt.AdaKVPress(observed, compact=True), {},
             ("flash_attention", "observed_lse", "observed_colsum", "decode_headwise"),
             ("decode_attention",), (half, CONTEXT_TOKENS - 1)),
+        # Chunked prefill. int8 chunks always take flash_attention_quant.
+        "chunked, Knorm, int8 KV": (
+            runner, params, knorm, dict(quantized=True, kv_bits=8, context_chunk=CHUNK_TOKENS),
+            ("flash_attention_quant", "decode_attention"), (), (half, half)),
+        # int4 chunks take the dense route here: the layer's dequantized
+        # transient (2 x 2 B x 8 heads x 32,768 x 64 = 33.5 MB) is under 512 MiB.
+        "chunked, SnapKV, int4 KV + int4 weights": (
+            runner, params4, kt.SnapKVPress(0.5),
+            dict(quantized=True, kv_bits=4, context_chunk=CHUNK_TOKENS),
+            ("flash_attention", "decode_attention"), ("flash_attention_quant",), (half, half)),
+        "chunked, AdaKV(Knorm), compact": (
+            headwise, params, kt.AdaKVPress(knorm, compact=True),
+            dict(context_chunk=CHUNK_TOKENS), ("flash_attention", "decode_headwise"),
+            ("decode_attention",), (half, CONTEXT_TOKENS - 1)),
     }
     totals = {name: 0 for name in counters()}
     for label, (r, p, press, kw, needed, unwanted, (lo, hi)) in runs.items():
-        pipe = kt.KVPressPipeline(r, p, tok)
+        prefills = []
+        pipe = kt.KVPressPipeline(timed_runner(kt, torch, r, prefills), p, tok)
         reset_counts()
         t0 = time.perf_counter()
         out = pipe(context, questions=questions, press=press, max_new_tokens=32, **kw)
@@ -806,22 +961,160 @@ def main_path(kt, torch, tokenizer_cls, report):
         for name, n in counts.items():
             totals[name] += n
         answers = out["answers"]
-        report(f"  {label}: {seconds:.2f} s, compressed length {lengths.compressed[-1]}, "
-               f"launches {counts}, answer tokens {[len(a.split()) for a in answers]}")
+        report(f"  {label}: {seconds:.2f} s in all, {prefill_reading(prefills)}, compressed "
+               f"length {lengths.compressed[-1]}, launches {counts}, answer tokens "
+               f"{[len(a.split()) for a in answers]}")
         if not lo <= lengths.compressed[-1] <= hi:
             raise AssertionError(f"{label}: compressed length {lengths.compressed[-1]}")
         if len(answers) != 2 or not all(isinstance(a, str) and a for a in answers):
             raise AssertionError(f"{label}: bad answers {answers!r}")
-        for name in needed:
-            if counts[name] == 0:
-                raise AssertionError(f"{label}: {name} was never launched")
-        for name in unwanted:
-            if counts[name] != 0:
-                raise AssertionError(f"{label}: {name} was launched {counts[name]} times")
+        check_run(label, counts, needed, unwanted)
         if label.startswith("path") and counts["observed_colsum"] != cfg.num_layers:
             raise AssertionError(f"{label}: {counts['observed_colsum']} column-sum launches "
                                  f"for {cfg.num_layers} layers")
     return params, params8, totals
+
+
+# Phase 3, chunked prefill's fused int4 route against its dense route at the
+# 32K flagship: the two attend the same int4 values (the dense route rounds
+# them to bf16 first), so they differ only by rounding. The limit is
+# max |fused - dense| / max |dense| of the last position's logits after 16
+# layers: the routes read 2.5e-2, the planted faults (every key step of
+# slots 256-511 skipped) 0.20 (PERF.md).
+FUSED_LIMIT = 5e-2
+
+
+def fused_int4_check(kt, torch, params, report):
+    """``Runner.prefill_chunked(..., quantized=True, kv_bits=4, fused_kv=True)``
+    at 32K, Knorm(0.5), chunks of 8,192: flash_attention_quant must launch at
+    4 bits (and flash_attention not at all). Held against ``fused_kv=False``
+    on the same weights: equal compressed lengths, layer 0's kept payload equal
+    bit for bit (its keys do not depend on attention), the last logits within
+    FUSED_LIMIT, which the planted faults exceed. Then the peak memory of the
+    chunked prefill against the one-shot ``prefill`` (int4 KV). Returns the
+    fused run's launch counts."""
+    cfg = flagship_config(16)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ids = torch.randint(3, cfg.vocab_size, (1, CONTEXT_TOKENS), generator=gen, device=dev)
+    runner = kt.Runner.create(cfg, device=dev)
+    kw = dict(press=kt.KnormPress(0.5), chunk_size=CHUNK_TOKENS, compute_logits=True,
+              quantized=True, kv_bits=4)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused, fused_cache, _ = runner.prefill_chunked(params, ids, fused_kv=True, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    by_bits = dict(counters()["flash_attention_quant"].launches_by_bits)
+    report(f"  chunked, Knorm, int4 KV, fused_kv=True: {seconds:.2f} s, lengths "
+           f"{sorted(set(fused_cache.length.tolist()))}, launches {counts}, flash_attention_quant "
+           f"by bits {by_bits}")
+    check_run("fused int4 route", counts, ("flash_attention_quant",), ("flash_attention",))
+    if by_bits != {8: 0, 4: counts["flash_attention_quant"]}:
+        raise AssertionError(f"fused int4 route: flash_attention_quant launches by bits {by_bits}")
+    dense, dense_cache, _ = runner.prefill_chunked(params, ids, fused_kv=False, **kw)
+    with planted_faults(torch):
+        fault, _, _ = runner.prefill_chunked(params, ids, fused_kv=True, **kw)
+
+    def rel(a):
+        if not torch.isfinite(a).all():
+            raise AssertionError("non-finite logits on the fused route")
+        return ((a - dense).abs().max() / dense.abs().max()).item()
+
+    n = int(dense_cache.length[0])
+    layer0_equal = all(torch.equal(getattr(fused_cache, f)[0, :, :, :n],
+                                   getattr(dense_cache, f)[0, :, :, :n])
+                       for f in ("keys", "values", "key_scales", "value_scales"))
+    report(f"  fused against dense route: logits {rel(fused):.3e} (limit {FUSED_LIMIT}; planted "
+           f"faults {rel(fault):.3e}); lengths equal "
+           f"{torch.equal(fused_cache.length, dense_cache.length)}; layer 0's kept payload "
+           f"equal {layer0_equal}")
+    if not torch.equal(fused_cache.length, dense_cache.length):
+        raise AssertionError(f"fused route lengths {fused_cache.length.tolist()} against "
+                             f"{dense_cache.length.tolist()}")
+    if not layer0_equal:
+        raise AssertionError("fused route: layer 0 keeps another payload")
+    if not rel(fused) <= FUSED_LIMIT < rel(fault):
+        raise AssertionError(f"fused route: logits {rel(fused):.3e}, planted faults "
+                             f"{rel(fault):.3e}, limit {FUSED_LIMIT}")
+    del fused_cache, dense_cache
+    torch.cuda.empty_cache()
+
+    # Bounded activations: peak memory of the one-shot and the chunked prefill.
+    log = []
+    timed = timed_runner(kt, torch, runner, log)
+    for label, call in (
+            ("one-shot prefill", lambda: timed.prefill(params, ids, press=kw["press"],
+                                                       compute_logits=True, quantized=True,
+                                                       kv_bits=4)),
+            ("chunked prefill", lambda: timed.prefill_chunked(params, ids, **kw))):
+        call()
+        report(f"  32K, Knorm, int4 KV, {label}: {prefill_reading(log)}")
+        torch.cuda.empty_cache()
+    return counts
+
+
+def long_context_run(kt, torch, tokenizer_cls, report):
+    """The Llama-3.1-8B-class body at full width and depth (seeded random
+    weights, int4) through ``KVPressPipeline`` with int4 KV, Knorm(0.5) and a
+    131,072-token context in chunks of 8,192, two questions with 32 new
+    tokens. At exactly 131,072 tokens the dense transient is 2^29 bytes, not
+    over it, so the int4 chunks take the dense route (flash_attention).
+    Prints the prefill's wall time and peak memory. Returns the launch counts."""
+    cfg = llama31_8b_config()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    t0 = time.perf_counter()
+    params = kt.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    params4 = kt.quantize_params_int4(params)
+    del params
+    torch.cuda.empty_cache()
+    report(f"  8B-class body, int4 weights: made in {time.perf_counter() - t0:.1f} s, "
+           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prefills = []
+    runner = kt.Runner.create(cfg, device=dev)
+    pipe = kt.KVPressPipeline(timed_runner(kt, torch, runner, prefills), params4,
+                              tokenizer_cls(vocab_size=cfg.vocab_size))
+    context = " ".join(f"w{i}" for i in range(LONG_CONTEXT_TOKENS))
+    lengths = _LengthLog()
+    logging.getLogger("kvpress_tpu_torch.pipeline").addHandler(lengths)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pipe(context, questions=QUESTIONS, press=kt.KnormPress(0.5), max_new_tokens=32,
+               quantized=True, kv_bits=4, context_chunk=CHUNK_TOKENS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    logging.getLogger("kvpress_tpu_torch.pipeline").removeHandler(lengths)
+    counts = read_counts()
+    answers = out["answers"]
+    report(f"  8B-class, 131,072 tokens, int4 KV + int4 weights, Knorm, context_chunk "
+           f"{CHUNK_TOKENS}: {seconds:.2f} s in all, {prefill_reading(prefills)} "
+           f"({LONG_CONTEXT_TOKENS / prefills[-1][0]:.0f} tok/s); compressed length "
+           f"{lengths.compressed[-1]}, launches {counts}, answer tokens "
+           f"{[len(a.split()) for a in answers]}")
+    if lengths.compressed[-1] != LONG_CONTEXT_TOKENS // 2:
+        raise AssertionError(f"8B-class run: compressed length {lengths.compressed[-1]}")
+    if len(answers) != 2 or not all(isinstance(a, str) and a for a in answers):
+        raise AssertionError(f"8B-class run: bad answers {answers!r}")
+    check_run("8B-class run", counts, ("flash_attention", "decode_attention"),
+              ("flash_attention_quant",))
+    del pipe, out
+    torch.cuda.empty_cache()
+    # Where the prefill's time goes, on the body cut to 4 of its 32 layers
+    # (every layer does the same work).
+    depth = 4
+    cut = kt.Runner.create(llama31_8b_config(depth), device=dev)
+    p_cut = first_layers(params4, depth)
+    ids = torch.randint(3, cfg.vocab_size, (1, LONG_CONTEXT_TOKENS), generator=gen, device=dev)
+    breakdown(f"prefill 131,072 tokens, 8B-class cut to {depth} layers, chunked, int4",
+              lambda: cut.prefill_chunked(p_cut, ids, press=kt.KnormPress(0.5),
+                                          chunk_size=CHUNK_TOKENS, compute_logits=True,
+                                          quantized=True, kv_bits=4), 1, report, top=8)
+    del params4, p_cut
+    torch.cuda.empty_cache()
+    return counts
 
 
 def clone_cache(cache):
@@ -897,7 +1190,7 @@ def reference_paths(kt, torch):
             return chunked_observed_colsums(ctx.queries, keys, ctx.scale,
                                             softcap=ctx.cfg.logit_softcap, chunk=128)
 
-    all_kv = ((False, 8), (True, 8), (True, 4))
+    all_kv = ((False, 8, None), (True, 8, None), (True, 4, None))
     return {
         "Knorm": ({}, lambda log: recording_scorer(torch, kt.KnormPress, log),
                   lambda log: recording_scorer(torch, kt.KnormPress, log), all_kv),
@@ -911,7 +1204,19 @@ def reference_paths(kt, torch):
     }
 
 
+def chunked_reference_paths(kt, torch):
+    """The chunked-prefill counterpart of ``reference_paths``: Knorm with bf16
+    and int8 KV, and int4 KV on both attention routes (fused_kv False: the
+    layer dequantized for flash_attention; True: flash_attention_quant)."""
+    def knorm(log):
+        return recording_scorer(torch, kt.KnormPress, log)
+
+    return {"Knorm, chunked": ({}, knorm, knorm, ((False, 8, None), (True, 8, None),
+                                                  (True, 4, False), (True, 4, True)))}
+
+
 REF_CONTEXT, REF_QUESTION, REF_STEPS = 2048, 150, 4
+REF_CHUNK = 512
 # Phase 3 limits on max |kernel - dense| / max |dense| per model depth. The
 # logits come out of a bf16 product, so one ulp of the largest is 2^-8 to
 # 2^-7 of it; depth 1 reads about one ulp (PERF.md).
@@ -925,7 +1230,7 @@ F32_RATIO = 2.0
 # another order, so two slots whose scores are float-equal may swap: the
 # readings are 0 of the 8 x 2,048 slots, the planted faults move 270 and 432
 # (PERF.md), and the limit allows one swapped pair.
-LAYER0_SLOTS = {"Knorm": 0, "path A": 2, "path B": 2}
+LAYER0_SLOTS = {"Knorm": 0, "path A": 2, "path B": 2, "Knorm, chunked": 0}
 
 
 @contextlib.contextmanager
@@ -950,7 +1255,11 @@ def planted_faults(torch):
 
         def wrapper(*args, **kwargs):
             bound = sig.bind(*args, **kwargs)
-            mask = bound.arguments[mask_arg].clone()
+            mask = bound.arguments.get(mask_arg)
+            if mask is None:        # every slot live (the chunk forward passes none)
+                k = bound.arguments["k"]
+                mask = torch.ones(k.shape[:3], dtype=torch.bool, device=k.device)
+            mask = mask.clone()
             mask[..., 256:512] = False
             bound.arguments[mask_arg] = mask
             return fn(*bound.args, **bound.kwargs)
@@ -976,15 +1285,17 @@ def planted_faults(torch):
             setattr(module, name, fn)
 
 
-def reference_check(kt, torch, params, report):
+def reference_check(kt, torch, params, report, chunk=None):
     """Each kernel path (attn_impl "flash"; the decode kernel, or for path B
     the head-wise kernel) against the dense path (attn_impl "xla", the routes
     the runner takes on the CPU, scoring from materialized probabilities or
     the plain chunked sweep) on the same full-width weights, cut to their
     first layer and whole, with a 2,048-token context at ratio 0.5: Knorm for
-    bf16, int8 and int4 KV, paths A and B for bf16 KV. Each stage starts both
-    paths from one state, so no difference carries from one stage into the
-    next:
+    bf16, int8 and int4 KV, paths A and B for bf16 KV. With ``chunk``, the
+    prefill is ``prefill_chunked`` in chunks of that many tokens instead:
+    Knorm for bf16 and int8 KV and for int4 KV on both attention routes
+    (``chunked_reference_paths``). Each stage starts both paths from one
+    state, so no difference carries from one stage into the next:
       prefill:  the last position's logits, and every layer's kept slots
                 (for path B per head, with the heads' kept counts);
       question: all logits of a 150-token forward over the kernel path's
@@ -1000,7 +1311,14 @@ def reference_check(kt, torch, params, report):
     ids = torch.randperm(vocab, generator=gen, device=dev)[:REF_CONTEXT][None]
     question = torch.randperm(vocab, generator=gen, device=dev)[:REF_QUESTION][None]
     failures = []
-    paths = reference_paths(kt, torch)
+    paths = reference_paths(kt, torch) if chunk is None else chunked_reference_paths(kt, torch)
+
+    def prefill(r, p, press, quantized=False, bits=8, fused=None):
+        kw = dict(max_size=REF_CONTEXT, compute_logits=True, quantized=quantized,
+                  kv_bits=bits)
+        if chunk is None:
+            return r.prefill(p, ids, press=press, **kw)
+        return r.prefill_chunked(p, ids, press=press, chunk_size=chunk, fused_kv=fused, **kw)
 
     def rel(a, b):
         if not torch.isfinite(a).all():
@@ -1014,21 +1332,25 @@ def reference_check(kt, torch, params, report):
         """Largest difference of a head's kept count, per layer."""
         return [int((a.sum(-1) - b.sum(-1)).abs().max()) for a, b in zip(a_log, b_log)]
 
-    # bf16 rounding alone: dense bf16 against dense float32, full depth.
+    # bf16 rounding alone: dense bf16 against dense float32, full depth, with
+    # bf16 KV. Chunked, for each KV variant: an int4 chunk attends a bf16
+    # transient of its layer on one route and payload x scale on the other,
+    # and the rounding of the model's K and V moves their int4 codes.
     p32 = copy.deepcopy(params).float()
     dense = kt.Runner.create(flagship_config(), attn_impl="xla", decode_kernel=False,
                              device=dev)
-    noise_kept = {}
-    for path, (_, _, dense_press, _) in paths.items():
-        kept_32, kept_16 = [], []
-        pre_32, _, _ = dense.prefill(p32, ids, press=dense_press(kept_32),
-                                     max_size=REF_CONTEXT, compute_logits=True)
-        pre_16, _, _ = dense.prefill(params, ids, press=dense_press(kept_16),
-                                     max_size=REF_CONTEXT, compute_logits=True)
-        noise_logits = rel(pre_16, pre_32)         # the press does not move them
-        noise_kept[path] = differing(kept_16, kept_32)
-        report(f"  {path}, depth 16, bf16 KV prefill, dense bf16 against dense float32: "
-               f"logits {noise_logits:.3e}; kept slots differing per layer {noise_kept[path]}")
+    noise = {}
+    for path, (_, _, dense_press, variants) in paths.items():
+        for variant in (variants if chunk else [None]):
+            kw = {} if variant is None else dict(zip(("quantized", "bits", "fused"), variant))
+            kept_32, kept_16 = [], []
+            pre_32, _, _ = prefill(dense, p32, dense_press(kept_32), **kw)
+            pre_16, _, _ = prefill(dense, params, dense_press(kept_16), **kw)
+            # the press does not move the logits
+            noise[path, variant] = (rel(pre_16, pre_32), differing(kept_16, kept_32))
+            report(f"  {path}, depth 16, {variant or 'bf16 KV'} prefill, dense bf16 against "
+                   f"dense float32: logits {noise[path, variant][0]:.3e}; kept slots differing "
+                   f"per layer {noise[path, variant][1]}")
     del p32, dense
     torch.cuda.empty_cache()
 
@@ -1048,13 +1370,13 @@ def reference_check(kt, torch, params, report):
 
         for path, (options, kernel_press, dense_press, variants) in paths.items():
             kernel = kt.Runner.create(cfg, device=dev, **options)
-            for quantized, bits in variants:
-                label = f"{path}, depth {depth}, {f'int{bits}' if quantized else 'bf16'} KV"
-                kw = dict(max_size=REF_CONTEXT, compute_logits=True, quantized=quantized,
-                          kv_bits=bits)
+            for quantized, bits, fused in variants:
+                label = (f"{path}, depth {depth}, {f'int{bits}' if quantized else 'bf16'} KV"
+                         + ("" if fused is None else f", fused_kv={fused}"))
+                kw = dict(quantized=quantized, bits=bits, fused=fused)
                 kept = {"kernel": [], "dense": [], "fault": []}
-                pre_k, cache, _ = kernel.prefill(p, ids, press=kernel_press(kept["kernel"]), **kw)
-                pre_d, _, _ = dense.prefill(p, ids, press=dense_press(kept["dense"]), **kw)
+                pre_k, cache, _ = prefill(kernel, p, kernel_press(kept["kernel"]), **kw)
+                pre_d, _, _ = prefill(dense, p, dense_press(kept["dense"]), **kw)
                 shared = kt.resize(cache, int(cache.length.max()) + REF_QUESTION + REF_STEPS)
                 ref_cache = (dequantized_cache(kt, shared, torch.bfloat16)
                              if quantized and bits == 4 else shared)
@@ -1063,7 +1385,7 @@ def reference_check(kt, torch, params, report):
                 d_k = steps(kernel, clone_cache(after_q))
                 d_d = steps(dense, clone_cache(after_q))
                 with planted_faults(torch):
-                    pre_f, _, _ = kernel.prefill(p, ids, press=kernel_press(kept["fault"]), **kw)
+                    pre_f, _, _ = prefill(kernel, p, kernel_press(kept["fault"]), **kw)
                     q_f, _, _ = kernel.forward(p, question, clone_cache(shared))
                     d_f = steps(kernel, clone_cache(after_q))
                 read = {"prefill": rel(pre_k, pre_d), "question": rel(q_k, q_d),
@@ -1088,14 +1410,16 @@ def reference_check(kt, torch, params, report):
                              for s, x in fault.items() if not x > limit]
                 if diff[0] > LAYER0_SLOTS[path]:
                     failures.append(f"{label}: layer 0 keeps different slots ({diff[0]})")
-                if not diff_f[0] > LAYER0_SLOTS[path] and path != "Knorm":
+                if not diff_f[0] > LAYER0_SLOTS[path] and not path.startswith("Knorm"):
                     failures.append(f"{label}: layer 0's limit passes the planted faults "
                                     f"({diff_f[0]})")
                 if depth == 16:
+                    noise_logits, noise_kept = noise[path, (quantized, bits, fused)
+                                                     if chunk else None]
                     ratios = {"logits": read["prefill"] / noise_logits,
-                              "kept slots": sum(diff) / max(sum(noise_kept[path]), 1)}
+                              "kept slots": sum(diff) / max(sum(noise_kept), 1)}
                     ratios_f = {"logits": fault["prefill"] / noise_logits,
-                                "kept slots": sum(diff_f) / max(sum(noise_kept[path]), 1)}
+                                "kept slots": sum(diff_f) / max(sum(noise_kept), 1)}
                     report("    prefill, kernel against dense over dense bf16 against float32: "
                            + ", ".join(f"{s} {x:.3f}" for s, x in ratios.items())
                            + f" (limit {F32_RATIO}; planted faults: "
@@ -1134,6 +1458,27 @@ def timings(kt, torch, params, params8, report):
            f"({CONTEXT_TOKENS / prefill_ms * 1e3:.0f} tok/s) over {[round(t, 3) for t in times]} s")
     breakdown("prefill 32K", lambda: runner.prefill(params, ids, press=press,
                                                     compute_logits=True), 1, report)
+    params4 = kt.quantize_params_int4(params)
+    for label, p, kv in (("int8 KV", params, dict(quantized=True, kv_bits=8)),
+                         ("int4 KV + int4 weights, dense route", params4,
+                          dict(quantized=True, kv_bits=4, fused_kv=False)),
+                         ("int4 KV + int4 weights, fused route", params4,
+                          dict(quantized=True, kv_bits=4, fused_kv=True))):
+        def call():
+            return runner.prefill_chunked(p, ids, press=press, chunk_size=CHUNK_TOKENS,
+                                          compute_logits=True, **kv)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = statistics.median(times) * 1e3
+        report(f"  prefill 32K chunked by {CHUNK_TOKENS} (Knorm 0.5, {label}, B=1): median "
+               f"{ms:.1f} ms over {[round(t, 3) for t in times]} s")
+        breakdown(f"prefill 32K chunked, {label}", call, 1, report, top=8)
+    del params4
 
     B, steps = DECODE_BATCH, 32
     ids = torch.randint(3, cfg.vocab_size, (B, CONTEXT_TOKENS), generator=gen, device=dev)
@@ -1357,7 +1702,15 @@ def main() -> int:
     report("phase 3: KVPressPipeline at the flagship shape, 32K: KnormPress(0.5), path A "
            "(ObservedAttentionPress), path B (AdaKVPress(ObservedAttentionPress), compact)")
     params, params8, launches = main_path(kt, torch, ToyTokenizer, report)
+    report("phase 3: chunked prefill's int4 routes at the flagship shape, 32K")
+    for name, n in fused_int4_check(kt, torch, params, report).items():
+        launches[name] += n
+    report("phase 3: the 8B-class body at 131,072 tokens, chunked")
+    for name, n in long_context_run(kt, torch, ToyTokenizer, report).items():
+        launches[name] += n
     reference_check(kt, torch, params, report)
+    report(f"phase 3: chunked prefill (chunks of {REF_CHUNK}) against the dense path")
+    reference_check(kt, torch, params, report, chunk=REF_CHUNK)
 
     report(f"phase 4: timings on {card}")
     timings(kt, torch, params, params8, report)

@@ -12,7 +12,7 @@ The package imports nothing of JAX or of ``kvpress_tpu``.
 from .cache import KVCache, init_cache, quantize_kv, dequantize_kv, resize, shrink, valid_mask
 from .config import ModelConfig, tiny_config
 from .models.convert import convert_state_dict, params_from_jax
-from .models.llama import Runner, init_params, quantize_params_int8
+from .models.llama import Runner, init_params, quantize_params_int4, quantize_params_int8
 from .pipeline import KVPressPipeline
 from .presses import (AdaKVPress, BasePress, KnormPress, LayerCtx, ObservedAttentionPress,
                       PyramidKVPress, RandomPress, ScorerPress, SnapKVPress,
@@ -23,7 +23,7 @@ __version__ = "0.1.0"
 __all__ = [
     "KVCache", "init_cache", "quantize_kv", "dequantize_kv", "resize", "shrink",
     "valid_mask", "ModelConfig", "tiny_config", "convert_state_dict",
-    "params_from_jax", "Runner", "init_params", "quantize_params_int8",
+    "params_from_jax", "Runner", "init_params", "quantize_params_int4", "quantize_params_int8",
     "KVPressPipeline", "AdaKVPress", "BasePress", "KnormPress", "LayerCtx",
     "ObservedAttentionPress", "PyramidKVPress", "RandomPress", "ScorerPress", "SnapKVPress",
     "StreamingLLMPress", "TOVAPress", "topk_keep",

@@ -231,22 +231,31 @@ def chunked_observed_colsums(
     scale: float,
     softcap: Optional[float] = None,
     chunk: int = 64,
+    valid_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal column sums of the full softmax attention matrix, (B, Hq, S),
     without materializing it: ``chunk`` query rows at a time are softmaxed
     over the whole key axis and column-summed into an accumulator.
-    O(Hq * chunk * S) memory, the same S^2 * D operations as attention."""
+    O(Hq * chunk * S) memory, the same S^2 * D operations as attention.
+    With ``valid_len``, only the first ``valid_len`` slots are keys and
+    observers."""
     B, Hq, S, D = queries.shape
     Hkv = keys.shape[1]
     qg = queries.reshape(B, Hkv, Hq // Hkv, S, D).float()
     kf = keys.float()
     acc = torch.zeros((B, Hkv, Hq // Hkv, S), dtype=torch.float32, device=keys.device)
+    slot = torch.arange(S, device=keys.device)
     for c0 in range(0, S, chunk):
         s = torch.einsum("bhgtd,bhsd->bhgts", qg[:, :, :, c0:c0 + chunk], kf) * scale
         if softcap is not None:
             s = torch.tanh(s / softcap) * softcap
         s = s + attention_bias(c0, s.shape[3], S, device=keys.device)
-        acc += torch.softmax(s, dim=-1).sum(dim=-2)
+        if valid_len is None:
+            acc += torch.softmax(s, dim=-1).sum(dim=-2)
+            continue
+        p = torch.softmax(s.masked_fill(slot >= valid_len, NEG_INF), dim=-1)
+        rows = slot[c0:c0 + chunk] < valid_len
+        acc += (p * rows[:, None]).sum(dim=-2)
     return acc.reshape(B, Hq, S)
 
 

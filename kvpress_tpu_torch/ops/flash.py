@@ -327,10 +327,12 @@ def flash_attention_quant(
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_quant")
     flash_attention_quant.launches += 1
+    flash_attention_quant.launches_by_bits[bits] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_quant.launches = 0
+flash_attention_quant.launches_by_bits = {8: 0, 4: 0}
 
 
 def _check_scale(sm_scale):

@@ -2,11 +2,13 @@
 questions against the compressed cache (port of ``kvpress_tpu/pipeline.py``,
 single-pass path).
 
-Chat-template separator split, one compressing prefill, ``resize`` of the
-cache, then per question a question forward and greedy (or nucleus) decode
-with positions continuing from the uncompressed context length, and a
-rollback between questions: restoring the pre-question ``length``/``offset``
-(the runner leaves the caller's copies untouched).
+Chat-template separator split, one compressing prefill (whole, or in chunks
+of ``context_chunk`` tokens), ``resize`` of the cache, then per question a
+question forward and greedy (or nucleus) decode with positions continuing
+from the uncompressed context length, and a rollback between questions:
+restoring the pre-question ``length``/``offset`` (the runner leaves the
+caller's copies untouched). Nucleus sampling draws from one generator a
+question, seeded before the first question.
 """
 
 from __future__ import annotations
@@ -184,23 +186,39 @@ class KVPressPipeline:
     ) -> dict:
         if question is not None and questions is not None:
             raise ValueError("Either question or questions should be provided, not both.")
-        if context_bucket is not None or context_chunk is not None:
-            raise NotImplementedError("bucketed and chunked prefill come with ROADMAP "
-                                      "Queue A items 8 and 10")
+        if context_chunk is not None and context_bucket is not None:
+            raise ValueError("context_chunk does not compose with context_bucket")
+        if context_bucket is not None:
+            raise NotImplementedError("bucketed prefill comes with ROADMAP Queue A item 10")
         if pixel_values is not None:
             raise NotImplementedError("multimodal input comes with ROADMAP Queue A item 15")
         single = questions is None
         questions = questions or ([question] if question else [""])
-        if do_sample and generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
 
         context_ids, question_ids = self.preprocess(
             context, questions, answer_prefix, max_context_length, enable_thinking)
+        # One generator a question, seeded from the call's generator (or seed)
+        # before the first question: a question's draws do not depend on the
+        # answers before it.
+        generators = [None] * len(question_ids)
+        if do_sample:
+            if generator is None:
+                generator = torch.Generator().manual_seed(seed)
+            generators = [
+                torch.Generator(device=self.device).manual_seed(int(torch.randint(
+                    0, 2 ** 62, (), generator=generator, device=generator.device)))
+                for _ in question_ids]
         context_length = len(context_ids)
         ids = torch.tensor([context_ids], dtype=torch.long, device=self.device)
-        prefill_logits, cache, _ = self.runner.prefill(
-            self.params, ids, press=press, compute_logits=True, dtype=self.params.dtype,
-            quantized=quantized, kv_bits=kv_bits)
+        common = dict(press=press, compute_logits=True, dtype=self.params.dtype,
+                      quantized=quantized, kv_bits=kv_bits)
+        if context_chunk is not None:
+            # Bounded activations: the context goes through in chunks of
+            # context_chunk tokens, compressed once after the last one.
+            prefill_logits, cache, _ = self.runner.prefill_chunked(
+                self.params, ids, chunk_size=context_chunk, **common)
+        else:
+            prefill_logits, cache, _ = self.runner.prefill(self.params, ids, **common)
         compressed = int(cache.length.max())
         logger.debug("Context Length: %d", context_length)
         logger.debug("Compressed Context Length: %d", compressed)
@@ -215,13 +233,13 @@ class KVPressPipeline:
 
         base_length, base_offset = cache.length, cache.offset
         answers = []
-        for q_ids in question_ids:
+        for q_ids, gen in zip(question_ids, generators):
             q = torch.tensor([q_ids], dtype=torch.long, device=self.device).reshape(1, -1)
             tokens, _ = _generate_answer(
                 self.runner, self.params, q, cache, prefill_logits,
                 max_new_tokens=max_new_tokens, eos_ids=self._eos(),
                 do_sample=do_sample, temperature=temperature, top_p=top_p,
-                generator=generator,
+                generator=gen,
             )
             answers.append(self.tokenizer.decode(tokens, skip_special_tokens=True))
             # Rollback: slots past the restored length are stale and are

@@ -14,9 +14,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..config import ModelConfig
+
 
 @dataclasses.dataclass(frozen=True)
 class LayerCtx:
@@ -75,6 +77,12 @@ class BasePress:
         return keys, values, length, mask, state
 
 
+def float32_budget(length: int, ratio: float) -> int:
+    """Kept count for ``length`` valid slots at ``ratio``: the product taken
+    in float32 and floored, at least 1, as the JAX package computes it."""
+    return max(int(np.float32(length) * np.float32(1 - ratio)), 1)
+
+
 def topk_keep(
     scores: torch.Tensor,            # (B, H, S), higher = keep
     keys: torch.Tensor,              # (B, H, S, D)
@@ -122,13 +130,17 @@ class ScorerPress(BasePress):
         """Per-layer kept count; budget-shaping presses (PyramidKV) override."""
         return self.n_kept(seq_len)
 
-    def dynamic_score(self, ctx: LayerCtx, keys, values, length):
-        raise NotImplementedError("scoring against a valid length comes with bucketed "
-                                  "prefill (ROADMAP Queue A item 10)")
+    def dynamic_score(self, ctx: LayerCtx, keys, values, length: int) -> torch.Tensor:
+        """Scores of a buffer whose first ``length`` slots are valid (the
+        compression pass of chunked prefill; the caller masks the rest).
+        Default: ``score``, right for per-token content scorers; window
+        scorers override it."""
+        return self.score(ctx, keys, values)
 
-    def dynamic_budget(self, ctx: LayerCtx, length):
-        raise NotImplementedError("budgets from a valid length come with bucketed "
-                                  "prefill (ROADMAP Queue A item 10)")
+    def dynamic_budget(self, ctx: LayerCtx, length: int) -> int:
+        """Kept count for ``length`` valid slots; budget-shaping presses
+        (PyramidKV) override."""
+        return float32_budget(length, self.compression_ratio)
 
     def layer_compress(self, ctx, keys, values, length, mask, state=None):
         if self.compression_ratio == 0.0:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -77,6 +78,30 @@ class SnapKVPress(ScorerPress):
         scores = group_mean(avg_pool_1d(scores, self.kernel_size), Hkv)
         return _pin(scores, W)
 
+    def dynamic_score(self, ctx: LayerCtx, keys, values, length: int):
+        """The observation window is the last W valid slots before
+        ``length``. When the queries are one a slot (a bucketed prefill) they
+        are sliced; else (chunked prefill's compression pass) they are
+        re-projected from the last W buffered hidden states."""
+        from .decoding import _buffer_queries
+
+        Hkv, S = keys.shape[1], keys.shape[2]
+        if ctx.queries.shape[2] == S:
+            W = min(self.window_size, S)
+            start = min(max(length - W, 0), S - W)
+            q_win = ctx.queries[:, :, start:start + W]
+        else:
+            W = min(self.window_size, ctx.hidden.shape[1])
+            q_win = _buffer_queries(ctx, ctx.hidden[:, -W:], ctx.positions[:, -W:])
+        scores = window_attention_probs(q_win, keys, ctx.scale, length - W).mean(dim=-2)
+        # The window's own slots read 0 before pooling, as the exact-length
+        # path pools over [0, S - W) only.
+        window = torch.arange(S, device=keys.device) >= length - W
+        scores = torch.where(window, 0.0, scores)
+        scores = group_mean(avg_pool_1d(scores, self.kernel_size), Hkv)
+        pinned = window & (torch.arange(S, device=keys.device) < length)
+        return torch.where(pinned, scores.max() + 1.0, scores)
+
 
 @dataclasses.dataclass(frozen=True)
 class TOVAPress(ScorerPress):
@@ -92,6 +117,17 @@ class TOVAPress(ScorerPress):
                                           S - 1)[..., :-1]
         scores = attn.mean(dim=1)[:, 0]                   # (B, S-1)
         return _pin(scores[:, None].expand(B, Hkv, S - 1), 1)
+
+    def dynamic_score(self, ctx: LayerCtx, keys, values, length: int):
+        """Attention of the last valid token: the query row at ``length - 1``,
+        clamped to the rows given (chunked prefill gives the last W)."""
+        B, Hkv, S, _ = keys.shape
+        row = min(max(length - 1, 0), ctx.queries.shape[2] - 1)
+        attn = window_attention_probs(ctx.queries[:, :, row:row + 1], keys, ctx.scale,
+                                      length - 1)
+        scores = attn.mean(dim=1)[:, 0][:, None].expand(B, Hkv, S)
+        last = torch.arange(S, device=keys.device) == length - 1
+        return torch.where(last, scores.max() + 1.0, scores)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +173,23 @@ class ObservedAttentionPress(ScorerPress):
         n_in_sum = torch.arange(S, 0, -1, dtype=torch.float32, device=keys.device)
         return group_mean(self.column_sums(ctx, keys) / n_in_sum, keys.shape[1])
 
+    def dynamic_score(self, ctx: LayerCtx, keys, values, length: int):
+        """Only the first ``length`` queries observe, and a key's normalizer
+        counts the valid queries that see it. The queries must be one a slot:
+        through chunked prefill that holds when the scoring window covers the
+        whole buffer."""
+        Hq, S = ctx.queries.shape[1], keys.shape[2]
+        if ctx.queries.shape[2] != S:
+            raise ValueError(f"ObservedAttentionPress scores {S} slots from "
+                             f"{ctx.queries.shape[2]} queries: it needs one query a slot")
+        chunk = max(8, min(128, (32 << 20) // max(1, Hq * S)))
+        sums = chunked_observed_colsums(ctx.queries, keys, ctx.scale,
+                                        softcap=ctx.cfg.logit_softcap, chunk=chunk,
+                                        valid_len=length)
+        n_in_sum = torch.clamp(length - torch.arange(S, dtype=torch.float32,
+                                                     device=keys.device), min=1.0)
+        return group_mean(sums / n_in_sum, keys.shape[1])
+
 
 @dataclasses.dataclass(frozen=True)
 class PyramidKVPress(SnapKVPress):
@@ -166,3 +219,22 @@ class PyramidKVPress(SnapKVPress):
 
     def budget(self, ctx: LayerCtx, seq_len: int) -> int:
         return self._budgets(seq_len, ctx.cfg.num_layers)[ctx.layer_idx]
+
+    def dynamic_budget(self, ctx: LayerCtx, length: int) -> int:
+        """``_budgets``'s arithmetic in float32, as the JAX package computes
+        it for a valid length (round half to even, as Python's round)."""
+        f = np.float32
+        L = ctx.cfg.num_layers
+        q, w = f(length), f(self.window_size)
+        max_capacity = w + q * f(1 - self.compression_ratio)
+        min_num = (max_capacity - w) / f(self.beta)
+        max_num = (max_capacity - w) * f(2) - min_num
+        if max_num >= q - w:
+            max_num = q - w
+            min_num = (max_capacity - w) * f(2) - max_num
+        if not (q >= max_num >= min_num >= w):
+            budget = np.round(q * f(1 - self.compression_ratio))
+        else:
+            steps = (max_num - min_num) / f(max(L - 1, 1)) if L > 1 else f(0)
+            budget = np.round(max_num - f(ctx.layer_idx) * steps)
+        return max(int(budget), 1)

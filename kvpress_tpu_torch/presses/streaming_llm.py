@@ -23,3 +23,10 @@ class StreamingLLMPress(ScorerPress):
         # Recency breaks ties among the kept, so the order is fixed.
         s = keep.to(torch.float32) + pos.to(torch.float32) * 1e-9
         return s[None, None].expand(B, H, S)
+
+    def dynamic_score(self, ctx: LayerCtx, keys, values, length: int):
+        """Against a valid length: the sinks first, then the most recent."""
+        B, H, S, _ = keys.shape
+        pos = torch.arange(S, dtype=torch.float32, device=keys.device)
+        s = torch.where(pos < self.n_sink, torch.full_like(pos, 2.0 * S), pos)
+        return s[None, None].expand(B, H, S)

@@ -6,15 +6,24 @@ Head-wise eviction clears bits of the cache keep-mask, which the attention
 paths read as a bias; ``compact=True`` then moves each head's kept entries
 to the front of its buffer, so the buffer can shrink to the longest head.
 Sorts are stable wherever the JAX package's are, so ties fall alike.
+
+Chunked prefill (``Runner.prefill_chunked``) calls ``chunked_compress`` /
+``chunked_compress_quantized`` once per layer on the whole buffer with a
+valid ``length``, scored from the trailing window (the press's
+``dynamic_score``). The quantized form scores a dequantized transient and
+gathers the kept entries at payload width, scales alongside.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from .base import BasePress, ScorerPress
+from ..cache import dequantize_kv
+from ..ops.attention import NEG_INF
+from .base import BasePress, ScorerPress, float32_budget
 
 BIG = torch.finfo(torch.float32).max
 
@@ -26,11 +35,36 @@ def _rank_desc(scores: torch.Tensor) -> torch.Tensor:
     return torch.argsort(order, dim=-1, stable=True)
 
 
+def _window_scores(press: ScorerPress, ctx, keys, values, length: int) -> torch.Tensor:
+    """The press's scores from the trailing-window ctx, slots past
+    ``length`` at NEG_INF."""
+    dctx = dataclasses.replace(ctx, kv_len=length)
+    scores = press.dynamic_score(dctx, keys, values, length).to(torch.float32)
+    valid = torch.arange(keys.shape[2], device=keys.device) < length
+    return torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+
+
+def _compact_order(keep: torch.Tensor) -> torch.Tensor:
+    """Each row's kept slots first, in their order, then the others."""
+    return torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)
+
+
+def _gather_seq(arrays, order: torch.Tensor):
+    """Each (B, H, S, C) array gathered along the slot axis by ``order``."""
+    return tuple(torch.gather(a, 2, order[..., None].expand(*order.shape, a.shape[-1]))
+                 for a in arrays)
+
+
 def _gather_front(keys, values, keep):
     """K/V with each (batch, head) row's kept entries first, in their order."""
-    order = torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)
-    idx = order[..., None].expand(*order.shape, keys.shape[-1])
-    return torch.gather(keys, 2, idx), torch.gather(values, 2, idx)
+    return _gather_seq((keys, values), _compact_order(keep))
+
+
+def _prefix_mask(keep: torch.Tensor):
+    """(each head's kept count as a prefix mask, the longest count)."""
+    counts = keep.sum(dim=-1)                               # (B, H)
+    return (torch.arange(keep.shape[-1], device=keep.device) < counts[..., None],
+            int(counts.max()))
 
 
 def compact_by_mask(keys, values, keep: torch.Tensor):
@@ -47,9 +81,8 @@ def compact_headwise(keys, values, keep: torch.Tensor):
     head's valid prefix, and ``length`` is the longest prefix (a shrink to it
     then frees the memory). Returns (keys, values, length, mask)."""
     k2, v2 = _gather_front(keys, values, keep)
-    counts = keep.sum(dim=-1)                               # (B, H)
-    new_mask = torch.arange(keys.shape[2], device=keys.device) < counts[..., None]
-    return k2, v2, int(counts.max()), new_mask
+    new_mask, length = _prefix_mask(keep)
+    return k2, v2, length, new_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,3 +130,40 @@ class AdaKVPress(BasePress):
         if self.compact:
             keys, values, length, new_mask = compact_headwise(keys, values, new_mask)
         return keys, values, length, new_mask, state
+
+    # -- chunked prefill: one layer's whole buffer, a valid length -------- #
+
+    def _chunked_keep(self, ctx, keys, values, length: int, mask):
+        """The head-wise keep of ``layer_compress`` with budgets from the
+        valid length. Slots past it score NEG_INF: they are never pinned or
+        kept, since each head's valid slots alone fill the budget."""
+        scores = _window_scores(self.press, ctx, keys, values, length)
+        B, H, S, _ = keys.shape
+        n_kept = float32_budget(length, self.compression_ratio)
+        n_safe = int(np.float32(n_kept) * np.float32(self.alpha_safeguard))
+        scores = torch.where(_rank_desc(scores) < n_safe, BIG, scores)
+        keep = _rank_desc(scores.reshape(B, H * S)) < n_kept * H
+        return mask & keep.reshape(B, H, S)
+
+    def chunked_compress(self, ctx, keys, values, length: int, mask):
+        """Returns (keys, values, length, mask)."""
+        if self.compression_ratio == 0.0:
+            return keys, values, length, mask
+        keep = self._chunked_keep(ctx, keys, values, length, mask)
+        if not self.compact:
+            return keys, values, length, keep
+        return compact_headwise(keys, values, keep)
+
+    def chunked_compress_quantized(self, ctx, keys, values, key_scales, value_scales,
+                                   bits: int, length: int, mask):
+        """Returns (keys, values, key_scales, value_scales, length, mask)."""
+        if self.compression_ratio == 0.0:
+            return keys, values, key_scales, value_scales, length, mask
+        dt = ctx.hidden.dtype
+        keep = self._chunked_keep(ctx, dequantize_kv(keys, key_scales, bits, dt),
+                                  dequantize_kv(values, value_scales, bits, dt), length, mask)
+        if not self.compact:
+            return keys, values, key_scales, value_scales, length, keep
+        gathered = _gather_seq((keys, values, key_scales, value_scales), _compact_order(keep))
+        new_mask, new_length = _prefix_mask(keep)
+        return (*gathered, new_length, new_mask)

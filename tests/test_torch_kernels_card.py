@@ -235,6 +235,31 @@ def test_flash_quant_kernel_matches_plain_on_card(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("prior", [0, 1536])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_quant_int4_at_chunk_shapes_on_card(cuda, prior, D):
+    """A chunk of chunked prefill over an int4 cache (the fused route): 512
+    new queries over a 2,048-slot buffer of which ``prior`` slots came
+    before, GQA 32/8, no keep-mask (the chunk forward passes none) and a
+    random one; launched twice with equal bits."""
+    B, Hq, Hkv, T, S = 1, 32, 8, 512, 2048
+    q, k, v, mask = _inputs(3, B, Hq, Hkv, T, S, D)
+    q, k, v, mask = (_t(a).to(cuda) for a in (q, k, v, mask))
+    q = q.to(torch.bfloat16)
+    (kq, ks), (vq, vs) = quantize_kv(k, 4), quantize_kv(v, 4)
+    kw = dict(bits=4, sm_scale=D ** -0.5, return_lse=True)
+    for m in (None, mask):
+        n = tfl.flash_attention_quant.launches_by_bits[4]
+        got, lse = tfl.flash_attention_quant(q, kq, vq, ks, vs, prior, m, **kw)
+        torch.cuda.synchronize()
+        assert tfl.flash_attention_quant.launches_by_bits[4] == n + 1
+        _flash_close("random", got, lse,
+                     *tfl.flash_attention_quant_plain(q, kq, vq, ks, vs, prior, m, **kw))
+        again, lse_again = tfl.flash_attention_quant(q, kq, vq, ks, vs, prior, m, **kw)
+        assert torch.equal(got, again) and torch.equal(lse, lse_again)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("splits", [1, 2, 3, 7])
 def test_split_plain_matches_unsplit_on_card(cuda, splits):
     """The plain version of a split launch against the unsplit plain version,

@@ -11,9 +11,11 @@ import pytest
 import torch
 
 import kvpress_tpu as kj
+from kvpress_tpu.models.llama import quantize_params_int4 as jquant4
 from kvpress_tpu.models.llama import quantize_params_int8 as jquant8
 from kvpress_tpu.pipeline import KVPressPipeline as JaxPipeline
 import kvpress_tpu_torch as kt
+from kvpress_tpu_torch.models.llama import quantize_params_int4 as tquant4
 from kvpress_tpu_torch.models.llama import quantize_params_int8 as tquant8
 from toy_tokenizer import ToyTokenizer
 
@@ -52,6 +54,9 @@ def pipes():
         jax8=JaxPipeline(kj.Runner.create(cfg_j, attn_impl="xla"), jquant8(params_j), tok),
         torch8=kt.KVPressPipeline(kt.Runner.create(cfg_t, device="cpu"), tquant8(params_t),
                                   tok),
+        jax4=JaxPipeline(kj.Runner.create(cfg_j, attn_impl="xla"), jquant4(params_j), tok),
+        torch4=kt.KVPressPipeline(kt.Runner.create(cfg_t, device="cpu"), tquant4(params_t),
+                                  tok),
         context=context, questions=questions,
     )
 
@@ -72,6 +77,13 @@ def test_int8_weights_int4_kv_same_answers_as_jax(pipes):
     kw = dict(question=pipes["questions"][0], max_new_tokens=8, quantized=True, kv_bits=4)
     got = pipes["torch8"](pipes["context"], press=kt.KnormPress(0.5), **kw)["answer"]
     want = pipes["jax8"](pipes["context"], press=kj.KnormPress(0.5), **kw)["answer"]
+    assert got == want
+
+
+def test_int4_weights_int4_kv_same_answers_as_jax(pipes):
+    kw = dict(questions=pipes["questions"], max_new_tokens=8, quantized=True, kv_bits=4)
+    got = pipes["torch4"](pipes["context"], press=kt.KnormPress(0.5), **kw)["answers"]
+    want = pipes["jax4"](pipes["context"], press=kj.KnormPress(0.5), **kw)["answers"]
     assert got == want
 
 
@@ -103,8 +115,25 @@ def test_sampling_is_seeded(pipes):
     assert a == b and len(a.split()) == 6
 
 
+def test_sampled_answer_does_not_depend_on_earlier_questions(pipes):
+    """Each question draws from its own generator: the answer to b is the
+    same after a as after c, though a's and c's answers differ in length (a
+    third of the vocabulary ends an answer, so lengths vary)."""
+    base = pipes["torch"]
+    pipe = kt.KVPressPipeline(base.runner, base.params, base.tokenizer,
+                              eos_token_ids=tuple(range(0, base.runner.cfg.vocab_size, 3)))
+    a, b = pipes["questions"]
+    c = "what is " + pipes["context"].split()[7] + " ?"
+    kw = dict(press=kt.KnormPress(0.5), max_new_tokens=12, do_sample=True, temperature=1.5,
+              seed=11)
+    first = pipe(pipes["context"], questions=[a, b], **kw)["answers"]
+    second = pipe(pipes["context"], questions=[c, b], **kw)["answers"]
+    assert len(first[0].split()) != len(second[0].split())
+    assert first[1] == second[1]
+
+
 def test_options_of_later_slices_raise(pipes):
     with pytest.raises(NotImplementedError):
-        pipes["torch"](pipes["context"], context_chunk=16)
+        pipes["torch"](pipes["context"], context_bucket=16)
     with pytest.raises(NotImplementedError):
         pipes["torch"].batch([pipes["context"]])

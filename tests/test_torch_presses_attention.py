@@ -7,6 +7,8 @@ another order); kept sets, lengths and greedy answers are equal. The Pallas
 column-sum kernel runs in interpret mode, as in tests/test_observed_chunked.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -290,14 +292,17 @@ def test_pyramidkv_budgets_match_jax():
 
 
 def test_bucketed_prefill_hooks_name_the_roadmap():
+    """Bucketed prefill, a valid length inside the one-shot prefill's layer
+    (``ctx.kv_len``), still names its ROADMAP item. (``dynamic_score`` and
+    ``dynamic_budget``, which this test first held to raise, came with
+    chunked prefill; tests/test_torch_chunked.py holds them against JAX.)"""
     cfg = kt.tiny_config()
     q, k = _qk(11, B=1, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads, S=32, D=cfg.head_dim)
-    tctx = _ctxs(q, k, kj.tiny_config(), cfg)[1]
-    press = kt.ObservedAttentionPress(0.5)
-    for call in (lambda: press.dynamic_score(tctx, _t(k), _t(k), 20),
-                 lambda: press.dynamic_budget(tctx, 20)):
+    tctx = dataclasses.replace(_ctxs(q, k, kj.tiny_config(), cfg)[1], kv_len=20)
+    mask = torch.ones(k.shape[:3], dtype=torch.bool)
+    for press in (kt.ObservedAttentionPress(0.5), kt.KnormPress(0.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+            press.layer_compress(tctx, _t(k), _t(k), 20, mask)
 
 
 # --------------------------------------------------------------------- #

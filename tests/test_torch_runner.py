@@ -11,8 +11,10 @@ import pytest
 import torch
 
 import kvpress_tpu as kj
+from kvpress_tpu.models import llama as jllama
 from kvpress_tpu.models.llama import quantize_params_int8 as jquant8
 import kvpress_tpu_torch as kt
+from kvpress_tpu_torch.models import llama as tllama
 from kvpress_tpu_torch.models.llama import quantize_params_int8 as tquant8
 
 torch.set_num_threads(2)
@@ -121,6 +123,51 @@ def test_int8_weights_match_jax(models):
     tl, _, _ = _run_torch(tr, pt8, ids, q_ids, True, 4, 64)
     for a, b in zip(tl, jl):
         np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+@pytest.mark.parametrize("after_int8", [False, True], ids=["from_float", "after_int8"])
+def test_int4_weights_match_jax(models, after_int8):
+    """quantize_params_int4 gives JAX's payloads and scales bit for bit (on
+    float weights, and after quantize_params_int8 with embeddings); _lin,
+    dequant_weight and the runner's logits agree with JAX's."""
+    cfg_j, cfg_t, params_j, params_t = models
+    if after_int8:
+        params_j = jquant8(params_j, include_embeddings=True)
+        params_t = tquant8(params_t, include_embeddings=True)
+    pj4 = jllama.quantize_params_int4(params_j)
+    pt4 = tllama.quantize_params_int4(params_t)
+    for l, layer in enumerate(pt4.layers):
+        for name, p in layer.named_parameters():
+            np.testing.assert_array_equal(p.numpy(), np.asarray(pj4["layers"][name][l]))
+        assert layer.wq.dtype == torch.uint8 and tuple(layer.wq_scale.shape) == (2, 64)
+    np.testing.assert_array_equal(pt4.embed.numpy(), np.asarray(pj4["embed"]))
+    h = np.random.default_rng(8).standard_normal((2, 5, cfg_t.hidden_size)).astype(np.float32)
+    jlayer = jax.tree_util.tree_map(lambda a: a[1], pj4["layers"])
+    for name in ("wq", "wd"):
+        x = h if name == "wq" else np.tile(h, (1, 1, 2))
+        np.testing.assert_allclose(tllama._lin(torch.from_numpy(x), pt4.layers[1], name).numpy(),
+                                   np.asarray(jllama._lin(jnp.asarray(x), jlayer, name)),
+                                   atol=1e-5)
+        np.testing.assert_allclose(tllama.dequant_weight(pt4.layers[1], name).numpy(),
+                                   np.asarray(jllama.dequant_weight(jlayer, name)), atol=1e-7)
+    ids = _ids(cfg_j.vocab_size, CTX, 9)
+    q_ids = _ids(cfg_j.vocab_size, 5, 10)
+    jr = kj.Runner.create(cfg_j, attn_impl="xla")
+    tr = kt.Runner.create(cfg_t, attn_impl="xla", device="cpu")
+    jl, _, _ = _run_jax(jr, pj4, ids, q_ids, True, 4, 64)
+    tl, _, _ = _run_torch(tr, pt4, ids, q_ids, True, 4, 64)
+    for a, b in zip(tl, jl):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+def test_params_from_jax_carries_int4_trees(models):
+    cfg_j, cfg_t, params_j, _ = models
+    np4 = jax.tree_util.tree_map(np.asarray, jllama.quantize_params_int4(params_j))
+    pt = kt.params_from_jax(np4, cfg_t, device="cpu", dtype=torch.float32)
+    assert pt.layers[0].wg.dtype == torch.uint8
+    assert pt.layers[0].wg_scale.dtype == torch.float32
+    np.testing.assert_array_equal(pt.layers[0].wg_scale.numpy(), np4["layers"]["wg_scale"][0])
+    np.testing.assert_array_equal(pt.layers[1].wo.numpy(), np4["layers"]["wo"][1])
 
 
 def test_params_from_jax_carries_int8_trees(models):
