@@ -20,10 +20,15 @@
    at 8K, a ragged 8,000 and the 32K prefill, the decode kernels at the
    pipeline's decode shapes (a half-live 33K buffer at B=1 and B=4; the
    8B-class body's int4 cache at head_dim 128, B=1 over 66K slots; path B's
-   cache at B=4); all are
-   launched twice with equal bits. Each check must reject its planted
-   faults (for the decode kernels: a skipped key run, one live step taken
-   for dead, one key range or chunk dropped from the merge).
+   cache at B=4), and ``flash_attention``'s same-image or-mask at the
+   Gemma-3-27B body's shape (GQA 32/16, head_dim 128, 8,192 queries holding
+   4 images of 256 placeholders, with no window, a window of 1,024 and one
+   of 128 that a span reaches behind; and over a 24,576-slot prior with an
+   image in it); all are launched twice with equal bits. Each check must
+   reject its planted faults (for the decode kernels: a skipped key run, one
+   live step taken for dead, one key range or chunk dropped from the merge;
+   for the or-mask: the key range not widened past the diagonal or behind
+   the window, the gq >= 0 guard dropped).
 3. The paths at full width, through ``KVPressPipeline`` on the 1B-class
    flagship shape (16 layers, seeded random weights), a 32,768-token context
    and two questions (one longer than 128 tokens):
@@ -44,7 +49,16 @@
    (``fused_int4_check``; also the peak memory of chunked and one-shot
    prefill), and a Llama-3.1-8B-class body (32 layers, random int4 weights)
    through the pipeline with int4 KV, Knorm and a 131,072-token context in
-   chunks of 8,192 (``long_context_run``). Every prefill's wall time and
+   chunks of 8,192 (``long_context_run``). Then the other architectures at
+   full width: the Qwen3-8B body (36 layers, bf16, q/k-norm; ``qwen3_run``)
+   and the Gemma-3-27B body (62 layers, int4, sliding layers with window
+   1,024, a SigLIP tower; ``gemma3_run``) through the pipeline at 32K,
+   Knorm and bf16 KV, Gemma3 with 4 images one-shot and with
+   ``context_chunk=8192``: the or-mask on every layer's prefill, the window
+   on the sliding layers' flash and decode launches, the sliding layers
+   uncompressed; each also held against the dense path (Qwen3 at depth 1
+   and 36, Gemma3 cut to 6 layers at 4,096 tokens with two images), and
+   Qwen3's decode rate and idle share. Every prefill's wall time and
    peak memory are printed. The launch counts are set to 0 before each run
    and read after it, and every kernel of a path must have been launched in
    it. A 2,048-token run of each kernel path is also held against the dense
@@ -88,6 +102,10 @@ PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
 CONTEXT_TOKENS = 32768
 CHUNK_TOKENS = 8192          # context_chunk of the chunked runs
+# The Gemma-3-27B run's 4 images of 256 placeholders in its 32K context, at
+# unaligned starts, two of them across a chunk edge.
+GEMMA3_IMAGE_STARTS = (CONTEXT_TOKENS // 11, CHUNK_TOKENS - 256 // 3, CONTEXT_TOKENS * 6 // 11,
+                       3 * CHUNK_TOKENS - 256 // 4)
 LONG_CONTEXT_TOKENS = 131072   # the 8B-class body's context
 DECODE_BATCH = 4
 # Phase 2: a kernel passes when its worst output row (one query head at one
@@ -189,12 +207,17 @@ def device_kernels(fn, iters: int):
 
 def kernel_ms(fn, symbol: str, iters: int) -> float:
     """Device milliseconds per call of the kernels whose name holds
-    ``symbol`` (from the profiler trace)."""
-    _, kernels = device_kernels(fn, iters)
-    found = [ms for name, (ms, _) in kernels.items() if symbol in name]
-    if not found:
-        raise AssertionError(f"no {symbol} kernel in the profiler trace: {sorted(kernels)}")
-    return sum(found)
+    ``symbol`` (from the profiler trace). Each call launches each of them
+    once (the kernel, and the merge of a split launch): a trace that holds
+    another count lost or doubled events and is taken again."""
+    found = {}
+    for _ in range(3):
+        _, kernels = device_kernels(fn, iters)
+        found = {name: v for name, v in kernels.items() if symbol in name}
+        if found and all(n == 1 for _, n in found.values()):
+            return sum(ms for ms, _ in found.values())
+    raise AssertionError(f"{symbol}: no profiler trace with one launch of each such kernel a "
+                         f"call, launches a call { {k: n for k, (_, n) in found.items()} }")
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -206,9 +229,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def visible_pairs(mask, prior: int, T: int, length: int | None = None) -> int:
+def visible_pairs(mask, prior: int, T: int, length: int | None = None,
+                  window: int | None = None) -> int:
     """Sum over (batch, kv head, query row) of the keys that row may attend:
-    causal (slot <= prior + t), below ``length``, keep-bit set."""
+    causal (slot <= prior + t), inside ``window`` (slot > prior + t -
+    window), below ``length``, keep-bit set."""
     import torch
 
     S = mask.shape[-1]
@@ -217,7 +242,11 @@ def visible_pairs(mask, prior: int, T: int, length: int | None = None) -> int:
         live[..., length:] = False
     cum = torch.cumsum(live.to(torch.int64), dim=-1)              # (B, Hkv, S)
     slots = (prior + torch.arange(T, device=mask.device)).clamp(max=S - 1)
-    return int(cum[..., slots].sum())
+    seen = cum[..., slots]
+    if window:
+        low = slots - window                 # the last slot behind each row's window
+        seen = seen - torch.where(low >= 0, cum[..., low.clamp(min=0)], 0)
+    return int(seen.sum())
 
 
 # --------------------------------------------------------------------- #
@@ -250,24 +279,28 @@ def kernel_checks(kt, torch, report):
         return m
 
     def sdpa_ms(q, k, v, allowed, iters):
-        kr, vr = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+        G_ = q.shape[1] // k.shape[1]
+        kr, vr = k.repeat_interleave(G_, 1), v.repeat_interleave(G_, 1)
         return cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=allowed,
-                                                              scale=scale), iters)
+                                                              scale=q.shape[-1] ** -0.5), iters)
 
-    def allowed_mask(mask, B, prior, T, S, length=None):
+    def allowed_mask(mask, B, prior, T, S, length=None, window=None, hkv=Hkv, g=G):
         q_slot = prior + torch.arange(T, device=dev)[:, None]
-        ok = torch.arange(S, device=dev)[None, :] <= q_slot
+        slot = torch.arange(S, device=dev)[None, :]
+        ok = slot <= q_slot
+        if window:
+            ok &= slot > q_slot - window
         if length is not None:
-            ok &= torch.arange(S, device=dev)[None, :] < length
+            ok &= slot < length
         if mask is None:
-            mask = torch.ones((B, Hkv, S), dtype=torch.bool, device=dev)
-        return ok[None, None] & mask.repeat_interleave(G, 1)[:, :, None, :]
+            mask = torch.ones((B, hkv, S), dtype=torch.bool, device=dev)
+        return ok[None, None] & mask.repeat_interleave(g, 1)[:, :, None, :]
 
-    def fault_mask(mask, B, S, lo, n=256):
+    def fault_mask(mask, B, S, lo, n=256, hkv=Hkv):
         """The keep-mask with the keys of slots lo .. lo + n - 1 (all visible
         to every query row) cleared: what a kernel that skipped them would
         compute."""
-        m = torch.ones((B, Hkv, S), dtype=torch.bool, device=dev) if mask is None else mask.clone()
+        m = torch.ones((B, hkv, S), dtype=torch.bool, device=dev) if mask is None else mask.clone()
         m[:, :, lo:lo + n] = False
         return m
 
@@ -403,14 +436,24 @@ def kernel_checks(kt, torch, report):
             f[:, :, lo:hi] = rows
             return f
 
-        # Fault: a 256-key step that every later row sees, skipped; read on the
-        # rows right behind it, which it moves most.
-        hole = prior // 2 if prior else min(512, T // 4)
+        # Fault: a 256-key step that every later row sees (with a window:
+        # inside the first rows' window), skipped; read on the rows right
+        # behind it, which it moves most. With a window, also the window not
+        # applied.
+        Hkv_, window = kv[0].shape[1], kw.get("window")
+        if window:
+            assert prior >= window >= 512 and T <= window // 4
+            hole = prior - window // 2
+        else:
+            hole = prior // 2 if prior else min(512, T // 4)
         lo = max(0, hole + 256 - prior)
         hi = min(T, lo + 512)
         faults = {"one skipped key step": with_rows(lo, hi, plain_rows(
-            plain, q, kv, prior, fault_mask(mask, B, S, hole), lo, hi, chunk, **kw)[0])}
-        live = torch.ones((B, kv[0].shape[1], S), dtype=torch.bool, device=dev)
+            plain, q, kv, prior, fault_mask(mask, B, S, hole, hkv=Hkv_), lo, hi, chunk, **kw)[0])}
+        if window:
+            faults["the window not applied"] = plain_rows(plain, q, kv, prior, mask, 0, T, chunk,
+                                                          **{**kw, "window": None})[0]
+        live = torch.ones((B, Hkv_, S), dtype=torch.bool, device=dev)
         if logic_faults:
             # Faults of the tile logic. A diagonal tile taken for an interior
             # one: the q-tile at row T/2 sees the whole key tile it sits in.
@@ -453,11 +496,16 @@ def kernel_checks(kt, torch, report):
                     q, kr, vr, attn_mask=lower_right, scale=kw["sm_scale"]), 3)
             else:
                 kr, vr = kd.repeat_interleave(G_, 1), vd.repeat_interleave(G_, 1)
-                allowed = allowed_mask(mask, B, prior, T, S)
+                allowed = allowed_mask(mask, B, prior, T, S, window=window, hkv=Hkv_, g=G_)
                 lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, kr, vr, attn_mask=allowed, scale=kw["sm_scale"]), 5)
-        flops = 4 * D_ * G_ * visible_pairs(live if mask is None else mask, prior, T)
-        record(name, variant, got, ref, faults, ms, plain_ms, nbytes(q, *kv, mask, got), flops, lib)
+        flops = 4 * D_ * G_ * visible_pairs(live if mask is None else mask, prior, T,
+                                            window=window)
+        moved = nbytes(q, *kv, mask, got)
+        if window:      # K/V (payload, scales) of the slots some row's window holds
+            seen = min(S, prior + T) - max(0, prior - window + 1)
+            moved -= nbytes(*kv) * (S - seen) // S
+        record(name, variant, got, ref, faults, ms, plain_ms, moved, flops, lib)
         report(f"    launched twice with equal bits; row logsumexp max_abs_err {lse_err:.3e} "
                f"(limit {LSE_LIMIT}); key ranges a q-tile: "
                f"{fl.flash_splits(B, kv[0].shape[1], G_, T, S, D_, prior, kw.get('window'))}")
@@ -519,6 +567,24 @@ def kernel_checks(kt, torch, report):
     del q, kd, vd
     torch.cuda.empty_cache()
 
+    # The Qwen3-8B run's one-shot prefill (GQA 32/8, head_dim 128) at 32K,
+    # all-live; then a Gemma-3-27B sliding layer's question forward (GQA
+    # 32/16): 152 new tokens over the 32,768 slots it keeps, window 1,024.
+    T = CONTEXT_TOKENS
+    q, kd, vd = rnd(B, Hq, T, D2), rnd(B, Hkv, T, D2), rnd(B, Hkv, T, D2)
+    live = torch.ones((B, Hkv, T), dtype=torch.bool, device=dev)
+    flash_case("flash_attention", f"bf16 B1 T{T} S{T} D128 all-live", None, q, [kd, vd], 0,
+               live, chunk=512, iters=3, lib_mask="causal")
+    del q, kd, vd, live
+    torch.cuda.empty_cache()
+    T, prior = 152, CONTEXT_TOKENS
+    S = prior + T
+    q, kd, vd = rnd(B, 32, T, D2), rnd(B, 16, S, D2), rnd(B, 16, S, D2)
+    flash_case("flash_attention", f"bf16 B1 T{T} prior{prior} D128 GQA 32/16 window 1024", None,
+               q, [kd, vd], prior, torch.ones((B, 16, S), dtype=torch.bool, device=dev),
+               chunk=T, iters=20, window=1024)
+    del q, kd, vd
+
     # flash_attention_quant at int4 as chunked prefill launches it on its
     # fused route: 8,192 new queries over a 32K buffer of which ``prior``
     # slots came before, no keep-mask.
@@ -558,6 +624,158 @@ def kernel_checks(kt, torch, report):
     del q, kd, vd
     torch.cuda.empty_cache()
 
+    def or_case(variant, q, k, v, prior, window, kg, span, chunk, iters, lower_fault=False):
+        """flash_attention with the same-image or-mask (no keep-mask, as a
+        prefill into an empty cache): launched twice (equal bits), output and
+        row LSE against the plain version, the three planted faults of the
+        kernel's or-mask (each read on every row), its time beside its bound
+        over the pairs the or-mask makes visible, and
+        ``scaled_dot_product_attention`` with the same boolean mask."""
+        B, Hq_, T, D_ = q.shape
+        Hkv_, S = k.shape[1], k.shape[2]
+        G_ = Hq_ // Hkv_
+        qg = kg[:, prior:prior + T].contiguous()
+        kw = dict(sm_scale=D_ ** -0.5, window=window, or_span=span)
+        call = lambda: fl.flash_attention(q, k, v, prior, None, qg, kg, return_lse=True, **kw)
+        n_or = fl.flash_attention.launches_or_mask
+        got, lse = call()
+        torch.cuda.synchronize()
+        again, lse_again = call()
+        torch.cuda.synchronize()
+        label = f"flash_attention_or_mask[{variant}]"
+        if fl.flash_attention.launches_or_mask != n_or + 2:
+            failures.append(f"{label}: the or-mask instantiation was not launched")
+        if not (torch.equal(got, again) and torch.equal(lse, lse_again)):
+            failures.append(f"{label}: two launches differ")
+        bq, nk = 128 // G_, fl.key_tile(D_)
+        up = span - 1
+        slot = torch.arange(S, device=dev)
+
+        def allows(r0, r1):
+            """(true or-mask, its three faults) of rows r0..r1-1, (B, rows, S)."""
+            true = fl.same_image(qg[:, r0:r1], kg)
+            t = torch.arange(r0, r1, device=dev)
+            t0 = t // bq * bq
+            last = torch.clamp(t0 + bq, max=T) - 1
+            ceil = lambda x: (x + nk - 1) // nk * nk
+            hi = ceil(torch.clamp(prior + last + 1 + up, max=S))          # loaded keys
+            lo = (torch.clamp(prior + t0 - max(window - 1, up), min=0) // nk * nk
+                  if window else torch.zeros_like(t0))
+            faults = {"the upper range not widened":
+                      true & (slot[None] < ceil(prior + last + 1)[:, None])[None]}
+            if lower_fault:
+                low = torch.clamp(prior + t0 - window + 1, min=0) // nk * nk
+                faults["the lower range not widened"] = true & (slot[None] >= low[:, None])[None]
+            loaded = (slot[None] >= lo[:, None]) & (slot[None] < hi[:, None])
+            faults["the gq >= 0 guard dropped"] = true | (
+                (qg[:, r0:r1, None] == kg[:, None, :]) & loaded[None])
+            return true, faults
+
+        def rows(allow_of, r0, r1):
+            bias = attention_bias(prior + r0, r1 - r0, S, sliding_window=window,
+                                  extra_allow=allow_of, device=dev)
+            return gqa_attention(q[:, :, r0:r1], k, v, bias, kw["sm_scale"])[0]
+
+        def plain_all():
+            outs, lses = [], []
+            for r0 in range(0, T, chunk):
+                r1 = min(T, r0 + chunk)
+                o, l = fl.flash_attention_plain(q[:, :, r0:r1], k, v, prior + r0, None,
+                                                qg[:, r0:r1], kg, return_lse=True, **kw)
+                outs.append(o)
+                lses.append(l)
+            return torch.cat(outs, 2), torch.cat(lses, 2)
+
+        (ref, ref_lse), plain_ms = timed(plain_all)
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not lse_err <= LSE_LIMIT:
+            failures.append(f"{label}: row logsumexp differs by {lse_err:.3e} > {LSE_LIMIT}")
+        faults, pairs = {}, 0
+        for r0 in range(0, T, chunk):
+            r1 = min(T, r0 + chunk)
+            true, fault_allows = allows(r0, r1)
+            q_slot = prior + torch.arange(r0, r1, device=dev)[:, None]
+            vis = slot[None] <= q_slot
+            if window:
+                vis &= slot[None] > q_slot - window
+            pairs += int((vis[None] | true).sum())
+            for what, a in fault_allows.items():
+                faults.setdefault(what, []).append(rows(a, r0, r1))
+        faults = {what: torch.cat(parts, 2) for what, parts in faults.items()}
+        # Three readings of the launch, each beside the same launch without
+        # image groups (what the or-mask costs); their medians are kept.
+        plain_call = lambda: fl.flash_attention(q, k, v, prior, None, return_lse=True,
+                                                sm_scale=kw["sm_scale"], window=window)
+        readings = [(kernel_ms(call, "flash_sm90", iters), kernel_ms(plain_call, "flash_sm90",
+                                                                     iters)) for _ in range(3)]
+        ms = statistics.median(r[0] for r in readings)
+        causal_ms = statistics.median(r[1] for r in readings)
+        q_slot = prior + torch.arange(T, device=dev)[:, None]
+        vis = slot[None] <= q_slot
+        if window:
+            vis &= slot[None] > q_slot - window
+        allowed = (vis[None] | fl.same_image(qg, kg))[:, None]              # (B, 1, T, S)
+        del vis
+        kr, vr = k.repeat_interleave(G_, 1), v.repeat_interleave(G_, 1)
+        try:
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=allowed,
+                                                                 scale=kw["sm_scale"]), 3)
+        except torch.cuda.OutOfMemoryError:
+            lib = None      # the library's route for this mask holds the whole logit matrix
+        del allowed, kr, vr
+        torch.cuda.empty_cache()
+        record("flash_attention_or_mask", variant, got, ref, faults, ms, plain_ms,
+               nbytes(q, k, v, qg, kg, got), 4 * D_ * G_ * Hkv_ * pairs, lib,
+               causal_ms=causal_ms, readings=readings)
+        report(f"    launched twice with equal bits; readings (or-mask, without the groups) "
+               + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in readings) + " ms; "
+               + ("the library call ran out of memory; " if lib is None else "")
+               + f"row logsumexp max_abs_err {lse_err:.3e} "
+               f"(limit {LSE_LIMIT}); key ranges a q-tile: "
+               f"{fl.flash_splits(B, Hkv_, G_, T, S, D_, prior, window, span)}; visible "
+               f"pairs a kv head {pairs}")
+
+    def image_groups(S, starts, span=256):
+        kg = torch.full((1, S), -1, dtype=torch.int32, device=dev)
+        for g, s0 in enumerate(starts):
+            kg[:, s0:s0 + span] = g
+        return kg
+
+    # The or-mask of flash_attention (Gemma3 multimodal prefill) at the
+    # Gemma-3-27B body's attention shape (GQA 32/16, head_dim 128): 8,192
+    # queries over their own keys holding 4 images of 256 placeholders at
+    # unaligned starts, with no window (global layers), the sliding layers'
+    # window of 1,024, and a window of 128 that the span reaches behind; then
+    # the last chunk of a chunked prefill: 8,192 queries over the 24,576
+    # slots before them, one image in the prior and one in the chunk.
+    Hq2, Hkv2, D2, T = 32, 16, 128, CHUNK_TOKENS
+    q, k, v = rnd(1, Hq2, T, D2), rnd(1, Hkv2, T, D2), rnd(1, Hkv2, T, D2)
+    kg = image_groups(T, (37, 1301, 4099, 7001))
+    for window in (None, 1024, 128):
+        or_case(f"bf16 B1 T{T} S{T} D128 4 images" + (f" window {window}" if window else ""),
+                q, k, v, 0, window, kg, 256, chunk=1024, iters=5, lower_fault=window == 128)
+    del q, k, v
+    torch.cuda.empty_cache()
+    # The Gemma-3-27B run's one-shot prefill itself: 32,768 queries over
+    # their own keys with its 4 images, on the global and the sliding layers.
+    T = CONTEXT_TOKENS
+    q, k, v = rnd(1, Hq2, T, D2), rnd(1, Hkv2, T, D2), rnd(1, Hkv2, T, D2)
+    kg = image_groups(T, GEMMA3_IMAGE_STARTS)
+    for window in (None, 1024):
+        or_case(f"bf16 B1 T{T} S{T} D128 4 images" + (f" window {window}" if window else ""),
+                q, k, v, 0, window, kg, 256, chunk=512, iters=3)
+    del q, k, v, kg
+    torch.cuda.empty_cache()
+    T = CHUNK_TOKENS
+    prior = CONTEXT_TOKENS - T
+    q = rnd(1, Hq2, T, D2)
+    k, v = rnd(1, Hkv2, CONTEXT_TOKENS, D2), rnd(1, Hkv2, CONTEXT_TOKENS, D2)
+    or_case(f"bf16 B1 T{T} prior{prior} S{CONTEXT_TOKENS} D128 images in prior and chunk", q,
+            k, v, prior, None, image_groups(CONTEXT_TOKENS, (9000, prior + 2345)), 256,
+            chunk=512, iters=3)
+    del q, k, v
+    torch.cuda.empty_cache()
+
     # flash_attention_quant: question forward over a compressed cache.
     T, prior = 256, 16384
     S = prior + T
@@ -568,53 +786,71 @@ def kernel_checks(kt, torch, report):
         flash_case("flash_attention_quant", f"int{bits} B1 T{T} prior{prior}", bits, q,
                    quantized(kd, vd, bits), prior, mask, chunk=T, iters=20)
 
-    def decode_case(variant, q, kd, vd, length, mask, bits, iters=50):
+    def decode_case(variant, q, kd, vd, length, mask, bits, iters=50, window=None):
         """One shape of decode_attention: launched twice (equal bits), against
         its plain version with its planted faults (a 256-key run skipped, one
-        kernel step taken for dead, one key range dropped from the merge),
-        timed beside its two bounds (the kept rows' bytes; the bytes of every
-        slot of the live kernel steps) and the library call."""
-        B_, _, T_, D_ = q.shape
-        S_ = kd.shape[2]
+        kernel step taken for dead, one key range dropped from the merge, each
+        inside the window if there is one; a window of 1,024 applied where
+        there is none; with a window, the window not applied and the step
+        across its edge taken whole), timed beside its two bounds (the kept
+        rows' bytes; the bytes of every slot of the live kernel steps) and the
+        library call."""
+        B_, Hq_, T_, D_ = q.shape
+        Hkv_, S_ = kd.shape[1], kd.shape[2]
+        G_ = Hq_ // Hkv_
         if bits is None:
             kk, vv, ks, vs = kd, vd, None, None
         else:
             (kk, ks), (vv, vs) = quantize_kv(kd, bits), quantize_kv(vd, bits)
-        kw = dict(bits=bits, sm_scale=D_ ** -0.5)
+        kw = dict(bits=bits, sm_scale=D_ ** -0.5, window=window)
+        plain = lambda m=mask, **over: dec.decode_attention_plain(q, kk, vv, length, ks, vs, m,
+                                                                  **{**kw, **over})
         call = lambda: dec.decode_attention(q, kk, vv, length, ks, vs, mask, **kw)
         got = call()
         torch.cuda.synchronize()
         if not torch.equal(got, call()):
             failures.append(f"decode_attention[{variant}]: two launches differ")
-        ref = dec.decode_attention_plain(q, kk, vv, length, ks, vs, mask, **kw)
+        ref = plain()
         nk = dec.step_keys(D_, bits)
-        splits = dec.decode_splits(B_, Hkv, G, T_, S_, D_, length, nk)
-        lo, hi = dec.decode_key_ranges(length, T_, None, nk, splits)[1 if splits > 1 else 0]
-        faults = {"one skipped key step": fault_mask(mask, B_, S_, 8192),
-                  "one live step taken for dead": fault_mask(mask, B_, S_, 4096, nk),
-                  "one key range dropped from the merge": fault_mask(mask, B_, S_, lo, hi - lo)}
-        faults = {what: dec.decode_attention_plain(q, kk, vv, length, ks, vs, m, **kw)
-                  for what, m in faults.items()}
+        splits = dec.decode_splits(B_, Hkv_, G_, T_, S_, D_, length, nk)
+        lo, hi = dec.decode_key_ranges(length, T_, window, nk, splits)[1 if splits > 1 else 0]
+        hole, step = (length - window // 2, (length - 3 * window // 4) // nk * nk) if window \
+            else (8192, 4096)
+        faults = {"one skipped key step": fault_mask(mask, B_, S_, hole, hkv=Hkv_),
+                  "one live step taken for dead": fault_mask(mask, B_, S_, step, nk, hkv=Hkv_),
+                  "one key range dropped from the merge": fault_mask(mask, B_, S_, lo, hi - lo,
+                                                                     hkv=Hkv_)}
+        faults = {what: plain(m) for what, m in faults.items()}
+        first = max(0, length - T_ - window + 1) if window else 0
+        kfirst = first // nk * nk          # the kernel's first step
+        if window:
+            faults["the window not applied"] = plain(window=None)
+            if first > kfirst:
+                # row 0 then sees from the step's start: its window widened
+                faults["the step across the window's edge taken whole"] = plain(
+                    window=window + first - kfirst)
+        else:
+            faults["a window of 1,024 applied"] = plain(window=1024)
         ms = kernel_ms(call, "decode_kernel", iters)
         wrapper = cuda_ms(call, iters, 5)
-        plain = cuda_ms(lambda: dec.decode_attention_plain(q, kk, vv, length, ks, vs, mask, **kw),
-                        10)
+        plain_ms = cuda_ms(plain, 10)
         kdq = kk if bits is None else dequantize_kv(kk, ks, bits, torch.bfloat16)
         vdq = vv if bits is None else dequantize_kv(vv, vs, bits, torch.bfloat16)
-        lib = sdpa_ms(q, kdq, vdq, allowed_mask(mask, B_, length - T_, T_, S_, length), 20)
-        full = torch.ones((B_, Hkv, S_), dtype=torch.bool, device=dev) if mask is None else mask
-        pairs = visible_pairs(full, length - T_, T_, length)
+        lib = sdpa_ms(q, kdq, vdq, allowed_mask(mask, B_, length - T_, T_, S_, length, window,
+                                                hkv=Hkv_, g=G_), 20)
+        full = torch.ones((B_, Hkv_, S_), dtype=torch.bool, device=dev) if mask is None else mask
+        pairs = visible_pairs(full, length - T_, T_, length, window)
         row = kk.shape[-1] * kk.element_size() + (0 if ks is None else 4)
         need = q.numel() * 2 * 2 + 2 * row * pairs // T_ + (0 if mask is None else mask.numel())
-        live = full[..., :length].reshape(B_, Hkv, -1)
-        pad = -length % nk
-        steps = int(torch.nn.functional.pad(live, (0, pad)).reshape(B_, Hkv, -1, nk).any(-1).sum())
+        live = full[..., kfirst:length]
+        pad = -(length - kfirst) % nk
+        steps = int(torch.nn.functional.pad(live, (0, pad)).reshape(B_, Hkv_, -1, nk).any(-1).sum())
         walk = q.numel() * 2 * 2 + 2 * row * steps * nk + (0 if mask is None else mask.numel())
-        walk_ms = bound_ms(walk, 4 * D_ * G * pairs)[0]
-        record("decode_attention", variant, got, ref, faults, ms, plain, need, 4 * D_ * G * pairs,
-               lib, wrapper_ms=wrapper, steps_bound_ms=walk_ms)
+        walk_ms = bound_ms(walk, 4 * D_ * G_ * pairs)[0]
+        record("decode_attention", variant, got, ref, faults, ms, plain_ms, need,
+               4 * D_ * G_ * pairs, lib, wrapper_ms=wrapper, steps_bound_ms=walk_ms)
         report(f"    launched twice with equal bits; {splits} key ranges a kv head; bound over "
-               f"the live {nk}-key steps ({steps} of {B_ * Hkv * -(-length // nk)}) "
+               f"the live {nk}-key steps ({steps} of {B_ * Hkv_ * -(-(length - kfirst) // nk)}) "
                f"{walk_ms:.4f} ms; with the wrapper (CUDA events): {wrapper:.4f} ms")
 
     # decode_attention: B=4, T=1, 16K live slots (+1 new), masked and not.
@@ -653,6 +889,22 @@ def kernel_checks(kt, torch, report):
     q = rnd(1, Hq, 1, 128)
     kd, vd = rnd(1, Hkv, S, 128), rnd(1, Hkv, S, 128)
     decode_case("int4 B1 66K D128", q, kd, vd, length, None, 4, iters=20)
+    # The Qwen3-8B run's decode (GQA 32/8, bf16): B=1 over the 16,384 slots
+    # Knorm leaves of 32K, the question and the new token. A Gemma-3-27B
+    # sliding layer's (GQA 32/16): over the 32,768 slots it keeps, the
+    # question and 8 new tokens, window 1,024 (its edge inside a kernel step).
+    length = CONTEXT_TOKENS // 2 + 152 + 1
+    S = length + 31
+    q = rnd(1, Hq, 1, 128)
+    kd, vd = rnd(1, Hkv, S, 128), rnd(1, Hkv, S, 128)
+    decode_case("bf16 B1 16K D128", q, kd, vd, length, None, None, iters=20)
+    length = CONTEXT_TOKENS + 152 + 8
+    S = length + 24
+    q = rnd(1, 32, 1, 128)
+    kd, vd = rnd(1, 16, S, 128), rnd(1, 16, S, 128)
+    decode_case("bf16 B1 33K D128 GQA 32/16 window 1024", q, kd, vd, length,
+                torch.ones((1, 16, S), dtype=torch.bool, device=dev), None, iters=20,
+                window=1024)
     del q, kd, vd, mask
     torch.cuda.empty_cache()
 
@@ -832,14 +1084,26 @@ def counters():
             "decode_headwise": decode_attention_headwise}
 
 
+# Launches of a kind, among a wrapper's: (wrapper, its count attribute).
+SUB_COUNTS = {"flash_attention_or_mask": ("flash_attention", "launches_or_mask"),
+              "flash_attention_windowed": ("flash_attention", "launches_windowed"),
+              "decode_attention_windowed": ("decode_attention", "launches_windowed")}
+
+
 def reset_counts():
-    for fn in counters().values():
+    fns = counters()
+    for fn in fns.values():
         fn.launches = 0
-    counters()["flash_attention_quant"].launches_by_bits.update({8: 0, 4: 0})
+    for name, attr in SUB_COUNTS.values():
+        setattr(fns[name], attr, 0)
+    fns["flash_attention_quant"].launches_by_bits.update({8: 0, 4: 0})
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in counters().items()}
+    fns = counters()
+    counts = {name: fn.launches for name, fn in fns.items()}
+    counts.update({sub: getattr(fns[name], attr) for sub, (name, attr) in SUB_COUNTS.items()})
+    return counts
 
 
 QUESTIONS = ["summarise " + " ".join(f"w{i}" for i in range(0, 300, 2)) + " ?",   # 152 words
@@ -849,7 +1113,8 @@ QUESTIONS = ["summarise " + " ".join(f"w{i}" for i in range(0, 300, 2)) + " ?", 
 def timed_runner(kt, torch, runner, log: list):
     """``runner`` with each prefill (one-shot or chunked) timed on a
     synchronized host clock and its peak device memory read: appends
-    (seconds, peak bytes, bytes held before) to ``log``."""
+    (seconds, peak bytes, bytes held before, the cache's layer lengths) to
+    ``log``."""
     class Timed(kt.Runner):
         def _measure(self, call):
             torch.cuda.synchronize()
@@ -858,7 +1123,8 @@ def timed_runner(kt, torch, runner, log: list):
             start = time.perf_counter()
             out = call()
             torch.cuda.synchronize()
-            log.append((time.perf_counter() - start, torch.cuda.max_memory_allocated(), held))
+            log.append((time.perf_counter() - start, torch.cuda.max_memory_allocated(), held,
+                        out[1].length.tolist()))
             return out
 
         def prefill(self, *args, **kw):
@@ -871,7 +1137,7 @@ def timed_runner(kt, torch, runner, log: list):
 
 
 def prefill_reading(log) -> str:
-    seconds, peak, held = log[-1]
+    seconds, peak, held = log[-1][:3]
     return (f"prefill {seconds * 1e3:.1f} ms, peak memory {peak / 2**30:.3f} GiB "
             f"({(peak - held) / 2**30:.3f} GiB over the {held / 2**30:.3f} GiB held before)")
 
@@ -948,7 +1214,7 @@ def main_path(kt, torch, tokenizer_cls, report):
             dict(context_chunk=CHUNK_TOKENS), ("flash_attention", "decode_headwise"),
             ("decode_attention",), (half, CONTEXT_TOKENS - 1)),
     }
-    totals = {name: 0 for name in counters()}
+    totals = {name: 0 for name in read_counts()}
     for label, (r, p, press, kw, needed, unwanted, (lo, hi)) in runs.items():
         prefills = []
         pipe = kt.KVPressPipeline(timed_runner(kt, torch, r, prefills), p, tok)
@@ -1234,10 +1500,10 @@ LAYER0_SLOTS = {"Knorm": 0, "path A": 2, "path B": 2, "Knorm, chunked": 0}
 
 
 @contextlib.contextmanager
-def planted_faults(torch):
+def planted_faults(torch, lo: int = 256):
     """Planted faults, all at once: every attention kernel wrapper the runner
-    calls ignores slots 256-511 (their keep bits cleared), as a kernel that
-    skipped that key step would compute; the column-sum kernel skips the
+    calls ignores slots lo .. lo + 255 (their keep bits cleared), as a kernel
+    that skipped that key step would compute; the column-sum kernel skips the
     query rows 1024-1087 (their LSE set to -inf); the head-wise decode skips
     the tail."""
     from kvpress_tpu_torch.models import llama
@@ -1260,7 +1526,7 @@ def planted_faults(torch):
                 k = bound.arguments["k"]
                 mask = torch.ones(k.shape[:3], dtype=torch.bool, device=k.device)
             mask = mask.clone()
-            mask[..., 256:512] = False
+            mask[..., lo:lo + 256] = False
             bound.arguments[mask_arg] = mask
             return fn(*bound.args, **bound.kwargs)
         return wrapper
@@ -1285,26 +1551,130 @@ def planted_faults(torch):
             setattr(module, name, fn)
 
 
+def rel(torch, a, b) -> float:
+    """max |a - b| / max |b|; ``a`` (the kernel path's) must be finite."""
+    if not torch.isfinite(a).all():
+        raise AssertionError("non-finite logits on the kernel path")
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def differing(a_log, b_log) -> list[int]:
+    """Slots kept by one and not the other, per layer (of two kept-slot logs)."""
+    return [int((a != b).sum()) // 2 for a, b in zip(a_log, b_log)]
+
+
+def f32_noise(torch, label, prefill, params, report, **f32_kw):
+    """What bf16 rounding alone moves: the dense prefill ``prefill(params,
+    log, **kw)`` with ``params`` against the same in float32 (``f32_kw``:
+    the float32 forms of other inputs). Returns (the last logits' rel,
+    kept slots differing per layer)."""
+    p32 = copy.deepcopy(params).float()
+    kept_32, kept_16 = [], []
+    pre_32, _, _ = prefill(p32, kept_32, **f32_kw)
+    del p32
+    torch.cuda.empty_cache()
+    pre_16, _, _ = prefill(params, kept_16)
+    noise = (rel(torch, pre_16, pre_32), differing(kept_16, kept_32))
+    report(f"  {label} prefill, dense bf16 against dense float32: logits {noise[0]:.3e}; kept "
+           f"slots differing per layer {noise[1]}")
+    return noise
+
+
+def compare_paths(kt, torch, label, runners, params, prefills, question, limit, report, *,
+                  dequantize=False, fault_lo=256, layer0_slots=None, layer0_faults=False,
+                  noise=None):
+    """One kernel path against the dense path, stage by stage, each stage
+    starting both from one state so that no difference carries from one
+    stage into the next:
+      prefill:  the last position's logits, and every compressed layer's
+                kept slots;
+      question: all logits of a ``question`` forward over the kernel path's
+                compressed cache (dequantized for the dense path with
+                ``dequantize``);
+      decode:   REF_STEPS teacher-forced steps over the kernel path's cache
+                after the question.
+    ``runners`` is (kernel, dense); ``prefills`` (kernel, dense) of
+    ``f(log)``, a prefill that appends each layer's kept slots to ``log``.
+    Every stage must read at most ``limit`` and its planted faults (keys
+    fault_lo .. fault_lo + 255) above it. The first compressed layer keeps at
+    most ``layer0_slots`` other slots (its keys do not depend on attention),
+    and with ``layer0_faults`` the planted faults must move more. With
+    ``noise`` (``f32_noise``), the prefill's logits and kept slots may differ
+    by at most F32_RATIO times what bf16 rounding alone moves, and the
+    planted faults by more. Returns (failures, the kept-slot logs)."""
+    kernel, dense = runners
+
+    def steps(r, cache):
+        out = []
+        for i in range(REF_STEPS):
+            logits, cache, _ = r.forward(params, question[:, i:i + 1], cache,
+                                         logits_last_only=True)
+            out.append(logits)
+        return torch.cat(out, dim=1)
+
+    kept = {"kernel": [], "dense": [], "fault": []}
+    pre_k, cache, _ = prefills[0](kept["kernel"])
+    pre_d, _, _ = prefills[1](kept["dense"])
+    shared = kt.resize(cache, int(cache.length.max()) + question.shape[1] + REF_STEPS)
+    ref_cache = dequantized_cache(kt, shared, torch.bfloat16) if dequantize else shared
+    q_k, after_q, _ = kernel.forward(params, question, clone_cache(shared))
+    q_d, _, _ = dense.forward(params, question, clone_cache(ref_cache))
+    d_k = steps(kernel, clone_cache(after_q))
+    d_d = steps(dense, clone_cache(after_q))
+    with planted_faults(torch, fault_lo):
+        pre_f, _, _ = prefills[0](kept["fault"])
+        q_f, _, _ = kernel.forward(params, question, clone_cache(shared))
+        d_f = steps(kernel, clone_cache(after_q))
+    read = {"prefill": rel(torch, pre_k, pre_d), "question": rel(torch, q_k, q_d),
+            "decode": rel(torch, d_k, d_d)}
+    fault = {"prefill": rel(torch, pre_f, pre_d), "question": rel(torch, q_f, q_d),
+             "decode": rel(torch, d_f, d_d)}
+    diff = differing(kept["kernel"], kept["dense"])
+    diff_f = differing(kept["fault"], kept["dense"])
+    report(f"  {label}: max |kernel - dense| / max |dense|: "
+           + ", ".join(f"{s} {x:.3e}" for s, x in read.items())
+           + f" (limit {limit}; planted faults: "
+           + ", ".join(f"{s} {x:.3e}" for s, x in fault.items())
+           + f"); kept slots differing per layer {diff} (planted faults: {diff_f}); layer "
+           f"lengths {sorted(set(cache.length.tolist()))}")
+    failures = [f"{label}: {s} reads {x:.3e} > {limit}" for s, x in read.items()
+                if not x <= limit]
+    failures += [f"{label}: the limit passes the planted faults at {s} ({x:.3e})"
+                 for s, x in fault.items() if not x > limit]
+    if layer0_slots is not None and diff[0] > layer0_slots:
+        failures.append(f"{label}: layer 0 keeps different slots ({diff[0]})")
+    if layer0_faults and not diff_f[0] > layer0_slots:
+        failures.append(f"{label}: layer 0's limit passes the planted faults ({diff_f[0]})")
+    if noise is not None:
+        noise_logits, noise_kept = noise
+        ratios = {"logits": read["prefill"] / noise_logits,
+                  "kept slots": sum(diff) / max(sum(noise_kept), 1)}
+        ratios_f = {"logits": fault["prefill"] / noise_logits,
+                    "kept slots": sum(diff_f) / max(sum(noise_kept), 1)}
+        report("    prefill, kernel against dense over dense bf16 against float32: "
+               + ", ".join(f"{s} {x:.3f}" for s, x in ratios.items())
+               + f" (limit {F32_RATIO}; planted faults: "
+               + ", ".join(f"{s} {x:.3f}" for s, x in ratios_f.items()) + ")")
+        failures += [f"{label}: {s} ratio {x:.3f} > {F32_RATIO}"
+                     for s, x in ratios.items() if not x <= F32_RATIO]
+        failures += [f"{label}: the ratio passes the planted faults at {s} ({x:.3f})"
+                     for s, x in ratios_f.items() if not x > F32_RATIO]
+    return failures, kept
+
+
 def reference_check(kt, torch, params, report, chunk=None):
     """Each kernel path (attn_impl "flash"; the decode kernel, or for path B
     the head-wise kernel) against the dense path (attn_impl "xla", the routes
     the runner takes on the CPU, scoring from materialized probabilities or
     the plain chunked sweep) on the same full-width weights, cut to their
-    first layer and whole, with a 2,048-token context at ratio 0.5: Knorm for
-    bf16, int8 and int4 KV, paths A and B for bf16 KV. With ``chunk``, the
-    prefill is ``prefill_chunked`` in chunks of that many tokens instead:
-    Knorm for bf16 and int8 KV and for int4 KV on both attention routes
-    (``chunked_reference_paths``). Each stage starts both paths from one
-    state, so no difference carries from one stage into the next:
-      prefill:  the last position's logits, and every layer's kept slots
-                (for path B per head, with the heads' kept counts);
-      question: all logits of a 150-token forward over the kernel path's
-                compressed cache (flash; flash_quant for int8 KV);
-      decode:   4 teacher-forced steps over the kernel path's cache after
-                the question (decode kernel; head-wise kernel for path B).
-    Layer 0's kept slots must be equal (LAYER0_SLOTS). At full depth, dense
-    bf16 against dense float32 sets the scale of what bf16 rounding alone
-    moves. The planted faults must read above every limit they meet."""
+    first layer and whole, with a 2,048-token context at ratio 0.5
+    (``compare_paths``): Knorm for bf16, int8 and int4 KV, paths A and B for
+    bf16 KV. With ``chunk``, the prefill is ``prefill_chunked`` in chunks of
+    that many tokens instead: Knorm for bf16 and int8 KV and for int4 KV on
+    both attention routes (``chunked_reference_paths``). The question runs
+    on flash (flash_quant for int8 KV). Layer 0's kept slots must be equal
+    (LAYER0_SLOTS). At full depth, dense bf16 against dense float32 sets the
+    scale of what bf16 rounding alone moves."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
     vocab = flagship_config().vocab_size
@@ -1320,14 +1690,6 @@ def reference_check(kt, torch, params, report, chunk=None):
             return r.prefill(p, ids, press=press, **kw)
         return r.prefill_chunked(p, ids, press=press, chunk_size=chunk, fused_kv=fused, **kw)
 
-    def rel(a, b):
-        if not torch.isfinite(a).all():
-            raise AssertionError("non-finite logits on the kernel path")
-        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
-
-    def differing(a_log, b_log):
-        return [int((a != b).sum()) // 2 for a, b in zip(a_log, b_log)]
-
     def head_counts(a_log, b_log):
         """Largest difference of a head's kept count, per layer."""
         return [int((a.sum(-1) - b.sum(-1)).abs().max()) for a, b in zip(a_log, b_log)]
@@ -1336,100 +1698,367 @@ def reference_check(kt, torch, params, report, chunk=None):
     # bf16 KV. Chunked, for each KV variant: an int4 chunk attends a bf16
     # transient of its layer on one route and payload x scale on the other,
     # and the rounding of the model's K and V moves their int4 codes.
-    p32 = copy.deepcopy(params).float()
     dense = kt.Runner.create(flagship_config(), attn_impl="xla", decode_kernel=False,
                              device=dev)
     noise = {}
     for path, (_, _, dense_press, variants) in paths.items():
         for variant in (variants if chunk else [None]):
             kw = {} if variant is None else dict(zip(("quantized", "bits", "fused"), variant))
-            kept_32, kept_16 = [], []
-            pre_32, _, _ = prefill(dense, p32, dense_press(kept_32), **kw)
-            pre_16, _, _ = prefill(dense, params, dense_press(kept_16), **kw)
-            # the press does not move the logits
-            noise[path, variant] = (rel(pre_16, pre_32), differing(kept_16, kept_32))
-            report(f"  {path}, depth 16, {variant or 'bf16 KV'} prefill, dense bf16 against "
-                   f"dense float32: logits {noise[path, variant][0]:.3e}; kept slots differing "
-                   f"per layer {noise[path, variant][1]}")
-    del p32, dense
+            noise[path, variant] = f32_noise(
+                torch, f"{path}, depth 16, {variant or 'bf16 KV'}",
+                lambda p, log: prefill(dense, p, dense_press(log), **kw), params, report)
+    del dense
     torch.cuda.empty_cache()
 
     for depth in (1, 16):
         cfg = flagship_config(depth)
         p = first_layers(params, depth) if depth < len(params.layers) else params
         dense = kt.Runner.create(cfg, attn_impl="xla", decode_kernel=False, device=dev)
-        limit = REF_LIMIT[depth]
-
-        def steps(r, cache):
-            out = []
-            for i in range(REF_STEPS):
-                logits, cache, _ = r.forward(p, question[:, i:i + 1], cache,
-                                             logits_last_only=True)
-                out.append(logits)
-            return torch.cat(out, dim=1)
-
         for path, (options, kernel_press, dense_press, variants) in paths.items():
             kernel = kt.Runner.create(cfg, device=dev, **options)
             for quantized, bits, fused in variants:
                 label = (f"{path}, depth {depth}, {f'int{bits}' if quantized else 'bf16'} KV"
                          + ("" if fused is None else f", fused_kv={fused}"))
                 kw = dict(quantized=quantized, bits=bits, fused=fused)
-                kept = {"kernel": [], "dense": [], "fault": []}
-                pre_k, cache, _ = prefill(kernel, p, kernel_press(kept["kernel"]), **kw)
-                pre_d, _, _ = prefill(dense, p, dense_press(kept["dense"]), **kw)
-                shared = kt.resize(cache, int(cache.length.max()) + REF_QUESTION + REF_STEPS)
-                ref_cache = (dequantized_cache(kt, shared, torch.bfloat16)
-                             if quantized and bits == 4 else shared)
-                q_k, after_q, _ = kernel.forward(p, question, clone_cache(shared))
-                q_d, _, _ = dense.forward(p, question, clone_cache(ref_cache))
-                d_k = steps(kernel, clone_cache(after_q))
-                d_d = steps(dense, clone_cache(after_q))
-                with planted_faults(torch):
-                    pre_f, _, _ = prefill(kernel, p, kernel_press(kept["fault"]), **kw)
-                    q_f, _, _ = kernel.forward(p, question, clone_cache(shared))
-                    d_f = steps(kernel, clone_cache(after_q))
-                read = {"prefill": rel(pre_k, pre_d), "question": rel(q_k, q_d),
-                        "decode": rel(d_k, d_d)}
-                fault = {"prefill": rel(pre_f, pre_d), "question": rel(q_f, q_d),
-                         "decode": rel(d_f, d_d)}
-                diff = differing(kept["kernel"], kept["dense"])
-                diff_f = differing(kept["fault"], kept["dense"])
-                report(f"  {label}: max |kernel - dense| / max |dense|: "
-                       + ", ".join(f"{s} {x:.3e}" for s, x in read.items())
-                       + f" (limit {limit}; planted faults: "
-                       + ", ".join(f"{s} {x:.3e}" for s, x in fault.items())
-                       + f"); kept slots differing per layer {diff} (planted faults: {diff_f})")
+                found, kept = compare_paths(
+                    kt, torch, label, (kernel, dense), p,
+                    (lambda log: prefill(kernel, p, kernel_press(log), **kw),
+                     lambda log: prefill(dense, p, dense_press(log), **kw)),
+                    question, REF_LIMIT[depth], report, dequantize=quantized and bits == 4,
+                    layer0_slots=LAYER0_SLOTS[path], layer0_faults=not path.startswith("Knorm"),
+                    noise=noise[path, (quantized, bits, fused) if chunk else None]
+                    if depth == 16 else None)
+                failures += found
                 if path == "path B":
                     report(f"    largest difference of a head's kept count per layer "
                            f"{head_counts(kept['kernel'], kept['dense'])} (planted faults: "
                            f"{head_counts(kept['fault'], kept['dense'])}); kept per head in "
                            f"layer 0: {kept['kernel'][0].sum(-1).flatten().tolist()}")
-                failures += [f"{label}: {s} reads {x:.3e} > {limit}" for s, x in read.items()
-                             if not x <= limit]
-                failures += [f"{label}: the limit passes the planted faults at {s} ({x:.3e})"
-                             for s, x in fault.items() if not x > limit]
-                if diff[0] > LAYER0_SLOTS[path]:
-                    failures.append(f"{label}: layer 0 keeps different slots ({diff[0]})")
-                if not diff_f[0] > LAYER0_SLOTS[path] and not path.startswith("Knorm"):
-                    failures.append(f"{label}: layer 0's limit passes the planted faults "
-                                    f"({diff_f[0]})")
-                if depth == 16:
-                    noise_logits, noise_kept = noise[path, (quantized, bits, fused)
-                                                     if chunk else None]
-                    ratios = {"logits": read["prefill"] / noise_logits,
-                              "kept slots": sum(diff) / max(sum(noise_kept), 1)}
-                    ratios_f = {"logits": fault["prefill"] / noise_logits,
-                                "kept slots": sum(diff_f) / max(sum(noise_kept), 1)}
-                    report("    prefill, kernel against dense over dense bf16 against float32: "
-                           + ", ".join(f"{s} {x:.3f}" for s, x in ratios.items())
-                           + f" (limit {F32_RATIO}; planted faults: "
-                           + ", ".join(f"{s} {x:.3f}" for s, x in ratios_f.items()) + ")")
-                    failures += [f"{label}: {s} ratio {x:.3f} > {F32_RATIO}"
-                                 for s, x in ratios.items() if not x <= F32_RATIO]
-                    failures += [f"{label}: the ratio passes the planted faults at {s} ({x:.3f})"
-                                 for s, x in ratios_f.items() if not x > F32_RATIO]
             del kernel
         del dense
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+# --------------------------------------------------------------------- #
+# Phase 3: the other architectures at full width
+
+
+def qwen3_8b_config(num_layers: int = 36):
+    """Qwen3-8B (``Qwen/Qwen3-8B`` config.json: vocab 151,936, hidden 4,096,
+    FFN 12,288, 36 layers, 32 query / 8 kv heads, head_dim 128, q/k-norm,
+    rope_theta 1e6, rms eps 1e-6, untied head), written out by hand."""
+    from kvpress_tpu_torch.config import ModelConfig
+
+    return ModelConfig(vocab_size=151936, hidden_size=4096, intermediate_size=12288,
+                       num_layers=num_layers, num_heads=32, num_kv_heads=8, head_dim=128,
+                       rms_norm_eps=1e-6, rope_theta=1e6, qk_norm=True,
+                       tie_word_embeddings=False, max_position_embeddings=40960,
+                       model_type="qwen3")
+
+
+GEMMA3_IMAGE_TOKEN = 262144
+
+
+def gemma3_27b_config(num_layers: int = 62):
+    """The text decoder of Gemma-3-27B (``google/gemma-3-27b-it`` config.json,
+    text_config: vocab 262,208, hidden 5,376, FFN 21,504, 62 layers, every
+    sixth global and the rest sliding with window 1,024, 32 query / 16 kv
+    heads, head_dim 128, query_pre_attn_scalar 168, rope_theta 1e6 with
+    linear scaling 8, rope_local_base_freq 1e4, q/k-norm, post-norms, (1 + w)
+    norms, scaled embeddings, gelu-tanh, tied head), written out by hand."""
+    from kvpress_tpu_torch.config import ModelConfig
+
+    return ModelConfig(vocab_size=262208, hidden_size=5376, intermediate_size=21504,
+                       num_layers=num_layers, num_heads=32, num_kv_heads=16, head_dim=128,
+                       rms_norm_eps=1e-6, rope_theta=1e6,
+                       rope_scaling={"rope_type": "linear", "factor": 8.0}, qk_norm=True,
+                       tie_word_embeddings=True, sliding_window=1024,
+                       layer_is_sliding=tuple((i + 1) % 6 != 0 for i in range(num_layers)),
+                       act="gelu_tanh", max_position_embeddings=131072, scale_embeddings=True,
+                       post_norms=True, rms_one_offset=True, query_pre_attn_scalar=168.0,
+                       rope_local_base_freq=10000.0, model_type="gemma3_text")
+
+
+def gemma3_vision_config():
+    """Gemma-3-27B's SigLIP tower (``google/gemma-3-27b-it`` config.json,
+    vision_config: hidden 1,152, FFN 4,304, 27 layers, 16 heads, image 896,
+    patch 14; mm_tokens_per_image 256)."""
+    from kvpress_tpu_torch.models.siglip import VisionConfig
+
+    return VisionConfig(hidden_size=1152, intermediate_size=4304, num_layers=27, num_heads=16,
+                        image_size=896, patch_size=14, mm_tokens_per_image=256)
+
+
+def int4_body(kt, torch, cfg, gen, dev):
+    """Random weights as ``init_params`` draws them, each layer quantized to
+    int4 before the next is drawn, so that the bf16 model never exists
+    whole; the embedding (tied head) stays bf16."""
+    from kvpress_tpu_torch.models.llama import LlamaModel, init_layer
+
+    layers = [kt.quantize_layer_int4(init_layer(cfg, gen, torch.bfloat16, dev))
+              for _ in range(cfg.num_layers)]
+    embed = (torch.randn((cfg.vocab_size, cfg.hidden_size), generator=gen, device=dev)
+             * 0.02).to(torch.bfloat16)
+    assert cfg.tie_word_embeddings
+    return LlamaModel(embed, layers, torch.ones(cfg.hidden_size, dtype=torch.bfloat16,
+                                                device=dev))
+
+
+def spread_norms(torch, params, cfg, gen):
+    """q/k-norm weights drawn around their unit value (1 + w: around w = 0):
+    with every one at its init value, all keys of a layer have the same norm
+    and KnormPress would choose among ties."""
+    for layer in params.layers:
+        for name in ("q_norm", "k_norm"):
+            w = layer.get(name)
+            noise = torch.randn(w.shape, generator=gen, device=w.device) * 0.3
+            w.data.copy_((noise if cfg.rms_one_offset else 1.0 + noise).to(w.dtype))
+
+
+def image_context(words: int, starts, span: int) -> str:
+    """A toy-tokenizer context of ``words`` tokens (the bos token joins the
+    first word) with ``span`` image placeholders from each position in
+    ``starts``."""
+    toks = [f"w{i}" for i in range(words)]
+    for s0 in starts:
+        toks[s0:s0 + span] = ["<image>"] * span
+    return " ".join(toks)
+
+
+def image_tokenizer(tokenizer_cls, vocab_size):
+    """The toy tokenizer with the word ``<image>`` as Gemma3's placeholder."""
+    class ImageTokenizer(tokenizer_cls):
+        def _tok2id(self, tok):
+            return GEMMA3_IMAGE_TOKEN if tok == "<image>" else super()._tok2id(tok)
+
+    return ImageTokenizer(vocab_size=vocab_size)
+
+
+def pipeline_run(kt, torch, label, pipe, prefills, needed, unwanted, report, **kw):
+    """One pipeline call with the launch counts set to 0 before it and read
+    after it. Returns (counts, the answers, the prefill's layer lengths)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pipe(questions=QUESTIONS, max_new_tokens=32, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    answers = out["answers"]
+    report(f"  {label}: {seconds:.2f} s in all, {prefill_reading(prefills)}, layer lengths "
+           f"{sorted(set(prefills[-1][3]))}, launches {counts}, answer tokens "
+           f"{[len(a.split()) for a in answers]}")
+    if len(answers) != 2 or not all(isinstance(a, str) and a for a in answers):
+        raise AssertionError(f"{label}: bad answers {answers!r}")
+    check_run(label, counts, needed, unwanted)
+    return counts, answers, prefills[-1][3]
+
+
+def qwen3_run(kt, torch, tokenizer_cls, report):
+    """The Qwen3-8B body at full width and depth (seeded random bf16 weights,
+    q/k-norm spread) through ``KVPressPipeline`` with Knorm(0.5), bf16 KV, a
+    32,768-token context, the two questions and 32 new tokens; then its
+    decode rate and idle share over the compressed cache, and the kernel
+    path against the dense path at depth 1 and 36. Returns the launch
+    counts."""
+    cfg = qwen3_8b_config()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(36)
+    t0 = time.perf_counter()
+    params = kt.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    spread_norms(torch, params, cfg, gen)
+    report(f"  Qwen3-8B body: made in {time.perf_counter() - t0:.1f} s, "
+           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prefills = []
+    runner = kt.Runner.create(cfg, device=dev)
+    pipe = kt.KVPressPipeline(timed_runner(kt, torch, runner, prefills), params,
+                              tokenizer_cls(vocab_size=cfg.vocab_size))
+    context = " ".join(f"w{i}" for i in range(CONTEXT_TOKENS))
+    counts, _, lengths = pipeline_run(
+        kt, torch, "Qwen3-8B, 32K, Knorm, bf16 KV", pipe, prefills,
+        ("flash_attention", "decode_attention"), ("flash_attention_quant", "decode_headwise"),
+        report, context=context, press=kt.KnormPress(0.5))
+    if set(lengths) != {CONTEXT_TOKENS // 2}:
+        raise AssertionError(f"Qwen3-8B run: layer lengths {sorted(set(lengths))}")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # Where the prefill's time goes, on the body cut to 4 of its 36 layers
+    # (every layer does the same work); then decode over the compressed
+    # cache: tok/s (B=1, 32 steps, median of 3 passes) and one step's device
+    # breakdown (idle share).
+    ids = torch.randint(3, cfg.vocab_size, (1, CONTEXT_TOKENS), generator=gen, device=dev)
+    cut, p_cut = kt.Runner.create(qwen3_8b_config(4), device=dev), first_layers(params, 4)
+    breakdown("Qwen3-8B prefill 32K cut to 4 layers, Knorm, bf16 KV",
+              lambda: cut.prefill(p_cut, ids, press=kt.KnormPress(0.5), compute_logits=True),
+              1, report, top=6)
+    del cut, p_cut
+    torch.cuda.empty_cache()
+    _, cache, _ = runner.prefill(params, ids, press=kt.KnormPress(0.5))
+    steps = 32
+    cache = kt.resize(cache, CONTEXT_TOKENS // 2 + steps + 1)
+    base_len, base_off = cache.length, cache.offset
+    rates = []
+    for _ in range(3):
+        c, tok = dataclasses.replace(cache, length=base_len, offset=base_off), ids[:, -1:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, c, _ = runner.forward(params, tok, c, logits_last_only=True)
+            tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        rates.append(steps / (time.perf_counter() - t0))
+    report(f"  Qwen3-8B decode B=1 over a 32K context at ratio 0.5, bf16 KV: "
+           f"{statistics.median(rates):.1f} tok/s (passes {[round(r, 1) for r in rates]})")
+    c = dataclasses.replace(cache, length=base_len, offset=base_off)
+    breakdown("Qwen3-8B decode step", lambda: runner.forward(params, ids[:, -1:], c,
+                                                             logits_last_only=True),
+              8, report, top=4)
+    del cache, c
+    torch.cuda.empty_cache()
+    for depth in (1, cfg.num_layers):
+        model_reference_check(kt, torch, f"Qwen3-8B, depth {depth}", qwen3_8b_config(depth),
+                              first_layers(params, depth), report, layer0_equal=True)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gemma3_run(kt, torch, tokenizer_cls, report):
+    """The Gemma-3-27B body at full width, all 62 layers, with random int4
+    weights drawn and quantized layer by layer (the bf16 model never exists
+    whole) and its SigLIP tower (bf16), through ``KVPressPipeline`` with
+    ``pixel_values``: a 32,768-token context holding 4 images of 256
+    placeholders at unaligned positions, Knorm(0.5), bf16 KV, one-shot and
+    with ``context_chunk=8192`` (two images straddle chunk edges, so the
+    chunk starts move). Every layer's prefill runs flash_attention with the
+    or-mask (windowed on the sliding layers), the decode kernel runs windowed
+    on the sliding layers, flash_attention_quant never; the global layers
+    keep half the context and the sliding layers all of it. Then the body cut
+    to 6 layers (5 sliding, 1 global) against the dense path at 4,096 tokens
+    with two images. Returns the launch counts of both runs."""
+    cfg, vcfg = gemma3_27b_config(), gemma3_vision_config()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    t0 = time.perf_counter()
+    params = int4_body(kt, torch, cfg, gen, dev)
+    spread_norms(torch, params, cfg, gen)
+    tower = kt.init_vision_params(vcfg, gen, torch.bfloat16, dev,
+                                  text_hidden_size=cfg.hidden_size)
+    torch.cuda.empty_cache()
+    report(f"  Gemma-3-27B body (int4) and tower: made in {time.perf_counter() - t0:.1f} s, "
+           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    span, starts = vcfg.mm_tokens_per_image, GEMMA3_IMAGE_STARTS
+    context = image_context(CONTEXT_TOKENS, starts, span)
+    prefills = []
+    runner = kt.Runner.create(cfg, device=dev)
+    tok = image_tokenizer(tokenizer_cls, GEMMA3_IMAGE_TOKEN)      # text ids below the placeholder
+    pipe = kt.KVPressPipeline(timed_runner(kt, torch, runner, prefills), params, tok,
+                              vision_params=tower, vision_cfg=vcfg,
+                              image_token_id=GEMMA3_IMAGE_TOKEN)
+    ids = torch.tensor([pipe.preprocess(context, [""])[0]], device=dev)
+    tt = (ids == GEMMA3_IMAGE_TOKEN).to(torch.int32)
+    if ids.shape[1] != CONTEXT_TOKENS or int(tt.sum()) != 4 * span:
+        raise AssertionError(f"Gemma3 context: {ids.shape[1]} tokens, {int(tt.sum())} "
+                             f"placeholders")
+    chunk_starts = kt.Runner.chunk_starts(CONTEXT_TOKENS, CHUNK_TOKENS, tt)
+    report(f"  images at {starts}; chunk starts {chunk_starts}")
+    if chunk_starts == kt.Runner.chunk_starts(CONTEXT_TOKENS, CHUNK_TOKENS):
+        raise AssertionError("no chunk start moved around an image")
+    px = torch.rand((4, 3, vcfg.image_size, vcfg.image_size), generator=gen, device=dev) * 2 - 1
+    n_global = cfg.num_layers - sum(cfg.sliding_flags())
+    totals = {}
+    for label, kw, n_chunks in (("one-shot", {}, 1),
+                                ("context_chunk 8192", dict(context_chunk=CHUNK_TOKENS),
+                                 len(chunk_starts))):
+        counts, _, lengths = pipeline_run(
+            kt, torch, f"Gemma-3-27B, 32K with 4 images, Knorm, bf16 KV, {label}", pipe,
+            prefills, ("flash_attention", "flash_attention_or_mask", "flash_attention_windowed",
+                       "decode_attention", "decode_attention_windowed"),
+            ("flash_attention_quant", "decode_headwise"), report, context=context,
+            press=kt.KnormPress(0.5), pixel_values=px, **kw)
+        want = [CONTEXT_TOKENS if s else CONTEXT_TOKENS // 2 for s in cfg.sliding_flags()]
+        if lengths != want:
+            raise AssertionError(f"Gemma3 {label}: layer lengths {lengths}")
+        if counts["flash_attention_or_mask"] != cfg.num_layers * n_chunks:
+            raise AssertionError(f"Gemma3 {label}: {counts['flash_attention_or_mask']} or-mask "
+                                 f"launches for {cfg.num_layers} layers x {n_chunks} chunks")
+        report(f"    global layers {n_global}, sliding {cfg.num_layers - n_global}; windowed "
+               f"launches: flash {counts['flash_attention_windowed']}, decode "
+               f"{counts['decode_attention_windowed']} of {counts['decode_attention']}")
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+        torch.cuda.empty_cache()
+    del pipe
+    torch.cuda.empty_cache()
+
+    # Where the prefill's time goes, on the body cut to its first 6 layers (5
+    # sliding, 1 global: the pattern of the whole), the 32K context with its
+    # images.
+    depth = 6
+    cut = dataclasses.replace(cfg, num_layers=depth, layer_is_sliding=cfg.layer_is_sliding[:depth])
+    p_cut = first_layers(params, depth)
+    embeds = kt.multimodal_embeds(p_cut, cut, ids, tower(px), GEMMA3_IMAGE_TOKEN)
+    cut_runner = kt.Runner.create(cut, device=dev)
+    breakdown(f"Gemma-3-27B prefill 32K with 4 images cut to {depth} layers, Knorm, bf16 KV",
+              lambda: cut_runner.prefill(p_cut, None, press=kt.KnormPress(0.5),
+                                         compute_logits=True, inputs_embeds=embeds,
+                                         token_types=tt, image_span=span), 1, report, top=8)
+    del embeds
+    torch.cuda.empty_cache()
+
+    T = 4096
+    ids = torch.randint(3, GEMMA3_IMAGE_TOKEN, (1, T), generator=gen, device=dev)
+    for s0 in (501, 2222):
+        ids[:, s0:s0 + span] = GEMMA3_IMAGE_TOKEN
+    embeds = kt.multimodal_embeds(p_cut, cut, ids, tower(px[:2]), GEMMA3_IMAGE_TOKEN)
+    model_reference_check(kt, torch, f"Gemma-3-27B with 2 images, depth {depth}", cut, p_cut,
+                          report, ids=ids, inputs_embeds=embeds,
+                          token_types=(ids == GEMMA3_IMAGE_TOKEN).to(torch.int32),
+                          image_span=span)
+    del params, p_cut, tower, embeds
+    torch.cuda.empty_cache()
+    return totals
+
+
+def model_reference_check(kt, torch, label, cfg, params, report, ids=None, inputs_embeds=None,
+                          token_types=None, image_span=None, layer0_equal=False):
+    """The kernel path against the dense path (attn_impl "xla") on one model
+    (``compare_paths``): a Knorm(0.5) prefill (``ids``, or 2,048 random
+    tokens; with images through ``inputs_embeds`` and ``token_types``), a
+    150-token question, 4 decode steps. The first compressed layer keeps the
+    same slots with ``layer0_equal`` (its keys do not depend on attention).
+    Limits: REF_LIMIT at depth 1; deeper, its deepest and the F32_RATIO gate
+    over dense bf16 against dense float32 at the same depth. The planted
+    faults (on a model with sliding layers, in slots their windows see from
+    the end of the context) must read above them."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    if ids is None:
+        ids = torch.randperm(cfg.vocab_size, generator=gen, device=dev)[:REF_CONTEXT][None]
+    question = torch.randint(3, min(cfg.vocab_size, GEMMA3_IMAGE_TOKEN), (1, REF_QUESTION),
+                             generator=gen, device=dev)
+    kernel = kt.Runner.create(cfg, device=dev)
+    dense = kt.Runner.create(cfg, attn_impl="xla", decode_kernel=False, device=dev)
+    S = ids.shape[1]
+
+    def prefill(r, p, log, embeds=inputs_embeds):
+        return r.prefill(p, None if embeds is not None else ids,
+                         press=recording_scorer(torch, kt.KnormPress, log), max_size=S,
+                         compute_logits=True, inputs_embeds=embeds, token_types=token_types,
+                         image_span=image_span)
+
+    noise = None
+    if cfg.num_layers > 1:
+        noise = f32_noise(torch, label, lambda p, log, **kw: prefill(dense, p, log, **kw),
+                          params, report, **({} if inputs_embeds is None else
+                                             {"embeds": inputs_embeds.float()}))
+    failures, _ = compare_paths(
+        kt, torch, f"{label}, {S} tokens", (kernel, dense), params,
+        (lambda log: prefill(kernel, params, log), lambda log: prefill(dense, params, log)),
+        question, REF_LIMIT[1] if cfg.num_layers == 1 else max(REF_LIMIT.values()), report,
+        fault_lo=S - 768 if cfg.sliding_window else 256, layer0_slots=0 if layer0_equal else None,
+        noise=noise)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -1608,6 +2237,10 @@ SOURCES = {
                         "kvpress_tpu/ops/observed_colsum.py:87", "flash lse, B1 S8192"),
     "decode_headwise": ("kvpress_tpu_torch/csrc/decode_headwise.cu",
                         "kvpress_tpu/ops/decode_headwise.py:236", "bf16 B4 T1 16K ragged"),
+    # the or-mask branch of flash_attention: its own instantiation of the loop
+    "flash_attention_or_mask": ("kvpress_tpu_torch/csrc/flash.cu",
+                                "kvpress_tpu/ops/flash.py:106",
+                                "bf16 B1 T8192 S8192 D128 4 images window 1024"),
 }
 
 
@@ -1707,6 +2340,13 @@ def main() -> int:
         launches[name] += n
     report("phase 3: the 8B-class body at 131,072 tokens, chunked")
     for name, n in long_context_run(kt, torch, ToyTokenizer, report).items():
+        launches[name] += n
+    report("phase 3: the Qwen3-8B body at full width and depth, 32K")
+    for name, n in qwen3_run(kt, torch, ToyTokenizer, report).items():
+        launches[name] += n
+    report("phase 3: the Gemma-3-27B body (int4, 62 layers) with 4 images, 32K, one-shot and "
+           "chunked")
+    for name, n in gemma3_run(kt, torch, ToyTokenizer, report).items():
         launches[name] += n
     reference_check(kt, torch, params, report)
     report(f"phase 3: chunked prefill (chunks of {REF_CHUNK}) against the dense path")

@@ -46,6 +46,17 @@
 //   tile with no keep-bit is skipped, and a tile with every keep-bit set that
 //   lies wholly below the diagonal and inside the window takes no per-element
 //   test.
+// * The same-image or-mask (OR = true, bf16 caches only, as in the Pallas
+//   kernel): a row whose image id gq is >= 0 also sees every key whose id
+//   equals it. An image spans at most or_span slots, so a q-tile's key range
+//   reaches or_span - 1 slots past its last row and starts
+//   max(window - 1, or_span - 1) slots behind its first. The keys' ids ride
+//   in each ring stage beside the keep-mask bytes. A tile wholly below the
+//   diagonal and inside the window gains nothing from the or-mask and keeps
+//   its cheap class; every other visible tile takes the per-element test,
+//   where a key is allowed if wlim < x <= lim or gq == gk[x], then the
+//   keep-bit applies. Rows only gain keys, so no row that had a live key
+//   loses it.
 // * Few query rows over a long cache (a question forward): the key range of a
 //   q-tile is split over `nsplit` blocks, each of which writes its
 //   unnormalised f32 output, running max and sum to scratch; a second kernel
@@ -83,11 +94,14 @@ struct FlashParams {
   const float* ks;         // (B, Hkv, S) f32 or null
   const float* vs;
   const uint8_t* mask;     // (B, Hkv, mask_pitch) or null
+  const int* qg;           // (B, T) image ids of the queries (-1: text); OR only
+  const int* kg;           // (B, kg_pitch) image ids of the slots, padded with -1
   __nv_bfloat16* out;      // (B, Hq, T, D)
   float* lse;              // (B, Hq, T) or null
   float* part_o;           // (nsplit, B, Hq, T, D) f32, nsplit > 1
   float* part_ml;          // (nsplit, B, Hq, T, 2) f32: max (in log2 units), sum
   int B, Hq, Hkv, T, S, G, bq, prior, window, mask_pitch, nsplit;
+  int kg_pitch, or_span;   // OR only: slots of a k_groups row; the longest image span
   float sm_scale, softcap;
 };
 
@@ -273,8 +287,9 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4
 // number of 1,024-byte swizzle atoms; head_dim 128 is two 64-channel panels,
 // one after the other. The row-logsumexp pass reads neither scales nor
 // keep-mask bytes but keeps their room: without it the pass measured slower
-// on the H100, and a ring of eight K stages no faster (PERF.md).
-template <int D, int KIND>
+// on the H100, and a ring of eight K stages no faster (PERF.md). With the
+// or-mask (OR) every stage also holds its keys' image ids.
+template <int D, int KIND, bool OR = false>
 struct Ring {
   static constexpr int NK = D == 64 ? 128 : 64;
   static constexpr int STAGES = 4;
@@ -293,7 +308,10 @@ struct Ring {
   static constexpr int OFF_RAW_SCALE = OFF_SCALE + STAGES * 2 * NK * 4;
   static constexpr int OFF_MASK = OFF_RAW_SCALE + RAW_SLOTS * 2 * NK * 4;
   static constexpr int OFF_RAW_MASK = OFF_MASK + STAGES * NK;
-  static constexpr int OFF_BAR = OFF_RAW_MASK + RAW_SLOTS * NK;
+  static constexpr int OFF_GROUP = OFF_RAW_MASK + RAW_SLOTS * NK;
+  static constexpr int OFF_BAR = OFF_GROUP + (OR ? STAGES * NK * 4 : 0);
+  static_assert(OFF_GROUP % 16 == 0, "image ids are copied 16 bytes at a time");
+  static_assert(!OR || KIND == KV_BF16, "the or-mask is a branch of the bf16 kernel only");
   // Arrivals that complete a stage's full barrier: every producer thread
   // (through its copies, for a bf16 tile) and, for a bf16 tile with a
   // keep-mask, the thread that wrote the keep-mask bytes.
@@ -316,6 +334,7 @@ struct Ring {
   }
   __device__ float* raw_vs(int r) const { return raw_ks(r) + NK; }
   __device__ uint8_t* raw_mask(int r) const { return base + OFF_RAW_MASK + r * NK; }
+  __device__ int* groups(int s) const { return reinterpret_cast<int*>(base + OFF_GROUP) + s * NK; }
   __device__ uint64_t* full(int s) const { return reinterpret_cast<uint64_t*>(base + OFF_BAR) + s; }
   __device__ uint64_t* empty(int s) const { return full(STAGES) + s; }
 };
@@ -412,10 +431,10 @@ __device__ __forceinline__ void widen(const unsigned char* raw, unsigned char* t
 // copies of tile n. The producers' barrier of an iteration lies between the
 // last read of a raw slot (the widening of iteration n - 1) and the next copy
 // into it.
-template <int D, int KIND>
-__device__ __forceinline__ void produce(const FlashParams& p, const Ring<D, KIND>& ring,
+template <int D, int KIND, bool OR>
+__device__ __forceinline__ void produce(const FlashParams& p, const Ring<D, KIND, OR>& ring,
                                         const Walk& w, int pt) {
-  using R = Ring<D, KIND>;
+  using R = Ring<D, KIND, OR>;
   constexpr int NK = R::NK, ROW = R::ROW, STAGES = R::STAGES;
   const size_t kvh = (size_t)w.b * p.Hkv + w.h;
   const char* kg = reinterpret_cast<const char*>(p.k) + kvh * p.S * ROW;
@@ -443,6 +462,13 @@ __device__ __forceinline__ void produce(const FlashParams& p, const Ring<D, KIND
       }
       if constexpr (KIND == KV_BF16) {
         if (pt == 0) load_mask<NK>(ring.mask(stage), mg, key0, p);
+      }
+      if constexpr (OR) {  // the keys' image ids, 4 a copy
+        if (pt < NK / 4) {
+          const bool in = key0 + 4 * pt < p.kg_pitch;
+          cp_async16(ring.groups(stage) + 4 * pt,
+                     p.kg + (size_t)w.b * p.kg_pitch + (in ? key0 + 4 * pt : 0), in);
+        }
       }
       cp_async_arrive(ring.full(stage));
       if constexpr (KIND == KV_BF16) {
@@ -497,10 +523,10 @@ __device__ __forceinline__ void produce(const FlashParams& p, const Ring<D, KIND
 // thread rows g = lane / 4 and g + 8 and, of every 8 columns, 2 (lane % 4)
 // and the next (element 4n + i of an accumulator: 8-column group n, row
 // g + 8 (i / 2), column 2 (lane % 4) + i % 2).
-template <int D, int KIND>
-__device__ __forceinline__ void consume(const FlashParams& p, const Ring<D, KIND>& ring,
+template <int D, int KIND, bool OR>
+__device__ __forceinline__ void consume(const FlashParams& p, const Ring<D, KIND, OR>& ring,
                                         const Walk& w, int tid) {
-  using R = Ring<D, KIND>;
+  using R = Ring<D, KIND, OR>;
   constexpr int NK = R::NK, STAGES = R::STAGES, PANELS = R::PANELS;
   constexpr bool QUANT = KIND != KV_BF16;
   // The warpgroup index, broadcast from lane 0 so that the compiler sees a
@@ -509,9 +535,10 @@ __device__ __forceinline__ void consume(const FlashParams& p, const Ring<D, KIND
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
 
-  // This thread's two rows: head gi, position t of the call, cache slot qs.
+  // This thread's two rows: head gi, position t of the call, cache slot qs,
+  // image id gq (OR; -1 for text and for rows past the call).
   bool valid[2];
-  int qs[2];
+  int qs[2], gq[2] = {-1, -1};
   size_t orow[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -520,6 +547,7 @@ __device__ __forceinline__ void consume(const FlashParams& p, const Ring<D, KIND
     valid[r] = gi < p.G && t < p.T;
     qs[r] = valid[r] ? p.prior + t : -(1 << 30);
     orow[r] = ((size_t)w.b * p.Hq + w.h * p.G + (valid[r] ? gi : 0)) * p.T + (valid[r] ? t : 0);
+    if constexpr (OR) gq[r] = valid[r] ? p.qg[(size_t)w.b * p.T + t] : -1;
   }
   // The slots of the warpgroup's real rows lie in [qmin, qmax] (the bounds may
   // be loose; the per-element test is exact).
@@ -532,6 +560,10 @@ __device__ __forceinline__ void consume(const FlashParams& p, const Ring<D, KIND
   ti_hi = min(ti_hi, p.T - 1 - w.t0);
   const bool active = hi >= lo && ti_lo <= ti_hi;
   const int qmin = p.prior + w.t0 + ti_lo, qmax = p.prior + w.t0 + ti_hi;
+  // How far the or-mask reaches past the diagonal (up), and how far behind
+  // a row a key may lie and still be visible to it (less than back slots).
+  const int up = OR ? p.or_span - 1 : 0;
+  const int back = OR ? max(p.window, p.or_span) : p.window;
 
   float o[PANELS][32];
 #pragma unroll
@@ -628,7 +660,8 @@ __device__ __forceinline__ void consume(const FlashParams& p, const Ring<D, KIND
         }
       }
     } else {
-      // Tile column x of a row is visible iff wlim < x <= lim.
+      // Tile column x of a row is visible iff wlim < x <= lim, or (OR) the
+      // row's image id is >= 0 and equals the key's.
       int lim[2], wlim[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -638,11 +671,14 @@ __device__ __forceinline__ void consume(const FlashParams& p, const Ring<D, KIND
 #pragma unroll
       for (int nn = 0; nn < NK / 8; ++nn) {
         const uint32_t bits = *reinterpret_cast<const uint16_t*>(mk + nn * 8 + 2 * tq);
+        int2 gk = make_int2(-1, -1);
+        if constexpr (OR) gk = *reinterpret_cast<const int2*>(ring.groups(stage) + nn * 8 + 2 * tq);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int x = nn * 8 + (e & 1);
-          const bool ok = ((bits >> (8 * (e & 1))) & 0xFFu) != 0u && x <= lim[e >> 1] &&
-                          x > wlim[e >> 1];
+          bool in = x <= lim[e >> 1] && x > wlim[e >> 1];
+          if constexpr (OR) in = in || (gq[e >> 1] >= 0 && gq[e >> 1] == ((e & 1) ? gk.y : gk.x));
+          const bool ok = ((bits >> (8 * (e & 1))) & 0xFFu) != 0u && in;
           s[4 * nn + e] = ok ? s[4 * nn + e] : -INFINITY;
         }
       }
@@ -692,8 +728,8 @@ __device__ __forceinline__ void consume(const FlashParams& p, const Ring<D, KIND
     const uint32_t flags = tile_flags<NK>(ring.mask(stage), lane);
     const int key0 = w.kfirst + i * NK;
     // Some key of the tile is live and visible to some row of the warpgroup.
-    const bool visible = active && (flags & ANY_LIVE) != 0u && key0 <= qmax &&
-                         (p.window <= 0 || key0 + NK - 1 > qmin - p.window);
+    const bool visible = active && (flags & ANY_LIVE) != 0u && key0 <= qmax + up &&
+                         (p.window <= 0 || key0 + NK - 1 > qmin - back);
     bar_sync(turn, CONSUMERS);
     if (!visible) {
       // Nothing to add. A waiting P is multiplied out now: its stage must not
@@ -926,12 +962,12 @@ __device__ __forceinline__ void consume_lse(const FlashParams& p, const Ring<D, 
 // One block per (q-tile, key range, kv head, batch row). Causal work grows
 // with the q-tile index: the longest q-tiles start first. The body of
 // flash_sm90_kernel and of observed_colsum.cu's observed_lse_kernel.
-template <int D, int KIND>
+template <int D, int KIND, bool OR = false>
 __device__ __forceinline__ void flash_block(const FlashParams& p) {
-  using R = Ring<D, KIND>;
+  using R = Ring<D, KIND, OR>;
   constexpr int NK = R::NK;
   extern __shared__ unsigned char smem_dyn[];
-  const Ring<D, KIND> ring{smem_dyn + ((1024u - (smem_addr(smem_dyn) & 1023u)) & 1023u)};
+  const R ring{smem_dyn + ((1024u - (smem_addr(smem_dyn) & 1023u)) & 1023u)};
   const int tid = threadIdx.x;
   const int nq = (p.T + p.bq - 1) / p.bq;
   Walk w;
@@ -940,8 +976,12 @@ __device__ __forceinline__ void flash_block(const FlashParams& p) {
   w.b = blockIdx.z;
   w.t0 = (nq - 1 - (int)blockIdx.x / p.nsplit) * p.bq;
   const int last_t = min(w.t0 + p.bq, p.T) - 1;
-  const int kend = min(p.S, p.prior + last_t + 1);
-  const int first = p.window > 0 ? max(0, p.prior + w.t0 - p.window + 1) : 0;
+  // The or-mask widens the range by the reach of an image span: up to
+  // or_span - 1 slots past the last row, and as far behind the first.
+  const int up = OR ? p.or_span - 1 : 0;
+  const int kend = min(p.S, p.prior + last_t + 1 + up);
+  const int back = OR ? max(p.window - 1, up) : p.window - 1;
+  const int first = p.window > 0 ? max(0, p.prior + w.t0 - back) : 0;
   w.kfirst = first / NK * NK;
   const int ntiles = kend > w.kfirst ? (kend - w.kfirst + NK - 1) / NK : 0;
   const int per = (ntiles + p.nsplit - 1) / p.nsplit;
@@ -973,17 +1013,17 @@ __device__ __forceinline__ void flash_block(const FlashParams& p) {
   // The two roles never meet again: setmaxnreg needs that.
   if (tid >= CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    produce<D, KIND>(p, ring, w, tid - CONSUMERS);
+    produce<D, KIND, OR>(p, ring, w, tid - CONSUMERS);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     if constexpr (KIND == LSE_ONLY) consume_lse<D>(p, ring, w, tid);
-    else consume<D, KIND>(p, ring, w, tid);
+    else consume<D, KIND, OR>(p, ring, w, tid);
   }
 }
 
-template <int D, int KIND>
+template <int D, int KIND, bool OR>
 __global__ void __launch_bounds__(THREADS, 1) flash_sm90_kernel(const FlashParams p) {
-  flash_block<D, KIND>(p);
+  flash_block<D, KIND, OR>(p);
 }
 
 // Merge of the key ranges of a split launch, ranges in index order: one thread
@@ -1024,19 +1064,20 @@ __global__ void flash_sm90_merge_kernel(const float* __restrict__ part_o,
 // Host side. 128 rows a block: G heads by 128 / G positions.
 inline int block_q(int G) { return BLOCK_ROWS / G; }
 
-template <int D, int KIND>
+template <int D, int KIND, bool OR = false>
 inline cudaError_t launch_flash(FlashParams p, cudaStream_t stream) {
   if (p.G < 1 || p.G > BLOCK_ROWS || p.nsplit < 1 || p.T < 1 ||
-      (p.nsplit > 1 && (p.part_o == nullptr || p.part_ml == nullptr)))
+      (p.nsplit > 1 && (p.part_o == nullptr || p.part_ml == nullptr)) ||
+      (OR && (p.qg == nullptr || p.kg == nullptr || p.or_span < 1)))
     return cudaErrorInvalidValue;
-  constexpr int smem = Ring<D, KIND>::BYTES + 1024;  // room to align the base
-  cudaError_t err = cudaFuncSetAttribute(flash_sm90_kernel<D, KIND>,
+  constexpr int smem = Ring<D, KIND, OR>::BYTES + 1024;  // room to align the base
+  cudaError_t err = cudaFuncSetAttribute(flash_sm90_kernel<D, KIND, OR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   p.bq = block_q(p.G);
   const int nq = (p.T + p.bq - 1) / p.bq;
   dim3 grid(nq * p.nsplit, p.Hkv, p.B);
-  flash_sm90_kernel<D, KIND><<<grid, THREADS, smem, stream>>>(p);
+  flash_sm90_kernel<D, KIND, OR><<<grid, THREADS, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return err;
   const size_t rows = (size_t)p.B * p.Hq * p.T;

@@ -1,5 +1,9 @@
 from .llama import Runner, init_params, quantize_params_int8
-from .convert import convert_state_dict, load_pretrained, params_from_jax
+from .convert import (convert_state_dict, from_torch_model, from_torch_multimodal,
+                      load_pretrained, multimodal_embeds, params_from_jax)
+from .siglip import VisionConfig, VisionTower, encode_images, init_vision_params
 
 __all__ = ["Runner", "init_params", "quantize_params_int8", "convert_state_dict",
-           "load_pretrained", "params_from_jax"]
+           "from_torch_model", "from_torch_multimodal", "load_pretrained",
+           "multimodal_embeds", "params_from_jax", "VisionConfig", "VisionTower",
+           "encode_images", "init_vision_params"]

@@ -1,5 +1,8 @@
-"""Llama-family decoder runner (port of ``kvpress_tpu/models/llama.py``,
-Llama only).
+"""Decoder runner for the Llama family: Llama, Mistral, Qwen2 (qkv bias),
+Qwen3 (q/k-norm), Phi3 (fused projections split at conversion) and Gemma3
+(q/k-norm, post-norms, ``(1 + w)`` norms, scaled embeddings, interleaved
+sliding-window layers with their own RoPE base, same-image attention for
+multimodal prefill). Port of ``kvpress_tpu/models/llama.py``.
 
 Weights live in an ``nn.Module`` (``LlamaModel``: embedding, a
 ``ModuleList`` of decoder layers, final norm, head) in the JAX package's
@@ -18,10 +21,27 @@ off, to ``ops.decode_headwise.decode_attention_headwise``; everything else
 goes to the dense paths of ``ops.attention``. Those wrappers launch the
 Hopper kernels on CUDA tensors and run their plain versions on CPU tensors.
 
+Sliding-window layers (``cfg.sliding_flags()``) attend through
+``window=cfg.sliding_window`` on every route, rotate at
+``rope_local_base_freq`` when the config has one, and are never compressed:
+the press is not called on them, so their length, keep-mask, buffers and
+quantized payloads stay as the append left them (the JAX runner calls the
+press and restores all four; the two differ only for a press whose state or
+generator advances per call). Head-wise decode is off on sliding models.
+
+Multimodal prefill (``inputs_embeds`` with ``token_types``, 1 for image
+tokens) lets the tokens of one image attend each other whatever their order
+and the window (HF's ``token_type_ids`` or-mask): group ids from contiguous
+image runs go to ``flash_attention`` (``q_groups``/``k_groups``, bounded by
+``image_span``), and layers that take the dense path (a press that wants
+probabilities, or ``attn_impl="xla"``) get the (B, T, S) or-mask. The decode
+kernels take no image groups.
+
 ``Runner.prefill_chunked`` is the bounded-activation prefill (port of the
 JAX lean chunk path): the context goes through the layers a chunk at a time
 (``_chunk_forward_lean``, no press), then ``_compress_layer`` compresses the
-cache once, layer by layer, in place.
+cache once, layer by layer, in place. With images, chunk starts move back
+so that no image span is split.
 """
 
 from __future__ import annotations
@@ -40,11 +60,13 @@ from ..device import DeviceLike, resolve_device
 from ..ops.attention import attention_bias, gqa_attention, quant_gqa_attention
 from ..ops.decode import decode_attention
 from ..ops.decode_headwise import decode_attention_headwise, prefix_tail_from_mask
-from ..ops.flash import flash_attention, flash_attention_quant
+from ..ops.flash import flash_attention, flash_attention_quant, same_image
 from ..presses.base import BasePress, LayerCtx, ScorerPress
 from ..rope import apply_rope, compute_inv_freq, rope_cos_sin
 
 LINEARS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+# head_dims the kernels are instantiated for (ops/flash.py, ops/decode.py)
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, one_offset: bool = False):
@@ -69,7 +91,10 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 class DecoderLayer(nn.Module):
     """One layer's weights: wq/wk/wv/wo/wg/wu/wd as (in, out) matrices
     (int8 payloads carry a ``<name>_scale`` of shape (1, out), int4 payloads,
-    uint8 of shape (in/2, out), one of shape (2, out)), ln1/ln2."""
+    uint8 of shape (in/2, out), one of shape (2, out)), ln1/ln2; bq/bk/bv
+    (qkv bias), q_norm/k_norm (q/k-norm) and ln1_post/ln2_post (Gemma3's
+    norms after attention and after the MLP; ln2 is then its pre-MLP norm)
+    where the config has them."""
 
     def __init__(self, tensors: dict[str, torch.Tensor]):
         super().__init__()
@@ -106,33 +131,42 @@ class LlamaModel(nn.Module):
         return self.ln_f.device
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype: torch.dtype = torch.float32,
-                device: DeviceLike = "cuda") -> LlamaModel:
-    """Random init, N(0, 0.02) weights and unit norms, drawn from
-    ``generator`` (which must live on ``device``)."""
-    if cfg.attention_bias or cfg.qk_norm or cfg.post_norms:
-        raise NotImplementedError(
-            "qkv bias, q/k-norm and post-norms come with the other "
-            "architectures (ROADMAP Queue A item 9)")
-    device = resolve_device(device)
+def _normal(generator, device, dtype, *shape):
+    return (torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32) * 0.02).to(dtype)
+
+
+def init_layer(cfg: ModelConfig, generator: torch.Generator, dtype: torch.dtype,
+               device: torch.device) -> dict[str, torch.Tensor]:
+    """One layer's random weights, as ``init_params`` draws them: N(0, 0.02)
+    matrices, zero biases, unit norms."""
     E, Fd = cfg.hidden_size, cfg.intermediate_size
-    Hq, Hkv, D, V = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size
-
-    def init(*shape):
-        return (torch.randn(shape, generator=generator, device=device,
-                            dtype=torch.float32) * 0.02).to(dtype)
-
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     shapes = {"wq": (E, Hq * D), "wk": (E, Hkv * D), "wv": (E, Hkv * D),
               "wo": (Hq * D, E), "wg": (E, Fd), "wu": (E, Fd), "wd": (Fd, E)}
-    layers = []
-    for _ in range(cfg.num_layers):
-        t = {name: init(*shape) for name, shape in shapes.items()}
-        t["ln1"] = torch.ones(E, dtype=dtype, device=device)
-        t["ln2"] = torch.ones(E, dtype=dtype, device=device)
-        layers.append(t)
-    embed = init(V, E)
-    head = None if cfg.tie_word_embeddings else init(E, V)
+    t = {name: _normal(generator, device, dtype, *shape) for name, shape in shapes.items()}
+    zeros = lambda n: torch.zeros(n, dtype=dtype, device=device)
+    ones = lambda n: torch.ones(n, dtype=dtype, device=device)
+    t["ln1"], t["ln2"] = ones(E), ones(E)
+    if cfg.attention_bias:
+        t["bq"], t["bk"], t["bv"] = zeros(Hq * D), zeros(Hkv * D), zeros(Hkv * D)
+    if cfg.qk_norm:
+        t["q_norm"], t["k_norm"] = ones(D), ones(D)
+    if cfg.post_norms:
+        t["ln1_post"], t["ln2_post"] = ones(E), ones(E)
+    return t
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32, device: DeviceLike = "cuda") -> LlamaModel:
+    """Random init, N(0, 0.02) weights, zero biases and unit norms, drawn
+    from ``generator`` (which must live on ``device``), as the JAX
+    ``init_params`` lays them out."""
+    device = resolve_device(device)
+    E, V = cfg.hidden_size, cfg.vocab_size
+    layers = [init_layer(cfg, generator, dtype, device) for _ in range(cfg.num_layers)]
+    embed = _normal(generator, device, dtype, V, E)
+    head = None if cfg.tie_word_embeddings else _normal(generator, device, dtype, E, V)
     return LlamaModel(embed, layers, torch.ones(E, dtype=dtype, device=device), head)
 
 
@@ -197,27 +231,34 @@ def dequant_weight(layer, name: str, dtype: torch.dtype = torch.float32) -> torc
     return w.to(dtype) * scale.to(dtype)
 
 
+def quantize_layer_int4(t: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """One layer's tensors with its matmuls quantized to int4 (see
+    ``quantize_params_int4``); the dict is updated in place and returned."""
+    for name in LINEARS:
+        w = t[name]
+        if w.dtype == torch.int8:
+            w = w.to(torch.float32) * t[name + "_scale"]
+        w = w.to(torch.float32)                              # (in, out)
+        half = w.shape[0] // 2
+        halves = torch.stack([w[:half], w[half:]])           # (2, in/2, out)
+        del w
+        scale = torch.clamp(halves.abs().amax(dim=1) / 7.0, min=1e-8)   # (2, out)
+        q = (torch.clamp(torch.round(halves / scale[:, None]), -8, 7) + 8).to(torch.uint8)
+        t[name] = q[0] | (q[1] << 4)
+        t[name + "_scale"] = scale
+    return t
+
+
 def quantize_params_int4(params: LlamaModel) -> LlamaModel:
     """int4 quantization of the layer matmuls, per output channel and per
     half of the contraction axis (scales (2, out), float32); the payload is
-    ``_lin``'s uint8 layout. Norms, embedding and head stay as they are, so
-    this composes after ``quantize_params_int8(include_embeddings=True)``;
-    an int8 matrix is dequantized first. Returns a new module."""
-    layers = []
-    for layer in params.layers:
-        t = {name: p.data for name, p in layer.named_parameters(recurse=False)}
-        for name in LINEARS:
-            w = t[name]
-            if w.dtype == torch.int8:
-                w = w.to(torch.float32) * t[name + "_scale"]
-            w = w.to(torch.float32)                              # (in, out)
-            half = w.shape[0] // 2
-            halves = torch.stack([w[:half], w[half:]])           # (2, in/2, out)
-            scale = torch.clamp(halves.abs().amax(dim=1) / 7.0, min=1e-8)   # (2, out)
-            q = (torch.clamp(torch.round(halves / scale[:, None]), -8, 7) + 8).to(torch.uint8)
-            t[name] = q[0] | (q[1] << 4)
-            t[name + "_scale"] = scale
-        layers.append(t)
+    ``_lin``'s uint8 layout. Norms, biases, embedding and head stay as they
+    are, so this composes after
+    ``quantize_params_int8(include_embeddings=True)``; an int8 matrix is
+    dequantized first. Returns a new module."""
+    layers = [quantize_layer_int4({name: p.data for name, p in
+                                   layer.named_parameters(recurse=False)})
+              for layer in params.layers]
     head = params.get("lm_head")
     extra = {n: params.get(n).data for n in ("embed_scale", "lm_head_scale")
              if params.get(n) is not None}
@@ -255,12 +296,19 @@ def lm_head_logits(x: torch.Tensor, params: LlamaModel, cfg: ModelConfig) -> tor
 
 
 def _project_qkv(layer, cfg: ModelConfig, h: torch.Tensor):
-    """h (B, S, E) -> q (B, Hq, S, D), k/v (B, Hkv, S, D), pre-RoPE."""
+    """h (B, S, E) -> q (B, Hq, S, D), k/v (B, Hkv, S, D): pre-RoPE, after the
+    qkv bias and the q/k RMS-norm where the config has them."""
     B, S, _ = h.shape
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _lin(h, layer, "wq").reshape(B, S, Hq, D).transpose(1, 2)
-    k = _lin(h, layer, "wk").reshape(B, S, Hkv, D).transpose(1, 2)
-    v = _lin(h, layer, "wv").reshape(B, S, Hkv, D).transpose(1, 2)
+    q, k, v = _lin(h, layer, "wq"), _lin(h, layer, "wk"), _lin(h, layer, "wv")
+    if cfg.attention_bias:
+        q, k, v = q + layer.bq, k + layer.bk, v + layer.bv
+    q = q.reshape(B, S, Hq, D).transpose(1, 2)
+    k = k.reshape(B, S, Hkv, D).transpose(1, 2)
+    v = v.reshape(B, S, Hkv, D).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rms_norm(q, layer.q_norm, cfg.rms_norm_eps, cfg.rms_one_offset)
+        k = rms_norm(k, layer.k_norm, cfg.rms_norm_eps, cfg.rms_one_offset)
     return q, k, v
 
 
@@ -271,20 +319,32 @@ def _sm_scale(cfg: ModelConfig) -> float:
 
 def _finish_layer(x: torch.Tensor, attn_out: torch.Tensor, layer, cfg: ModelConfig):
     """The residual stream after a layer's attention output (B, Hq, T, D): the
-    output projection, then the MLP block."""
+    output projection, then the MLP block, each followed by its post-norm
+    where the config has them."""
     B, _, T, _ = attn_out.shape
-    x = x + _lin(attn_out.transpose(1, 2).reshape(B, T, -1), layer, "wo")
+    o = _lin(attn_out.transpose(1, 2).reshape(B, T, -1), layer, "wo")
+    if cfg.post_norms:
+        o = rms_norm(o, layer.ln1_post, cfg.rms_norm_eps, cfg.rms_one_offset)
+    x = x + o
     h2 = rms_norm(x, layer.ln2, cfg.rms_norm_eps, cfg.rms_one_offset)
-    mlp = _act(_lin(h2, layer, "wg"), cfg.act) * _lin(h2, layer, "wu")
-    return x + _lin(mlp, layer, "wd")
+    mlp = _lin(_act(_lin(h2, layer, "wg"), cfg.act) * _lin(h2, layer, "wu"), layer, "wd")
+    if cfg.post_norms:
+        mlp = rms_norm(mlp, layer.ln2_post, cfg.rms_norm_eps, cfg.rms_one_offset)
+    return x + mlp
 
 
-def _unsupported(cfg: ModelConfig) -> None:
-    if (cfg.sliding_window is not None or cfg.qk_norm or cfg.attention_bias
-            or cfg.post_norms or cfg.rope_local_base_freq is not None):
-        raise NotImplementedError(
-            "sliding-window, q/k-norm, qkv-bias and Gemma/Qwen3/Phi3 specifics "
-            "come with the other architectures (ROADMAP Queue A item 9)")
+def image_groups(token_types: torch.Tensor) -> torch.Tensor:
+    """(B, T) int32 group ids from token types (1 = image token): each
+    contiguous run of image tokens is one image, numbered from 0 in order;
+    text tokens get -1."""
+    is_img = token_types == 1
+    new_start = is_img & ~F.pad(is_img, (1, 0))[:, :-1]
+    group = torch.cumsum(new_start.to(torch.int32), dim=1) - 1
+    return torch.where(is_img, group, torch.full_like(group, -1)).to(torch.int32)
+
+
+def _rope_of(cos_sin, cos_sin_local, sliding: bool):
+    return cos_sin_local if sliding and cos_sin_local is not None else cos_sin
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,6 +354,9 @@ class Runner:
     attention_scaling: float
     device: torch.device
     inv_freq: torch.Tensor = dataclasses.field(compare=False)   # (head_dim/2,) f32
+    # Sliding layers' RoPE (Gemma3 ``rope_local_base_freq``: the plain base
+    # frequency, no scaling), or None when every layer uses ``inv_freq``.
+    inv_freq_local: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
     # "flash": kernel wrappers for multi-token calls; "xla": dense paths (the
     # name is the JAX package's, kept so both runners take the same options).
     attn_impl: str = "xla"
@@ -303,7 +366,8 @@ class Runner:
     decode_block_k: int = 2048
     # One-token decode over per-head prefixes through ops/decode_headwise.py
     # (caches compacted head by head, AdaKV ``compact=True``). Only
-    # meaningful with attn_impl="flash" and the decode kernel off.
+    # meaningful with attn_impl="flash", the decode kernel off and no
+    # sliding layers.
     headwise_kernel: bool = False
 
     @staticmethod
@@ -314,18 +378,42 @@ class Runner:
         ``decode_kernel=None`` turns the decode kernel on for CUDA. (The JAX
         runner leaves it off for a TPU-only reason: Mosaic's per-grid-cell
         overhead.) The decode kernel takes every few-token call it can, so
-        ``headwise_kernel=True`` routes only with ``decode_kernel=False``."""
-        _unsupported(cfg)
+        ``headwise_kernel=True`` routes only with ``decode_kernel=False``.
+
+        On CUDA the kernels take head_dim 64 and 128: another head_dim
+        (Phi-3-mini's 96, Gemma-3 1B/4B/12B's 256) raises unless the dense
+        path is asked for (``attn_impl="xla"``)."""
         device = resolve_device(device)
         inv, scaling = compute_inv_freq(cfg)
         if attn_impl == "auto":
             attn_impl = "flash" if device.type == "cuda" else "xla"
         if decode_kernel is None:
             decode_kernel = device.type == "cuda"
+        if (device.type == "cuda" and attn_impl == "flash"
+                and cfg.head_dim not in KERNEL_HEAD_DIMS):
+            raise ValueError(
+                f"head_dim {cfg.head_dim}: the Hopper kernels are instantiated for head_dim "
+                f"{KERNEL_HEAD_DIMS} only (head_dim 96 and 256 instantiations: ROADMAP "
+                f"Queue B); run on the CPU or ask for attn_impl='xla'")
+        local = None
+        if cfg.rope_local_base_freq is not None:
+            local, _ = compute_inv_freq(dataclasses.replace(
+                cfg, rope_theta=cfg.rope_local_base_freq, rope_scaling=None))
+            local = torch.from_numpy(local).to(device)
         return Runner(cfg=cfg, attention_scaling=scaling, device=device,
-                      inv_freq=torch.from_numpy(inv).to(device), attn_impl=attn_impl,
-                      decode_kernel=decode_kernel, decode_block_k=decode_block_k,
-                      headwise_kernel=headwise_kernel)
+                      inv_freq=torch.from_numpy(inv).to(device), inv_freq_local=local,
+                      attn_impl=attn_impl, decode_kernel=decode_kernel,
+                      decode_block_k=decode_block_k, headwise_kernel=headwise_kernel)
+
+    def _ropes(self, positions: torch.Tensor):
+        """(global, local) cos/sin pairs (B, 1, T, D) at ``positions``; local
+        is None without a separate base for the sliding layers."""
+        cos, sin = rope_cos_sin(self.inv_freq, positions, self.attention_scaling)
+        rope = (cos[:, None], sin[:, None])
+        if self.inv_freq_local is None:
+            return rope, None
+        cos, sin = rope_cos_sin(self.inv_freq_local, positions, 1.0)
+        return rope, (cos[:, None], sin[:, None])
 
     # ------------------------------------------------------------------ #
 
@@ -335,12 +423,15 @@ class Runner:
         layer,
         cache_layer: dict,               # keys/values/length/mask/scales, one layer
         positions: torch.Tensor,         # (B, T)
-        rope: tuple[torch.Tensor, torch.Tensor],   # cos/sin (B, 1, T, D) f32
+        rope: tuple[torch.Tensor, torch.Tensor],   # this layer's cos/sin (B, 1, T, D) f32
         layer_idx: int,
+        sliding: bool,
         press: Optional[BasePress],
         press_state,
         phase: str,
         kv_bits: int = 8,
+        extra_allow: Optional[torch.Tensor] = None,   # (B, T, S_buf) image spans
+        img_groups: Optional[tuple] = None,           # (q_groups, k_groups, span)
     ):
         cfg = self.cfg
         apply_press = press is not None and (
@@ -359,6 +450,9 @@ class Runner:
         prior_len = int(cache_layer["length"])
         quantized = cache_layer.get("key_scales") is not None
         scale = _sm_scale(cfg)
+        window = cfg.sliding_window if sliding else None
+        # Routing follows the press on every layer, sliding ones included, as
+        # in the JAX runner; only the compression below skips sliding layers.
         return_probs = apply_press and press.wants_probs(T)
         want_lse = apply_press and press.wants_lse(T)
 
@@ -372,7 +466,12 @@ class Runner:
         use_headwise = (
             self.attn_impl == "flash" and self.headwise_kernel and not use_decode_kernel
             and not return_probs and not apply_press and not quantized and T == 1
+            and cfg.sliding_window is None
         )
+        if (extra_allow is not None or img_groups is not None) and (use_decode_kernel
+                                                                   or use_headwise):
+            raise ValueError("same-image attention (token_types) is a prefill feature: the "
+                             "decode kernels take no image groups")
         S_buf = cache_layer["keys"].shape[2]
         start = clamp_start(prior_len, T, S_buf)
         qkeys = qvalues = key_scales = value_scales = None
@@ -391,9 +490,9 @@ class Runner:
             new_len = prior_len + T
             # int8 only, as in the JAX runner (int4's two half-depth nibble
             # products were slower at multi-token shapes on the TPU; kept so
-            # both runners route alike).
+            # both runners route alike); flash_attention_quant has no or-mask.
             use_quant_flash = (
-                self.attn_impl == "flash" and T > 1 and kv_bits == 8
+                self.attn_impl == "flash" and T > 1 and kv_bits == 8 and img_groups is None
                 and not use_decode_kernel and not apply_press
             )
             needs_dense = apply_press or return_probs or (
@@ -428,24 +527,28 @@ class Runner:
             if quantized:
                 attn_out = decode_attention(
                     q, qkeys, qvalues, new_len, key_scales, value_scales, mask,
-                    bits=kv_bits, sm_scale=scale, softcap=cfg.logit_softcap,
+                    bits=kv_bits, sm_scale=scale, softcap=cfg.logit_softcap, window=window,
                     block_k=self.decode_block_k)
             else:
                 attn_out = decode_attention(
                     q, keys, values, new_len, mask=mask, sm_scale=scale,
-                    softcap=cfg.logit_softcap, block_k=self.decode_block_k)
+                    softcap=cfg.logit_softcap, window=window, block_k=self.decode_block_k)
         elif use_flash:
             if quantized and keys is None:
                 attn_out = flash_attention_quant(
                     q, qkeys, qvalues, key_scales, value_scales, prior_len, mask,
-                    bits=kv_bits, sm_scale=scale, softcap=cfg.logit_softcap)
+                    bits=kv_bits, sm_scale=scale, softcap=cfg.logit_softcap, window=window)
             else:
-                attn_out = flash_attention(q, keys, values, prior_len, mask, sm_scale=scale,
-                                           softcap=cfg.logit_softcap, return_lse=want_lse)
+                qg, kg, span = img_groups or (None, None, None)
+                attn_out = flash_attention(q, keys, values, prior_len, mask, qg, kg,
+                                           sm_scale=scale, softcap=cfg.logit_softcap,
+                                           window=window, or_span=span, return_lse=want_lse)
                 if want_lse:
                     attn_out, attn_lse = attn_out
         else:
-            bias = attention_bias(prior_len, T, S_buf, head_mask=mask)
+            # HF applies the image-span or-mask to the sliding layers' mask too.
+            bias = attention_bias(prior_len, T, S_buf, sliding_window=window, head_mask=mask,
+                                  extra_allow=extra_allow)
             if quantized and keys is None:
                 attn_out = quant_gqa_attention(q, qkeys, qvalues, key_scales, value_scales,
                                                bias, scale, kv_bits, softcap=cfg.logit_softcap)
@@ -455,7 +558,7 @@ class Runner:
                                                 return_probs=return_probs)
 
         new_state = press_state
-        if apply_press:
+        if apply_press and not sliding:
             ctx = LayerCtx(
                 layer_idx=layer_idx, hidden=h, queries=q, queries_prerope=q_pre,
                 keys_prerope=k_pre, positions=positions, attn_probs=probs,
@@ -481,38 +584,74 @@ class Runner:
 
     # ------------------------------------------------------------------ #
 
+    def _image_spans(self, token_types, T: int, S_buf: int, press, image_span):
+        """The or-mask of a multimodal prefill from empty (token position ==
+        slot): (extra_allow (B, T, S_buf) | None, (q_groups, k_groups, span) |
+        None). The dense mask is built whenever a layer can take the dense
+        path, a flash runner's included (a press that wants probabilities),
+        and the group ids for the flash kernel."""
+        if token_types is None:
+            return None, None
+        group = image_groups(token_types.to(self.device))
+        kg = F.pad(group, (0, S_buf - T), value=-1)
+        extra_allow = None
+        if self.attn_impl == "xla" or (press is not None and press.wants_probs(T)):
+            extra_allow = same_image(group, kg)
+        img = None
+        if self.attn_impl != "xla":
+            if image_span is None:
+                raise ValueError("token_types on the flash path needs image_span (the "
+                                 "longest image span: mm_tokens_per_image)")
+            img = (group, kg, int(image_span))
+        return extra_allow, img
+
     @torch.no_grad()
     def forward(
         self,
         params: LlamaModel,
-        ids: torch.Tensor,               # (B, T)
+        ids: Optional[torch.Tensor],     # (B, T), or None with inputs_embeds
         cache: KVCache,
         press: Optional[BasePress] = None,
         press_state=None,
         phase: str = "none",
         compute_logits: bool = True,
         logits_last_only: bool = False,
+        inputs_embeds: Optional[torch.Tensor] = None,   # (B, T, E): overrides ids
+        token_types: Optional[torch.Tensor] = None,     # (B, T): 1 = image token
+        image_span: Optional[int] = None,               # the longest image span
     ):
         """Run T tokens through all layers against (and appending to) the cache.
 
         Returns (logits | None, cache', press_state'). K/V are written into
         the cache's buffers in place; cache' carries new ``length``/``offset``
         tensors, so the caller's ``cache.length``/``cache.offset`` still
-        describe the state before the call (restoring them rolls back)."""
+        describe the state before the call (restoring them rolls back).
+
+        ``inputs_embeds`` is the multimodal entry (``convert.multimodal_embeds``
+        puts the vision features into the text embedding). ``token_types``
+        lets the tokens of one image attend each other (prefill into an
+        empty cache only); on the flash path it needs ``image_span``."""
         cfg = self.cfg
-        B, T = ids.shape
-        x = embed_tokens(params, ids, cfg)
+        if inputs_embeds is not None:
+            x = inputs_embeds
+            B, T = x.shape[:2]
+        else:
+            B, T = ids.shape
+            x = embed_tokens(params, ids, cfg)
         offset = int(cache.offset)
-        positions = (offset + torch.arange(T, device=ids.device))[None].expand(B, T)
-        cos, sin = rope_cos_sin(self.inv_freq, positions, self.attention_scaling)
-        rope = (cos[:, None], sin[:, None])             # shared by every layer
+        lengths = cache.length.tolist()
+        if token_types is not None and (offset or any(lengths)):
+            raise ValueError("token_types: same-image attention is for a prefill into an "
+                             "empty cache (token position == slot)")
+        positions = (offset + torch.arange(T, device=x.device))[None].expand(B, T)
+        rope, rope_local = self._ropes(positions)      # shared by every layer
         mask = cache.mask
         if mask is None:
             mask = torch.ones(cache.keys.shape[:4], dtype=torch.bool, device=cache.keys.device)
-        lengths = cache.length.tolist()
+        extra_allow, img = self._image_spans(token_types, T, cache.max_size, press, image_span)
         new_lengths = []
         states = press_state
-        for l, layer in enumerate(params.layers):
+        for l, (layer, sliding) in enumerate(zip(params.layers, cfg.sliding_flags())):
             cache_layer = dict(
                 keys=cache.keys[l], values=cache.values[l], length=lengths[l], mask=mask[l],
                 key_scales=None if cache.key_scales is None else cache.key_scales[l],
@@ -520,8 +659,8 @@ class Runner:
             )
             state_l = None if states is None else states[l]
             x, nlen, state_l = self._layer_step(
-                x, layer, cache_layer, positions, rope, l, press, state_l, phase,
-                cache.bits)
+                x, layer, cache_layer, positions, _rope_of(rope, rope_local, sliding), l,
+                sliding, press, state_l, phase, cache.bits, extra_allow, img)
             if states is not None:
                 states[l] = state_l
             new_lengths.append(nlen)
@@ -542,32 +681,39 @@ class Runner:
             logits = lm_head_logits(x, params, cfg)
         return logits, new_cache, states
 
-    def prefill(self, params: LlamaModel, ids: torch.Tensor, press=None, max_size=None,
-                dtype: Optional[torch.dtype] = None, compute_logits: bool = False,
-                quantized: bool = False, kv_bits: int = 8):
-        """Compress-on-prefill entry: build a fresh cache for ids (B, S)."""
-        B, S = ids.shape
+    def prefill(self, params: LlamaModel, ids: Optional[torch.Tensor], press=None,
+                max_size=None, dtype: Optional[torch.dtype] = None,
+                compute_logits: bool = False, quantized: bool = False, kv_bits: int = 8,
+                inputs_embeds: Optional[torch.Tensor] = None,
+                token_types: Optional[torch.Tensor] = None, image_span: Optional[int] = None):
+        """Compress-on-prefill entry: build a fresh cache for ids (B, S), or
+        for ``inputs_embeds`` (B, S, E) (the multimodal entry)."""
+        B, S = (ids if inputs_embeds is None else inputs_embeds).shape[:2]
         cache = init_cache(self.cfg, B, max_size or S, dtype=dtype or params.dtype,
                            quantized=quantized, bits=kv_bits, device=self.device)
         state = press.init_state(self.cfg, B, S) if press is not None else None
         return self.forward(params, ids, cache, press=press, press_state=state,
                             phase="prefill", compute_logits=compute_logits,
-                            logits_last_only=True)
+                            logits_last_only=True, inputs_embeds=inputs_embeds,
+                            token_types=token_types, image_span=image_span)
 
     # ------------------------------------------------------------------ #
     # Chunked prefill
 
-    def prefill_chunked(self, params: LlamaModel, ids: torch.Tensor, press=None,
+    def prefill_chunked(self, params: LlamaModel, ids: Optional[torch.Tensor], press=None,
                         chunk_size: int = 8192, max_size: Optional[int] = None,
                         dtype: Optional[torch.dtype] = None, compute_logits: bool = False,
                         quantized: bool = False, kv_bits: int = 8, score_window: int = 1024,
-                        fused_kv: Optional[bool] = None):
+                        fused_kv: Optional[bool] = None,
+                        inputs_embeds: Optional[torch.Tensor] = None,
+                        token_types: Optional[torch.Tensor] = None,
+                        image_span: Optional[int] = None):
         """Bounded-activation prefill: the context goes through the layers
         ``chunk_size`` tokens at a time (each chunk's activations replace the
         whole context's), appended to the cache in place; then the cache is
         compressed once, layer by layer, scored against the last ``W =
         min(score_window, chunk_size, S)`` positions' queries, re-projected
-        from their post-ln1 hidden states.
+        from their post-ln1 hidden states. Sliding layers are not compressed.
 
         Exact against ``prefill`` for content scorers (Knorm, Random) and for
         window scorers whose window fits in W (SnapKV, TOVA, PyramidKV,
@@ -579,25 +725,54 @@ class Runner:
         ``flash_attention_quant``; else each layer's buffer is dequantized and
         ``flash_attention`` runs. By default int8 is always fused and int4
         only when the dense transient (2 x 2 bytes x B x Hkv x max_size x D)
-        is over 512 MiB. Either way a chunk attends its own quantized values.
-        Returns (logits | None, cache, None)."""
+        is over 512 MiB; with images never (``flash_attention_quant`` has no
+        or-mask). Either way a chunk attends its own quantized values.
+
+        ``inputs_embeds`` and ``token_types`` (``image_span`` on the flash
+        path) as in ``prefill``: each chunk start moves back to the first
+        token of an image span it would split, so that a span's tokens see
+        each other. Returns (logits | None, cache, None)."""
         steps = self.prefill_chunked_steps(
             params, ids, press=press, chunk_size=chunk_size, max_size=max_size, dtype=dtype,
             compute_logits=compute_logits, quantized=quantized, kv_bits=kv_bits,
-            score_window=score_window, fused_kv=fused_kv)
+            score_window=score_window, fused_kv=fused_kv, inputs_embeds=inputs_embeds,
+            token_types=token_types, image_span=image_span)
         while True:
             try:
                 next(steps)
             except StopIteration as stop:
                 return stop.value
 
+    @staticmethod
+    def chunk_starts(S: int, chunk_size: int, token_types: Optional[torch.Tensor] = None
+                     ) -> list[int]:
+        """The first token of each chunk: the ragged remainder first, so the
+        last (scoring) chunk is full; with ``token_types``, each start moved
+        back to the first token of an image span it would split (an image
+        token of any batch row right before it)."""
+        head = S % chunk_size if S > chunk_size else 0
+        starts = ([0] if head else []) + list(range(head, S, chunk_size))
+        if token_types is None:
+            return starts
+        img_any = (token_types != 0).any(dim=0).tolist()
+        moved = []
+        for st in starts:
+            while st > 0 and img_any[st] and img_any[st - 1]:
+                st -= 1
+            moved.append(st)
+        return sorted(set(moved))
+
     @torch.no_grad()
-    def prefill_chunked_steps(self, params: LlamaModel, ids: torch.Tensor, press=None,
-                              chunk_size: int = 8192, max_size: Optional[int] = None,
+    def prefill_chunked_steps(self, params: LlamaModel, ids: Optional[torch.Tensor],
+                              press=None, chunk_size: int = 8192,
+                              max_size: Optional[int] = None,
                               dtype: Optional[torch.dtype] = None,
                               compute_logits: bool = False, quantized: bool = False,
                               kv_bits: int = 8, score_window: int = 1024,
-                              fused_kv: Optional[bool] = None):
+                              fused_kv: Optional[bool] = None,
+                              inputs_embeds: Optional[torch.Tensor] = None,
+                              token_types: Optional[torch.Tensor] = None,
+                              image_span: Optional[int] = None):
         """Generator form of :meth:`prefill_chunked`: yields after each chunk
         forward and each compressed layer, and returns its triple through
         ``StopIteration`` (a server can interleave decode steps between the
@@ -607,13 +782,25 @@ class Runner:
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be positive, got {chunk_size}")
         cfg = self.cfg
-        B, S = ids.shape
+        B, S = (ids if inputs_embeds is None else inputs_embeds).shape[:2]
         size = max_size or S
         if size < S:
             raise ValueError(f"max_size {size} cannot hold the {S}-token context")
         if fused_kv is None:
             dense_bytes = 2 * 2 * B * cfg.num_kv_heads * size * cfg.head_dim
             fused_kv = kv_bits == 8 or dense_bytes > (1 << 29)
+        groups = k_groups = None
+        if token_types is not None:
+            # Group ids over the whole context (slot == position until the
+            # compression after the last chunk); each chunk takes its slice of
+            # the queries' ids and the whole buffer's for the keys.
+            token_types = token_types.to(self.device)
+            groups = image_groups(token_types)
+            k_groups = F.pad(groups, (0, size - S), value=-1)
+            if self.attn_impl != "xla" and image_span is None:
+                raise ValueError("token_types on the flash path needs image_span")
+            if quantized:
+                fused_kv = False    # flash_attention_quant has no or-mask
         cache = init_cache(cfg, B, size, dtype=dtype or params.dtype, quantized=quantized,
                            bits=kv_bits, device=self.device)
         W = min(score_window, chunk_size, S)
@@ -643,64 +830,88 @@ class Runner:
                     f"prefill_chunked cannot compress with {type(press).__name__}: it takes a "
                     "ScorerPress or a wrapper with chunked_compress (AdaKVPress)")
 
-        # The ragged remainder goes first, so the last (scoring) chunk is full.
-        head = S % chunk_size if S > chunk_size else 0
-        starts = ([0] if head else []) + list(range(head, S, chunk_size))
+        starts = self.chunk_starts(S, chunk_size, token_types)
         logits = hidden_win = None
         for i, start in enumerate(starts):
             last = i == len(starts) - 1
             end = S if last else starts[i + 1]
             logits, cache, hidden_win = self._chunk_forward_lean(
-                params, ids[:, start:end], cache, compute_logits=compute_logits and last,
-                hidden_window=W if (last and wrap is not None) else None, fused_kv=fused_kv)
+                params, None if ids is None else ids[:, start:end], cache,
+                compute_logits=compute_logits and last,
+                hidden_window=W if (last and wrap is not None) else None, fused_kv=fused_kv,
+                chunk_embeds=None if inputs_embeds is None else inputs_embeds[:, start:end],
+                img_groups=None if groups is None else groups[:, start:end].contiguous(),
+                k_groups=k_groups, image_span=image_span)
             yield
         if wrap is not None:
-            for l in range(cfg.num_layers):
+            for l, sliding in enumerate(cfg.sliding_flags()):
+                if sliding:
+                    continue                # sliding layers are never compressed
                 cache = self._compress_layer(params, cache, hidden_win, l, wrap)
                 yield
         return logits, cache, None
 
     @torch.no_grad()
-    def _chunk_forward_lean(self, params: LlamaModel, chunk_ids: torch.Tensor, cache: KVCache,
-                            compute_logits: bool = False, hidden_window: Optional[int] = None,
-                            fused_kv: bool = True, collect_fn=None, kvzip_spec=None,
-                            kvcompose_spec=None, img_groups=None):
+    def _chunk_forward_lean(self, params: LlamaModel, chunk_ids: Optional[torch.Tensor],
+                            cache: KVCache, compute_logits: bool = False,
+                            hidden_window: Optional[int] = None, fused_kv: bool = True,
+                            collect_fn=None, kvzip_spec=None, kvcompose_spec=None,
+                            chunk_embeds: Optional[torch.Tensor] = None,
+                            img_groups: Optional[torch.Tensor] = None,
+                            k_groups: Optional[torch.Tensor] = None,
+                            image_span: Optional[int] = None):
         """One chunk (B, T) through every layer, appended to the cache in
         place at each layer's length (port of ``_chunk_forward_lean_impl``).
         No press runs. A quantized cache stores the chunk as payload and
-        scales first, and the chunk attends those. Returns (last position's
-        logits | None, cache with length and offset advanced by T, each
-        layer's last ``hidden_window`` post-ln1 hidden states (L, B, W, E) |
-        None)."""
+        scales first, and the chunk attends those. ``chunk_embeds`` (B, T, E)
+        overrides the token embedding; ``img_groups`` (B, T) and ``k_groups``
+        (B, S_buf) are the image ids of the chunk's queries and of every slot
+        (``image_span`` bounds a span on the flash path). Returns (last
+        position's logits | None, cache with length and offset advanced by T,
+        each layer's last ``hidden_window`` post-ln1 hidden states (L, B, W,
+        E) | None)."""
         if kvzip_spec is not None or kvcompose_spec is not None:
             raise NotImplementedError("multi-pass scoring passes come with ROADMAP Queue A "
                                       "item 13")
         if collect_fn is not None:
             raise NotImplementedError("per-chunk score collection (DMS, FastKVzip) comes with "
                                       "ROADMAP Queue A items 11 and 13")
-        if img_groups is not None:
-            raise NotImplementedError("image-span attention comes with ROADMAP Queue A "
-                                      "item 15")
         cfg = self.cfg
-        B, T = chunk_ids.shape
-        x = embed_tokens(params, chunk_ids, cfg)
+        if chunk_embeds is not None:
+            x = chunk_embeds
+            B, T = x.shape[:2]
+        else:
+            B, T = chunk_ids.shape
+            x = embed_tokens(params, chunk_ids, cfg)
         offset = int(cache.offset)
-        positions = (offset + torch.arange(T, device=chunk_ids.device))[None].expand(B, T)
-        cos, sin = rope_cos_sin(self.inv_freq, positions, self.attention_scaling)
-        cos, sin = cos[:, None], sin[:, None]
+        positions = (offset + torch.arange(T, device=x.device))[None].expand(B, T)
+        rope, rope_local = self._ropes(positions)
         scale = _sm_scale(cfg)
         softcap = cfg.logit_softcap
         quantized = cache.key_scales is not None
         bits = cache.bits
         S_buf = cache.max_size
         use_flash = self.attn_impl == "flash" and T > 1
+        extra_allow = span = None
+        if img_groups is not None:
+            if k_groups is None:
+                raise ValueError("img_groups needs k_groups")
+            if quantized and fused_kv and use_flash:
+                raise ValueError("image-span chunks take the dense route (fused_kv=False): "
+                                 "flash_attention_quant has no or-mask")
+            if use_flash:
+                span = image_span
+            else:
+                extra_allow = same_image(img_groups, k_groups)
         lengths = cache.length.tolist()
         windows = []
-        for l, layer in enumerate(params.layers):
+        for l, (layer, sliding) in enumerate(zip(params.layers, cfg.sliding_flags())):
             ln = lengths[l]
             lmask = None if cache.mask is None else cache.mask[l]
+            window = cfg.sliding_window if sliding else None
             h = rms_norm(x, layer.ln1, cfg.rms_norm_eps, cfg.rms_one_offset)
             q_pre, k_pre, v = _project_qkv(layer, cfg, h)
+            cos, sin = _rope_of(rope, rope_local, sliding)
             q = apply_rope(q_pre, cos, sin).contiguous()
             k = apply_rope(k_pre, cos, sin)
             kb, vb = cache.keys[l], cache.values[l]
@@ -709,30 +920,40 @@ class Runner:
                 kb[:, :, ln:ln + T], ks[:, :, ln:ln + T] = quantize_kv(k, bits)
                 vb[:, :, ln:ln + T], vs[:, :, ln:ln + T] = quantize_kv(v, bits)
                 if use_flash and not fused_kv:
-                    # Slots past ln + T are never attended: dequantize up to there.
+                    # Slots past ln + T are never attended: dequantize up to
+                    # there (a same-image key lies inside the chunk too).
                     end = ln + T
                     kd = dequantize_kv(kb[:, :, :end], ks[:, :, :end], bits, x.dtype)
                     vd = dequantize_kv(vb[:, :, :end], vs[:, :, :end], bits, x.dtype)
                     m = None if lmask is None else lmask[:, :, :end].contiguous()
-                    o = flash_attention(q, kd, vd, ln, m, sm_scale=scale, softcap=softcap)
+                    kg = None if span is None else k_groups[:, :end].contiguous()
+                    o = flash_attention(q, kd, vd, ln, m, img_groups if span else None, kg,
+                                        sm_scale=scale, softcap=softcap, window=window,
+                                        or_span=span)
                     del kd, vd
                 elif use_flash:
                     o = flash_attention_quant(q, kb, vb, ks, vs, ln, lmask, bits=bits,
-                                              sm_scale=scale, softcap=softcap)
+                                              sm_scale=scale, softcap=softcap, window=window)
                 else:
-                    bias = attention_bias(ln, T, S_buf, head_mask=lmask, device=x.device)
+                    bias = attention_bias(ln, T, S_buf, sliding_window=window, head_mask=lmask,
+                                          device=x.device, extra_allow=extra_allow)
                     o = quant_gqa_attention(q, kb, vb, ks, vs, bias, scale, bits,
                                             softcap=softcap)
             else:
                 kb[:, :, ln:ln + T] = k.to(kb.dtype)
                 vb[:, :, ln:ln + T] = v.to(vb.dtype)
                 if use_flash:
-                    o = flash_attention(q, kb, vb, ln, lmask, sm_scale=scale, softcap=softcap)
+                    o = flash_attention(q, kb, vb, ln, lmask, img_groups if span else None,
+                                        None if span is None else k_groups, sm_scale=scale,
+                                        softcap=softcap, window=window, or_span=span)
                 else:
-                    bias = attention_bias(ln, T, S_buf, head_mask=lmask, device=x.device)
+                    bias = attention_bias(ln, T, S_buf, sliding_window=window, head_mask=lmask,
+                                          device=x.device, extra_allow=extra_allow)
                     o, _ = gqa_attention(q, kb, vb, bias, scale, softcap=softcap)
             if hidden_window is not None:
-                windows.append(h[:, -hidden_window:])
+                # a copy: a view would keep every layer's whole chunk of
+                # hidden states alive until the stack below
+                windows.append(h[:, -hidden_window:].clone())
             x = _finish_layer(x, o, layer, cfg)
         logits = None
         if compute_logits:

@@ -34,7 +34,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # without them to 32 bits).
 SIGNATURES = {
     "flash": {"kvp_flash_attention":
-              (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, I, P)},
+              (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, F, I, P)},
     "flash_quant": {"kvp_flash_attention_quant":
                     (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F, I, P)},
     "decode": {"kvp_decode_attention":

@@ -28,11 +28,19 @@ def attention_bias(
     sliding_window: Optional[int] = None,
     head_mask: Optional[torch.Tensor] = None,
     device: torch.device | str | None = None,
+    extra_allow: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Additive float32 bias: (num_new, buf_size), or (B, H_kv, num_new,
-    buf_size) with a (B, H_kv, buf_size) bool ``head_mask``."""
+    buf_size) with a (B, H_kv, buf_size) bool ``head_mask``.
+
+    ``extra_allow`` (B, num_new, buf_size) bool is ORed over the causal and
+    window rule before the keep-mask applies: Gemma3's same-image
+    attention (HF ``token_type_ids`` or-mask). The bias is then (B, 1 or
+    H_kv, num_new, buf_size)."""
     if head_mask is not None:
         device = head_mask.device
+    elif extra_allow is not None:
+        device = extra_allow.device
     q_slot = prior_length + torch.arange(num_new, device=device)[:, None]
     k_slot = torch.arange(buf_size, device=device)[None, :]
     allowed = k_slot <= q_slot
@@ -40,6 +48,11 @@ def attention_bias(
         allowed &= k_slot > q_slot - sliding_window
     zero = torch.zeros((), dtype=torch.float32, device=device)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=device)
+    if extra_allow is not None:
+        bias = torch.where(allowed[None] | extra_allow, zero, neg)[:, None]
+        if head_mask is not None:
+            bias = bias + torch.where(head_mask, zero, neg)[:, :, None, :]
+        return bias
     bias = torch.where(allowed, zero, neg)
     if head_mask is not None:
         bias = bias[None, None] + torch.where(head_mask, zero, neg)[:, :, None, :]

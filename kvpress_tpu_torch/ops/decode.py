@@ -213,7 +213,9 @@ def decode_attention(
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.launches_windowed += bool(window)     # among those counted
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_windowed = 0

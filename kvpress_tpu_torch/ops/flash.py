@@ -4,7 +4,12 @@
 contract: query ``i`` of the call attends cache slot ``s`` iff
 ``s <= prior_length + i``, the ``(B, Hkv, S)`` keep-mask bit of ``s`` is set
 and, with ``window``, ``s > prior_length + i - window``; optional logit
-softcap and float32 logsumexp.
+softcap and float32 logsumexp. ``flash_attention`` also takes the
+same-image or-mask (Gemma3 multimodal prefill): with ``or_span``, query ``i``
+also attends slot ``s`` when ``q_groups[b, i] >= 0`` and equals
+``k_groups[b, s]``, whatever the causal order and the window; the keep-bit
+still applies. ``or_span`` bounds an image span's length: the kernel widens
+each q-tile's key range by ``or_span - 1`` slots on both sides.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/flash.cu``, ``csrc/flash_quant.cu``: one wgmma main loop,
@@ -41,19 +46,50 @@ def key_tile(head_dim: int) -> int:
 
 
 def flash_splits(B: int, Hkv: int, G: int, T: int, S: int, D: int, prior: int,
-                 window: Optional[int] = None) -> int:
+                 window: Optional[int] = None, or_span: Optional[int] = None) -> int:
     """Blocks that share the key range of one q-tile. 1 when the q-tiles
     alone give every SM about two blocks; else enough to get there, at most
-    one per key tile of the longest q-tile and at most MAX_SPLITS."""
+    one per key tile of the last q-tile and at most MAX_SPLITS. The last
+    q-tile's key range is the kernel's: with ``or_span`` it reaches
+    ``or_span - 1`` slots past the causal end and starts
+    ``max(window - 1, or_span - 1)`` slots behind the tile's first query."""
     bq = BLOCK_ROWS // G
     q_tiles = -(-T // bq)
     blocks = q_tiles * Hkv * B
     if blocks >= TARGET_BLOCKS:
         return 1
     nk = key_tile(D)
-    first = max(0, prior + (q_tiles - 1) * bq - window + 1) // nk * nk if window else 0
-    tiles = -(-(min(S, prior + T) - first) // nk)
+    reach = or_span - 1 if or_span else 0
+    back = max(window - 1, reach) if window else 0
+    first = max(0, prior + (q_tiles - 1) * bq - back) // nk * nk if window else 0
+    tiles = -(-(min(S, prior + T + reach) - first) // nk)
     return max(1, min(-(-TARGET_BLOCKS // blocks), tiles, MAX_SPLITS))
+
+
+def same_image(q_groups: torch.Tensor, k_groups: torch.Tensor) -> torch.Tensor:
+    """(B, T, S) bool or-mask: query t and slot s lie in one image (equal
+    group ids, and the query's id is not -1, the id of text)."""
+    gq = q_groups[:, :, None]
+    return (gq >= 0) & (gq == k_groups[:, None, :])
+
+
+def _has_or_mask(q_groups, k_groups, or_span) -> bool:
+    """Whether a call carries the or-mask. The groups and the span come
+    together, as the Pallas kernel takes them."""
+    if or_span is None:
+        if q_groups is not None or k_groups is not None:
+            raise ValueError("q_groups/k_groups need or_span (the longest image span)")
+        return False
+    if q_groups is None or k_groups is None:
+        raise ValueError("or_span needs q_groups and k_groups")
+    if or_span < 1:
+        raise ValueError(f"or_span must be positive, got {or_span}")
+    return True
+
+
+def _or_allow(q_groups, k_groups, or_span):
+    """The (B, T, S) or-mask of a call, or None without one."""
+    return same_image(q_groups, k_groups) if _has_or_mask(q_groups, k_groups, or_span) else None
 
 
 def _lse_from_logits(logits: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -63,12 +99,14 @@ def _lse_from_logits(logits: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return torch.logsumexp(logits, dim=-1).reshape(B, Hkv * G, T)
 
 
-def flash_attention_plain(q, k, v, prior_length, head_mask=None, *, sm_scale,
-                          softcap=None, window=None, return_lse=False):
+def flash_attention_plain(q, k, v, prior_length, head_mask=None, q_groups=None,
+                          k_groups=None, *, sm_scale, softcap=None, window=None,
+                          or_span=None, return_lse=False):
     """The plain PyTorch version of ``flash_attention``."""
     T, S = q.shape[2], k.shape[2]
     bias = attention_bias(int(prior_length), T, S, sliding_window=window,
-                          head_mask=head_mask, device=q.device)
+                          head_mask=head_mask, device=q.device,
+                          extra_allow=_or_allow(q_groups, k_groups, or_span))
     out, _ = gqa_attention(q, k, v, bias, sm_scale, softcap=softcap)
     if not return_lse:
         return out
@@ -144,14 +182,16 @@ def _split_merge(logits, bias, pv, ranges):
     return merge_key_ranges(*(torch.stack(t) for t in zip(*parts)))
 
 
-def flash_attention_split_plain(q, k, v, prior_length, head_mask=None, *, splits, sm_scale,
-                                softcap=None, window=None, return_lse=False):
+def flash_attention_split_plain(q, k, v, prior_length, head_mask=None, q_groups=None,
+                                k_groups=None, *, splits, sm_scale, softcap=None, window=None,
+                                or_span=None, return_lse=False):
     """The plain PyTorch version of ``flash_attention`` launched over
     ``splits`` key ranges."""
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     bias = attention_bias(int(prior_length), T, S, sliding_window=window,
-                          head_mask=head_mask, device=q.device)
+                          head_mask=head_mask, device=q.device,
+                          extra_allow=_or_allow(q_groups, k_groups, or_span))
     logits = torch.einsum("bhgtd,bhsd->bhgts",
                           q.reshape(B, Hkv, Hq // Hkv, T, D).float(), k.float()) * sm_scale
     if softcap is not None:
@@ -247,41 +287,45 @@ def flash_attention(
     v: torch.Tensor,
     prior_length,                    # int: cache slots before this call
     head_mask: Optional[torch.Tensor] = None,    # (B, Hkv, S) bool keep-mask
-    q_groups: Optional[torch.Tensor] = None,
-    k_groups: Optional[torch.Tensor] = None,
+    q_groups: Optional[torch.Tensor] = None,     # (B, T) int32 image ids, -1 for text
+    k_groups: Optional[torch.Tensor] = None,     # (B, S) int32, slot-aligned
     *,
     sm_scale: float,
     softcap: Optional[float] = None,
     window: Optional[int] = None,
-    or_span: Optional[int] = None,
+    or_span: Optional[int] = None,               # the longest image span (tokens)
     return_lse: bool = False,
 ):
-    if q_groups is not None or k_groups is not None or or_span is not None:
-        raise NotImplementedError(
-            "same-image or-mask (q_groups/k_groups/or_span) belongs to the "
-            "multimodal slice (ROADMAP Queue A item 15)")
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, prior_length, head_mask, sm_scale=sm_scale,
-                                     softcap=softcap, window=window, return_lse=return_lse)
+        return flash_attention_plain(q, k, v, prior_length, head_mask, q_groups, k_groups,
+                                     sm_scale=sm_scale, softcap=softcap, window=window,
+                                     or_span=or_span, return_lse=return_lse)
     B, Hq, Hkv, T, S, D = _check_common(q, k, v, head_mask, torch.bfloat16, q.shape[3])
     _check_scale(sm_scale)
+    qg, kg, kg_pitch = _check_groups(q_groups, k_groups, or_span, B, T, S, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device) if return_lse else None
     mask, pitch = padded_mask(head_mask)
-    splits = flash_splits(B, Hkv, Hq // Hkv, T, S, D, int(prior_length), window)
+    splits = flash_splits(B, Hkv, Hq // Hkv, T, S, D, int(prior_length), window, or_span)
     part_o, part_ml = _split_scratch(q, splits)
     fn = _build.entry("flash")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(mask),
+             _build.ptr(qg), _build.ptr(kg),
              out.data_ptr(), _build.ptr(lse), _build.ptr(part_o), _build.ptr(part_ml),
-             B, Hq, Hkv, T, S, D, int(prior_length), pitch, splits,
-             float(sm_scale), float(_opt(softcap, 0.0)), int(_opt(window, 0)),
+             B, Hq, Hkv, T, S, D, int(prior_length), pitch, kg_pitch, int(_opt(or_span, 0)),
+             splits, float(sm_scale), float(_opt(softcap, 0.0)), int(_opt(window, 0)),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    # the launches that took the or-mask / a window, among those counted
+    flash_attention.launches_or_mask += or_span is not None
+    flash_attention.launches_windowed += bool(window)
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_or_mask = 0
+flash_attention.launches_windowed = 0
 
 
 def flash_attention_quant(
@@ -340,6 +384,25 @@ def _check_scale(sm_scale):
     # raw products, which needs a positive scale.
     if not sm_scale > 0:
         raise ValueError(f"kernel takes a positive sm_scale, got {sm_scale}")
+
+
+def _check_groups(q_groups, k_groups, or_span, B, T, S, device):
+    """The group ids as the kernel reads them: q_groups (B, T) int32, and
+    k_groups (B, pitch) int32 padded with -1 to a multiple of 16 slots, on a
+    16-byte boundary (its tiles are copied 16 bytes at a time). Returns (qg,
+    kg, pitch); all None and 0 without an or-mask."""
+    if not _has_or_mask(q_groups, k_groups, or_span):
+        return None, None, 0
+    for name, t, shape in (("q_groups", q_groups, (B, T)), ("k_groups", k_groups, (B, S))):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected contiguous int32 {shape} on {device}")
+    pitch = -(-S // 16) * 16
+    kg = k_groups
+    if pitch != S or kg.data_ptr() % 16:
+        kg = torch.full((B, pitch), -1, dtype=torch.int32, device=device)
+        kg[:, :S] = k_groups
+    return q_groups, kg, pitch
 
 
 def _check_scales(k_scales, v_scales, B, Hkv, S, device):

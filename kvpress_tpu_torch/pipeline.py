@@ -9,6 +9,12 @@ from the uncompressed context length, and a rollback between questions:
 restoring the pre-question ``length``/``offset`` (the runner leaves the
 caller's copies untouched). Nucleus sampling draws from one generator a
 question, seeded before the first question.
+
+A multimodal pipeline (``from_torch_multimodal``, or ``vision_params``,
+``vision_cfg`` and ``image_token_id`` given) takes ``pixel_values``: the
+vision tower's features replace the context's image placeholders
+(``convert.multimodal_embeds``), and the prefill lets the tokens of one
+image attend each other (``token_types``), one-shot or chunked.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from .cache import resize
 from .device import DeviceLike
 from .models.llama import LlamaModel, Runner
+from .models.siglip import VisionConfig, VisionTower
 from .presses.base import BasePress
 
 logger = logging.getLogger(__name__)
@@ -104,11 +111,17 @@ class KVPressPipeline:
     params: LlamaModel
     tokenizer: object
     eos_token_ids: Optional[tuple[int, ...]] = None
+    # Multimodal (Gemma3): the vision tower with its projector, its config,
+    # and the placeholder id each image expands to (mm_tokens_per_image
+    # copies of it in the context, the HF processor contract).
+    vision_params: Optional[VisionTower] = None
+    vision_cfg: Optional[VisionConfig] = None
+    image_token_id: Optional[int] = None
 
     def __post_init__(self):
-        if self.params.device != self.runner.device:
-            raise ValueError(f"params on {self.params.device}, runner on "
-                             f"{self.runner.device}")
+        for name, p in (("params", self.params), ("vision_params", self.vision_params)):
+            if p is not None and p.device != self.runner.device:
+                raise ValueError(f"{name} on {p.device}, runner on {self.runner.device}")
 
     @property
     def device(self) -> torch.device:
@@ -124,6 +137,19 @@ class KVPressPipeline:
         params, cfg = load_pretrained(path, dtype=dtype, device=device)
         tok = AutoTokenizer.from_pretrained(path)
         return KVPressPipeline(Runner.create(cfg, device=device), params, tok)
+
+    @staticmethod
+    def from_torch_multimodal(model, tokenizer, dtype: torch.dtype = torch.float32,
+                              attn_impl: str = "auto",
+                              device: DeviceLike = "cuda") -> "KVPressPipeline":
+        """A multimodal pipeline from a live ``Gemma3ForConditionalGeneration``:
+        its text decoder and its vision tower, converted once."""
+        from .models.convert import from_torch_multimodal
+
+        params, cfg, tower = from_torch_multimodal(model, dtype=dtype, device=device)
+        return KVPressPipeline(Runner.create(cfg, attn_impl=attn_impl, device=device), params,
+                               tokenizer, vision_params=tower, vision_cfg=tower.vcfg,
+                               image_token_id=model.config.image_token_index)
 
     def _eos(self) -> tuple[int, ...]:
         if self.eos_token_ids is not None:
@@ -182,7 +208,7 @@ class KVPressPipeline:
         context_chunk: Optional[int] = None,
         quantized: bool = False,     # int KV cache (reference: cache=QuantizedCache())
         kv_bits: int = 8,            # 8 (int8) or 4 (packed nibbles)
-        pixel_values=None,
+        pixel_values=None,           # (n_images, C, I, I) for a multimodal pipeline
     ) -> dict:
         if question is not None and questions is not None:
             raise ValueError("Either question or questions should be provided, not both.")
@@ -190,8 +216,9 @@ class KVPressPipeline:
             raise ValueError("context_chunk does not compose with context_bucket")
         if context_bucket is not None:
             raise NotImplementedError("bucketed prefill comes with ROADMAP Queue A item 10")
-        if pixel_values is not None:
-            raise NotImplementedError("multimodal input comes with ROADMAP Queue A item 15")
+        if pixel_values is not None and self.vision_params is None:
+            raise ValueError("pixel_values needs a multimodal pipeline "
+                             "(KVPressPipeline.from_torch_multimodal)")
         single = questions is None
         questions = questions or ([question] if question else [""])
 
@@ -212,6 +239,17 @@ class KVPressPipeline:
         ids = torch.tensor([context_ids], dtype=torch.long, device=self.device)
         common = dict(press=press, compute_logits=True, dtype=self.params.dtype,
                       quantized=quantized, kv_bits=kv_bits)
+        if pixel_values is not None:
+            from .models.convert import multimodal_embeds
+            from .models.siglip import encode_images
+
+            feats = encode_images(self.vision_params, pixel_values)
+            common.update(
+                inputs_embeds=multimodal_embeds(self.params, self.runner.cfg, ids, feats,
+                                                self.image_token_id),
+                token_types=(ids == self.image_token_id).to(torch.int32),
+                image_span=self.vision_cfg.mm_tokens_per_image)
+            ids = None
         if context_chunk is not None:
             # Bounded activations: the context goes through in chunks of
             # context_chunk tokens, compressed once after the last one.
@@ -227,6 +265,9 @@ class KVPressPipeline:
         # room for the longest question and its generation.
         kept = (press.max_kept(context_length, self.runner.cfg)
                 if press is not None else context_length)
+        if self.runner.cfg.sliding_window is not None:
+            # Sliding layers are never compressed: they keep the whole context.
+            kept = context_length
         kept = min(kept, compressed)
         max_q = max((len(q) for q in question_ids), default=0)
         cache = resize(cache, kept + max_q + max_new_tokens + 1)

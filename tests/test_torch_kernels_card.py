@@ -213,6 +213,81 @@ def test_flash_kernel_matches_plain_on_card(cuda, case):
            tfl.flash_attention_plain(q, k, v, prior, **kw)[0])
 
 
+# The same-image or-mask (Gemma3 multimodal prefill): image spans (first
+# slot, length) in slot space, the span bound or_span, a random keep-mask or
+# none. The cases reach the edges of the kernel's widened key range: spans
+# across its 128- and 64-key tiles and its q-tiles of 128 / G positions, a
+# span reaching a whole tile past a q-tile's last row and behind its window,
+# a window shorter than a span, images in the prior (with none in the call),
+# a split launch (few rows over a long cache), a second batch row with other
+# spans, and k_groups rows of no multiple of 16 slots (padded by the wrapper).
+OR_CASES = [
+    # B, Hq, Hkv, T, S, D, prior, window, softcap, spans, or_span, masked
+    (1, 4, 2, 384, 384, 64, 0, None, None, ((100, 40), (250, 20), (300, 9)), 40, True),
+    (1, 8, 4, 512, 512, 64, 0, None, None, ((30, 256), (300, 200)), 256, False),
+    (1, 4, 2, 256, 256, 64, 0, 16, None, ((60, 40), (130, 33)), 40, False),
+    (2, 4, 2, 64, 320, 64, 192, None, None, ((50, 30), (200, 20)), 30, True),
+    (1, 8, 2, 200, 200, 64, 0, 24, 30.0, ((10, 25), (120, 25)), 25, True),
+    (1, 4, 2, 300, 300, 128, 0, 64, None, ((5, 130), (170, 70)), 130, True),
+    (1, 8, 1, 260, 1030, 64, 770, 100, None, ((700, 60), (800, 150)), 150, False),
+    (1, 2, 2, 333, 333, 128, 0, None, None, ((1, 200),), 200, False),
+    (1, 8, 2, 152, 4248, 64, 4096, None, None, ((1000, 256), (4100, 100)), 256, True),
+    (1, 16, 2, 77, 203, 128, 126, 50, 20.0, ((130, 40), (180, 23)), 40, True),
+]
+
+
+def _or_case(case, cuda):
+    B, Hq, Hkv, T, S, D, prior, window, softcap, spans, or_span, masked = case
+    q, k, v, mask = _inputs(7, B, Hq, Hkv, T, S, D, p_keep=0.8 if masked else 1.0)
+    q, k, v, mask = (_t(a).to(cuda) for a in (q, k, v, mask))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kg = torch.full((B, S), -1, dtype=torch.int32, device=cuda)
+    for g, (start, n) in enumerate(spans):
+        kg[:, start:start + n] = g
+    if B > 1:
+        kg[1] = torch.where(kg[1] >= 0, kg[1] + 10, kg[1]).roll(17)   # other spans, other ids
+    qg = kg[:, prior:prior + T].contiguous()
+    kw = dict(sm_scale=D ** -0.5, window=window, softcap=softcap, or_span=or_span,
+              return_lse=True)
+    return q, k, v, (mask if masked else None), qg, kg, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", OR_CASES,
+                         ids=[_case_id(c[3], c[4], c[6], f"or{c[10]}") for c in OR_CASES])
+def test_flash_or_mask_matches_plain_on_card(cuda, case):
+    """flash_attention with q_groups/k_groups/or_span launches the kernel's
+    or-mask instantiation: output rows and row logsumexp against the plain
+    version, launched twice with equal bits, and unlike the same launch
+    without groups."""
+    q, k, v, mask, qg, kg, kw = _or_case(case, cuda)
+    n = tfl.flash_attention.launches
+    got, lse = tfl.flash_attention(q, k, v, case[6], mask, qg, kg, **kw)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention.launches == n + 1
+    _flash_close("random", got, lse,
+                 *tfl.flash_attention_plain(q, k, v, case[6], mask, qg, kg, **kw))
+    again, lse_again = tfl.flash_attention(q, k, v, case[6], mask, qg, kg, **kw)
+    assert torch.equal(got, again) and torch.equal(lse, lse_again)
+    plain = tfl.flash_attention(q, k, v, case[6], mask, **{**kw, "or_span": None})[0]
+    assert _row_error(plain, got) > ROW_LIMIT
+
+
+@pytest.mark.cuda
+def test_runner_refuses_head_dims_without_kernels(cuda):
+    """Phi-3-mini's head_dim 96 and Gemma-3 1B/4B/12B's 256 have no kernel
+    instantiation: Runner.create on CUDA refuses them rather than taking the
+    dense path, unless that path is asked for."""
+    import kvpress_tpu_torch as kt
+
+    for D in (96, 256):
+        cfg = kt.tiny_config(head_dim=D)
+        with pytest.raises(ValueError, match=f"head_dim {D}"):
+            kt.Runner.create(cfg, device=cuda)
+        assert kt.Runner.create(cfg, attn_impl="xla", decode_kernel=False,
+                                device=cuda).attn_impl == "xla"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", QUANT_CASES,
                          ids=[f"b{c[0]}" + _case_id(c[4], c[5], c[7], c[10])

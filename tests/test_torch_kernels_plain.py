@@ -281,10 +281,23 @@ def test_live_block_table_matches_jax(masked):
 
 
 def test_wrappers_refuse_the_or_mask():
+    """The or-mask is ``flash_attention``'s alone, and comes whole: group ids
+    without the span bound, the bound without group ids, or a bound under 1
+    are refused, and ``flash_attention_quant`` takes no groups (as in JAX).
+    tests/test_torch_multimodal.py holds the or-mask itself against the
+    Pallas kernel."""
     q, k, v, _ = _inputs(0, 1, 2, 1, 4, 4, 16)
-    with pytest.raises(NotImplementedError):
-        tfl.flash_attention(_t(q), _t(k), _t(v), 0, q_groups=torch.zeros(1, 4, dtype=torch.int32),
-                            sm_scale=0.25)
+    groups = torch.zeros(1, 4, dtype=torch.int32)
+    for kw in (dict(q_groups=groups, k_groups=groups), dict(or_span=4),
+               dict(q_groups=groups, or_span=4), dict(q_groups=groups, k_groups=groups, or_span=0)):
+        with pytest.raises(ValueError):
+            tfl.flash_attention(_t(q), _t(k), _t(v), 0, sm_scale=0.25, **kw)
+        with pytest.raises(ValueError):
+            tfl.flash_attention_plain(_t(q), _t(k), _t(v), 0, sm_scale=0.25, **kw)
+    kq, ks = quantize_kv(_t(k), 8)
+    with pytest.raises(TypeError):
+        tfl.flash_attention_quant(_t(q), kq, kq, ks, ks, 0, bits=8, sm_scale=0.25,
+                                  q_groups=groups, k_groups=groups, or_span=4)
 
 
 # A decode launch cuts the key range of a kv head into key ranges of whole

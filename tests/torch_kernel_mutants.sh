@@ -4,24 +4,30 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes twelve copies of the port in a temporary directory, each with one
+# It makes sixteen copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (in the column sums a query
 # stage dropped and every stage taken without the causal test, a key tile
 # dropped from the row logsumexp; in the head-wise decode the tail, one
 # prefix step and one chunk of every head dropped; in the decode one live
-# step taken for dead and one key range dropped; in the decode kernels'
-# merge one range given no weight; in the flash main loop a diagonal tile's
+# step taken for dead, one key range dropped and the window's test dropped
+# from the step across its edge; in the decode kernels' merge one range
+# given no weight; in the flash main loop a diagonal tile's
 # causal test dropped, every tile taken for all-live, and the first key range
-# dropped from the merge of a split launch), and runs chip_smoke.kernel_checks
-# in each.
+# dropped from the merge of a split launch; in the flash or-mask the key range
+# not widened past the diagonal, not widened behind the window, and the
+# gq >= 0 guard dropped), and runs chip_smoke.kernel_checks in each. The
+# or-mask copies must also fail the or-mask card tests
+# (tests/test_torch_kernels_card.py -k or_mask).
 # Every copy must be rejected; the script exits 1 if one passes or if a
-# mutation did not apply.
+# mutation did not apply. Mutant names given as arguments run those alone.
 set -u
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 status=0
-for m in colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_prefix_step \
-         headwise_chunk decode_live_step decode_split_range decode_merge_range \
-         flash_diagonal_tile flash_all_live flash_merge_range; do
+mutants="colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_prefix_step
+         headwise_chunk decode_live_step decode_split_range decode_window_edge decode_merge_range
+         flash_diagonal_tile flash_all_live flash_merge_range
+         or_upper_range or_lower_range or_text_guard"
+for m in ${@:-$mutants}; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
   cp -r kvpress_tpu_torch tests chip_smoke.py "$d"/
@@ -47,6 +53,8 @@ for m in colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
       sed -i 's/    if (lane == 0) live\[j\] = any ? 1 + all : 0;/    if (lane == 0) live[j] = any \&\& j != 2 ? 1 + all : 0;/' "$dc" ;;
     decode_split_range)
       sed -i 's/  const int n = min(nst, i0 + per) - i0;/  const int n = split == 1 ? 0 : min(nst, i0 + per) - i0;/' "$dc" ;;
+    decode_window_edge)
+      sed -i 's/(p.window <= 0 || slot > qs\[r\] - p.window);/true;/' "$dm" ;;
     decode_merge_range)
       sed -i 's/  if (tid < nsplit) wgt\[tid\] = mmax == -INFINITY ? 0.f/  if (tid < nsplit) wgt[tid] = mmax == -INFINITY || tid == 1 ? 0.f/' "$dm" ;;
     flash_diagonal_tile)
@@ -55,6 +63,12 @@ for m in colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
       sed -i 's/const bool all_live = (flags \& ALL_LIVE) != 0u;/const bool all_live = true;/' "$fl" ;;
     flash_merge_range)
       sed -i 's/    for (int s = 0; s < nsplit; ++s) {/    for (int s = 1; s < nsplit; ++s) {/' "$fl" ;;
+    or_upper_range)
+      sed -i 's/  const int kend = min(p.S, p.prior + last_t + 1 + up);/  const int kend = min(p.S, p.prior + last_t + 1);/' "$fl" ;;
+    or_lower_range)
+      sed -i 's/  const int back = OR ? max(p.window - 1, up) : p.window - 1;/  const int back = p.window - 1;/' "$fl" ;;
+    or_text_guard)
+      sed -i 's/in = in || (gq\[e >> 1\] >= 0 \&\& gq\[e >> 1\] ==/in = in || (gq[e >> 1] ==/' "$fl" ;;
   esac
   changed=$(diff -r kvpress_tpu_torch/csrc "$d/kvpress_tpu_torch/csrc" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
@@ -75,5 +89,14 @@ else:
 PY
   ) | tee "$d.out"
   grep -q '^REJECTED:' "$d.out" || status=1
+  case $m in
+    or_*)
+      if (set -o pipefail; cd "$d" && timeout 900 python -m pytest --noconftest -q -m cuda \
+            tests/test_torch_kernels_card.py -k or_mask 2>&1 | tail -n 1); then
+        echo "card tests: PASSED THE CHECKS"; status=1
+      else
+        echo "card tests: REJECTED"
+      fi ;;
+  esac
 done
 exit $status
