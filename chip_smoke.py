@@ -28,7 +28,15 @@
    reject its planted faults (for the decode kernels: a skipped key run, one
    live step taken for dead, one key range or chunk dropped from the merge;
    for the or-mask: the key range not widened past the diagonal or behind
-   the window, the gq >= 0 guard dropped).
+   the window, the gq >= 0 guard dropped). Then every head_dim-256
+   instantiation at the Gemma-3-12B run's shapes (GQA 16/8): flash at the
+   32K prefill, with the run's 4 images (no window and window 1,024), at a
+   152-token question over a global layer's half-live 16K and a sliding
+   layer's window, and where the 32-key tiles' logic can go wrong (every
+   payload); flash_attention_quant at int8 at the questions and at int4 at
+   a chunk's shape; decode at bf16, int8 and int4 and windowed; the column
+   sums at 32K and a ragged 8,000; the head-wise decode over a synthetic
+   path-B cache (B4, 16K, ragged), each with its planted faults.
 3. The paths at full width, through ``KVPressPipeline`` on the 1B-class
    flagship shape (16 layers, seeded random weights), a 32,768-token context
    and two questions (one longer than 128 tokens):
@@ -58,7 +66,12 @@
    on the sliding layers' flash and decode launches, the sliding layers
    uncompressed; each also held against the dense path (Qwen3 at depth 1
    and 36, Gemma3 cut to 6 layers at 4,096 tokens with two images), and
-   Qwen3's decode rate and idle share. Every prefill's wall time and
+   Qwen3's decode rate and idle share. Then the Gemma-3-12B body (48
+   layers, bf16, head_dim 256; ``gemma3_12b_run``) at 32K: Knorm with the
+   4 images one-shot and chunked, ObservedAttention and
+   AdaKV(ObservedAttention) without images, Knorm with int8 KV, every
+   launch on a head_dim-256 instantiation; cut to 6 layers against the
+   dense path at depth 1 and 6 with two images. Every prefill's wall time and
    peak memory are printed. The launch counts are set to 0 before each run
    and read after it, and every kernel of a path must have been launched in
    it. A 2,048-token run of each kernel path is also held against the dense
@@ -209,9 +222,11 @@ def kernel_ms(fn, symbol: str, iters: int) -> float:
     """Device milliseconds per call of the kernels whose name holds
     ``symbol`` (from the profiler trace). Each call launches each of them
     once (the kernel, and the merge of a split launch): a trace that holds
-    another count lost or doubled events and is taken again."""
+    another count lost or doubled events and is taken again (up to five
+    times: a 32K or-mask launch once lost one of three in three traces in a
+    row on the H100)."""
     found = {}
-    for _ in range(3):
+    for _ in range(5):
         _, kernels = device_kernels(fn, iters)
         found = {name: v for name, v in kernels.items() if symbol in name}
         if found and all(n == 1 for _, n in found.values()):
@@ -437,13 +452,16 @@ def kernel_checks(kt, torch, report):
             return f
 
         # Fault: a 256-key step that every later row sees (with a window:
-        # inside the first rows' window), skipped; read on the rows right
+        # inside the windows of the rows read), skipped; read on the rows right
         # behind it, which it moves most. With a window, also the window not
         # applied.
         Hkv_, window = kv[0].shape[1], kw.get("window")
-        if window:
+        if window and prior:    # a question over a windowed cache
             assert prior >= window >= 512 and T <= window // 4
             hole = prior - window // 2
+        elif window:            # a windowed prefill: rows hole + 256 .. + 511 see the hole
+            assert window >= 768 and T >= 2 * window
+            hole = T // 2
         else:
             hole = prior // 2 if prior else min(512, T // 4)
         lo = max(0, hole + 256 - prior)
@@ -479,7 +497,13 @@ def kernel_checks(kt, torch, report):
             kd, vd = kv[:2] if bits is None else (
                 dequantize_kv(kv[0], kv[2], bits, torch.bfloat16),
                 dequantize_kv(kv[1], kv[3], bits, torch.bfloat16))
-            if lib_mask == "causal":    # all-live mask, no prior: the causal call is the same
+            if lib_mask == "window":    # all-live mask: one causal windowed mask for all heads
+                allowed = allowed_mask(None, B, prior, T, S, window=window, hkv=1, g=1)
+                kr, vr = kd.repeat_interleave(G_, 1), vd.repeat_interleave(G_, 1)
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, kr, vr, attn_mask=allowed, scale=kw["sm_scale"]), 3)
+                del allowed, kr, vr
+            elif lib_mask == "causal":  # all-live mask, no prior: the causal call is the same
                 kr, vr = kd.repeat_interleave(G_, 1), vd.repeat_interleave(G_, 1)
                 lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, kr, vr, is_causal=True, scale=kw["sm_scale"]), 3)
@@ -637,14 +661,15 @@ def kernel_checks(kt, torch, report):
         qg = kg[:, prior:prior + T].contiguous()
         kw = dict(sm_scale=D_ ** -0.5, window=window, or_span=span)
         call = lambda: fl.flash_attention(q, k, v, prior, None, qg, kg, return_lse=True, **kw)
-        n_or = fl.flash_attention.launches_or_mask
+        n_or = fl.flash_attention.launches_by_kind[D_, "or_mask"]
         got, lse = call()
         torch.cuda.synchronize()
         again, lse_again = call()
         torch.cuda.synchronize()
         label = f"flash_attention_or_mask[{variant}]"
-        if fl.flash_attention.launches_or_mask != n_or + 2:
-            failures.append(f"{label}: the or-mask instantiation was not launched")
+        if fl.flash_attention.launches_by_kind[D_, "or_mask"] != n_or + 2:
+            failures.append(f"{label}: the or-mask instantiation at head_dim {D_} was not "
+                            f"launched")
         if not (torch.equal(got, again) and torch.equal(lse, lse_again)):
             failures.append(f"{label}: two launches differ")
         bq, nk = 128 // G_, fl.key_tile(D_)
@@ -908,19 +933,19 @@ def kernel_checks(kt, torch, report):
     del q, kd, vd, mask
     torch.cuda.empty_cache()
 
-    # observed_lse / observed_colsums_flash: a prefill's queries against its
-    # own keys, B=1, whole and ragged tiles, with and without softcap, and the
-    # 32K prefill itself. The column sums are taken with the kernel's own LSE
-    # pass and with the flash prefill kernel's LSE.
-    B = 1
-    for S, softcaps, iters in ((8192, (None, 30.0), 5), (8000, (None, 30.0), 5),
-                               (CONTEXT_TOKENS, (None,), 3)):
-        q, k, v = rnd(B, Hq, S, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
-        pairs = B * Hq * S * (S + 1) // 2            # visible (query head, key) pairs
-        kr, vr = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    def colsum_cases(S, softcaps, iters, hq=Hq, hkv=Hkv, d=D):
+        """observed_lse / observed_colsums_flash: a prefill's queries against
+        their own keys, B=1, GQA hq/hkv at head_dim d. The column sums are
+        taken with the kernel's own LSE pass and with the flash prefill
+        kernel's LSE."""
+        B, g, sc = 1, hq // hkv, d ** -0.5
+        q, k, v = rnd(B, hq, S, d), rnd(B, hkv, S, d), rnd(B, hkv, S, d)
+        pairs = B * hq * S * (S + 1) // 2            # visible (query head, key) pairs
+        kr, vr = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        tag = "" if d == D else f" D{d} GQA {hq}/{hkv}"
         for softcap in softcaps:
-            kw = dict(sm_scale=scale, softcap=softcap)
-            variant = f"B{B} S{S}" + ("" if softcap is None else f" softcap {softcap:g}")
+            kw = dict(sm_scale=sc, softcap=softcap)
+            variant = f"B{B} S{S}{tag}" + ("" if softcap is None else f" softcap {softcap:g}")
             lse = oc.observed_lse(q, k, **kw)
             torch.cuda.synchronize()
             if not torch.equal(lse, oc.observed_lse(q, k, **kw)):
@@ -936,14 +961,14 @@ def kernel_checks(kt, torch, report):
             lse_fault[:, :, 576:] = skipped[:, :, 512:]
             faults = {"one skipped key tile": lse_fault,
                       "a diagonal tile taken for an interior one": torch.logaddexp(
-                          lse_ref, above_diagonal(q, k, fl.key_tile(D), softcap, "rows"))}
+                          lse_ref, above_diagonal(q, k, fl.key_tile(d), softcap, "rows"))}
             ms = kernel_ms(lambda: oc.observed_lse(q, k, **kw), "observed_lse_kernel", iters)
             lib = None
             if softcap is None:
                 # One PyTorch call gives the same row LSE: the library's causal
                 # flash attention (its output besides), natural log.
                 sdpa = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-                    q, kr, vr, 0.0, True, False, scale=scale)
+                    q, kr, vr, 0.0, True, False, scale=sc)
                 lib_lse = sdpa()[1]
                 lib_err = (lib_lse - lse_ref).abs().max().item()
                 report(f"    library LSE (_scaled_dot_product_flash_attention, is_causal) against "
@@ -954,10 +979,10 @@ def kernel_checks(kt, torch, report):
                                     f"same function ({lib_err:.3e})")
                 lib = cuda_ms(sdpa, iters)
             record("observed_lse", variant, lse, lse_ref, faults, ms, plain, nbytes(q, k, lse),
-                   2 * D * pairs, lib, LSE_LIMIT, compare_lse)
+                   2 * d * pairs, lib, LSE_LIMIT, compare_lse)
             del skipped, lse_fault, faults
 
-            _, flash_lse = fl.flash_attention(q, k, v, 0, sm_scale=scale, softcap=softcap,
+            _, flash_lse = fl.flash_attention(q, k, v, 0, sm_scale=sc, softcap=softcap,
                                               return_lse=True)
             ms = kernel_ms(lambda: oc.observed_colsums_flash(q, k, flash_lse, **kw),
                            "observed_colsum_kernel", iters)
@@ -980,20 +1005,29 @@ def kernel_checks(kt, torch, report):
                           "a diagonal stage taken for an interior one":
                               ref + above_diagonal(q, k, 64, softcap, "columns", rows)}
                 record("observed_colsum", f"{source}, {variant}", got, ref, faults, ms, plain,
-                       nbytes(q, k, rows, got), 2 * D * pairs, None, SUM_LIMIT, compare_sums)
+                       nbytes(q, k, rows, got), 2 * d * pairs, None, SUM_LIMIT, compare_sums)
                 del got, ref, holed, faults
             del lse, lse_ref, flash_lse
         del q, k, v, kr, vr
         torch.cuda.empty_cache()
 
-    def headwise_case(label, B, S, prefix, tail, Ts):
+    # The column sums of the flagship's prefill, whole and ragged tiles, with
+    # and without softcap, and the 32K prefill itself.
+    for S, softcaps, iters in ((8192, (None, 30.0), 5), (8000, (None, 30.0), 5),
+                               (CONTEXT_TOKENS, (None,), 3)):
+        colsum_cases(S, softcaps, iters)
+
+    def headwise_case(label, B, S, prefix, tail, Ts, hq=Hq, d=D):
         """decode_attention_headwise over a cache compacted head by head
         (``prefix`` (B, Hkv) kept slots, the longest head running into a tail
         of ``tail`` appended tokens, stale bits past the end), at each T of
-        ``Ts``: launched twice (equal bits), against its plain version with its
-        planted faults (the tail skipped; at T=1, where the dense decode reads
-        the same mask, one kernel step and one chunk of a head dropped),
-        timed beside its two bounds and the library call."""
+        ``Ts``, hq query heads at head_dim d: launched twice (equal bits),
+        against its plain version with its planted faults (the tail skipped;
+        at T=1, where the dense decode reads the same mask, one kernel step
+        and one chunk of a head dropped), timed beside its two bounds and the
+        library call."""
+        Hkv, G, D = prefix.shape[1], hq // prefix.shape[1], d
+        scale = D ** -0.5
         tail_start = int(prefix.max())
         length = tail_start + tail
         col = torch.arange(S, device=dev)
@@ -1010,7 +1044,7 @@ def kernel_checks(kt, torch, report):
         tail_n = (length - pfx.clamp(min=int(ts))).clamp(min=0)
         steps = int((-(-pfx // nk)).sum() + (-(-tail_n // nk)).sum())
         for T in Ts:
-            q = rnd(B, Hq, T, D)
+            q = rnd(B, hq, T, D)
             call = lambda: hw.decode_attention_headwise(
                 q, k, v, *hw.prefix_tail_from_mask(mask, length), sm_scale=scale)
             kernel = lambda: hw.decode_attention_headwise(q, k, v, pfx, ts, tl, sm_scale=scale)
@@ -1024,10 +1058,12 @@ def kernel_checks(kt, torch, report):
             lib = None
             if T == 1:      # the mask says what the ranges say: the dense decode reads it
                 faults["one live step taken for dead"] = dec.decode_attention_plain(
-                    q, k, v, length, mask=fault_mask(mask, B, S, 1024, nk), sm_scale=scale)
+                    q, k, v, length, mask=fault_mask(mask, B, S, 1024, nk, hkv=Hkv),
+                    sm_scale=scale)
                 faults["one chunk dropped from the merge"] = dec.decode_attention_plain(
                     q, k, v, length, mask=mask & (chunk != 1), sm_scale=scale)
-                lib = sdpa_ms(q, k, v, allowed_mask(mask, B, length - T, T, S, length), 20)
+                lib = sdpa_ms(q, k, v, allowed_mask(mask, B, length - T, T, S, length, hkv=Hkv,
+                                                    g=G), 20)
             ms = kernel_ms(kernel, "decode_headwise_kernel", 50)
             wrapper = cuda_ms(call, 50, 5)
             plain = cuda_ms(lambda: hw.decode_attention_headwise_plain(
@@ -1052,6 +1088,108 @@ def kernel_checks(kt, torch, report):
     headwise_case("16K ragged", DECODE_BATCH, 16384 + 64, prefix, 33, (1, 4))
     prefix = torch.randint(16009, 16855, (DECODE_BATCH, Hkv), generator=gen, device=dev)
     headwise_case("path B cache", DECODE_BATCH, int(prefix.max()) + 33 + 32, prefix, 33, (1,))
+
+    # Head_dim 256 at the Gemma-3-12B run's shapes (GQA 16/8): every
+    # instantiation of the five kernels (flash_sm90.cuh's 32-key tiles,
+    # decode_sm90.cuh's Q fragments in shared memory, the column sums' query
+    # stages of 64 rows), each with the planted faults of its 64/128 checks.
+    Hq3, Hkv3, D3 = 16, 8, 256
+    tag = f"D{D3} GQA {Hq3}/{Hkv3}"
+    # The 32K prefill without images (paths A and B, int8 KV) on a global
+    # and a sliding layer (window 1,024), then with the run's 4 images.
+    T = CONTEXT_TOKENS
+    q, k, v = rnd(1, Hq3, T, D3), rnd(1, Hkv3, T, D3), rnd(1, Hkv3, T, D3)
+    live = torch.ones((1, Hkv3, T), dtype=torch.bool, device=dev)
+    flash_case("flash_attention", f"bf16 B1 T{T} S{T} {tag} all-live", None, q, [k, v], 0,
+               live, chunk=512, iters=3, lib_mask="causal")
+    flash_case("flash_attention", f"bf16 B1 T{T} S{T} {tag} all-live window 1024", None, q,
+               [k, v], 0, live, chunk=512, iters=5, lib_mask="window", window=1024)
+    del live
+    kg = image_groups(T, GEMMA3_IMAGE_STARTS)
+    for window in (None, 1024):
+        or_case(f"bf16 B1 T{T} S{T} {tag} 4 images" + (f" window {window}" if window else ""),
+                q, k, v, 0, window, kg, 256, chunk=512, iters=5)
+    del q, k, v, kg
+    torch.cuda.empty_cache()
+    # The last chunk of the chunked image run: 8,192 queries over the 24,576
+    # slots before them, one image in the prior and one in the chunk, on a
+    # global and a sliding layer.
+    T = CHUNK_TOKENS
+    prior = CONTEXT_TOKENS - T
+    q = rnd(1, Hq3, T, D3)
+    k, v = rnd(1, Hkv3, CONTEXT_TOKENS, D3), rnd(1, Hkv3, CONTEXT_TOKENS, D3)
+    kg = image_groups(CONTEXT_TOKENS, (9000, prior + 2345))
+    for window in (None, 1024):
+        or_case(f"bf16 B1 T{T} prior{prior} S{CONTEXT_TOKENS} {tag} images in prior and chunk"
+                + (f" window {window}" if window else ""), q, k, v, prior, window, kg, 256,
+                chunk=512, iters=3)
+    del q, k, v, kg
+    torch.cuda.empty_cache()
+    # The question forwards: 152 tokens over a global layer's 16,384 kept
+    # slots (half live, as after a press that does not compact; bf16 and
+    # int8 KV) and over a sliding layer's 32,768 with its window.
+    T = 152
+    for prior, window, mask_of in ((16384, None, lambda S: keep_mask(1, S, p=0.5)),
+                                   (CONTEXT_TOKENS, 1024, None)):
+        S = prior + T
+        q, kd, vd = rnd(1, Hq3, T, D3), rnd(1, Hkv3, S, D3), rnd(1, Hkv3, S, D3)
+        mask = (mask_of(S) if mask_of else
+                torch.ones((1, Hkv3, S), dtype=torch.bool, device=dev))
+        label = f"B1 T{T} prior{prior} {tag}" + (f" window {window}" if window else " half live")
+        flash_case("flash_attention", f"bf16 {label}", None, q, [kd, vd], prior, mask,
+                   chunk=T, iters=20, window=window)
+        flash_case("flash_attention_quant", f"int8 {label}", 8, q, quantized(kd, vd, 8), prior,
+                   mask, chunk=T, iters=20, window=window)
+        del q, kd, vd, mask
+    # The tile logic at 32-key tiles, every payload.
+    T = 1024
+    q, kd, vd = rnd(1, Hq3, T, D3), rnd(1, Hkv3, T, D3), rnd(1, Hkv3, T, D3)
+    one_clear = torch.ones((1, Hkv3, T), dtype=torch.bool, device=dev)
+    one_clear[:, :, 5] = False
+    flash_case("flash_attention", f"bf16 B1 T{T} S{T} {tag} one clear bit", None, q, [kd, vd],
+               0, one_clear, chunk=T, iters=10, logic_faults=True)
+    for bits in (8, 4):
+        flash_case("flash_attention_quant", f"int{bits} B1 T{T} S{T} {tag} one clear bit", bits,
+                   q, quantized(kd, vd, bits), 0, one_clear, chunk=T, iters=10,
+                   logic_faults=True)
+    del q, kd, vd
+    # flash_attention_quant at int4 as chunked prefill's fused route would
+    # launch it: the last 8,192-query chunk over a 32K buffer.
+    T, prior = CHUNK_TOKENS, CONTEXT_TOKENS - CHUNK_TOKENS
+    q = rnd(1, Hq3, T, D3)
+    kd, vd = rnd(1, Hkv3, CONTEXT_TOKENS, D3), rnd(1, Hkv3, CONTEXT_TOKENS, D3)
+    flash_case("flash_attention_quant", f"int4 B1 T{T} prior{prior} S{CONTEXT_TOKENS} {tag} chunk",
+               4, q, quantized(kd, vd, 4), prior, None, chunk=1024, iters=3,
+               lib_mask="lower_right")
+    del q, kd, vd
+    torch.cuda.empty_cache()
+    # Decode: over a global layer's 16,384 kept slots, the question and the
+    # new token (bf16 and int8 KV; int4 at B4), and over a sliding layer's
+    # 32,768 with its window.
+    length = CONTEXT_TOKENS // 2 + 152 + 1
+    S = length + 31
+    for B, bits in ((1, None), (1, 8), (DECODE_BATCH, 4)):
+        q = rnd(B, Hq3, 1, D3)
+        kd, vd = rnd(B, Hkv3, S, D3), rnd(B, Hkv3, S, D3)
+        decode_case(f"{'bf16' if bits is None else f'int{bits}'} B{B} 16K {tag}", q, kd, vd,
+                    length, None, bits, iters=20)
+    length = CONTEXT_TOKENS + 152 + 8
+    S = length + 24
+    q = rnd(1, Hq3, 1, D3)
+    kd, vd = rnd(1, Hkv3, S, D3), rnd(1, Hkv3, S, D3)
+    decode_case(f"bf16 B1 33K {tag} window 1024", q, kd, vd, length,
+                torch.ones((1, Hkv3, S), dtype=torch.bool, device=dev), None, iters=20,
+                window=1024)
+    del q, kd, vd
+    torch.cuda.empty_cache()
+    # The column sums at the 32K prefill and at a ragged length with softcap.
+    colsum_cases(CONTEXT_TOKENS, (None,), 3, Hq3, Hkv3, D3)
+    colsum_cases(8000, (30.0,), 5, Hq3, Hkv3, D3)
+    # The head-wise decode (off on sliding models, so on no path at 256): a
+    # synthetic path-B cache, B4, 16K, ragged.
+    prefix = torch.randint(2048, 16384, (DECODE_BATCH, Hkv3), generator=gen, device=dev)
+    prefix[0, 0], prefix[1, 1] = 0, 16384
+    headwise_case(f"16K ragged {tag}", DECODE_BATCH, 16384 + 64, prefix, 33, (1,), Hq3, D3)
     if failures:
         raise AssertionError("; ".join(failures))
     return results
@@ -1084,9 +1222,9 @@ def counters():
             "decode_headwise": decode_attention_headwise}
 
 
-# Launches of a kind, among a wrapper's: (wrapper, its count attribute).
-SUB_COUNTS = {"flash_attention_or_mask": ("flash_attention", "launches_or_mask"),
-              "flash_attention_windowed": ("flash_attention", "launches_windowed"),
+# The launches that took a window, among a wrapper's: (wrapper, its count
+# attribute).
+SUB_COUNTS = {"flash_attention_windowed": ("flash_attention", "launches_windowed"),
               "decode_attention_windowed": ("decode_attention", "launches_windowed")}
 
 
@@ -1094,15 +1232,25 @@ def reset_counts():
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
+        fn.launches_by_kind.update(dict.fromkeys(fn.launches_by_kind, 0))
     for name, attr in SUB_COUNTS.values():
         setattr(fns[name], attr, 0)
-    fns["flash_attention_quant"].launches_by_bits.update({8: 0, 4: 0})
 
 
 def read_counts():
+    """Each wrapper's launches; as ``<name>_<kind>_d<head_dim>``, those of
+    each kernel instantiation as the wrapper counted them where it launched
+    (``launches_by_kind``; kind: bf16, int8, int4, or_mask); their sums over
+    head_dims (``<name>_<kind>``) and over kinds (``<name>_d<head_dim>``);
+    and the windowed launches (SUB_COUNTS)."""
     fns = counters()
     counts = {name: fn.launches for name, fn in fns.items()}
     counts.update({sub: getattr(fns[name], attr) for sub, (name, attr) in SUB_COUNTS.items()})
+    for name, fn in fns.items():
+        for (d, kind), n in fn.launches_by_kind.items():
+            counts[f"{name}_{kind}_d{d}"] = n
+            for total in (f"{name}_{kind}", f"{name}_d{d}"):
+                counts[total] = counts.get(total, 0) + n
     return counts
 
 
@@ -1140,6 +1288,11 @@ def prefill_reading(log) -> str:
     seconds, peak, held = log[-1][:3]
     return (f"prefill {seconds * 1e3:.1f} ms, peak memory {peak / 2**30:.3f} GiB "
             f"({(peak - held) / 2**30:.3f} GiB over the {held / 2**30:.3f} GiB held before)")
+
+
+def launched(counts):
+    """The counts of ``read_counts`` that are not 0."""
+    return {name: n for name, n in counts.items() if n}
 
 
 def check_run(label, counts, needed, unwanted):
@@ -1228,7 +1381,7 @@ def main_path(kt, torch, tokenizer_cls, report):
             totals[name] += n
         answers = out["answers"]
         report(f"  {label}: {seconds:.2f} s in all, {prefill_reading(prefills)}, compressed "
-               f"length {lengths.compressed[-1]}, launches {counts}, answer tokens "
+               f"length {lengths.compressed[-1]}, launches {launched(counts)}, answer tokens "
                f"{[len(a.split()) for a in answers]}")
         if not lo <= lengths.compressed[-1] <= hi:
             raise AssertionError(f"{label}: compressed length {lengths.compressed[-1]}")
@@ -1273,13 +1426,10 @@ def fused_int4_check(kt, torch, params, report):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
-    by_bits = dict(counters()["flash_attention_quant"].launches_by_bits)
     report(f"  chunked, Knorm, int4 KV, fused_kv=True: {seconds:.2f} s, lengths "
-           f"{sorted(set(fused_cache.length.tolist()))}, launches {counts}, flash_attention_quant "
-           f"by bits {by_bits}")
-    check_run("fused int4 route", counts, ("flash_attention_quant",), ("flash_attention",))
-    if by_bits != {8: 0, 4: counts["flash_attention_quant"]}:
-        raise AssertionError(f"fused int4 route: flash_attention_quant launches by bits {by_bits}")
+           f"{sorted(set(fused_cache.length.tolist()))}, launches {launched(counts)}")
+    check_run("fused int4 route", counts, ("flash_attention_quant",),
+              ("flash_attention", "flash_attention_quant_int8"))
     dense, dense_cache, _ = runner.prefill_chunked(params, ids, fused_kv=False, **kw)
     with planted_faults(torch):
         fault, _, _ = runner.prefill_chunked(params, ids, fused_kv=True, **kw)
@@ -1358,7 +1508,7 @@ def long_context_run(kt, torch, tokenizer_cls, report):
     report(f"  8B-class, 131,072 tokens, int4 KV + int4 weights, Knorm, context_chunk "
            f"{CHUNK_TOKENS}: {seconds:.2f} s in all, {prefill_reading(prefills)} "
            f"({LONG_CONTEXT_TOKENS / prefills[-1][0]:.0f} tok/s); compressed length "
-           f"{lengths.compressed[-1]}, launches {counts}, answer tokens "
+           f"{lengths.compressed[-1]}, launches {launched(counts)}, answer tokens "
            f"{[len(a.split()) for a in answers]}")
     if lengths.compressed[-1] != LONG_CONTEXT_TOKENS // 2:
         raise AssertionError(f"8B-class run: compressed length {lengths.compressed[-1]}")
@@ -1780,6 +1930,20 @@ def gemma3_27b_config(num_layers: int = 62):
                        rope_local_base_freq=10000.0, model_type="gemma3_text")
 
 
+def gemma3_12b_config(num_layers: int = 48):
+    """The text decoder of Gemma-3-12B (``google/gemma-3-12b-it`` config.json,
+    text_config: hidden 3,840, FFN 15,360, 48 layers, 16 query / 8 kv heads,
+    sliding window 1,024, rope linear scaling 8; the fields it leaves to the
+    ``Gemma3TextConfig`` defaults, which are the model's: head_dim 256,
+    query_pre_attn_scalar 256, vocab 262,208, rope_theta 1e6,
+    rope_local_base_freq 1e4, every sixth layer global and the rest sliding;
+    q/k-norm, post-norms, (1 + w) norms, scaled embeddings, gelu-tanh, tied
+    head), written out by hand. Its vision tower is ``gemma3_vision_config``."""
+    return dataclasses.replace(
+        gemma3_27b_config(num_layers), hidden_size=3840, intermediate_size=15360,
+        num_heads=16, num_kv_heads=8, head_dim=256, query_pre_attn_scalar=256.0)
+
+
 def gemma3_vision_config():
     """Gemma-3-27B's SigLIP tower (``google/gemma-3-27b-it`` config.json,
     vision_config: hidden 1,152, FFN 4,304, 27 layers, 16 heads, image 896,
@@ -1846,7 +2010,7 @@ def pipeline_run(kt, torch, label, pipe, prefills, needed, unwanted, report, **k
     counts = read_counts()
     answers = out["answers"]
     report(f"  {label}: {seconds:.2f} s in all, {prefill_reading(prefills)}, layer lengths "
-           f"{sorted(set(prefills[-1][3]))}, launches {counts}, answer tokens "
+           f"{sorted(set(prefills[-1][3]))}, launches {launched(counts)}, answer tokens "
            f"{[len(a.split()) for a in answers]}")
     if len(answers) != 2 or not all(isinstance(a, str) and a for a in answers):
         raise AssertionError(f"{label}: bad answers {answers!r}")
@@ -2017,6 +2181,145 @@ def gemma3_run(kt, torch, tokenizer_cls, report):
                           token_types=(ids == GEMMA3_IMAGE_TOKEN).to(torch.int32),
                           image_span=span)
     del params, p_cut, tower, embeds
+    torch.cuda.empty_cache()
+    return totals
+
+
+def gemma3_12b_run(kt, torch, tokenizer_cls, report):
+    """The Gemma-3-12B body at full width and depth (48 layers, seeded random
+    bf16 weights, head_dim 256) with its SigLIP tower, through
+    ``KVPressPipeline`` at 32,768 tokens, two questions and 32 new tokens:
+    (a) Knorm(0.5), bf16 KV, the 4 images of the Gemma-3-27B run, one-shot
+    and with ``context_chunk=8192`` (flash with the or-mask at 256, windowed
+    on the sliding layers, and the decode kernel at 256); (b)
+    ObservedAttention(0.5) and AdaKV(ObservedAttention(0.5)) on a text
+    context (the column sums, and the row-logsumexp pass, at 256); (c) Knorm
+    with int8 KV (the 152-token question forward on flash_attention_quant at
+    256). Every launch of these runs must be a head_dim-256 one. The
+    head-wise kernel is off on sliding models and the int4 chunks of a 32K
+    context take the dense route, so neither runs here (phase 2 holds them).
+    Then where the prefill's time goes on the body cut to 6 layers, and the
+    cut body against the dense path at 4,096 tokens with two images, at
+    depth 1 and 6. Returns the launch counts of the runs."""
+    cfg, vcfg = gemma3_12b_config(), gemma3_vision_config()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    t0 = time.perf_counter()
+    params = kt.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    spread_norms(torch, params, cfg, gen)
+    tower = kt.init_vision_params(vcfg, gen, torch.bfloat16, dev,
+                                  text_hidden_size=cfg.hidden_size)
+    torch.cuda.empty_cache()
+    report(f"  Gemma-3-12B body (bf16) and tower: made in {time.perf_counter() - t0:.1f} s, "
+           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    span = vcfg.mm_tokens_per_image
+    images = image_context(CONTEXT_TOKENS, GEMMA3_IMAGE_STARTS, span)
+    text = " ".join(f"w{i}" for i in range(CONTEXT_TOKENS))
+    prefills = []
+    tok = image_tokenizer(tokenizer_cls, GEMMA3_IMAGE_TOKEN)
+    pipe = kt.KVPressPipeline(timed_runner(kt, torch, kt.Runner.create(cfg, device=dev), prefills),
+                              params, tok, vision_params=tower, vision_cfg=vcfg,
+                              image_token_id=GEMMA3_IMAGE_TOKEN)
+    image_ids = torch.tensor([pipe.preprocess(images, [""])[0]], device=dev)
+    tt = (image_ids == GEMMA3_IMAGE_TOKEN).to(torch.int32)
+    n_chunks = len(kt.Runner.chunk_starts(CONTEXT_TOKENS, CHUNK_TOKENS, tt))
+    px = torch.rand((4, 3, vcfg.image_size, vcfg.image_size), generator=gen, device=dev) * 2 - 1
+    compressed = [CONTEXT_TOKENS if s else CONTEXT_TOKENS // 2 for s in cfg.sliding_flags()]
+    n_global = cfg.num_layers - sum(cfg.sliding_flags())
+    observed = kt.ObservedAttentionPress(0.5)
+    kernels = ("flash_attention", "flash_attention_quant", "decode_attention", "observed_lse",
+               "observed_colsum", "decode_headwise")
+    image_run = (("flash_attention", "flash_attention_or_mask", "flash_attention_windowed",
+                  "decode_attention", "decode_attention_windowed"),
+                 ("flash_attention_quant", "decode_headwise", "observed_lse", "observed_colsum"))
+    # label: (pipeline options, kernels that must have been launched, kernels
+    # that must not, the layer lengths, or-mask launches)
+    runs = {
+        "32K with 4 images, Knorm, bf16 KV, one-shot": (
+            dict(context=images, press=kt.KnormPress(0.5), pixel_values=px), *image_run,
+            compressed, cfg.num_layers),
+        "32K with 4 images, Knorm, bf16 KV, context_chunk 8192": (
+            dict(context=images, press=kt.KnormPress(0.5), pixel_values=px,
+                 context_chunk=CHUNK_TOKENS), *image_run, compressed, cfg.num_layers * n_chunks),
+        "32K, ObservedAttention, bf16 KV": (
+            dict(context=text, press=observed),
+            ("flash_attention", "observed_colsum", "decode_attention"),
+            ("observed_lse", "flash_attention_quant", "decode_headwise",
+             "flash_attention_or_mask"), compressed, 0),
+        # AdaKV without compaction keeps each layer's buffer and clears keep-bits
+        "32K, AdaKV(ObservedAttention), bf16 KV": (
+            dict(context=text, press=kt.AdaKVPress(observed)),
+            ("flash_attention", "observed_lse", "observed_colsum", "decode_attention"),
+            ("flash_attention_quant", "decode_headwise", "flash_attention_or_mask"),
+            [CONTEXT_TOKENS] * cfg.num_layers, 0),
+        "32K, Knorm, int8 KV": (
+            dict(context=text, press=kt.KnormPress(0.5), quantized=True, kv_bits=8),
+            ("flash_attention", "flash_attention_quant", "decode_attention"),
+            ("decode_headwise", "observed_lse", "observed_colsum", "flash_attention_or_mask"),
+            compressed, 0),
+    }
+    totals = {}
+    for label, (kw, needed, unwanted, lengths, n_or) in runs.items():
+        counts, _, got = pipeline_run(kt, torch, f"Gemma-3-12B, {label}", pipe, prefills, needed,
+                                      unwanted, report, **kw)
+        if got != lengths:
+            raise AssertionError(f"Gemma-3-12B {label}: layer lengths {got}")
+        if counts["flash_attention_or_mask"] != n_or:
+            raise AssertionError(f"Gemma-3-12B {label}: {counts['flash_attention_or_mask']} "
+                                 f"or-mask launches, not {n_or}")
+        for name in ("observed_lse", "observed_colsum"):
+            if counts[name] not in (0, n_global):
+                raise AssertionError(f"Gemma-3-12B {label}: {counts[name]} {name} launches for "
+                                     f"{n_global} global layers")
+        for name in kernels:       # every launch took a head_dim-256 instantiation
+            if counts[f"{name}_d256"] != counts[name]:
+                raise AssertionError(f"Gemma-3-12B {label}: {name} launched "
+                                     f"{counts[name] - counts[f'{name}_d256']} times at another "
+                                     f"head_dim")
+        # the KV payload the options ask for is the one every launch took
+        payload = "int8" if kw.get("kv_bits") == 8 else "bf16"
+        for name, kind in (("decode_attention", payload),
+                           ("flash_attention_quant", "int8")):
+            if counts[f"{name}_{kind}_d256"] != counts[name]:
+                raise AssertionError(f"Gemma-3-12B {label}: {name} launched "
+                                     f"{counts[name] - counts[f'{name}_{kind}_d256']} times on "
+                                     f"another payload than {kind}")
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+        torch.cuda.empty_cache()
+    report("    launches of the head_dim-256 instantiations in these runs: "
+           f"{launched({k: n for k, n in totals.items() if k.endswith('_d256')})}")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # Where the prefill's time goes, on the body cut to its first 6 layers (5
+    # sliding, 1 global), the 32K context with its images.
+    depth = 6
+    cut = dataclasses.replace(cfg, num_layers=depth, layer_is_sliding=cfg.layer_is_sliding[:depth])
+    p_cut = first_layers(params, depth)
+    embeds = kt.multimodal_embeds(p_cut, cut, image_ids, tower(px), GEMMA3_IMAGE_TOKEN)
+    cut_runner = kt.Runner.create(cut, device=dev)
+    breakdown(f"Gemma-3-12B prefill 32K with 4 images cut to {depth} layers, Knorm, bf16 KV",
+              lambda: cut_runner.prefill(p_cut, None, press=kt.KnormPress(0.5),
+                                         compute_logits=True, inputs_embeds=embeds,
+                                         token_types=tt, image_span=span), 1, report, top=8)
+    del embeds, cut_runner
+    torch.cuda.empty_cache()
+
+    T = 4096
+    ids = torch.randint(3, GEMMA3_IMAGE_TOKEN, (1, T), generator=gen, device=dev)
+    for s0 in (501, 2222):
+        ids[:, s0:s0 + span] = GEMMA3_IMAGE_TOKEN
+    for d in (1, depth):
+        c = dataclasses.replace(cfg, num_layers=d, layer_is_sliding=cfg.layer_is_sliding[:d])
+        p_d = first_layers(params, d)
+        embeds = kt.multimodal_embeds(p_d, c, ids, tower(px[:2]), GEMMA3_IMAGE_TOKEN)
+        model_reference_check(kt, torch, f"Gemma-3-12B with 2 images, depth {d}", c, p_d, report,
+                              ids=ids, inputs_embeds=embeds,
+                              token_types=(ids == GEMMA3_IMAGE_TOKEN).to(torch.int32),
+                              image_span=span)
+        del embeds, p_d
+    del params, p_cut, tower
     torch.cuda.empty_cache()
     return totals
 
@@ -2224,23 +2527,75 @@ def breakdown(label, fn, iters, report, top=6):
 # --------------------------------------------------------------------- #
 
 
+_CSRC = "kvpress_tpu_torch/csrc/"
+# The kernels line, one entry per instantiation that phase 2 holds against
+# its plain version: (the check it reads, source, the TPU kernel it
+# replaces, the check's variant, the main path's launch count it takes).
 SOURCES = {
-    "flash_attention": ("kvpress_tpu_torch/csrc/flash.cu", "kvpress_tpu/ops/flash.py:154",
-                        "bf16 B1 T8192 S8192 masked"),
-    "flash_attention_quant": ("kvpress_tpu_torch/csrc/flash_quant.cu",
-                              "kvpress_tpu/ops/flash.py:435", "int8 B1 T256 prior16384"),
-    "decode_attention": ("kvpress_tpu_torch/csrc/decode.cu", "kvpress_tpu/ops/decode.py:212",
-                         "int4 B4 16K unmasked"),
-    "observed_lse": ("kvpress_tpu_torch/csrc/observed_colsum.cu",
-                     "kvpress_tpu/ops/observed_colsum.py:34", "B1 S8192"),
-    "observed_colsum": ("kvpress_tpu_torch/csrc/observed_colsum.cu",
-                        "kvpress_tpu/ops/observed_colsum.py:87", "flash lse, B1 S8192"),
-    "decode_headwise": ("kvpress_tpu_torch/csrc/decode_headwise.cu",
-                        "kvpress_tpu/ops/decode_headwise.py:236", "bf16 B4 T1 16K ragged"),
+    "flash_attention": ("flash_attention", _CSRC + "flash.cu", "kvpress_tpu/ops/flash.py:154",
+                        "bf16 B1 T8192 S8192 masked", "flash_attention_d64"),
+    "flash_attention_quant": ("flash_attention_quant", _CSRC + "flash_quant.cu",
+                              "kvpress_tpu/ops/flash.py:435", "int8 B1 T256 prior16384",
+                              "flash_attention_quant_d64"),
+    "decode_attention": ("decode_attention", _CSRC + "decode.cu", "kvpress_tpu/ops/decode.py:212",
+                         "int4 B4 16K unmasked", "decode_attention_d64"),
+    "observed_lse": ("observed_lse", _CSRC + "observed_colsum.cu",
+                     "kvpress_tpu/ops/observed_colsum.py:34", "B1 S8192", "observed_lse_d64"),
+    "observed_colsum": ("observed_colsum", _CSRC + "observed_colsum.cu",
+                        "kvpress_tpu/ops/observed_colsum.py:87", "flash lse, B1 S8192",
+                        "observed_colsum_d64"),
+    "decode_headwise": ("decode_headwise", _CSRC + "decode_headwise.cu",
+                        "kvpress_tpu/ops/decode_headwise.py:236", "bf16 B4 T1 16K ragged",
+                        "decode_headwise_d64"),
+    # head_dim 128 (the 8B-class, Qwen3-8B and Gemma-3-27B bodies)
+    "flash_attention_d128": ("flash_attention", _CSRC + "flash.cu", "kvpress_tpu/ops/flash.py:154",
+                             "bf16 B1 T32768 S32768 D128 all-live",
+                             "flash_attention_bf16_d128"),
     # the or-mask branch of flash_attention: its own instantiation of the loop
-    "flash_attention_or_mask": ("kvpress_tpu_torch/csrc/flash.cu",
+    "flash_attention_or_mask": ("flash_attention_or_mask", _CSRC + "flash.cu",
                                 "kvpress_tpu/ops/flash.py:106",
-                                "bf16 B1 T8192 S8192 D128 4 images window 1024"),
+                                "bf16 B1 T8192 S8192 D128 4 images window 1024",
+                                "flash_attention_or_mask_d128"),
+    "flash_attention_quant_d128": ("flash_attention_quant", _CSRC + "flash_quant.cu",
+                                   "kvpress_tpu/ops/flash.py:435", "int8 B1 T4096 S4096 D128 masked",
+                                   "flash_attention_quant_d128"),
+    "decode_attention_d128": ("decode_attention", _CSRC + "decode.cu",
+                              "kvpress_tpu/ops/decode.py:212", "bf16 B1 16K D128",
+                              "decode_attention_d128"),
+    # head_dim 256 (the Gemma-3-12B body)
+    "flash_attention_d256": ("flash_attention", _CSRC + "flash.cu", "kvpress_tpu/ops/flash.py:154",
+                             "bf16 B1 T32768 S32768 D256 GQA 16/8 all-live",
+                             "flash_attention_bf16_d256"),
+    "flash_attention_or_mask_d256": ("flash_attention_or_mask", _CSRC + "flash.cu",
+                                     "kvpress_tpu/ops/flash.py:106",
+                                     "bf16 B1 T32768 S32768 D256 GQA 16/8 4 images window 1024",
+                                     "flash_attention_or_mask_d256"),
+    "flash_attention_quant_int8_d256": ("flash_attention_quant", _CSRC + "flash_quant.cu",
+                                        "kvpress_tpu/ops/flash.py:435",
+                                        "int8 B1 T152 prior16384 D256 GQA 16/8 half live",
+                                        "flash_attention_quant_int8_d256"),
+    "flash_attention_quant_int4_d256": ("flash_attention_quant", _CSRC + "flash_quant.cu",
+                                        "kvpress_tpu/ops/flash.py:435",
+                                        "int4 B1 T8192 prior24576 S32768 D256 GQA 16/8 chunk",
+                                        "flash_attention_quant_int4_d256"),
+    "decode_attention_d256": ("decode_attention", _CSRC + "decode.cu",
+                              "kvpress_tpu/ops/decode.py:212", "bf16 B1 16K D256 GQA 16/8",
+                              "decode_attention_bf16_d256"),
+    "decode_attention_int8_d256": ("decode_attention", _CSRC + "decode.cu",
+                                   "kvpress_tpu/ops/decode.py:212", "int8 B1 16K D256 GQA 16/8",
+                                   "decode_attention_int8_d256"),
+    "decode_attention_int4_d256": ("decode_attention", _CSRC + "decode.cu",
+                                   "kvpress_tpu/ops/decode.py:212", "int4 B4 16K D256 GQA 16/8",
+                                   "decode_attention_int4_d256"),
+    "observed_lse_d256": ("observed_lse", _CSRC + "observed_colsum.cu",
+                          "kvpress_tpu/ops/observed_colsum.py:34", "B1 S32768 D256 GQA 16/8",
+                          "observed_lse_d256"),
+    "observed_colsum_d256": ("observed_colsum", _CSRC + "observed_colsum.cu",
+                             "kvpress_tpu/ops/observed_colsum.py:87",
+                             "flash lse, B1 S32768 D256 GQA 16/8", "observed_colsum_d256"),
+    "decode_headwise_d256": ("decode_headwise", _CSRC + "decode_headwise.cu",
+                             "kvpress_tpu/ops/decode_headwise.py:236",
+                             "bf16 B4 T1 16K ragged D256 GQA 16/8", "decode_headwise_d256"),
 }
 
 
@@ -2348,6 +2703,10 @@ def main() -> int:
            "chunked")
     for name, n in gemma3_run(kt, torch, ToyTokenizer, report).items():
         launches[name] += n
+    report("phase 3: the Gemma-3-12B body (bf16, 48 layers, head_dim 256): 4 images one-shot and "
+           "chunked, paths A and AdaKV(Observed), int8 KV, 32K")
+    for name, n in gemma3_12b_run(kt, torch, ToyTokenizer, report).items():
+        launches[name] += n
     reference_check(kt, torch, params, report)
     report(f"phase 3: chunked prefill (chunks of {REF_CHUNK}) against the dense path")
     reference_check(kt, torch, params, report, chunk=REF_CHUNK)
@@ -2356,10 +2715,10 @@ def main() -> int:
     timings(kt, torch, params, params8, report)
 
     kernels = []
-    for name, (src, replaces, variant) in SOURCES.items():
-        row = checks[name][variant]
+    for name, (check, src, replaces, variant, count) in SOURCES.items():
+        row = checks[check][variant]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name],
+                        "launches": launches[count],
                         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")}})
     report(f"done in {time.perf_counter() - t_start:.1f} s")

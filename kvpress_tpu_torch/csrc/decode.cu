@@ -17,7 +17,8 @@
 // decode_splits), so that batch 1 and batch 4 both put several blocks on
 // every SM; each block reads its own range's keep-mask bytes, lists its live
 // steps in shared memory and walks only those through a four-stage ring of
-// bulk copies; the ranges are merged in index order by decode_kernel_merge
+// bulk copies (three at head_dim 256 in bf16, decode_sm90.cuh says why); the
+// ranges are merged in index order by decode_kernel_merge
 // (named so that a profiler search for "decode_kernel" finds both kernels of
 // a launch). All G query heads of a kv head share a block's rows, so K/V are
 // read once per kv head and row group.
@@ -27,7 +28,8 @@ namespace kvp {
 namespace few {
 
 template <int D, int KIND>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 3 : 2) decode_kernel(const FewParams p) {
+__global__ void __launch_bounds__(THREADS, D == 64 ? 3 : D == 128 ? 2 : 1)
+    decode_kernel(const FewParams p) {
   using St = Stages<D, KIND>;
   constexpr int NK = St::NK;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -142,16 +144,19 @@ extern "C" int kvp_decode_attention(const void* q, const void* k, const void* v,
     switch (D) {
       case 64: return launch_decode<64, KV_BF16>(p, st);
       case 128: return launch_decode<128, KV_BF16>(p, st);
+      case 256: return launch_decode<256, KV_BF16>(p, st);
     }
   } else if (bits == 8) {
     switch (D) {
       case 64: return launch_decode<64, KV_INT8>(p, st);
       case 128: return launch_decode<128, KV_INT8>(p, st);
+      case 256: return launch_decode<256, KV_INT8>(p, st);
     }
   } else if (bits == 4) {
     switch (D) {
       case 64: return launch_decode<64, KV_INT4>(p, st);
       case 128: return launch_decode<128, KV_INT4>(p, st);
+      case 256: return launch_decode<256, KV_INT4>(p, st);
     }
   }
   return cudaErrorInvalidValue;

@@ -20,8 +20,8 @@
 // ranges are device tensors, read by the blocks themselves, no host round
 // trip). A chunk past its head's live set writes an empty range, so a long
 // head is spread over as many blocks as a short one and holds up no launch.
-// The steps go through the four-stage ring of bulk copies (a tail step may
-// start at any slot: a bf16 row is 16-byte aligned), and
+// The steps go through the ring of bulk copies (four stages, three at head_dim
+// 256; a tail step may start at any slot: a bf16 row is 16-byte aligned), and
 // decode_headwise_kernel_merge merges the chunks in index order; a head with
 // nothing to read stores 0.
 #include "decode_sm90.cuh"
@@ -30,7 +30,7 @@ namespace kvp {
 namespace few {
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(THREADS, D == 64 ? 3 : D == 128 ? 2 : 1)
     decode_headwise_kernel(const FewParams p) {
   using St = Stages<D, KV_BF16>;
   constexpr int NK = St::NK;
@@ -102,6 +102,7 @@ extern "C" int kvp_decode_attention_headwise(const void* q, const void* k, const
   switch (D) {
     case 64: return kvp::few::launch_headwise<64>(p, st);
     case 128: return kvp::few::launch_headwise<128>(p, st);
+    case 256: return kvp::few::launch_headwise<256>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }

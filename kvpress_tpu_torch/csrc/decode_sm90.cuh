@@ -40,6 +40,15 @@
 //   below every row's diagonal and inside its window tests only the
 //   keep-bits, and none if they are all set: a consumer warp's own
 //   instruction chain, more than the copies, sets the pace of a block.
+// * Head_dim 256 (Gemma-3 1B/4B/12B). A consumer warp's output for 16 rows x
+//   256 channels is 128 f32 a lane, and its Q fragments would be 64 more. So
+//   at 256 the Q fragments wait in shared memory (8 KB, written once, one
+//   16-byte load a k-step), and K and V words are loaded 16 bytes at a time,
+//   each load feeding the k-steps or n-tiles it holds: a lane keeps about 70
+//   registers beside O, within the 255 of one block an SM. A step keeps its
+//   floor of 64 keys (16 a consumer warp), so a bf16 stage is 64 KB and the
+//   ring has three of them (int8 and int4 keep four); the final merge still
+//   fits over the stages.
 // * decode.cu reads each block's keep-mask bytes once before its walk (1
 //   byte a slot against 72 bytes of int4 K+V and scales), builds the list of
 //   its live steps in shared memory (a vote per step, then a ballot and a
@@ -71,7 +80,6 @@ using sm90::mbar_wait;
 
 constexpr int CWARPS = 4;                    // consumer warps
 constexpr int THREADS = 32 * (CWARPS + 1);   // and one producer warp
-constexpr int STAGES = 4;
 constexpr int MAX_SPLITS = 64;               // ops/decode.py MAX_SPLITS
 constexpr int MERGE_THREADS = 128;
 
@@ -109,17 +117,22 @@ struct Step {
 
 // Shared memory: STAGES stages of (K, V, key scales, value scales, keep-mask
 // bytes) of NK keys each at payload width, as the bulk copies lay them; the
-// stages' barriers; a count and a list of live steps (decode.cu). At the end
-// the consumers' partial softmax states are merged over the stages.
+// stages' barriers; at head_dim 256 the consumers' Q fragments; a count and a
+// list of live steps (decode.cu). At the end the consumers' partial softmax
+// states are merged over the stages.
 template <int D, int KIND>
 struct Stages {
   static constexpr int NK = step_keys<D, KIND>();
   static constexpr int ROW = row_bytes<D, KIND>();
   static constexpr bool QUANT = KIND != KV_BF16;
+  // Four stages; a bf16 stage at head_dim 256 is 64 KB, and three fit.
+  static constexpr int STAGES = D == 256 && KIND == KV_BF16 ? 3 : 4;
+  static constexpr bool Q_SMEM = D == 256;  // Q fragments in shared memory
   static constexpr int KV = NK * ROW;
   static constexpr int STAGE = 2 * KV + (QUANT ? 8 * NK : 0) + NK;
   static constexpr int OFF_BAR = STAGES * STAGE;
-  static constexpr int OFF_LIST = OFF_BAR + 2 * STAGES * 8 + 16;
+  static constexpr int OFF_Q = OFF_BAR + 2 * STAGES * 8;  // (k-step, lane) x 16 bytes
+  static constexpr int OFF_LIST = OFF_Q + (Q_SMEM ? D / 16 * 32 * 16 : 0) + 16;
   static_assert(STAGE % 16 == 0, "bulk copy destinations are 16-byte aligned");
   static_assert(STAGES * STAGE >= CWARPS * 16 * (D + 2) * 4, "room for the final merge");
 
@@ -135,6 +148,7 @@ struct Stages {
   __device__ uint64_t* empty(int s) const { return full(STAGES) + s; }
   __device__ int* count() const { return reinterpret_cast<int*>(base + OFF_LIST - 16); }
   __device__ int* list() const { return reinterpret_cast<int*>(base + OFF_LIST); }
+  __device__ uint4* qfrag() const { return reinterpret_cast<uint4*>(base + OFF_Q); }
 
   __device__ void init_barriers() const {
     for (int s = 0; s < STAGES; ++s) {
@@ -268,7 +282,7 @@ template <int D, int KIND, class Walk>
 __device__ __forceinline__ void produce(const FewParams& p, const Stages<D, KIND>& st,
                                         const Walk& w, size_t kvh, int lane) {
   using St = Stages<D, KIND>;
-  constexpr int NK = St::NK, ROW = St::ROW;
+  constexpr int NK = St::NK, ROW = St::ROW, STAGES = St::STAGES;
   const char* kg = reinterpret_cast<const char*>(p.k) + kvh * p.S * ROW;
   const char* vg = reinterpret_cast<const char*>(p.v) + kvh * p.S * ROW;
   for (int i = 0; i < w.n; ++i) {
@@ -322,11 +336,16 @@ __device__ __forceinline__ void consume(const FewParams& p, const Stages<D, KIND
                                         const Walk& w, int rg, int split, size_t qoff,
                                         int warp, int lane) {
   using St = Stages<D, KIND>;
-  constexpr int NK = St::NK, ROW = St::ROW, NC = NK / CWARPS;
+  constexpr int NK = St::NK, ROW = St::ROW, NC = NK / CWARPS, STAGES = St::STAGES;
   constexpr bool QUANT = St::QUANT;
   constexpr int KW = ROW / 16;                               // words of a lane's K quarter
   constexpr int VB = KIND == KV_BF16 ? D / 4 : D / 8;        // bytes of a lane's V eighth
   constexpr int VW = VB / 4;
+  // Words a lane loads at once: its whole K quarter (V eighth) below head_dim
+  // 256, there 16 bytes, each load feeding the k-steps (n-tiles) it holds.
+  constexpr int KC = D == 256 ? 4 : KW, VC = D == 256 ? 4 : VW;
+  constexpr int KPC = D / 16 * KC / KW;                      // k-steps of a K load
+  constexpr int NPC = D / 8 * VC / VW;                       // n-tiles of a V load
   const int g = lane >> 2, t = lane & 3;
   const int rows = p.G * p.T;
   int row[2], qs[2];
@@ -337,20 +356,34 @@ __device__ __forceinline__ void consume(const FewParams& p, const Stages<D, KIND
   }
 
   // Q in the channel order of kphys: a[0] row g, a[1] row g + 8, a[2..3] the
-  // same 8 logical channels on.
-  uint32_t qa[D / 16][4];
+  // same 8 logical channels on. At head_dim 256 in shared memory: the warps
+  // write a quarter of the k-steps each.
+  uint32_t qa[St::Q_SMEM ? 1 : D / 16][4];
   auto qpair = [&](int r, int c0_, int c1_) -> uint32_t {
     if (row[r] >= rows) return 0u;
     const unsigned short* qr =
         reinterpret_cast<const unsigned short*>(p.q + (qoff + row[r]) * D);
     return (uint32_t)qr[c0_] | ((uint32_t)qr[c1_] << 16);
   };
+  if constexpr (St::Q_SMEM) {
+    for (int ks = warp; ks < D / 16; ks += CWARPS) {
+      uint32_t a[4];
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
+      for (int i = 0; i < 4; ++i) {
+        const int r = i & 1, e = (i >> 1) * 2;
+        a[i] = qpair(r, kphys<D, KIND>(ks, t, e), kphys<D, KIND>(ks, t, e + 1));
+      }
+      st.qfrag()[ks * 32 + lane] = make_uint4(a[0], a[1], a[2], a[3]);
+    }
+    sm90::bar_sync(1, 32 * CWARPS);
+  } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = i & 1, e = (i >> 1) * 2;
-      qa[ks][i] = qpair(r, kphys<D, KIND>(ks, t, e), kphys<D, KIND>(ks, t, e + 1));
+    for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i & 1, e = (i >> 1) * 2;
+        qa[ks][i] = qpair(r, kphys<D, KIND>(ks, t, e), kphys<D, KIND>(ks, t, e + 1));
+      }
     }
   }
   float o[D / 8][4];
@@ -373,13 +406,23 @@ __device__ __forceinline__ void consume(const FewParams& p, const Stages<D, KIND
 #pragma unroll
     for (int n = 0; n < NC / 8; ++n) {
       sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-      uint32_t kw[KW];
-      load_words<KW>(kw, st.k(s) + (c0 + n * 8 + g) * ROW + t * (ROW / 4));
+      const unsigned char* kr = st.k(s) + (c0 + n * 8 + g) * ROW + t * (ROW / 4);
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        uint32_t b0, b1;
-        kfrag<D, KIND, KW>(kw, ks, b0, b1);
-        mma16816(sc[n], qa[ks], b0, b1);
+      for (int kc = 0; kc < KW / KC; ++kc) {
+        uint32_t kw[KC];
+        load_words<KC>(kw, kr + kc * KC * 4);
+#pragma unroll
+        for (int j = 0; j < KPC; ++j) {
+          uint32_t b0, b1;
+          kfrag<D, KIND, KC>(kw, j, b0, b1);
+          if constexpr (St::Q_SMEM) {
+            const uint4 x = st.qfrag()[(kc * KPC + j) * 32 + lane];
+            const uint32_t a[4] = {x.x, x.y, x.z, x.w};
+            mma16816(sc[n], a, b0, b1);
+          } else {
+            mma16816(sc[n], qa[kc * KPC + j], b0, b1);
+          }
+        }
       }
     }
 
@@ -467,23 +510,26 @@ __device__ __forceinline__ void consume(const FewParams& p, const Stages<D, KIND
       pa[3] = pack_bf16x2(sc[2 * kb + 1][2], sc[2 * kb + 1][3]);
       // Value rows 2t, 2t+1 (b0) and 2t+8, 2t+9 (b1) of the 16-key block.
       const unsigned char* vr = st.v(s) + (c0 + kb * 16 + 2 * t) * ROW + voff;
-      uint32_t va[VW], vb[VW], vc[VW], vd[VW];
-      load_words<VW>(va, vr);
-      load_words<VW>(vb, vr + ROW);
-      load_words<VW>(vc, vr + 8 * ROW);
-      load_words<VW>(vd, vr + 9 * ROW);
-      if constexpr (KIND == KV_INT4) {
 #pragma unroll
-        for (int j = 0; j < VW; ++j) {
-          va[j] = (va[j] >> vsh) & 0x0F0F0F0Fu;
-          vb[j] = (vb[j] >> vsh) & 0x0F0F0F0Fu;
-          vc[j] = (vc[j] >> vsh) & 0x0F0F0F0Fu;
-          vd[j] = (vd[j] >> vsh) & 0x0F0F0F0Fu;
+      for (int ch = 0; ch < VW / VC; ++ch) {
+        uint32_t va[VC], vb[VC], vc[VC], vd[VC];
+        load_words<VC>(va, vr + ch * VC * 4);
+        load_words<VC>(vb, vr + ROW + ch * VC * 4);
+        load_words<VC>(vc, vr + 8 * ROW + ch * VC * 4);
+        load_words<VC>(vd, vr + 9 * ROW + ch * VC * 4);
+        if constexpr (KIND == KV_INT4) {
+#pragma unroll
+          for (int j = 0; j < VC; ++j) {
+            va[j] = (va[j] >> vsh) & 0x0F0F0F0Fu;
+            vb[j] = (vb[j] >> vsh) & 0x0F0F0F0Fu;
+            vc[j] = (vc[j] >> vsh) & 0x0F0F0F0Fu;
+            vd[j] = (vd[j] >> vsh) & 0x0F0F0F0Fu;
+          }
         }
-      }
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        mma16816(o[n], pa, vpair<KIND, VW>(va, vb, n), vpair<KIND, VW>(vc, vd, n));
+        for (int j = 0; j < NPC; ++j)
+          mma16816(o[ch * NPC + j], pa, vpair<KIND, VC>(va, vb, j), vpair<KIND, VC>(vc, vd, j));
+      }
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(st.empty(s));
@@ -590,7 +636,9 @@ __device__ __forceinline__ void merge_block(const float* __restrict__ part_o,
                                             const float* __restrict__ part_ml,
                                             __nv_bfloat16* __restrict__ out, size_t rows,
                                             int nsplit) {
-  constexpr int GROUPS = MERGE_THREADS / D;
+  // Head_dim 256 has more channels than the block has threads: a thread
+  // takes channels c and c + 128, each over the ranges in order.
+  constexpr int GROUPS = MERGE_THREADS >= D ? MERGE_THREADS / D : 1;
   __shared__ float ml[MAX_SPLITS][2];
   __shared__ float wgt[MAX_SPLITS];
   __shared__ float part[GROUPS][D];
@@ -608,6 +656,15 @@ __device__ __forceinline__ void merge_block(const float* __restrict__ part_o,
   __syncthreads();
   float lsum = 0.f;
   for (int s = 0; s < nsplit; ++s) lsum += wgt[s] * ml[s][1];
+  if constexpr (D > MERGE_THREADS) {
+    for (int c = tid; c < D; c += MERGE_THREADS) {
+      float acc = 0.f;
+#pragma unroll 4
+      for (int s = 0; s < nsplit; ++s) acc += wgt[s] * part_o[(s * rows + row) * D + c];
+      out[row * D + c] = __float2bfloat16(acc * (lsum == 0.f ? 1.f : 1.f / lsum));
+    }
+    return;
+  }
   const int c = tid % D, grp = tid / D;
   float acc = 0.f;
 #pragma unroll 4

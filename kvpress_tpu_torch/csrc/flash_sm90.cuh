@@ -19,7 +19,7 @@
 //   the A fragment of one k16 step) and V from its key-major tile as the
 //   transposed B operand.
 // * Tiles lie in shared memory as wgmma reads them: rows of 128 bytes (64 bf16
-//   channels; head_dim 128 is two such panels) under the 128-byte swizzle,
+//   channels; head_dim 128 is two such panels, 256 four) under the 128-byte swizzle,
 //   1,024-byte aligned. They are filled with 16-byte cp.async copies to
 //   hand-swizzled addresses rather than with TMA: the quantized kernel has to
 //   write its widened tiles by hand anyway, the payload rows of a tile are one
@@ -46,6 +46,18 @@
 //   tile with no keep-bit is skipped, and a tile with every keep-bit set that
 //   lies wholly below the diagonal and inside the window takes no per-element
 //   test.
+// * Head_dim 256 (Gemma-3 1B/4B/12B). Q alone is 4 panels x 128 rows = 64 KB,
+//   and a consumer warpgroup's output accumulator 64 rows x 256 f32 = 128
+//   registers a thread. A key tile is 16 KB of bf16 keys at every head_dim
+//   (NK = 8192 / D: 128, 64, 32 keys), so the ring keeps its four stages of
+//   K and V (128 KB) beside Q; only an int8 cache, whose three raw slots take
+//   48 KB more, drops to three stages. The 32-key tile keeps S (16 f32) and
+//   P (8 words) small beside O, so the consumers stay within the same
+//   setmaxnreg split and neither role spills; S = Q.K^T runs on m64n32k16,
+//   P.V on the same m64n64k16 a 64-channel panel as at 64 and 128. Splitting
+//   O's channels over the two warpgroups would make each compute S twice,
+//   and two stages of 64-key tiles would leave the producer no tile ahead
+//   while the consumers hold one stage for S and one for P.V.
 // * The same-image or-mask (OR = true, bf16 caches only, as in the Pallas
 //   kernel): a row whose image id gq is >= 0 also sees every key whose id
 //   equals it. An image spans at most or_span slots, so a q-tile's key range
@@ -260,6 +272,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 32, f32) = or += A (64 x 16, shared memory) * B^T (B: 32 x 16, shared
+// memory), both K-major under the 128-byte swizzle: S of a 32-key tile.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared memory,
 // stored key-major: the transposed, "MN-major" B operand).
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
@@ -285,14 +311,15 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4
 // keep-mask bytes, and the stages' barriers. A quantized cache adds a ring of
 // raw payload slots that only the producer warps touch. Every tile is a whole
 // number of 1,024-byte swizzle atoms; head_dim 128 is two 64-channel panels,
-// one after the other. The row-logsumexp pass reads neither scales nor
+// 256 four, one after the other. The row-logsumexp pass reads neither scales nor
 // keep-mask bytes but keeps their room: without it the pass measured slower
 // on the H100, and a ring of eight K stages no faster (PERF.md). With the
 // or-mask (OR) every stage also holds its keys' image ids.
 template <int D, int KIND, bool OR = false>
 struct Ring {
-  static constexpr int NK = D == 64 ? 128 : 64;
-  static constexpr int STAGES = 4;
+  static constexpr int NK = 8192 / D;  // 16 KB of bf16 keys: 128, 64 or 32
+  // Four stages; at head_dim 256 an int8 cache's raw slots leave room for three.
+  static constexpr int STAGES = D == 256 && KIND == KV_INT8 ? 3 : 4;
   static constexpr bool BF16 = KIND == KV_BF16 || KIND == LSE_ONLY;  // copied as it is
   static constexpr int KV = KIND == LSE_ONLY ? 1 : 2;                // tiles of a stage
   static constexpr int RAW_SLOTS = BF16 ? 0 : LAG + 1;
@@ -442,11 +469,15 @@ __device__ __forceinline__ void produce(const FlashParams& p, const Ring<D, KIND
   const uint8_t* mg = p.mask ? p.mask + kvh * p.mask_pitch : nullptr;
   const int ntiles = w.i1 - w.i0;
   if constexpr (R::BF16) {
-    // Thread pt copies chunk pt % CPR of rows pt / CPR + RPI * it: RPI is a
-    // multiple of 8, so the swizzle phase is the thread's own.
-    constexpr int CPR = D / 8;      // 16-byte chunks of a bf16 row
-    constexpr int RPI = 128 / CPR;  // rows the 128 threads cover at once
-    const int r0 = pt / CPR, cc = pt % CPR;
+    // Thread pt copies chunk pt % CPT of rows pt / CPT + RPI * it, and at
+    // head_dim 256 the same chunk of the second pair of panels (HALVES): RPI
+    // is a multiple of 8, so the swizzle phase is the thread's own.
+    constexpr int CPR = D / 8;                 // 16-byte chunks of a bf16 row
+    constexpr int CPT = CPR < 16 ? CPR : 16;   // of them, a thread's row covers one
+    constexpr int HALVES = CPR / CPT;
+    constexpr int RPI = 128 / CPT;             // rows the 128 threads cover at once
+    static_assert(RPI % 8 == 0, "a thread keeps its swizzle phase");
+    const int r0 = pt / CPT, cc = pt % CPT;
     const uint32_t dst = (cc >> 3) * R::KV_PANEL + swizzled(r0, cc & 7);
     for (int n = 0; n < ntiles; ++n) {
       const int key0 = w.kfirst + (w.i0 + n) * NK, stage = n % STAGES;
@@ -456,9 +487,13 @@ __device__ __forceinline__ void produce(const FlashParams& p, const Ring<D, KIND
 #pragma unroll
       for (int it = 0; it < NK / RPI; ++it) {
         const bool in = key0 + r0 + RPI * it < p.S;
-        const long long off = in ? src + (long long)it * RPI * ROW : 0;
-        cp_async16_to(kt + it * RPI * 128, kg + off, in);
-        if constexpr (KIND == KV_BF16) cp_async16_to(vt + it * RPI * 128, vg + off, in);
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) {
+          const long long off = in ? src + (long long)it * RPI * ROW + h * CPT * 16 : 0;
+          const uint32_t at = h * (CPT / 8) * R::KV_PANEL + it * RPI * 128;
+          cp_async16_to(kt + at, kg + off, in);
+          if constexpr (KIND == KV_BF16) cp_async16_to(vt + at, vg + off, in);
+        }
       }
       if constexpr (KIND == KV_BF16) {
         if (pt == 0) load_mask<NK>(ring.mask(stage), mg, key0, p);

@@ -40,6 +40,10 @@
 //   order, the longest (tile 0 meets every query stage) first. Three
 //   consumer warpgroups without turns, and the LSE copied asynchronously,
 //   measured faster on the H100 than two that take turns (PERF.md).
+//   At head_dim 256 the 192 resident keys alone take 96 KB, so a query
+//   stage holds 64 rows (G heads by 64 / G positions) and S^T runs on
+//   m64n64k16: four stages of 32 KB fit beside the keys in 227 KB, and the
+//   consumers' accumulators shrink with the stage.
 #include "flash_sm90.cuh"
 
 namespace kvp {
@@ -48,7 +52,6 @@ namespace colsum {
 constexpr int CONSUMERS = 384;  // three consumer warpgroups
 constexpr int THREADS = 512;    // + one producer warpgroup
 constexpr int KEYS = 192;       // keys a block owns: 64 per consumer warpgroup
-constexpr int ROWS = 128;       // (query head, position) rows of a query stage
 constexpr int STAGES = 4;
 constexpr int LAG = 2;          // stages in flight behind the hand-over
 // Registers move from the producer warpgroup to the consumers (the sum over
@@ -57,9 +60,11 @@ constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 144;
 
 // Shared memory of a column-sum block: the key tile, a ring of query stages,
 // the stages' row LSE (log2 units) and their barriers. Tiles are rows of 128
-// bytes under the 128-byte swizzle (head_dim 128 is two panels).
+// bytes under the 128-byte swizzle (head_dim 128 is two panels, 256 four).
 template <int D>
 struct Ring {
+  // (query head, position) rows of a query stage: 64 at head_dim 256
+  static constexpr int ROWS = D == 256 ? 64 : 128;
   static constexpr int PANELS = D / 64;
   static constexpr int K_PANEL = KEYS * 128;
   static constexpr int Q_PANEL = ROWS * 128;
@@ -105,16 +110,20 @@ struct Walk {
 template <int D, int G>
 __device__ __forceinline__ void produce(const Params& p, const Ring<D>& ring, const Walk& w,
                                         int pt) {
-  constexpr int BQ = ROWS / G, CPR = D / 8, RPI = 128 / CPR;
+  // As in flash_sm90.cuh's producer: thread pt copies chunk pt % CPT of rows
+  // pt / CPT + RPI * it, at head_dim 256 also of the second pair of panels.
+  constexpr int ROWS = Ring<D>::ROWS, BQ = ROWS / G, CPR = D / 8;
+  constexpr int CPT = CPR < 16 ? CPR : 16, HALVES = CPR / CPT, RPI = 128 / CPT;
   static_assert(LAG < STAGES, "the producer waits for a stage LAG hand-overs back");
-  const int r0 = pt / CPR, cc = pt % CPR;
+  const int r0 = pt / CPT, cc = pt % CPT;
   const uint32_t dst = (cc >> 3) * Ring<D>::Q_PANEL + sm90::swizzled(r0, cc & 7);
   const size_t head0 = (size_t)w.b * p.Hq + (size_t)w.h * G;
   // Offsets from the group's first query row stay 32-bit (the entry point
   // refuses G * S * D >= 2^31): the producer warps run with PRODUCER_REGS
   // registers.
   const __nv_bfloat16* qg = p.q + head0 * p.S * D + cc * 8;
-  const float* lg = p.lse + (head0 + pt / BQ) * p.S + pt % BQ;
+  const bool has_row = pt < ROWS;  // the thread that copies row pt's LSE
+  const float* lg = p.lse + (head0 + (has_row ? pt / BQ : 0)) * p.S + pt % BQ;
   for (int n = 0; n < w.nst + LAG; ++n) {
     if (n < w.nst) {
       const int qt = w.qt0 + n, stage = n % STAGES;
@@ -124,18 +133,23 @@ __device__ __forceinline__ void produce(const Params& p, const Ring<D>& ring, co
       for (int it = 0; it < ROWS / RPI; ++it) {
         const int row = r0 + it * RPI, t = qt * BQ + row % BQ;
         const bool in = t < p.S;
-        sm90::cp_async16_to(qs + it * RPI * 128, qg + ((row / BQ) * p.S + (in ? t : 0)) * D, in);
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h)
+          sm90::cp_async16_to(qs + h * (CPT / 8) * Ring<D>::Q_PANEL + it * RPI * 128,
+                              qg + ((row / BQ) * p.S + (in ? t : 0)) * D + h * CPT * 8, in);
       }
       const bool in = qt * BQ + pt % BQ < p.S;
-      cp_async4(ring.lse(stage) + pt, lg + (in ? qt * BQ : 0), in);
+      if (has_row) cp_async4(ring.lse(stage) + pt, lg + (in ? qt * BQ : 0), in);
     }
     cp_async_commit();
     if (n >= LAG) {
       const int j = n - LAG, stage = j % STAGES;
       cp_async_wait<LAG>();  // this thread's copies of stage j have landed
-      float* l = ring.lse(stage) + pt;
-      const float x = *l;
-      *l = (w.qt0 + j) * BQ + pt % BQ >= p.S || x == -INFINITY ? INFINITY : x * sm90::LOG2E;
+      if (has_row) {
+        float* l = ring.lse(stage) + pt;
+        const float x = *l;
+        *l = (w.qt0 + j) * BQ + pt % BQ >= p.S || x == -INFINITY ? INFINITY : x * sm90::LOG2E;
+      }
       sm90::fence_async_proxy();  // the copies are read by wgmma
       sm90::mbar_arrive(ring.full(stage));
     }
@@ -149,7 +163,7 @@ __device__ __forceinline__ void produce(const Params& p, const Ring<D>& ring, co
 template <int D, int G, bool CAPPED>
 __device__ __forceinline__ void consume(const Params& p, const Ring<D>& ring, const Walk& w,
                                         int tid) {
-  constexpr int BQ = ROWS / G;
+  constexpr int ROWS = Ring<D>::ROWS, BQ = ROWS / G;
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -162,7 +176,7 @@ __device__ __forceinline__ void consume(const Params& p, const Ring<D>& ring, co
   float acc[G][2];
 #pragma unroll
   for (int hd = 0; hd < G; ++hd) acc[hd][0] = acc[hd][1] = 0.f;
-  float s[64];
+  float s[ROWS / 2];
 
   // p = ex2(x c - lse2) of every element, added into its (key, head) sum;
   // across the diagonal only where the key is at or before the position.
@@ -221,7 +235,7 @@ __device__ __forceinline__ void consume(const Params& p, const Ring<D>& ring, co
 // first.
 template <int D, int G>
 __global__ void __launch_bounds__(THREADS, 1) observed_colsum_kernel(const Params p) {
-  constexpr int BQ = ROWS / G;
+  constexpr int BQ = Ring<D>::ROWS / G;
   extern __shared__ unsigned char smem_dyn[];
   const Ring<D> ring{smem_dyn + ((1024u - (smem_addr(smem_dyn) & 1023u)) & 1023u)};
   const int tid = threadIdx.x;
@@ -322,6 +336,7 @@ extern "C" int kvp_observed_lse(const void* q, const void* k, void* lse, int B, 
   switch (D) {
     case 64: return kvp::launch_lse<64>(p, st);
     case 128: return kvp::launch_lse<128>(p, st);
+    case 256: return kvp::launch_lse<256>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -342,6 +357,7 @@ extern "C" int kvp_observed_colsum(const void* q, const void* k, const void* lse
   switch (D) {
     case 64: return kvp::colsum::launch_colsum_d<64>(p, st);
     case 128: return kvp::colsum::launch_colsum_d<128>(p, st);
+    case 256: return kvp::colsum::launch_colsum_d<256>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -60,13 +60,11 @@ from ..device import DeviceLike, resolve_device
 from ..ops.attention import attention_bias, gqa_attention, quant_gqa_attention
 from ..ops.decode import decode_attention
 from ..ops.decode_headwise import decode_attention_headwise, prefix_tail_from_mask
-from ..ops.flash import flash_attention, flash_attention_quant, same_image
+from ..ops.flash import check_head_dim, flash_attention, flash_attention_quant, same_image
 from ..presses.base import BasePress, LayerCtx, ScorerPress
 from ..rope import apply_rope, compute_inv_freq, rope_cos_sin
 
 LINEARS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
-# head_dims the kernels are instantiated for (ops/flash.py, ops/decode.py)
-KERNEL_HEAD_DIMS = (64, 128)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, one_offset: bool = False):
@@ -380,21 +378,17 @@ class Runner:
         overhead.) The decode kernel takes every few-token call it can, so
         ``headwise_kernel=True`` routes only with ``decode_kernel=False``.
 
-        On CUDA the kernels take head_dim 64 and 128: another head_dim
-        (Phi-3-mini's 96, Gemma-3 1B/4B/12B's 256) raises unless the dense
-        path is asked for (``attn_impl="xla"``)."""
+        On CUDA the kernels take head_dim 64, 128 and 256 (Gemma-3 1B/4B/12B):
+        another head_dim (Phi-3-mini's 96) raises unless the dense path is
+        asked for (``attn_impl="xla"``)."""
         device = resolve_device(device)
         inv, scaling = compute_inv_freq(cfg)
         if attn_impl == "auto":
             attn_impl = "flash" if device.type == "cuda" else "xla"
         if decode_kernel is None:
             decode_kernel = device.type == "cuda"
-        if (device.type == "cuda" and attn_impl == "flash"
-                and cfg.head_dim not in KERNEL_HEAD_DIMS):
-            raise ValueError(
-                f"head_dim {cfg.head_dim}: the Hopper kernels are instantiated for head_dim "
-                f"{KERNEL_HEAD_DIMS} only (head_dim 96 and 256 instantiations: ROADMAP "
-                f"Queue B); run on the CPU or ask for attn_impl='xla'")
+        if device.type == "cuda" and attn_impl == "flash":
+            check_head_dim(cfg.head_dim)
         local = None
         if cfg.rope_local_base_freq is not None:
             local, _ = compute_inv_freq(dataclasses.replace(

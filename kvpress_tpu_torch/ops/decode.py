@@ -6,7 +6,8 @@ slot-space window and logit softcap). The cache may be bf16, int8 or packed
 int4 (``cache.quantize_kv`` layout) with per-token scales.
 
 On a CUDA tensor ``decode_attention`` launches the hand-written Hopper kernel
-(``csrc/decode.cu``) and adds one to ``decode_attention.launches``. The
+(``csrc/decode.cu``) and adds one to ``decode_attention.launches`` and to the
+instantiation's entry of ``decode_attention.launches_by_kind``. The
 kernel splits the key range of each kv head over ``decode_splits`` blocks
 (from the shapes alone), each of which finds the live steps of its own range
 in the keep-mask and reads only those, at payload width; a second kernel of
@@ -26,11 +27,14 @@ import torch
 from . import _build
 from .attention import (NEG_INF, attention_bias, gqa_attention, quant_gqa_attention,
                         quant_pv_out, quant_qk_logits)
-from .flash import MAX_GROUP, _check_scale, _check_scales, _opt, _split_merge, _split_scratch
+from .flash import (MAX_GROUP, _check_scale, _check_scales, _opt, _split_merge, _split_scratch,
+                    check_head_dim, launch_counts)
 
 BLOCK_K_UNIT = 256     # block_k must be a multiple of this (the JAX kernel's contract)
 TARGET_BLOCKS = 256    # about two blocks for each of an H100's 132 SMs
-RING_STAGES = 4        # stages of the kernel's ring (decode_sm90.cuh STAGES)
+# Steps a key range holds at least: the kernel's ring depth (decode_sm90.cuh
+# Stages::STAGES; a bf16 ring at head_dim 256 has 3 stages and splits as if it had 4).
+RING_STAGES = 4
 MAX_SPLITS = 64
 
 
@@ -172,8 +176,9 @@ def decode_attention(
     length = int(length)
     if q.dtype != torch.bfloat16:
         raise TypeError(f"kernel takes bf16 queries, got {q.dtype}")
-    if Hq % Hkv or Hq // Hkv > MAX_GROUP or D not in (64, 128):
-        raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP} and head_dim 64/128")
+    if Hq % Hkv or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP}")
+    check_head_dim(D)
     if block_k % BLOCK_K_UNIT:
         raise ValueError(f"block_k must be a multiple of {BLOCK_K_UNIT}, got {block_k}")
     if not T <= length <= S:
@@ -213,9 +218,11 @@ def decode_attention(
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.launches_by_kind[D, "bf16" if bits is None else f"int{bits}"] += 1
     decode_attention.launches_windowed += bool(window)     # among those counted
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_kind = launch_counts("bf16", "int8", "int4")
 decode_attention.launches_windowed = 0

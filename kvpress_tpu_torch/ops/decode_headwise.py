@@ -22,7 +22,8 @@ here.) A head with nothing to read gives zeros.
 
 On CUDA tensors ``decode_attention_headwise`` launches the hand-written Hopper
 kernel (``csrc/decode_headwise.cu``), which takes the ranges as device tensors
-(no host round trip), and adds one to its ``launches`` count; anything the
+(no host round trip), and adds one to its ``launches`` count (and to
+``launches_by_kind``, by head_dim); anything the
 kernel does not take raises. The kernel lays each head's live set out as a
 list of steps and cuts it into ``decode_splits`` chunks of a length fixed by
 S, one block each, merged in a second kernel of the same launch;
@@ -39,7 +40,8 @@ import torch
 from . import _build, decode
 from .attention import NEG_INF, gqa_attention
 from .decode import MAX_SPLITS, step_keys
-from .flash import MAX_GROUP, _check_scale, _opt, _split_scratch, merge_key_ranges
+from .flash import (MAX_GROUP, _check_scale, _opt, _split_scratch, check_head_dim,
+                    launch_counts, merge_key_ranges)
 
 
 def prefix_tail_from_mask(mask: torch.Tensor, length):
@@ -143,8 +145,9 @@ def decode_attention_headwise(
                                                sm_scale=sm_scale, softcap=softcap)
     B, Hq, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    if Hq % Hkv or Hq // Hkv > MAX_GROUP or D not in (64, 128):
-        raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP} and head_dim 64/128")
+    if Hq % Hkv or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP}")
+    check_head_dim(D)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: kernel takes a bf16 cache and queries, got {t.dtype}")
@@ -174,7 +177,9 @@ def decode_attention_headwise(
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention_headwise")
     decode_attention_headwise.launches += 1
+    decode_attention_headwise.launches_by_kind[D, "bf16"] += 1
     return out
 
 
 decode_attention_headwise.launches = 0
+decode_attention_headwise.launches_by_kind = launch_counts("bf16")

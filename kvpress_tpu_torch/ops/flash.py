@@ -13,8 +13,9 @@ each q-tile's key range by ``or_span - 1`` slots on both sides.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/flash.cu``, ``csrc/flash_quant.cu``: one wgmma main loop,
-``csrc/flash_sm90.cuh``) and adds one to its ``launches`` count; anything the
-kernel does not take raises. On a CPU tensor it runs the plain PyTorch
+``csrc/flash_sm90.cuh``) and adds one to its ``launches`` count and to the
+instantiation's entry of ``launches_by_kind``; anything the kernel does not
+take raises. On a CPU tensor it runs the plain PyTorch
 version beside it (``*_plain``), built on ops/attention.py. There is no
 fall-back from one to the other.
 
@@ -35,14 +36,23 @@ from .attention import (NEG_INF, attention_bias, gqa_attention, quant_gqa_attent
                         quant_pv_out, quant_qk_logits)
 
 MAX_GROUP = 8        # query heads per kv head the kernels' block geometry takes
+HEAD_DIMS = (64, 128, 256)   # head_dims the five kernels are instantiated for
 BLOCK_ROWS = 128     # (head, time) rows of a kernel block: G heads by 128 // G positions
 TARGET_BLOCKS = 264  # two blocks for each of an H100's 132 SMs
 MAX_SPLITS = 16
 
 
+def launch_counts(*kinds: str) -> dict:
+    """A wrapper's launches by kernel instantiation, keyed ``(head_dim,
+    kind)``: ``kind`` is the payload ("bf16", "int8", "int4") or the or-mask
+    branch ("or_mask")."""
+    return {(d, kind): 0 for d in HEAD_DIMS for kind in kinds}
+
+
 def key_tile(head_dim: int) -> int:
-    """Keys of one K/V tile of the kernels' shared-memory ring."""
-    return 128 if head_dim == 64 else 64
+    """Keys of one K/V tile of the kernels' shared-memory ring: 16 KB of bf16
+    keys (128, 64 and 32 at head_dim 64, 128 and 256; csrc/flash_sm90.cuh)."""
+    return 8192 // head_dim
 
 
 def flash_splits(B: int, Hkv: int, G: int, T: int, S: int, D: int, prior: int,
@@ -238,8 +248,7 @@ def _check_common(q, k, v, head_mask, payload_dtype, payload_d):
     Hkv, S = k.shape[1], k.shape[2]
     if Hq // Hkv > MAX_GROUP:
         raise ValueError(f"kernel takes at most {MAX_GROUP} query heads per kv head")
-    if D not in (64, 128):
-        raise ValueError(f"kernel takes head_dim 64 or 128, got {D}")
+    check_head_dim(D)
     for name, t in (("k", k), ("v", v)):
         if t.dtype != payload_dtype or tuple(t.shape) != (B, Hkv, S, payload_d):
             raise ValueError(f"{name}: expected {payload_dtype} {(B, Hkv, S, payload_d)}, "
@@ -254,6 +263,13 @@ def _check_common(q, k, v, head_mask, payload_dtype, payload_d):
                                   or tuple(head_mask.shape) != (B, Hkv, S)):
         raise ValueError(f"head_mask: expected bool {(B, Hkv, S)}")
     return B, Hq, Hkv, T, S, D
+
+
+def check_head_dim(D: int) -> None:
+    """Raise on a head_dim the kernels are not instantiated for."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim {HEAD_DIMS}, got {D} (head_dim 96: "
+                         f"ROADMAP Queue B)")
 
 
 def _opt(x, default):
@@ -317,14 +333,13 @@ def flash_attention(
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
-    # the launches that took the or-mask / a window, among those counted
-    flash_attention.launches_or_mask += or_span is not None
-    flash_attention.launches_windowed += bool(window)
+    flash_attention.launches_by_kind[D, "bf16" if or_span is None else "or_mask"] += 1
+    flash_attention.launches_windowed += bool(window)     # among those counted
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
-flash_attention.launches_or_mask = 0
+flash_attention.launches_by_kind = launch_counts("bf16", "or_mask")
 flash_attention.launches_windowed = 0
 
 
@@ -371,12 +386,12 @@ def flash_attention_quant(
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_quant")
     flash_attention_quant.launches += 1
-    flash_attention_quant.launches_by_bits[bits] += 1
+    flash_attention_quant.launches_by_kind[D, f"int{bits}"] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_quant.launches = 0
-flash_attention_quant.launches_by_bits = {8: 0, 4: 0}
+flash_attention_quant.launches_by_kind = launch_counts("int8", "int4")
 
 
 def _check_scale(sm_scale):

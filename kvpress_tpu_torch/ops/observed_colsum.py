@@ -12,15 +12,17 @@ Prefill-only contract: queries are slot-aligned with keys (S == T, nothing
 before them in the cache), causal, no keep-mask; optional logit softcap.
 
 On CUDA tensors the two wrappers launch the hand-written Hopper kernels of
-``csrc/observed_colsum.cu`` and add one to their ``launches`` counts; anything
-the kernels do not take raises. On CPU tensors they run the plain PyTorch
+``csrc/observed_colsum.cu`` and add one to their ``launches`` counts (and to
+``launches_by_kind``, by head_dim); anything the kernels do not take raises. On CPU tensors they run the plain PyTorch
 versions beside them. There is no fall-back from one to the other.
 
 Pass 1 is the flash main loop (``csrc/flash_sm90.cuh``) without V. Pass 2
 gives a block 192 keys of one kv head and streams the query rows at or below
-them through a ring of stages of 128 rows: all G query heads by 128 / G
-positions. Its query offsets within a kv head's G query heads are 32-bit, so
-it takes G * S * D below 2**31.
+them through a ring of stages of 128 rows, all G query heads by 128 / G
+positions (64 rows, 64 / G positions at head_dim 256). Its query offsets
+within a kv head's G query heads are 32-bit, so it takes G * S * D below
+2**31: at head_dim 256 and G 2 (Gemma-3 4B and 12B) contexts below 4,194,304
+tokens.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from . import _build
 from .attention import attention_bias
-from .flash import MAX_GROUP, _lse_from_logits, _opt
+from .flash import MAX_GROUP, _lse_from_logits, _opt, check_head_dim, launch_counts
 
 PLAIN_ROWS = 512      # query rows per step of the plain versions
 COLSUM_GROUPS = (1, 2, 4, 8)    # query heads per kv head pass 2 is built for
@@ -94,8 +96,9 @@ def _check(q, k, lse=None):
     if tuple(k.shape) != (B, Hkv, S, D):
         raise ValueError(f"keys must be slot-aligned with queries: expected "
                          f"{(B, Hkv, S, D)}, got {tuple(k.shape)}")
-    if Hq // Hkv > MAX_GROUP or D not in (64, 128):
-        raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP} and head_dim 64/128")
+    if Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"kernel takes GQA groups <= {MAX_GROUP}")
+    check_head_dim(D)
     if lse is not None and (lse.dtype != torch.float32 or tuple(lse.shape) != (B, Hq, S)):
         raise ValueError(f"lse: expected float32 {(B, Hq, S)}")
     for name, t in (("q", q), ("k", k), ("lse", lse)):
@@ -126,10 +129,12 @@ def observed_lse(
              float(_opt(softcap, 0.0)), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "observed_lse")
     observed_lse.launches += 1
+    observed_lse.launches_by_kind[D, "bf16"] += 1
     return lse
 
 
 observed_lse.launches = 0
+observed_lse.launches_by_kind = launch_counts("bf16")
 
 
 def observed_colsums_flash(
@@ -153,7 +158,9 @@ def observed_colsums_flash(
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "observed_colsums_flash")
     observed_colsums_flash.launches += 1
+    observed_colsums_flash.launches_by_kind[D, "bf16"] += 1
     return out
 
 
 observed_colsums_flash.launches = 0
+observed_colsums_flash.launches_by_kind = launch_counts("bf16")

@@ -47,6 +47,16 @@ FLASH_CASES = [
     (3, 8, 2, 5, 37, 64, 32, None, None, "random"),
     (1, 10, 2, 77, 203, 64, 126, None, None, "random"),
     (2, 7, 1, 33, 1000, 128, 967, 300, 20.0, "random"),
+    # head_dim 256 (four panels, 32-key tiles): behind a prior, a window with
+    # softcap, a whole run clear with 8 query heads per kv head, rows without
+    # a live key, one clear bit, and a Gemma-3-12B sliding question (GQA
+    # 16/8, window 1,024) whose key range is split
+    (1, 4, 2, 100, 400, 256, 300, None, None, "random"),
+    (1, 4, 2, 130, 130, 256, 0, 48, 30.0, "random"),
+    (1, 8, 1, 64, 192, 256, 128, None, None, "run-clear"),
+    (1, 4, 2, 100, 100, 256, 0, None, None, "dead-rows"),
+    (1, 2, 2, 130, 130, 256, 0, None, None, "one-clear"),
+    (1, 16, 8, 152, 4248, 256, 4096, 1024, None, "random"),
 ]
 QUANT_CASES = [
     # bits, B, Hq, Hkv, T, S, D, prior, window, softcap, keep-mask
@@ -64,6 +74,13 @@ QUANT_CASES = [
     (4, 3, 8, 2, 5, 37, 64, 32, None, None, "random"),
     (8, 1, 10, 2, 77, 203, 64, 126, None, None, "random"),
     (4, 2, 7, 1, 33, 1000, 128, 967, 300, 20.0, "random"),
+    # head_dim 256: three int8 stages, four int4 ones
+    (8, 1, 4, 2, 100, 400, 256, 300, None, None, "random"),
+    (4, 1, 4, 2, 130, 386, 256, 256, 64, 30.0, "random"),
+    (8, 1, 2, 2, 130, 130, 256, 0, None, None, "one-clear"),
+    (4, 1, 8, 1, 100, 100, 256, 0, None, None, "dead-rows"),
+    (8, 1, 16, 8, 152, 4248, 256, 4096, 1024, None, "random"),
+    (4, 1, 16, 8, 152, 4248, 256, 4096, None, None, "random"),
 ]
 DECODE_CASES = [
     # B, Hq, Hkv, T, S, length, D, window, softcap, masked
@@ -73,6 +90,10 @@ DECODE_CASES = [
     (1, 4, 4, 1, 512, 400, 64, 128, None, False),
     (1, 4, 2, 1, 512, 333, 64, None, 30.0, True),
     (1, 2, 2, 2, 384, 200, 128, None, None, True),
+    # head_dim 256: Q fragments in shared memory, 16-byte K/V loads
+    (1, 4, 2, 1, 512, 300, 256, None, None, True),
+    (1, 16, 8, 4, 640, 500, 256, 128, 30.0, True),
+    (2, 8, 2, 1, 512, 512, 256, None, None, False),
 ]
 COLSUM_CASES = [
     # B, Hq, Hkv, S, D, softcap
@@ -99,6 +120,12 @@ COLSUM_CASES = [
     (1, 2, 2, 257, 128, 30.0),
     (1, 8, 1, 129, 128, None),
     (1, 32, 8, 4097, 64, None),
+    # head_dim 256: query stages of 64 rows (64 / G positions)
+    (1, 4, 2, 257, 256, None),
+    (1, 16, 8, 1000, 256, None),
+    (1, 8, 1, 193, 256, 30.0),
+    (1, 2, 2, 65, 256, None),
+    (1, 16, 8, 129, 256, 30.0),
 ]
 HEADWISE_CASES = [
     # B, Hq, Hkv, T, S, D, tail, softcap, empty head, longest head absorbs the tail
@@ -108,6 +135,8 @@ HEADWISE_CASES = [
     (1, 4, 2, 1, 700, 64, 5, 30.0, False, True),
     (4, 32, 8, 1, 1200, 64, 9, None, True, True),
     (1, 2, 2, 2, 400, 128, 4, None, False, False),
+    (2, 4, 2, 1, 700, 256, 5, None, True, True),
+    (1, 16, 8, 4, 400, 256, 4, 30.0, False, False),
 ]
 
 
@@ -233,6 +262,10 @@ OR_CASES = [
     (1, 2, 2, 333, 333, 128, 0, None, None, ((1, 200),), 200, False),
     (1, 8, 2, 152, 4248, 64, 4096, None, None, ((1000, 256), (4100, 100)), 256, True),
     (1, 16, 2, 77, 203, 128, 126, 50, 20.0, ((130, 40), (180, 23)), 40, True),
+    # head_dim 256 at Gemma-3-12B's GQA 16/8: a window, a split launch
+    (1, 16, 8, 384, 384, 256, 0, None, None, ((100, 40), (250, 20)), 40, True),
+    (1, 16, 8, 300, 300, 256, 0, 64, None, ((5, 130), (170, 70)), 130, False),
+    (1, 16, 8, 152, 4248, 256, 4096, None, None, ((1000, 256), (4100, 100)), 256, True),
 ]
 
 
@@ -275,17 +308,19 @@ def test_flash_or_mask_matches_plain_on_card(cuda, case):
 
 @pytest.mark.cuda
 def test_runner_refuses_head_dims_without_kernels(cuda):
-    """Phi-3-mini's head_dim 96 and Gemma-3 1B/4B/12B's 256 have no kernel
-    instantiation: Runner.create on CUDA refuses them rather than taking the
-    dense path, unless that path is asked for."""
+    """Phi-3-mini's head_dim 96 has no kernel instantiation: Runner.create on
+    CUDA refuses it, naming the queue that holds it, rather than taking the
+    dense path, unless that path is asked for. Gemma-3 1B/4B/12B's 256 has
+    one, and takes the kernels."""
     import kvpress_tpu_torch as kt
 
-    for D in (96, 256):
-        cfg = kt.tiny_config(head_dim=D)
-        with pytest.raises(ValueError, match=f"head_dim {D}"):
-            kt.Runner.create(cfg, device=cuda)
-        assert kt.Runner.create(cfg, attn_impl="xla", decode_kernel=False,
-                                device=cuda).attn_impl == "xla"
+    cfg = kt.tiny_config(head_dim=96)
+    with pytest.raises(ValueError, match="head_dim 96.*ROADMAP Queue B"):
+        kt.Runner.create(cfg, device=cuda)
+    assert kt.Runner.create(cfg, attn_impl="xla", decode_kernel=False,
+                            device=cuda).attn_impl == "xla"
+    runner = kt.Runner.create(kt.tiny_config(head_dim=256), device=cuda)
+    assert runner.attn_impl == "flash" and runner.decode_kernel
 
 
 @pytest.mark.cuda
@@ -311,7 +346,7 @@ def test_flash_quant_kernel_matches_plain_on_card(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("prior", [0, 1536])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_quant_int4_at_chunk_shapes_on_card(cuda, prior, D):
     """A chunk of chunked prefill over an int4 cache (the fused route): 512
     new queries over a 2,048-slot buffer of which ``prior`` slots came
@@ -324,10 +359,10 @@ def test_flash_quant_int4_at_chunk_shapes_on_card(cuda, prior, D):
     (kq, ks), (vq, vs) = quantize_kv(k, 4), quantize_kv(v, 4)
     kw = dict(bits=4, sm_scale=D ** -0.5, return_lse=True)
     for m in (None, mask):
-        n = tfl.flash_attention_quant.launches_by_bits[4]
+        n = tfl.flash_attention_quant.launches_by_kind[D, "int4"]
         got, lse = tfl.flash_attention_quant(q, kq, vq, ks, vs, prior, m, **kw)
         torch.cuda.synchronize()
-        assert tfl.flash_attention_quant.launches_by_bits[4] == n + 1
+        assert tfl.flash_attention_quant.launches_by_kind[D, "int4"] == n + 1
         _flash_close("random", got, lse,
                      *tfl.flash_attention_quant_plain(q, kq, vq, ks, vs, prior, m, **kw))
         again, lse_again = tfl.flash_attention_quant(q, kq, vq, ks, vs, prior, m, **kw)
@@ -483,6 +518,12 @@ DECODE_SPLIT_CASES = [
     (4, 1, 8, 2, 1, 1024, 1000, 64, None, None, 3, "random"),
     (None, 1, 32, 8, 1, 4160, 4097, 64, None, None, None, "random"),
     (4, 1, 32, 8, 4, 4160, 4100, 64, None, None, None, "dead-range"),
+    # head_dim 256: 64-key steps at every payload, the merge's channels over
+    # its 128 threads
+    (None, 1, 16, 8, 1, 900, 833, 256, None, None, 3, "dead-range"),
+    (8, 1, 4, 2, 4, 1000, 997, 256, 300, 30.0, 7, "random"),
+    (4, 1, 16, 8, 1, 4160, 4097, 256, None, None, None, "random"),
+    (None, 1, 16, 8, 1, 4160, 4097, 256, 1024, None, None, "random"),
 ]
 
 
@@ -544,6 +585,8 @@ HEADWISE_SPLIT_CASES = [
     (2, 4, 2, 4, 900, 64, 9, None, True, True, 7),
     (1, 8, 1, 1, 500, 128, 3, 30.0, True, False, 7),
     (4, 32, 8, 1, 4160, 64, 33, None, True, True, None),
+    (1, 16, 8, 1, 900, 256, 9, None, True, True, 3),
+    (4, 16, 8, 1, 4160, 256, 33, None, True, True, None),
 ]
 
 

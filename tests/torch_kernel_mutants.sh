@@ -4,7 +4,7 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes sixteen copies of the port in a temporary directory, each with one
+# It makes nineteen copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (in the column sums a query
 # stage dropped and every stage taken without the causal test, a key tile
 # dropped from the row logsumexp; in the head-wise decode the tail, one
@@ -15,7 +15,12 @@
 # causal test dropped, every tile taken for all-live, and the first key range
 # dropped from the merge of a split launch; in the flash or-mask the key range
 # not widened past the diagonal, not widened behind the window, and the
-# gq >= 0 guard dropped), and runs chip_smoke.kernel_checks in each. The
+# gq >= 0 guard dropped; and three that only the head_dim-256 instantiations
+# can show: the flash producer copying the first pair of panels' channels
+# into the second, a decode consumer reading one 16-byte K chunk of a lane's
+# quarter row in place of another, the column sums' producer copying the
+# first pair of query panels into the second), and runs
+# chip_smoke.kernel_checks in each. The
 # or-mask copies must also fail the or-mask card tests
 # (tests/test_torch_kernels_card.py -k or_mask).
 # Every copy must be rejected; the script exits 1 if one passes or if a
@@ -26,7 +31,8 @@ status=0
 mutants="colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_prefix_step
          headwise_chunk decode_live_step decode_split_range decode_window_edge decode_merge_range
          flash_diagonal_tile flash_all_live flash_merge_range
-         or_upper_range or_lower_range or_text_guard"
+         or_upper_range or_lower_range or_text_guard
+         flash_d256_panels decode_d256_key_chunk colsum_d256_panels"
 for m in ${@:-$mutants}; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
@@ -69,6 +75,12 @@ for m in ${@:-$mutants}; do
       sed -i 's/  const int back = OR ? max(p.window - 1, up) : p.window - 1;/  const int back = p.window - 1;/' "$fl" ;;
     or_text_guard)
       sed -i 's/in = in || (gq\[e >> 1\] >= 0 \&\& gq\[e >> 1\] ==/in = in || (gq[e >> 1] ==/' "$fl" ;;
+    flash_d256_panels)
+      sed -i 's/it \* RPI \* ROW + h \* CPT \* 16 : 0;/it * RPI * ROW : 0;/' "$fl" ;;
+    decode_d256_key_chunk)
+      sed -i 's/load_words<KC>(kw, kr + kc \* KC \* 4);/load_words<KC>(kw, kr + (kc \& 1) * KC * 4);/' "$dm" ;;
+    colsum_d256_panels)
+      sed -i 's/ \* D + h \* CPT \* 8, in);/ * D, in);/' "$oc" ;;
   esac
   changed=$(diff -r kvpress_tpu_torch/csrc "$d/kvpress_tpu_torch/csrc" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
