@@ -36,7 +36,15 @@
    payload); flash_attention_quant at int8 at the questions and at int4 at
    a chunk's shape; decode at bf16, int8 and int4 and windowed; the column
    sums at 32K and a ragged 8,000; the head-wise decode over a synthetic
-   path-B cache (B4, 16K, ragged), each with its planted faults.
+   path-B cache (B4, 16K, ragged), each with its planted faults. Then every
+   head_dim-96 instantiation at the Phi-3-mini run's shapes (32 query heads,
+   each its own kv head): flash at its 3,840-token prefill (masked, all live,
+   and with the or-mask over 2 images), at 32K, at a 1,024-token chunk over
+   3,072 slots (bf16, int8, int4) and at the 152-token question over a
+   half-live cache (bf16, int8), the tile logic at every payload; decode at
+   every payload over 4,096 half-live slots and int4 at B4 over 16K; the
+   column sums at 8K and 32K; the head-wise decode (B4, 16K, ragged); each
+   with its planted faults and two confined to channels 64-95.
 3. The paths at full width, through ``KVPressPipeline`` on the 1B-class
    flagship shape (16 layers, seeded random weights), a 32,768-token context
    and two questions (one longer than 128 tokens):
@@ -71,7 +79,13 @@
    4 images one-shot and chunked, ObservedAttention and
    AdaKV(ObservedAttention) without images, Knorm with int8 KV, every
    launch on a head_dim-256 instantiation; cut to 6 layers against the
-   dense path at depth 1 and 6 with two images. Every prefill's wall time and
+   dense path at depth 1 and 6 with two images. Then the Phi-3-mini-4k body
+   (32 layers, bf16, head_dim 96, 32/32 heads; ``phi3_run``) with a
+   3,840-token context: Knorm with bf16, int8 and int4 KV (int4 weights),
+   with int8 KV chunked by 1,024, and AdaKV(Knorm) compact on the head-wise
+   runner, every launch on a head_dim-96 instantiation of the payload its
+   options ask for; its prefill breakdown, decode rate and idle share; held
+   against the dense path at depth 1 and 32. Every prefill's wall time and
    peak memory are printed. The launch counts are set to 0 before each run
    and read after it, and every kernel of a path must have been launched in
    it. A 2,048-token run of each kernel path is also held against the dense
@@ -120,6 +134,10 @@ CHUNK_TOKENS = 8192          # context_chunk of the chunked runs
 GEMMA3_IMAGE_STARTS = (CONTEXT_TOKENS // 11, CHUNK_TOKENS - 256 // 3, CONTEXT_TOKENS * 6 // 11,
                        3 * CHUNK_TOKENS - 256 // 4)
 LONG_CONTEXT_TOKENS = 131072   # the 8B-class body's context
+# The Phi-3-mini-4k runs: a context, two questions (152 and 4 tokens) and 32
+# new tokens within its 4,096 positions; the chunked run's chunk.
+PHI3_CONTEXT_TOKENS = 3840
+PHI3_CHUNK_TOKENS = 1024
 DECODE_BATCH = 4
 # Phase 2: a kernel passes when its worst output row (one query head at one
 # position: D values) differs from the plain version's by at most ROW_LIMIT
@@ -288,8 +306,8 @@ def kernel_checks(kt, torch, report):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
 
-    def keep_mask(B, S, p=0.2):
-        m = torch.rand((B, Hkv, S), generator=gen, device=dev) > p
+    def keep_mask(B, S, p=0.2, hkv=Hkv):
+        m = torch.rand((B, hkv, S), generator=gen, device=dev) > p
         m[:, :, :8] = True
         return m
 
@@ -325,17 +343,34 @@ def kernel_checks(kt, torch, report):
         return (torch.cat([q[:, :, :lo], q[:, :, hi:]], dim=2).contiguous(),
                 torch.cat([k[:, :, :lo], k[:, :, hi:]], dim=2).contiguous())
 
+    def upper_faults(plain_of_q, q, ref=None):
+        """Head_dim 96 lays a row out as head_dim 128's two panels, the second
+        half used (flash_sm90.cuh, observed_colsum.cu), and gives a decode
+        lane 24 K and 12 V channels (decode_sm90.cuh). Two faults confined to
+        channels 64-95: those channels left out of the logits (the plain
+        version over Q with them zeroed), and, for a kernel with an output of
+        D channels, those channels of the output left unwritten (0)."""
+        q_low = q.clone()
+        q_low[..., 64:] = 0
+        faults = {"channels 64-95 left out of the logits": plain_of_q(q_low)}
+        if ref is not None:
+            cut = ref.clone()
+            cut[..., 64:] = 0
+            faults["output channels 64-95 not written"] = cut
+        return faults
+
     def above_diagonal(q, k, run, softcap, axis, lse=None):
         """What a kernel that drops the causal test inside each aligned run of
         ``run`` keys adds: for a row i, the keys j > i of its run. "rows": the
         log of their sum of exp(s_ij) per query row; "columns": their sum of
         exp(s_ij - lse_i) per key (rows whose LSE is -inf add nothing)."""
         B_, Hq_, S_, D_ = q.shape
+        Hkv_ = k.shape[1]
         pad = -S_ % run
         qp, kp = (F.pad(t, (0, 0, 0, pad)).float() for t in (q, k))
         nb = (S_ + pad) // run
-        qb = qp.reshape(B_, Hkv, Hq_ // Hkv, nb, run, D_)
-        kb = kp.reshape(B_, Hkv, nb, run, D_)
+        qb = qp.reshape(B_, Hkv_, Hq_ // Hkv_, nb, run, D_)
+        kb = kp.reshape(B_, Hkv_, nb, run, D_)
         s_ = torch.einsum("bhgnid,bhnjd->bhgnij", qb, kb) * D_ ** -0.5
         if softcap is not None:
             s_ = torch.tanh(s_ / softcap) * softcap
@@ -345,7 +380,7 @@ def kernel_checks(kt, torch, report):
             s_ = s_.masked_fill(~upper, float("-inf"))
             return torch.logsumexp(s_, -1).reshape(B_, Hq_, S_ + pad)[..., :S_]
         l = F.pad(torch.where(torch.isinf(lse), float("inf"), lse), (0, pad), value=float("inf"))
-        l = l.reshape(B_, Hkv, Hq_ // Hkv, nb, run, 1)
+        l = l.reshape(B_, Hkv_, Hq_ // Hkv_, nb, run, 1)
         e = torch.where(upper, torch.exp(s_ - l), 0.0)
         return e.sum(-2).reshape(B_, Hq_, S_ + pad)[..., :S_]
 
@@ -491,6 +526,9 @@ def kernel_checks(kt, torch, report):
             faults["a diagonal tile taken for an interior one"] = with_rows(r0, r0 + bq, rows)
             faults["a clear keep-bit taken for set"] = plain_rows(
                 plain, q, kv, prior, torch.ones_like(mask), 0, T, chunk, **kw)[0]
+        if D_ == 96:
+            faults.update(upper_faults(
+                lambda q_: plain_rows(plain, q_, kv, prior, mask, 0, T, chunk, **kw)[0], q, ref))
         ms = kernel_ms(call, "flash_sm90", iters)
         lib = None
         if lib_mask:
@@ -701,7 +739,7 @@ def kernel_checks(kt, torch, report):
                                   extra_allow=allow_of, device=dev)
             return gqa_attention(q[:, :, r0:r1], k, v, bias, kw["sm_scale"])[0]
 
-        def plain_all():
+        def plain_all(q=q):
             outs, lses = [], []
             for r0 in range(0, T, chunk):
                 r1 = min(T, r0 + chunk)
@@ -727,6 +765,8 @@ def kernel_checks(kt, torch, report):
             for what, a in fault_allows.items():
                 faults.setdefault(what, []).append(rows(a, r0, r1))
         faults = {what: torch.cat(parts, 2) for what, parts in faults.items()}
+        if D_ == 96:
+            faults.update(upper_faults(lambda q_: plain_all(q_)[0], q, ref))
         # Three readings of the launch, each beside the same launch without
         # image groups (what the or-mask costs); their medians are kept.
         plain_call = lambda: fl.flash_attention(q, k, v, prior, None, return_lse=True,
@@ -840,7 +880,7 @@ def kernel_checks(kt, torch, report):
         splits = dec.decode_splits(B_, Hkv_, G_, T_, S_, D_, length, nk)
         lo, hi = dec.decode_key_ranges(length, T_, window, nk, splits)[1 if splits > 1 else 0]
         hole, step = (length - window // 2, (length - 3 * window // 4) // nk * nk) if window \
-            else (8192, 4096)
+            else (min(8192, length // 2), min(4096, length // 4) // nk * nk)
         faults = {"one skipped key step": fault_mask(mask, B_, S_, hole, hkv=Hkv_),
                   "one live step taken for dead": fault_mask(mask, B_, S_, step, nk, hkv=Hkv_),
                   "one key range dropped from the merge": fault_mask(mask, B_, S_, lo, hi - lo,
@@ -856,6 +896,9 @@ def kernel_checks(kt, torch, report):
                     window=window + first - kfirst)
         else:
             faults["a window of 1,024 applied"] = plain(window=1024)
+        if D_ == 96:
+            faults.update(upper_faults(lambda q_: dec.decode_attention_plain(
+                q_, kk, vv, length, ks, vs, mask, **kw), q, ref))
         ms = kernel_ms(call, "decode_kernel", iters)
         wrapper = cuda_ms(call, iters, 5)
         plain_ms = cuda_ms(plain, 10)
@@ -962,6 +1005,8 @@ def kernel_checks(kt, torch, report):
             faults = {"one skipped key tile": lse_fault,
                       "a diagonal tile taken for an interior one": torch.logaddexp(
                           lse_ref, above_diagonal(q, k, fl.key_tile(d), softcap, "rows"))}
+            if d == 96:
+                faults.update(upper_faults(lambda q_: oc.observed_lse_plain(q_, k, **kw), q))
             ms = kernel_ms(lambda: oc.observed_lse(q, k, **kw), "observed_lse_kernel", iters)
             lib = None
             if softcap is None:
@@ -1004,6 +1049,9 @@ def kernel_checks(kt, torch, report):
                 faults = {"one skipped query tile": oc.observed_colsums_plain(q, k, holed, **kw),
                           "a diagonal stage taken for an interior one":
                               ref + above_diagonal(q, k, 64, softcap, "columns", rows)}
+                if d == 96:
+                    faults.update(upper_faults(
+                        lambda q_: oc.observed_colsums_plain(q_, k, rows, **kw), q))
                 record("observed_colsum", f"{source}, {variant}", got, ref, faults, ms, plain,
                        nbytes(q, k, rows, got), 2 * d * pairs, None, SUM_LIMIT, compare_sums)
                 del got, ref, holed, faults
@@ -1055,6 +1103,9 @@ def kernel_checks(kt, torch, report):
             ref = hw.decode_attention_headwise_plain(q, k, v, pfx, ts, tl, sm_scale=scale)
             faults = {"the tail skipped": hw.decode_attention_headwise_plain(
                 q, k, v, pfx, ts, torch.zeros_like(tl), sm_scale=scale)}
+            if D == 96:
+                faults.update(upper_faults(lambda q_: hw.decode_attention_headwise_plain(
+                    q_, k, v, pfx, ts, tl, sm_scale=scale), q, ref))
             lib = None
             if T == 1:      # the mask says what the ranges say: the dense decode reads it
                 faults["one live step taken for dead"] = dec.decode_attention_plain(
@@ -1190,6 +1241,102 @@ def kernel_checks(kt, torch, report):
     prefix = torch.randint(2048, 16384, (DECODE_BATCH, Hkv3), generator=gen, device=dev)
     prefix[0, 0], prefix[1, 1] = 0, 16384
     headwise_case(f"16K ragged {tag}", DECODE_BATCH, 16384 + 64, prefix, 33, (1,), Hq3, D3)
+
+    # Head_dim 96 at the Phi-3-mini run's shapes (32 query heads, each its
+    # own kv head): every instantiation of the five kernels (head_dim 128's
+    # two panels with the second half used and 64-key flash tiles; decode
+    # steps of 64 keys, 128 for int4, and lanes of 24 K and 12 V channels),
+    # each with the planted faults of its 64/128 checks and two confined to
+    # channels 64-95 (``upper_faults``).
+    Hq4 = Hkv4 = 32
+    D4, T4 = 96, PHI3_CONTEXT_TOKENS
+    tag = f"D{D4} GQA {Hq4}/{Hkv4}"
+    # The one-shot prefill of the run's 3,840-token context, under a random
+    # keep-mask and all live; the same-image or-mask there (no model pairs
+    # head_dim 96 with images: the instantiation is held all the same); and
+    # the tile logic where it can go wrong, every payload.
+    q, k, v = rnd(1, Hq4, T4, D4), rnd(1, Hkv4, T4, D4), rnd(1, Hkv4, T4, D4)
+    flash_case("flash_attention", f"bf16 B1 T{T4} S{T4} {tag} masked", None, q, [k, v], 0,
+               keep_mask(1, T4, hkv=Hkv4), chunk=1024, iters=10)
+    flash_case("flash_attention", f"bf16 B1 T{T4} S{T4} {tag} all-live", None, q, [k, v], 0,
+               torch.ones((1, Hkv4, T4), dtype=torch.bool, device=dev), chunk=1024, iters=10,
+               lib_mask="causal")
+    or_case(f"bf16 B1 T{T4} S{T4} {tag} 2 images", q, k, v, 0, None,
+            image_groups(T4, (301, 2050)), 256, chunk=1024, iters=5)
+    del q, k, v
+    T = 1024
+    q, kd, vd = rnd(1, Hq4, T, D4), rnd(1, Hkv4, T, D4), rnd(1, Hkv4, T, D4)
+    one_clear = torch.ones((1, Hkv4, T), dtype=torch.bool, device=dev)
+    one_clear[:, :, 5] = False
+    flash_case("flash_attention", f"bf16 B1 T{T} S{T} {tag} one clear bit", None, q, [kd, vd],
+               0, one_clear, chunk=T, iters=10, logic_faults=True)
+    for bits in (8, 4):
+        flash_case("flash_attention_quant", f"int{bits} B1 T{T} S{T} {tag} one clear bit", bits,
+                   q, quantized(kd, vd, bits), 0, one_clear, chunk=T, iters=10,
+                   logic_faults=True)
+    del q, kd, vd
+    # At 32K, all live, beside the other widths' rows of the table (SDPA
+    # causal as the library call).
+    T = CONTEXT_TOKENS
+    q, k, v = rnd(1, Hq4, T, D4), rnd(1, Hkv4, T, D4), rnd(1, Hkv4, T, D4)
+    flash_case("flash_attention", f"bf16 B1 T{T} S{T} {tag} all-live", None, q, [k, v], 0,
+               torch.ones((1, Hkv4, T), dtype=torch.bool, device=dev), chunk=512, iters=3,
+               lib_mask="causal")
+    del q, k, v
+    torch.cuda.empty_cache()
+    # A chunk of chunked prefill by 1,024: 1,024 queries over the 3,072
+    # slots before them, no keep-mask (bf16, and int8 as the chunked int8 run
+    # takes it; int4 as a fused int4 chunk would).
+    T, prior = PHI3_CHUNK_TOKENS, 3 * PHI3_CHUNK_TOKENS
+    S = prior + T
+    q = rnd(1, Hq4, T, D4)
+    kd, vd = rnd(1, Hkv4, S, D4), rnd(1, Hkv4, S, D4)
+    flash_case("flash_attention", f"bf16 B1 T{T} prior{prior} S{S} {tag} chunk", None, q,
+               [kd, vd], prior, None, chunk=T, iters=10, lib_mask="lower_right")
+    for bits in (8, 4):
+        flash_case("flash_attention_quant", f"int{bits} B1 T{T} prior{prior} S{S} {tag} chunk",
+                   bits, q, quantized(kd, vd, bits), prior, None, chunk=T, iters=10,
+                   lib_mask="lower_right")
+    del q, kd, vd
+    # The 152-token question over a cache of 3,840 slots of which half are
+    # live (a press that clears keep-bits without compacting), bf16 and int8.
+    T, prior = 152, T4
+    S = prior + T
+    q, kd, vd = rnd(1, Hq4, T, D4), rnd(1, Hkv4, S, D4), rnd(1, Hkv4, S, D4)
+    half = keep_mask(1, S, p=0.5, hkv=Hkv4)
+    flash_case("flash_attention", f"bf16 B1 T{T} prior{prior} {tag} half live", None, q,
+               [kd, vd], prior, half, chunk=T, iters=20)
+    flash_case("flash_attention_quant", f"int8 B1 T{T} prior{prior} {tag} half live", 8, q,
+               quantized(kd, vd, 8), prior, half, chunk=T, iters=20)
+    del q, kd, vd, half
+    # Decode: B1 over 4,096 slots of which half are live (the new token's
+    # slot set), every payload; int4 at B4 over 16K live slots (the table's
+    # row shared with the other widths).
+    length = 4096
+    S = length + 32
+    q = rnd(1, Hq4, 1, D4)
+    kd, vd = rnd(1, Hkv4, S, D4), rnd(1, Hkv4, S, D4)
+    half = keep_mask(1, S, p=0.5, hkv=Hkv4)
+    half[:, :, length - 1] = True
+    for bits in (None, 8, 4):
+        decode_case(f"{'bf16' if bits is None else f'int{bits}'} B1 4K half live {tag}", q, kd,
+                    vd, length, half, bits, iters=20)
+    length = 16384 + 1
+    S = length + 63
+    q = rnd(DECODE_BATCH, Hq4, 1, D4)
+    kd, vd = rnd(DECODE_BATCH, Hkv4, S, D4), rnd(DECODE_BATCH, Hkv4, S, D4)
+    decode_case(f"int4 B{DECODE_BATCH} 16K {tag}", q, kd, vd, length, None, 4, iters=20)
+    del q, kd, vd, half
+    torch.cuda.empty_cache()
+    # The column sums and the row-logsumexp pass at 8,192 (with softcap too)
+    # and 32,768 tokens: off the run's path (below chunked_threshold), held
+    # all the same.
+    colsum_cases(8192, (None, 30.0), 5, Hq4, Hkv4, D4)
+    colsum_cases(CONTEXT_TOKENS, (None,), 3, Hq4, Hkv4, D4)
+    # The head-wise decode: a synthetic path-B cache, B4, 16K, ragged.
+    prefix = torch.randint(2048, 16384, (DECODE_BATCH, Hkv4), generator=gen, device=dev)
+    prefix[0, 0], prefix[1, 1] = 0, 16384
+    headwise_case(f"16K ragged {tag}", DECODE_BATCH, 16384 + 64, prefix, 33, (1,), Hq4, D4)
     if failures:
         raise AssertionError("; ".join(failures))
     return results
@@ -2324,6 +2471,152 @@ def gemma3_12b_run(kt, torch, tokenizer_cls, report):
     return totals
 
 
+def phi3_mini_4k_config(num_layers: int = 32):
+    """Phi-3-mini-4k (``microsoft/Phi-3-mini-4k-instruct`` config.json: vocab
+    32,064, hidden 3,072, FFN 8,192, 32 layers, 32 query / 32 kv heads, so
+    head_dim 96, rms eps 1e-5, rope_theta 1e4 without scaling,
+    max_position_embeddings 4,096, untied head, silu), written out by hand.
+    Its sliding_window of 2,047 is dropped, as ``ModelConfig.from_hf_config``
+    drops it for a Phi3 config: every layer is global."""
+    from kvpress_tpu_torch.config import ModelConfig
+
+    return ModelConfig(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+                       num_layers=num_layers, num_heads=32, num_kv_heads=32, head_dim=96,
+                       rms_norm_eps=1e-5, rope_theta=10000.0, tie_word_embeddings=False,
+                       max_position_embeddings=4096, model_type="phi3")
+
+
+def phi3_run(kt, torch, tokenizer_cls, report):
+    """The Phi-3-mini-4k body at full width and depth (32 layers, seeded
+    random bf16 weights, head_dim 96, one query head per kv head) through
+    ``KVPressPipeline`` with a 3,840-token context, the two questions (152
+    and 4 tokens) and 32 new tokens, within its 4,096 positions: (a) Knorm,
+    bf16 KV; (b) Knorm, int8 KV (the 152-token question on
+    flash_attention_quant); (c) Knorm, int4 KV and int4 weights; (d) Knorm,
+    int8 KV, ``context_chunk=1024``; (e) AdaKV(Knorm, compact) on a runner
+    with the head-wise decode. Every launch must be a head_dim-96 one, on the
+    payload its options ask for, and the layer lengths right. Then the
+    prefill's device breakdown, decode tok/s at B=1 with its idle share, and
+    the kernel path against the dense path at depth 1 and 32. Returns the
+    launch counts of the runs."""
+    cfg = phi3_mini_4k_config()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(96)
+    t0 = time.perf_counter()
+    params = kt.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    params4 = kt.quantize_params_int4(params)
+    report(f"  Phi-3-mini-4k body (bf16, and int4): made in {time.perf_counter() - t0:.1f} s, "
+           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    T = PHI3_CONTEXT_TOKENS
+    context = " ".join(f"w{i}" for i in range(T))
+    tok = tokenizer_cls(vocab_size=cfg.vocab_size)
+    prefills = []
+    runner = timed_runner(kt, torch, kt.Runner.create(cfg, device=dev), prefills)
+    headwise = timed_runner(kt, torch, kt.Runner.create(cfg, decode_kernel=False,
+                                                        headwise_kernel=True, device=dev),
+                            prefills)
+    knorm = kt.KnormPress(0.5)
+    kernels = ("flash_attention", "flash_attention_quant", "decode_attention", "observed_lse",
+               "observed_colsum", "decode_headwise")
+    never = ("observed_lse", "observed_colsum", "flash_attention_or_mask")
+    half = [T // 2] * cfg.num_layers
+    # label: (runner, params, pipeline options, kernels that must have been
+    # launched, kernels that must not, the KV payload, the layer lengths or
+    # None for AdaKV's: from T // 2 to T - 1, the longest head of each layer)
+    runs = {
+        "(a) Knorm, bf16 KV": (runner, params, dict(press=knorm),
+                               ("flash_attention", "decode_attention"),
+                               ("flash_attention_quant", "decode_headwise"), "bf16", half),
+        "(b) Knorm, int8 KV": (runner, params, dict(press=knorm, quantized=True, kv_bits=8),
+                               ("flash_attention", "flash_attention_quant", "decode_attention"),
+                               ("decode_headwise",), "int8", half),
+        "(c) Knorm, int4 KV + int4 weights": (
+            runner, params4, dict(press=knorm, quantized=True, kv_bits=4),
+            ("flash_attention", "decode_attention"), ("flash_attention_quant", "decode_headwise"),
+            "int4", half),
+        # int8 chunks always take flash_attention_quant
+        f"(d) Knorm, int8 KV, context_chunk {PHI3_CHUNK_TOKENS}": (
+            runner, params, dict(press=knorm, quantized=True, kv_bits=8,
+                                 context_chunk=PHI3_CHUNK_TOKENS),
+            ("flash_attention_quant", "decode_attention"), ("decode_headwise",), "int8", half),
+        "(e) AdaKV(Knorm), compact, head-wise decode": (
+            headwise, params, dict(press=kt.AdaKVPress(knorm, compact=True)),
+            ("flash_attention", "decode_headwise"), ("decode_attention", "flash_attention_quant"),
+            "bf16", None),
+    }
+    totals = {}
+    for label, (r, p, kw, needed, unwanted, payload, lengths) in runs.items():
+        pipe = kt.KVPressPipeline(r, p, tok)
+        counts, _, got = pipeline_run(kt, torch, f"Phi-3-mini, {label}", pipe, prefills, needed,
+                                      unwanted + never, report, context=context, **kw)
+        if lengths is not None and got != lengths:
+            raise AssertionError(f"Phi-3-mini {label}: layer lengths {got}")
+        if lengths is None and not all(T // 2 <= n < T for n in got):
+            raise AssertionError(f"Phi-3-mini {label}: layer lengths {got}")
+        for name in kernels:       # every launch took a head_dim-96 instantiation
+            if counts[f"{name}_d96"] != counts[name]:
+                raise AssertionError(f"Phi-3-mini {label}: {name} launched "
+                                     f"{counts[name] - counts[f'{name}_d96']} times at another "
+                                     f"head_dim")
+        # the instantiation the options ask for is the one every launch took
+        for name, kind in (("decode_attention", payload), ("flash_attention_quant", "int8"),
+                           ("decode_headwise", "bf16"), ("flash_attention", "bf16")):
+            if counts[f"{name}_{kind}_d96"] != counts[name]:
+                raise AssertionError(f"Phi-3-mini {label}: {name} launched "
+                                     f"{counts[name] - counts[f'{name}_{kind}_d96']} times on "
+                                     f"another payload than {kind}")
+        for name in needed:
+            kind = {"decode_attention": payload, "flash_attention_quant": "int8"}.get(name, "bf16")
+            if counts[f"{name}_{kind}_d96"] == 0:
+                raise AssertionError(f"Phi-3-mini {label}: {name} at {kind}, head_dim 96, was "
+                                     f"never launched")
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+        del pipe
+        torch.cuda.empty_cache()
+    report("    launches of the head_dim-96 instantiations in these runs: "
+           f"{launched({k: n for k, n in totals.items() if k.endswith('_d96')})}")
+    del params4
+    torch.cuda.empty_cache()
+
+    # Where the prefill's time goes (all 32 layers), then decode over the
+    # compressed cache: tok/s (B=1, 32 steps, median of 3 passes) and one
+    # step's device breakdown (idle share).
+    ids = torch.randint(3, cfg.vocab_size, (1, T), generator=gen, device=dev)
+    plain_runner = kt.Runner.create(cfg, device=dev)
+    breakdown("Phi-3-mini prefill 3,840 tokens, Knorm, bf16 KV",
+              lambda: plain_runner.prefill(params, ids, press=knorm, compute_logits=True), 3,
+              report, top=6)
+    _, cache, _ = plain_runner.prefill(params, ids, press=knorm)
+    steps = 32
+    cache = kt.resize(cache, T // 2 + steps + 1)
+    base_len, base_off = cache.length, cache.offset
+    rates = []
+    for _ in range(3):
+        c, tok_ = dataclasses.replace(cache, length=base_len, offset=base_off), ids[:, -1:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, c, _ = plain_runner.forward(params, tok_, c, logits_last_only=True)
+            tok_ = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        rates.append(steps / (time.perf_counter() - t0))
+    report(f"  Phi-3-mini decode B=1 over a 3,840-token context at ratio 0.5, bf16 KV: "
+           f"{statistics.median(rates):.1f} tok/s (passes {[round(x, 1) for x in rates]})")
+    c = dataclasses.replace(cache, length=base_len, offset=base_off)
+    breakdown("Phi-3-mini decode step", lambda: plain_runner.forward(params, ids[:, -1:], c,
+                                                                     logits_last_only=True),
+              8, report, top=4)
+    del cache, c
+    torch.cuda.empty_cache()
+    for depth in (1, cfg.num_layers):
+        model_reference_check(kt, torch, f"Phi-3-mini, depth {depth}", phi3_mini_4k_config(depth),
+                              first_layers(params, depth), report, layer0_equal=True)
+    del params
+    torch.cuda.empty_cache()
+    return totals
+
+
 def model_reference_check(kt, torch, label, cfg, params, report, ids=None, inputs_embeds=None,
                           token_types=None, image_span=None, layer0_equal=False):
     """The kernel path against the dense path (attn_impl "xla") on one model
@@ -2596,6 +2889,42 @@ SOURCES = {
     "decode_headwise_d256": ("decode_headwise", _CSRC + "decode_headwise.cu",
                              "kvpress_tpu/ops/decode_headwise.py:236",
                              "bf16 B4 T1 16K ragged D256 GQA 16/8", "decode_headwise_d256"),
+    # head_dim 96 (the Phi-3-mini body, 32 query heads on 32 kv heads)
+    "flash_attention_d96": ("flash_attention", _CSRC + "flash.cu", "kvpress_tpu/ops/flash.py:154",
+                            "bf16 B1 T3840 S3840 D96 GQA 32/32 all-live",
+                            "flash_attention_bf16_d96"),
+    "flash_attention_or_mask_d96": ("flash_attention_or_mask", _CSRC + "flash.cu",
+                                    "kvpress_tpu/ops/flash.py:106",
+                                    "bf16 B1 T3840 S3840 D96 GQA 32/32 2 images",
+                                    "flash_attention_or_mask_d96"),
+    "flash_attention_quant_int8_d96": ("flash_attention_quant", _CSRC + "flash_quant.cu",
+                                       "kvpress_tpu/ops/flash.py:435",
+                                       "int8 B1 T152 prior3840 D96 GQA 32/32 half live",
+                                       "flash_attention_quant_int8_d96"),
+    "flash_attention_quant_int4_d96": ("flash_attention_quant", _CSRC + "flash_quant.cu",
+                                       "kvpress_tpu/ops/flash.py:435",
+                                       "int4 B1 T1024 prior3072 S4096 D96 GQA 32/32 chunk",
+                                       "flash_attention_quant_int4_d96"),
+    "decode_attention_d96": ("decode_attention", _CSRC + "decode.cu",
+                             "kvpress_tpu/ops/decode.py:212", "bf16 B1 4K half live D96 GQA 32/32",
+                             "decode_attention_bf16_d96"),
+    "decode_attention_int8_d96": ("decode_attention", _CSRC + "decode.cu",
+                                  "kvpress_tpu/ops/decode.py:212",
+                                  "int8 B1 4K half live D96 GQA 32/32",
+                                  "decode_attention_int8_d96"),
+    "decode_attention_int4_d96": ("decode_attention", _CSRC + "decode.cu",
+                                  "kvpress_tpu/ops/decode.py:212",
+                                  "int4 B1 4K half live D96 GQA 32/32",
+                                  "decode_attention_int4_d96"),
+    "observed_lse_d96": ("observed_lse", _CSRC + "observed_colsum.cu",
+                         "kvpress_tpu/ops/observed_colsum.py:34", "B1 S32768 D96 GQA 32/32",
+                         "observed_lse_d96"),
+    "observed_colsum_d96": ("observed_colsum", _CSRC + "observed_colsum.cu",
+                            "kvpress_tpu/ops/observed_colsum.py:87",
+                            "flash lse, B1 S32768 D96 GQA 32/32", "observed_colsum_d96"),
+    "decode_headwise_d96": ("decode_headwise", _CSRC + "decode_headwise.cu",
+                            "kvpress_tpu/ops/decode_headwise.py:236",
+                            "bf16 B4 T1 16K ragged D96 GQA 32/32", "decode_headwise_d96"),
 }
 
 
@@ -2636,7 +2965,7 @@ def build_report(_build, report):
             if "Function properties for" in line:
                 function = line.rsplit(" ", 1)[-1]
             if any(word in line for word in ("registers", "spill", "wgmma", "serialized")):
-                report(f"  {name}: {line.strip()[:300]}")
+                report(f"  {name}: {function}: {line.strip()[:300]}")
             spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if name in no_spill and spilled and any(int(x) for x in spilled.groups()):
                 failures.append(f"{name} spills in {function}: {line.strip()}")
@@ -2706,6 +3035,11 @@ def main() -> int:
     report("phase 3: the Gemma-3-12B body (bf16, 48 layers, head_dim 256): 4 images one-shot and "
            "chunked, paths A and AdaKV(Observed), int8 KV, 32K")
     for name, n in gemma3_12b_run(kt, torch, ToyTokenizer, report).items():
+        launches[name] += n
+    report("phase 3: the Phi-3-mini-4k body (bf16, 32 layers, head_dim 96, 32/32 heads), "
+           f"{PHI3_CONTEXT_TOKENS} tokens: Knorm with bf16, int8 and int4 KV, chunked by "
+           f"{PHI3_CHUNK_TOKENS}, AdaKV(Knorm) compact")
+    for name, n in phi3_run(kt, torch, ToyTokenizer, report).items():
         launches[name] += n
     reference_check(kt, torch, params, report)
     report(f"phase 3: chunked prefill (chunks of {REF_CHUNK}) against the dense path")

@@ -28,7 +28,7 @@ namespace kvp {
 namespace few {
 
 template <int D, int KIND>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 3 : D == 128 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, D == 64 ? 3 : D <= 128 ? 2 : 1)
     decode_kernel(const FewParams p) {
   using St = Stages<D, KIND>;
   constexpr int NK = St::NK;
@@ -143,18 +143,21 @@ extern "C" int kvp_decode_attention(const void* q, const void* k, const void* v,
   if (bits == 0) {
     switch (D) {
       case 64: return launch_decode<64, KV_BF16>(p, st);
+      case 96: return launch_decode<96, KV_BF16>(p, st);
       case 128: return launch_decode<128, KV_BF16>(p, st);
       case 256: return launch_decode<256, KV_BF16>(p, st);
     }
   } else if (bits == 8) {
     switch (D) {
       case 64: return launch_decode<64, KV_INT8>(p, st);
+      case 96: return launch_decode<96, KV_INT8>(p, st);
       case 128: return launch_decode<128, KV_INT8>(p, st);
       case 256: return launch_decode<256, KV_INT8>(p, st);
     }
   } else if (bits == 4) {
     switch (D) {
       case 64: return launch_decode<64, KV_INT4>(p, st);
+      case 96: return launch_decode<96, KV_INT4>(p, st);
       case 128: return launch_decode<128, KV_INT4>(p, st);
       case 256: return launch_decode<256, KV_INT4>(p, st);
     }

@@ -30,7 +30,7 @@ namespace kvp {
 namespace few {
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 3 : D == 128 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, D == 64 ? 3 : D <= 128 ? 2 : 1)
     decode_headwise_kernel(const FewParams p) {
   using St = Stages<D, KV_BF16>;
   constexpr int NK = St::NK;
@@ -101,6 +101,7 @@ extern "C" int kvp_decode_attention_headwise(const void* q, const void* k, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return kvp::few::launch_headwise<64>(p, st);
+    case 96: return kvp::few::launch_headwise<96>(p, st);
     case 128: return kvp::few::launch_headwise<128>(p, st);
     case 256: return kvp::few::launch_headwise<256>(p, st);
     default: return cudaErrorInvalidValue;

@@ -49,6 +49,14 @@
 //   floor of 64 keys (16 a consumer warp), so a bf16 stage is 64 KB and the
 //   ring has three of them (int8 and int4 keep four); the final merge still
 //   fits over the stages.
+// * Head_dim 96 (Phi-3-mini). A step keeps 8 KB of K payload rounded down
+//   to whole 64-key steps (64 keys of bf16 and int8, 128 of int4), so that
+//   each consumer warp takes whole 16-key blocks. A lane's quarter of a key
+//   row is 24 channels (48, 24 or 12 bytes) and its eighth of a value row 12
+//   (24 bytes of bf16, 12 of int8 or int4): whole rows of 16-byte words do
+//   not fit those, so the loads are 16 bytes wide where the run is a
+//   multiple of 16, else 8 or 4 (load_words), from rows that lie on 16-byte
+//   boundaries (192, 96 and 48 bytes).
 // * decode.cu reads each block's keep-mask bytes once before its walk (1
 //   byte a slot against 72 bytes of int4 K+V and scales), builds the list of
 //   its live steps in shared memory (a vote per step, then a ballot and a
@@ -83,10 +91,11 @@ constexpr int THREADS = 32 * (CWARPS + 1);   // and one producer warp
 constexpr int MAX_SPLITS = 64;               // ops/decode.py MAX_SPLITS
 constexpr int MERGE_THREADS = 128;
 
-// Keys of one step: 8 KB of K payload, at least 64 (16 keys a consumer warp).
+// Keys of one step: 8 KB of K payload in whole 64-key steps, at least 64 (16
+// keys a consumer warp; head_dim 96: 64, 64 and 128 for bf16, int8 and int4).
 template <int D, int KIND>
 __host__ __device__ constexpr int step_keys() {
-  return 8192 / row_bytes<D, KIND>() > 64 ? 8192 / row_bytes<D, KIND>() : 64;
+  return 8192 / row_bytes<D, KIND>() / 64 > 1 ? 8192 / row_bytes<D, KIND>() / 64 * 64 : 64;
 }
 
 struct FewParams {
@@ -197,7 +206,9 @@ __device__ __forceinline__ uint32_t s8_bf16(uint32_t a, uint32_t b) {
   return pack_bf16x2((float)(int8_t)a, (float)(int8_t)b);
 }
 
-// N 32-bit words from shared memory (N * 4 bytes, aligned to min(16, N * 4)).
+// N 32-bit words from shared memory, 16 bytes a load when N is a multiple
+// of 4, else 8 when N is even, else 4 (head_dim 96's runs of 12 and 24
+// bytes); the address is aligned to the width of the loads.
 template <int N>
 __device__ __forceinline__ void load_words(uint32_t (&w)[N], const unsigned char* p) {
   if constexpr (N % 4 == 0) {
@@ -209,11 +220,16 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[N], const unsigned char
       w[4 * j + 2] = x.z;
       w[4 * j + 3] = x.w;
     }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      const uint2 x = reinterpret_cast<const uint2*>(p)[j];
+      w[2 * j] = x.x;
+      w[2 * j + 1] = x.y;
+    }
   } else {
-    static_assert(N == 2, "8-byte or 16-byte multiples");
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    w[0] = x.x;
-    w[1] = x.y;
+#pragma unroll
+    for (int j = 0; j < N; ++j) w[j] = reinterpret_cast<const uint32_t*>(p)[j];
   }
 }
 
@@ -637,7 +653,8 @@ __device__ __forceinline__ void merge_block(const float* __restrict__ part_o,
                                             __nv_bfloat16* __restrict__ out, size_t rows,
                                             int nsplit) {
   // Head_dim 256 has more channels than the block has threads: a thread
-  // takes channels c and c + 128, each over the ranges in order.
+  // takes channels c and c + 128, each over the ranges in order. At head_dim
+  // 96 one group of 96 threads sums and the other 32 wait.
   constexpr int GROUPS = MERGE_THREADS >= D ? MERGE_THREADS / D : 1;
   __shared__ float ml[MAX_SPLITS][2];
   __shared__ float wgt[MAX_SPLITS];
@@ -667,9 +684,11 @@ __device__ __forceinline__ void merge_block(const float* __restrict__ part_o,
   }
   const int c = tid % D, grp = tid / D;
   float acc = 0.f;
+  if (grp < GROUPS) {
 #pragma unroll 4
-  for (int s = grp; s < nsplit; s += GROUPS) acc += wgt[s] * part_o[(s * rows + row) * D + c];
-  part[grp][c] = acc;
+    for (int s = grp; s < nsplit; s += GROUPS) acc += wgt[s] * part_o[(s * rows + row) * D + c];
+    part[grp][c] = acc;
+  }
   __syncthreads();
   if (grp == 0) {
 #pragma unroll

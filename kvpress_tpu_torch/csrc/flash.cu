@@ -18,8 +18,8 @@
 // into a four-stage swizzled ring behind per-stage mbarriers, two consumer
 // warpgroups whose exponentials and products overlap, masking only in tiles
 // that need it, and a split of the key range (merged by a second kernel) when
-// the launch has too few q-tiles to fill the card (head_dim 64, 128 and 256:
-// 128-, 64- and 32-key tiles, flash_sm90.cuh says why). The or-mask is a second
+// the launch has too few q-tiles to fill the card (head_dim 64, 96, 128 and
+// 256: 128-, 64-, 64- and 32-key tiles, flash_sm90.cuh says why). The or-mask is a second
 // instantiation of the loop (OR = true): each q-tile's key range widens by
 // or_span - 1 slots on both sides, the keys' image ids ride in the ring
 // beside the keep-mask bytes, and every tile outside the causal window takes
@@ -56,6 +56,7 @@ extern "C" int kvp_flash_attention(const void* q, const void* k, const void* v,
       return cudaErrorInvalidValue;
     switch (D) {
       case 64: return kvp::sm90::launch_flash<64, kvp::KV_BF16, true>(p, st);
+      case 96: return kvp::sm90::launch_flash<96, kvp::KV_BF16, true>(p, st);
       case 128: return kvp::sm90::launch_flash<128, kvp::KV_BF16, true>(p, st);
       case 256: return kvp::sm90::launch_flash<256, kvp::KV_BF16, true>(p, st);
       default: return cudaErrorInvalidValue;
@@ -63,6 +64,7 @@ extern "C" int kvp_flash_attention(const void* q, const void* k, const void* v,
   }
   switch (D) {
     case 64: return kvp::sm90::launch_flash<64, kvp::KV_BF16>(p, st);
+    case 96: return kvp::sm90::launch_flash<96, kvp::KV_BF16>(p, st);
     case 128: return kvp::sm90::launch_flash<128, kvp::KV_BF16>(p, st);
     case 256: return kvp::sm90::launch_flash<256, kvp::KV_BF16>(p, st);
     default: return cudaErrorInvalidValue;

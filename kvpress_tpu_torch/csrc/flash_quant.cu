@@ -46,12 +46,14 @@ extern "C" int kvp_flash_attention_quant(const void* q, const void* k, const voi
   if (bits == 8) {
     switch (D) {
       case 64: return kvp::sm90::launch_flash<64, kvp::KV_INT8>(p, st);
+      case 96: return kvp::sm90::launch_flash<96, kvp::KV_INT8>(p, st);
       case 128: return kvp::sm90::launch_flash<128, kvp::KV_INT8>(p, st);
       case 256: return kvp::sm90::launch_flash<256, kvp::KV_INT8>(p, st);
     }
   } else if (bits == 4) {
     switch (D) {
       case 64: return kvp::sm90::launch_flash<64, kvp::KV_INT4>(p, st);
+      case 96: return kvp::sm90::launch_flash<96, kvp::KV_INT4>(p, st);
       case 128: return kvp::sm90::launch_flash<128, kvp::KV_INT4>(p, st);
       case 256: return kvp::sm90::launch_flash<256, kvp::KV_INT4>(p, st);
     }

@@ -58,6 +58,16 @@
 //   O's channels over the two warpgroups would make each compute S twice,
 //   and two stages of 64-key tiles would leave the producer no tile ahead
 //   while the consumers hold one stage for S and one for P.V.
+// * Head_dim 96 (Phi-3-mini) is no whole number of 64-channel panels. A row
+//   is laid out as head_dim 128's two panels, the second half used: Q and
+//   each K/V tile take head_dim 128's room (64-key tiles, four stages), the
+//   producers copy 12 of a row's 16 chunks, S = Q.K^T runs 6 k16 steps (none
+//   touches channels 96-127 of Q or K), and P.V runs head_dim 128's two
+//   m64n64k16 products a k16 step: the V channels 96-127 of every stage are
+//   written as zeros once, before the ring starts, and no copy or widening
+//   writes them after, so the accumulator columns 96-127 stay 0 and are not
+//   stored. (A 32-channel panel under the 64-byte swizzle would save a
+//   quarter of the P.V products but needs descriptors and copies of its own.)
 // * The same-image or-mask (OR = true, bf16 caches only, as in the Pallas
 //   kernel): a row whose image id gq is >= 0 also sees every key whose id
 //   equals it. An image spans at most or_span slots, so a q-tile's key range
@@ -303,6 +313,10 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// Channels of a row as the tiles lay it out: whole 64-channel panels (head_dim
+// 96 takes 128's two, the second half used). Also the column sums' layout.
+__host__ __device__ constexpr int panel_channels(int D) { return (D + 63) / 64 * 64; }
+
 // ----------------------------------------------------------------------- //
 // Shared memory of a block
 
@@ -317,14 +331,15 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4
 // or-mask (OR) every stage also holds its keys' image ids.
 template <int D, int KIND, bool OR = false>
 struct Ring {
-  static constexpr int NK = 8192 / D;  // 16 KB of bf16 keys: 128, 64 or 32
+  static constexpr int DP = panel_channels(D);
+  static constexpr int NK = 8192 / DP;  // 16 KB of bf16 keys: 128, 64 or 32
   // Four stages; at head_dim 256 an int8 cache's raw slots leave room for three.
   static constexpr int STAGES = D == 256 && KIND == KV_INT8 ? 3 : 4;
   static constexpr bool BF16 = KIND == KV_BF16 || KIND == LSE_ONLY;  // copied as it is
   static constexpr int KV = KIND == LSE_ONLY ? 1 : 2;                // tiles of a stage
   static constexpr int RAW_SLOTS = BF16 ? 0 : LAG + 1;
   static constexpr int ROW = row_bytes<D, BF16 ? KV_BF16 : KIND>();
-  static constexpr int PANELS = D / 64;
+  static constexpr int PANELS = DP / 64;
   static constexpr int Q_PANEL = BLOCK_ROWS * 128;
   static constexpr int KV_PANEL = NK * 128;
   static constexpr int TILE = PANELS * KV_PANEL;  // one bf16 K or V tile
@@ -471,13 +486,17 @@ __device__ __forceinline__ void produce(const FlashParams& p, const Ring<D, KIND
   if constexpr (R::BF16) {
     // Thread pt copies chunk pt % CPT of rows pt / CPT + RPI * it, and at
     // head_dim 256 the same chunk of the second pair of panels (HALVES): RPI
-    // is a multiple of 8, so the swizzle phase is the thread's own.
+    // is a multiple of 8, so the swizzle phase is the thread's own. At
+    // head_dim 96 the chunks are counted over the padded row (16), and the
+    // threads of chunks 12-15 copy nothing.
     constexpr int CPR = D / 8;                 // 16-byte chunks of a bf16 row
-    constexpr int CPT = CPR < 16 ? CPR : 16;   // of them, a thread's row covers one
-    constexpr int HALVES = CPR / CPT;
+    constexpr int CPP = R::DP / 8;             // the same over the padded row
+    constexpr int CPT = CPP < 16 ? CPP : 16;   // of them, a thread's row covers one
+    constexpr int HALVES = CPP / CPT;
     constexpr int RPI = 128 / CPT;             // rows the 128 threads cover at once
     static_assert(RPI % 8 == 0, "a thread keeps its swizzle phase");
     const int r0 = pt / CPT, cc = pt % CPT;
+    const bool copies = CPR == CPP || cc < CPR;  // false past head_dim 96's 12 chunks
     const uint32_t dst = (cc >> 3) * R::KV_PANEL + swizzled(r0, cc & 7);
     for (int n = 0; n < ntiles; ++n) {
       const int key0 = w.kfirst + (w.i0 + n) * NK, stage = n % STAGES;
@@ -489,6 +508,7 @@ __device__ __forceinline__ void produce(const FlashParams& p, const Ring<D, KIND
         const bool in = key0 + r0 + RPI * it < p.S;
 #pragma unroll
         for (int h = 0; h < HALVES; ++h) {
+          if (!copies) break;
           const long long off = in ? src + (long long)it * RPI * ROW + h * CPT * 16 : 0;
           const uint32_t at = h * (CPT / 8) * R::KV_PANEL + it * RPI * 128;
           cp_async16_to(kt + at, kg + off, in);
@@ -832,6 +852,7 @@ __device__ __forceinline__ void consume(const FlashParams& p, const Ring<D, KIND
       for (int pn = 0; pn < PANELS; ++pn)
 #pragma unroll
         for (int nn = 0; nn < 8; ++nn)
+          if (pn * 64 + nn * 8 < D)  // head_dim 96: the padded columns are not stored
           *reinterpret_cast<uint32_t*>(dst + pn * 64 + nn * 8 + 2 * tq) =
               pack_bf16x2(o[pn][4 * nn + 2 * r] * inv, o[pn][4 * nn + 2 * r + 1] * inv);
       if (p.lse != nullptr && tq == 0)
@@ -843,6 +864,7 @@ __device__ __forceinline__ void consume(const FlashParams& p, const Ring<D, KIND
       for (int pn = 0; pn < PANELS; ++pn)
 #pragma unroll
         for (int nn = 0; nn < 8; ++nn)
+          if (pn * 64 + nn * 8 < D)
           *reinterpret_cast<float2*>(dst + pn * 64 + nn * 8 + 2 * tq) =
               make_float2(o[pn][4 * nn + 2 * r], o[pn][4 * nn + 2 * r + 1]);
       if (tq == 0)
@@ -1040,6 +1062,16 @@ __device__ __forceinline__ void flash_block(const FlashParams& p) {
     const size_t at = (((size_t)w.b * p.Hq + w.h * p.G + (ok ? gi : 0)) * p.T + (ok ? t : 0)) * D;
     cp_async16(ring.q() + (cc >> 3) * R::Q_PANEL + swizzled(row, cc & 7), p.q + at + cc * 8, ok);
   }
+  // Head_dim 96: the V channels past D that P.V reads in every stage are
+  // zeros, written once here (nothing writes them later).
+  if constexpr (R::KV == 2 && R::DP != D) {
+    constexpr int PAD = (R::DP - D) / 8;  // 16-byte chunks of a row past D
+    for (int i = tid; i < R::STAGES * NK * PAD; i += THREADS) {
+      const int s = i / (NK * PAD), row = i / PAD % NK, cc = CPR + i % PAD;
+      *reinterpret_cast<uint4*>(ring.v(s) + (cc >> 3) * R::KV_PANEL + swizzled(row, cc & 7)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
   cp_async_commit();
   cp_async_wait<0>();
   fence_async_proxy();
@@ -1116,7 +1148,8 @@ inline cudaError_t launch_flash(FlashParams p, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return err;
   const size_t rows = (size_t)p.B * p.Hq * p.T;
-  constexpr int threads = 256, rows_per_block = threads / (D / 4);
+  // A whole number of rows a block (head_dim 96: 10 rows of 24 threads).
+  constexpr int rows_per_block = 256 / (D / 4), threads = rows_per_block * (D / 4);
   flash_sm90_merge_kernel<D><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), threads,
                                0, stream>>>(p.part_o, p.part_ml, p.out, p.lse, rows, p.nsplit);
   return cudaGetLastError();

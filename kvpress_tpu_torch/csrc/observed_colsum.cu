@@ -44,6 +44,10 @@
 //   stage holds 64 rows (G heads by 64 / G positions) and S^T runs on
 //   m64n64k16: four stages of 32 KB fit beside the keys in 227 KB, and the
 //   consumers' accumulators shrink with the stage.
+//   At head_dim 96 rows are laid out as head_dim 128's two panels, the
+//   second half used (flash_sm90.cuh): the producers copy 12 chunks of a
+//   query row, and S^T runs 6 k16 steps, so no product reads channels
+//   96-127 of the keys or the queries.
 #include "flash_sm90.cuh"
 
 namespace kvp {
@@ -65,7 +69,8 @@ template <int D>
 struct Ring {
   // (query head, position) rows of a query stage: 64 at head_dim 256
   static constexpr int ROWS = D == 256 ? 64 : 128;
-  static constexpr int PANELS = D / 64;
+  static constexpr int DP = sm90::panel_channels(D);
+  static constexpr int PANELS = DP / 64;
   static constexpr int K_PANEL = KEYS * 128;
   static constexpr int Q_PANEL = ROWS * 128;
   static constexpr int OFF_Q = PANELS * K_PANEL;
@@ -111,11 +116,13 @@ template <int D, int G>
 __device__ __forceinline__ void produce(const Params& p, const Ring<D>& ring, const Walk& w,
                                         int pt) {
   // As in flash_sm90.cuh's producer: thread pt copies chunk pt % CPT of rows
-  // pt / CPT + RPI * it, at head_dim 256 also of the second pair of panels.
-  constexpr int ROWS = Ring<D>::ROWS, BQ = ROWS / G, CPR = D / 8;
-  constexpr int CPT = CPR < 16 ? CPR : 16, HALVES = CPR / CPT, RPI = 128 / CPT;
+  // pt / CPT + RPI * it, at head_dim 256 also of the second pair of panels;
+  // at head_dim 96 the threads of chunks 12-15 of the padded row copy nothing.
+  constexpr int ROWS = Ring<D>::ROWS, BQ = ROWS / G, CPR = D / 8, CPP = Ring<D>::DP / 8;
+  constexpr int CPT = CPP < 16 ? CPP : 16, HALVES = CPP / CPT, RPI = 128 / CPT;
   static_assert(LAG < STAGES, "the producer waits for a stage LAG hand-overs back");
   const int r0 = pt / CPT, cc = pt % CPT;
+  const bool copies = CPR == CPP || cc < CPR;
   const uint32_t dst = (cc >> 3) * Ring<D>::Q_PANEL + sm90::swizzled(r0, cc & 7);
   const size_t head0 = (size_t)w.b * p.Hq + (size_t)w.h * G;
   // Offsets from the group's first query row stay 32-bit (the entry point
@@ -135,6 +142,7 @@ __device__ __forceinline__ void produce(const Params& p, const Ring<D>& ring, co
         const bool in = t < p.S;
 #pragma unroll
         for (int h = 0; h < HALVES; ++h)
+          if (copies)
           sm90::cp_async16_to(qs + h * (CPT / 8) * Ring<D>::Q_PANEL + it * RPI * 128,
                               qg + ((row / BQ) * p.S + (in ? t : 0)) * D + h * CPT * 8, in);
       }
@@ -335,6 +343,7 @@ extern "C" int kvp_observed_lse(const void* q, const void* k, void* lse, int B, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return kvp::launch_lse<64>(p, st);
+    case 96: return kvp::launch_lse<96>(p, st);
     case 128: return kvp::launch_lse<128>(p, st);
     case 256: return kvp::launch_lse<256>(p, st);
     default: return cudaErrorInvalidValue;
@@ -356,6 +365,7 @@ extern "C" int kvp_observed_colsum(const void* q, const void* k, const void* lse
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return kvp::colsum::launch_colsum_d<64>(p, st);
+    case 96: return kvp::colsum::launch_colsum_d<96>(p, st);
     case 128: return kvp::colsum::launch_colsum_d<128>(p, st);
     case 256: return kvp::colsum::launch_colsum_d<256>(p, st);
     default: return cudaErrorInvalidValue;

@@ -378,9 +378,10 @@ class Runner:
         overhead.) The decode kernel takes every few-token call it can, so
         ``headwise_kernel=True`` routes only with ``decode_kernel=False``.
 
-        On CUDA the kernels take head_dim 64, 128 and 256 (Gemma-3 1B/4B/12B):
-        another head_dim (Phi-3-mini's 96) raises unless the dense path is
-        asked for (``attn_impl="xla"``)."""
+        On CUDA the kernels take head_dim 64, 96 (Phi-3-mini), 128 and 256
+        (Gemma-3 1B/4B/12B): another head_dim, which no architecture of the
+        package has, raises unless the dense path is asked for
+        (``attn_impl="xla"``)."""
         device = resolve_device(device)
         inv, scaling = compute_inv_freq(cfg)
         if attn_impl == "auto":

@@ -40,9 +40,10 @@ MAX_SPLITS = 64
 
 def step_keys(head_dim: int, bits: Optional[int]) -> int:
     """Keys of one step of the kernels (decode_sm90.cuh step_keys): 8 KB of
-    K payload, at least 64."""
+    K payload in whole 64-key steps, at least 64 (head_dim 96: 64, 64 and
+    128 for bf16, int8 and int4)."""
     row = {None: 2 * head_dim, 8: head_dim, 4: head_dim // 2}[bits]
-    return max(64, 8192 // row)
+    return max(64, 8192 // row // 64 * 64)
 
 
 def decode_splits(B: int, Hkv: int, G: int, T: int, S: int, D: int, length: int,

@@ -36,7 +36,7 @@ from .attention import (NEG_INF, attention_bias, gqa_attention, quant_gqa_attent
                         quant_pv_out, quant_qk_logits)
 
 MAX_GROUP = 8        # query heads per kv head the kernels' block geometry takes
-HEAD_DIMS = (64, 128, 256)   # head_dims the five kernels are instantiated for
+HEAD_DIMS = (64, 96, 128, 256)   # head_dims the five kernels are instantiated for
 BLOCK_ROWS = 128     # (head, time) rows of a kernel block: G heads by 128 // G positions
 TARGET_BLOCKS = 264  # two blocks for each of an H100's 132 SMs
 MAX_SPLITS = 16
@@ -51,8 +51,9 @@ def launch_counts(*kinds: str) -> dict:
 
 def key_tile(head_dim: int) -> int:
     """Keys of one K/V tile of the kernels' shared-memory ring: 16 KB of bf16
-    keys (128, 64 and 32 at head_dim 64, 128 and 256; csrc/flash_sm90.cuh)."""
-    return 8192 // head_dim
+    keys laid out in whole 64-channel panels (128, 64, 64 and 32 at head_dim
+    64, 96, 128 and 256: 96 takes 128's two panels; csrc/flash_sm90.cuh)."""
+    return 8192 // (-(-head_dim // 64) * 64)
 
 
 def flash_splits(B: int, Hkv: int, G: int, T: int, S: int, D: int, prior: int,
@@ -266,10 +267,10 @@ def _check_common(q, k, v, head_mask, payload_dtype, payload_d):
 
 
 def check_head_dim(D: int) -> None:
-    """Raise on a head_dim the kernels are not instantiated for."""
+    """Raise on a head_dim the kernels are not instantiated for: one that no
+    architecture of the package uses."""
     if D not in HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim {HEAD_DIMS}, got {D} (head_dim 96: "
-                         f"ROADMAP Queue B)")
+        raise ValueError(f"kernel takes head_dim {HEAD_DIMS}, got {D}")
 
 
 def _opt(x, default):

@@ -281,11 +281,13 @@ def test_the_kernels_geometry_at_256():
 
 
 def test_wrappers_name_the_queue_of_head_dim_96():
-    """Head_dim 96 has no instantiation: the check the CUDA wrappers run
-    names its queue."""
+    """Head_dim 96 has its instantiations now (Phi-3-mini): the check the
+    CUDA wrappers run takes it beside 256, and refuses a width that no
+    architecture has, naming the widths it takes."""
     tfl.check_head_dim(D)
-    with pytest.raises(ValueError, match="head_dim 96: ROADMAP Queue B"):
-        tfl.check_head_dim(96)
+    tfl.check_head_dim(96)
+    with pytest.raises(ValueError, match="head_dim \\(64, 96, 128, 256\\), got 80"):
+        tfl.check_head_dim(80)
 
 
 # --------------------------------------------------------------------- #

@@ -57,6 +57,16 @@ FLASH_CASES = [
     (1, 4, 2, 100, 100, 256, 0, None, None, "dead-rows"),
     (1, 2, 2, 130, 130, 256, 0, None, None, "one-clear"),
     (1, 16, 8, 152, 4248, 256, 4096, 1024, None, "random"),
+    # head_dim 96 (head_dim 128's two panels, the second half used; 64-key
+    # tiles): Phi-3-mini's one query head per kv head behind a prior, a window
+    # with softcap, a whole run clear, rows without a live key, one clear bit,
+    # and the 152-token question at GQA 32/32 whose key range is split
+    (1, 4, 4, 100, 400, 96, 300, None, None, "random"),
+    (1, 4, 2, 130, 130, 96, 0, 48, 30.0, "random"),
+    (1, 8, 1, 64, 192, 96, 128, None, None, "run-clear"),
+    (1, 4, 4, 100, 100, 96, 0, None, None, "dead-rows"),
+    (1, 2, 2, 130, 130, 96, 0, None, None, "one-clear"),
+    (1, 32, 32, 152, 4248, 96, 4096, None, None, "random"),
 ]
 QUANT_CASES = [
     # bits, B, Hq, Hkv, T, S, D, prior, window, softcap, keep-mask
@@ -81,6 +91,13 @@ QUANT_CASES = [
     (4, 1, 8, 1, 100, 100, 256, 0, None, None, "dead-rows"),
     (8, 1, 16, 8, 152, 4248, 256, 4096, 1024, None, "random"),
     (4, 1, 16, 8, 152, 4248, 256, 4096, None, None, "random"),
+    # head_dim 96: 96-byte int8 and 48-byte int4 rows widened into two panels
+    (8, 1, 4, 4, 100, 400, 96, 300, None, None, "random"),
+    (4, 1, 4, 2, 130, 386, 96, 256, 64, 30.0, "random"),
+    (8, 1, 2, 2, 130, 130, 96, 0, None, None, "one-clear"),
+    (4, 1, 8, 1, 100, 100, 96, 0, None, None, "dead-rows"),
+    (8, 1, 32, 32, 152, 4248, 96, 4096, None, None, "random"),
+    (4, 1, 32, 32, 152, 4248, 96, 4096, None, None, "random"),
 ]
 DECODE_CASES = [
     # B, Hq, Hkv, T, S, length, D, window, softcap, masked
@@ -94,6 +111,11 @@ DECODE_CASES = [
     (1, 4, 2, 1, 512, 300, 256, None, None, True),
     (1, 16, 8, 4, 640, 500, 256, 128, 30.0, True),
     (2, 8, 2, 1, 512, 512, 256, None, None, False),
+    # head_dim 96: 24 channels a lane's K quarter, 12 its V eighth (loads of
+    # 16, 8 or 4 bytes); 64-key steps (int4: 128)
+    (1, 4, 4, 1, 512, 300, 96, None, None, True),
+    (1, 32, 32, 4, 640, 500, 96, 128, 30.0, True),
+    (2, 8, 2, 1, 512, 512, 96, None, None, False),
 ]
 COLSUM_CASES = [
     # B, Hq, Hkv, S, D, softcap
@@ -126,6 +148,13 @@ COLSUM_CASES = [
     (1, 8, 1, 193, 256, 30.0),
     (1, 2, 2, 65, 256, None),
     (1, 16, 8, 129, 256, 30.0),
+    # head_dim 96 (two panels, the second half used) at 1, 2, 4 and 8 query
+    # heads per kv head
+    (1, 4, 4, 257, 96, None),
+    (1, 32, 32, 1000, 96, None),
+    (1, 4, 2, 385, 96, 30.0),
+    (1, 16, 4, 200, 96, None),
+    (1, 8, 1, 193, 96, 30.0),
 ]
 HEADWISE_CASES = [
     # B, Hq, Hkv, T, S, D, tail, softcap, empty head, longest head absorbs the tail
@@ -137,6 +166,8 @@ HEADWISE_CASES = [
     (1, 2, 2, 2, 400, 128, 4, None, False, False),
     (2, 4, 2, 1, 700, 256, 5, None, True, True),
     (1, 16, 8, 4, 400, 256, 4, 30.0, False, False),
+    (2, 4, 4, 1, 700, 96, 5, None, True, True),
+    (1, 32, 32, 4, 400, 96, 4, 30.0, False, False),
 ]
 
 
@@ -266,6 +297,10 @@ OR_CASES = [
     (1, 16, 8, 384, 384, 256, 0, None, None, ((100, 40), (250, 20)), 40, True),
     (1, 16, 8, 300, 300, 256, 0, 64, None, ((5, 130), (170, 70)), 130, False),
     (1, 16, 8, 152, 4248, 256, 4096, None, None, ((1000, 256), (4100, 100)), 256, True),
+    # head_dim 96 at one query head per kv head (no model pairs 96 with images)
+    (1, 4, 4, 384, 384, 96, 0, None, None, ((100, 40), (250, 20)), 40, True),
+    (1, 8, 8, 300, 300, 96, 0, 64, None, ((5, 130), (170, 70)), 130, False),
+    (1, 32, 32, 152, 4248, 96, 4096, None, None, ((1000, 256), (4100, 100)), 256, True),
 ]
 
 
@@ -308,19 +343,20 @@ def test_flash_or_mask_matches_plain_on_card(cuda, case):
 
 @pytest.mark.cuda
 def test_runner_refuses_head_dims_without_kernels(cuda):
-    """Phi-3-mini's head_dim 96 has no kernel instantiation: Runner.create on
-    CUDA refuses it, naming the queue that holds it, rather than taking the
-    dense path, unless that path is asked for. Gemma-3 1B/4B/12B's 256 has
-    one, and takes the kernels."""
+    """A head_dim that no architecture uses (80) has no kernel instantiation:
+    Runner.create on CUDA refuses it rather than taking the dense path, unless
+    that path is asked for. Phi-3-mini's 96 and Gemma-3 1B/4B/12B's 256 have
+    one each, and take the kernels."""
     import kvpress_tpu_torch as kt
 
-    cfg = kt.tiny_config(head_dim=96)
-    with pytest.raises(ValueError, match="head_dim 96.*ROADMAP Queue B"):
+    cfg = kt.tiny_config(head_dim=80)
+    with pytest.raises(ValueError, match="kernel takes head_dim .*, got 80"):
         kt.Runner.create(cfg, device=cuda)
     assert kt.Runner.create(cfg, attn_impl="xla", decode_kernel=False,
                             device=cuda).attn_impl == "xla"
-    runner = kt.Runner.create(kt.tiny_config(head_dim=256), device=cuda)
-    assert runner.attn_impl == "flash" and runner.decode_kernel
+    for d in (96, 256):
+        runner = kt.Runner.create(kt.tiny_config(head_dim=d), device=cuda)
+        assert runner.attn_impl == "flash" and runner.decode_kernel
 
 
 @pytest.mark.cuda
@@ -346,7 +382,7 @@ def test_flash_quant_kernel_matches_plain_on_card(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("prior", [0, 1536])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
 def test_flash_quant_int4_at_chunk_shapes_on_card(cuda, prior, D):
     """A chunk of chunked prefill over an int4 cache (the fused route): 512
     new queries over a 2,048-slot buffer of which ``prior`` slots came
@@ -524,6 +560,12 @@ DECODE_SPLIT_CASES = [
     (8, 1, 4, 2, 4, 1000, 997, 256, 300, 30.0, 7, "random"),
     (4, 1, 16, 8, 1, 4160, 4097, 256, None, None, None, "random"),
     (None, 1, 16, 8, 1, 4160, 4097, 256, 1024, None, None, "random"),
+    # head_dim 96 at GQA 32/32 and 4/4: 64-key steps (int4: 128), the merge's
+    # 96 channels over its 128 threads
+    (None, 1, 32, 32, 1, 900, 833, 96, None, None, 3, "dead-range"),
+    (8, 1, 4, 4, 4, 1000, 997, 96, 300, 30.0, 7, "random"),
+    (4, 1, 4, 2, 4, 700, 650, 96, 260, None, 2, "dead-range"),
+    (4, 1, 32, 32, 1, 4160, 4097, 96, None, None, None, "random"),
 ]
 
 
@@ -587,6 +629,8 @@ HEADWISE_SPLIT_CASES = [
     (4, 32, 8, 1, 4160, 64, 33, None, True, True, None),
     (1, 16, 8, 1, 900, 256, 9, None, True, True, 3),
     (4, 16, 8, 1, 4160, 256, 33, None, True, True, None),
+    (1, 32, 32, 1, 900, 96, 9, None, True, True, 3),
+    (4, 32, 32, 1, 4160, 96, 33, None, True, True, None),
 ]
 
 
@@ -614,3 +658,69 @@ def test_headwise_kernel_split_edges_on_card(cuda, monkeypatch, case):
     _close(got, thw.decode_attention_headwise_plain(q, k, v, *ranges, **kw))
     if T == 1:
         _close(got, tdec.decode_attention_plain(q, k, v, length, mask=_t(mask).to(cuda), **kw))
+
+
+# Head_dim 96 lays a row out as head_dim 128's two panels with the second
+# half used (csrc/flash_sm90.cuh, observed_colsum.cu) and gives a decode lane
+# 24 K channels and 12 V channels (decode_sm90.cuh). In these inputs every
+# logit and every output value comes from channels 64-95 alone (the others
+# are 0), so a kernel that dropped the half panel, a k16 step of it or the
+# tail words of a lane's row would read far from its plain version.
+UPPER_KERNELS = ["flash", "flash_int8", "flash_int4", "decode", "decode_int8", "decode_int4",
+                 "colsum", "headwise"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", UPPER_KERNELS)
+def test_head_dim_96_upper_channels_on_card(cuda, kernel):
+    B, Hq, Hkv, D = 1, 8, 8, 96
+    T, S, prior = (130, 330, 200) if kernel.startswith("flash") else (1, 700, 699)
+    if kernel == "colsum":
+        T, S, prior = 300, 300, 0
+    q, k, v, mask = _inputs(11, B, Hq, Hkv, T, S, D)
+    for x in (q, k, v):
+        x[..., :64] = 0.0
+        x[..., 64:] *= 3.0       # logits of some size from 32 channels
+    q, k, v, mask = (_t(a).to(cuda) for a in (q, k, v, mask))
+    q = q.to(torch.bfloat16)
+    sc = D ** -0.5
+    if kernel == "colsum":
+        k = k.to(torch.bfloat16)
+        got = toc.observed_colsums_flash(q, k, sm_scale=sc)
+        ref = toc.observed_colsums_plain(q, k, sm_scale=sc)
+        _sums_close(got, ref)
+        # logits from channels 0-63 alone would all be 0: uniform rows
+        uniform = toc.observed_colsums_plain(q * 0, k, sm_scale=sc)
+        assert ((uniform - ref).abs() / ref.abs()).max() > ROW_LIMIT
+        return
+    if kernel == "headwise":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        m, length = _headwise_case(12, B, Hkv, S, 3, True, True)
+        ranges = thw.prefix_tail_from_mask(_t(m).to(cuda), length)
+        got = thw.decode_attention_headwise(q, k, v, *ranges, sm_scale=sc)
+        ref = thw.decode_attention_headwise_plain(q, k, v, *ranges, sm_scale=sc)
+    else:
+        bits = {"8": 8, "4": 4}.get(kernel[-1])
+        ks = vs = None
+        if bits is None:
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        else:
+            (k, ks), (v, vs) = quantize_kv(k, bits), quantize_kv(v, bits)
+        if kernel.startswith("flash"):
+            kw = dict(sm_scale=sc)
+            args = (q, k, v) if bits is None else (q, k, v, ks, vs)
+            fn = tfl.flash_attention if bits is None else tfl.flash_attention_quant
+            plain = tfl.flash_attention_plain if bits is None else tfl.flash_attention_quant_plain
+            if bits is not None:
+                kw["bits"] = bits
+            got = fn(*args, prior, mask, **kw)
+            ref = plain(*args, prior, mask, **kw)
+        else:
+            mask = _decode_mask(mask.cpu().numpy(), prior + T, T, True)
+            mask = _t(mask).to(cuda)
+            kw = dict(bits=bits, sm_scale=sc)
+            got = tdec.decode_attention(q, k, v, prior + T, ks, vs, mask, **kw)
+            ref = tdec.decode_attention_plain(q, k, v, prior + T, ks, vs, mask, **kw)
+    torch.cuda.synchronize()
+    _close(got, ref)
+    assert (got[..., :64] == 0).all() and (got[..., 64:] != 0).any()

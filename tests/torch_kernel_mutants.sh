@@ -4,7 +4,7 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes nineteen copies of the port in a temporary directory, each with one
+# It makes twenty-two copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (in the column sums a query
 # stage dropped and every stage taken without the causal test, a key tile
 # dropped from the row logsumexp; in the head-wise decode the tail, one
@@ -19,7 +19,11 @@
 # can show: the flash producer copying the first pair of panels' channels
 # into the second, a decode consumer reading one 16-byte K chunk of a lane's
 # quarter row in place of another, the column sums' producer copying the
-# first pair of query panels into the second), and runs
+# first pair of query panels into the second; and three that only the
+# head_dim-96 instantiations can show: a k16 step dropped from the flash
+# kernel's S = Q.K^T, the last 8 bytes of a decode lane's 24-byte value
+# run (or int8 key run) not loaded, the column sums' S^T cut short by a k16
+# step), and runs
 # chip_smoke.kernel_checks in each. The
 # or-mask copies must also fail the or-mask card tests
 # (tests/test_torch_kernels_card.py -k or_mask).
@@ -32,7 +36,8 @@ mutants="colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
          headwise_chunk decode_live_step decode_split_range decode_window_edge decode_merge_range
          flash_diagonal_tile flash_all_live flash_merge_range
          or_upper_range or_lower_range or_text_guard
-         flash_d256_panels decode_d256_key_chunk colsum_d256_panels"
+         flash_d256_panels decode_d256_key_chunk colsum_d256_panels
+         flash_d96_k_step decode_d96_tail_words colsum_d96_k_step"
 for m in ${@:-$mutants}; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
@@ -81,6 +86,12 @@ for m in ${@:-$mutants}; do
       sed -i 's/load_words<KC>(kw, kr + kc \* KC \* 4);/load_words<KC>(kw, kr + (kc \& 1) * KC * 4);/' "$dm" ;;
     colsum_d256_panels)
       sed -i 's/ \* D + h \* CPT \* 8, in);/ * D, in);/' "$oc" ;;
+    flash_d96_k_step)
+      sed -i '/auto start_s = /,/wgmma_commit/ s/kk < D \/ 16; ++kk/kk < D \/ 16 - (D == 96); ++kk/' "$fl" ;;
+    decode_d96_tail_words)
+      sed -i 's/const uint2 x = reinterpret_cast<const uint2\*>(p)\[j\];/const uint2 x = N > 2 \&\& j == N \/ 2 - 1 ? make_uint2(0u, 0u) : reinterpret_cast<const uint2*>(p)[j];/' "$dm" ;;
+    colsum_d96_k_step)
+      sed -i 's/for (int kk = 0; kk < D \/ 16; ++kk) {/for (int kk = 0; kk < D \/ 16 - (D == 96); ++kk) {/' "$oc" ;;
   esac
   changed=$(diff -r kvpress_tpu_torch/csrc "$d/kvpress_tpu_torch/csrc" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
