@@ -60,6 +60,17 @@
      weights (the dense route: ``flash_attention`` on each layer's
      dequantized buffer), compacting ``AdaKVPress(KnormPress(0.5))`` on the
      head-wise runner.
+   Then the presses that score without a kernel through the pipeline at
+   the same shape (``scorer_presses_run``): ExpectedAttention, its stats
+   variant (statistics from ``collect_query_stats`` on the card), KeyDiff,
+   LagKV, CUR, CAP, QFilter (a seeded filter bank), Compactor and KVzap (a
+   seeded MLP surrogate), ExpectedAttention over int8 KV and
+   AdaKV(ExpectedAttention) compact on the head-wise runner, each with one
+   layer's scoring time; and
+   bucketed prefill (``bucketed_check``): a 30,000-token context with
+   ``context_bucket=4096`` under Knorm and ExpectedAttention, held against
+   the exact prefill (equal lengths, logits within F32_RATIO times what bf16
+   rounding alone moves).
    Then ``Runner.prefill_chunked`` at 32K over int4 KV on its fused route
    (``flash_attention_quant`` at 4 bits) held against its dense route
    (``fused_int4_check``; also the peak memory of chunked and one-shot
@@ -69,8 +80,8 @@
    full width: the Qwen3-8B body (36 layers, bf16, q/k-norm; ``qwen3_run``)
    and the Gemma-3-27B body (62 layers, int4, sliding layers with window
    1,024, a SigLIP tower; ``gemma3_run``) through the pipeline at 32K,
-   Knorm and bf16 KV, Gemma3 with 4 images one-shot and with
-   ``context_chunk=8192``: the or-mask on every layer's prefill, the window
+   Knorm and bf16 KV (Qwen3 also ExpectedAttention), Gemma3 with 4 images
+   one-shot and with ``context_chunk=8192``: the or-mask on every layer's prefill, the window
    on the sliding layers' flash and decode launches, the sliding layers
    uncompressed; each also held against the dense path (Qwen3 at depth 1
    and 36, Gemma3 cut to 6 layers at 4,096 tokens with two images), and
@@ -90,7 +101,8 @@
    and read after it, and every kernel of a path must have been launched in
    it. A 2,048-token run of each kernel path is also held against the dense
    path on the same weights, stage by stage, at depth 1 and 16
-   (``reference_check``; chunked prefill in chunks of 512 too).
+   (``reference_check``: Knorm, paths A and B, ExpectedAttention and
+   Compactor; chunked prefill in chunks of 512 too).
 4. Timings: prefill at 32K under each press and chunked (int8 KV; int4 KV
    on both routes), and decode at batch 4 x 32K
    context, ratio 0.5 (Knorm: int4 KV + int8 weights, decode kernel on and
@@ -1106,15 +1118,19 @@ def kernel_checks(kt, torch, report):
             if D == 96:
                 faults.update(upper_faults(lambda q_: hw.decode_attention_headwise_plain(
                     q_, k, v, pfx, ts, tl, sm_scale=scale), q, ref))
-            lib = None
             if T == 1:      # the mask says what the ranges say: the dense decode reads it
                 faults["one live step taken for dead"] = dec.decode_attention_plain(
                     q, k, v, length, mask=fault_mask(mask, B, S, 1024, nk, hkv=Hkv),
                     sm_scale=scale)
                 faults["one chunk dropped from the merge"] = dec.decode_attention_plain(
                     q, k, v, length, mask=mask & (chunk != 1), sm_scale=scale)
-                lib = sdpa_ms(q, k, v, allowed_mask(mask, B, length - T, T, S, length, hkv=Hkv,
-                                                    g=G), 20)
+            # The library call: SDPA with the plain version's live set as a
+            # boolean mask (at T > 1 a prefix that absorbs the tail is
+            # visible to every row: no causal mask says that).
+            row_limit = ts + tl - T + torch.arange(T, device=dev)[:, None]
+            in_tail = (col >= ts) & (col < ts + tl) & (col <= row_limit)
+            live_set = (col < pfx[..., None])[:, :, None, :] | in_tail
+            lib = sdpa_ms(q, k, v, live_set.repeat_interleave(G, 1), 20)
             ms = kernel_ms(kernel, "decode_headwise_kernel", 50)
             wrapper = cuda_ms(call, 50, 5)
             plain = cuda_ms(lambda: hw.decode_attention_headwise_plain(
@@ -1619,6 +1635,216 @@ def fused_int4_check(kt, torch, params, report):
     return counts
 
 
+# Phase 3, the scorer presses at the flagship shape.
+
+
+def scorer_artifacts(kt, torch, runner, params, gen):
+    """Seeded stand-ins for the trained artifacts, on the card: query
+    statistics fitted by ``collect_query_stats`` over two 2,048-token samples,
+    a (layers, kv heads, head_dim) Q-filter bank, a KVzap MLP surrogate
+    (hidden 512, the trainer's default width)."""
+    cfg = runner.cfg
+    dev = runner.device
+    L, Hkv, D, E = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
+    samples = [torch.randint(3, cfg.vocab_size, (1, 2048), generator=gen, device=dev)
+               for _ in range(2)]
+    stats = kt.collect_query_stats(runner, params, samples)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    q_filters = rnd(L, Hkv, D)
+    surrogate = {"w1": rnd(L, E, 512) * E ** -0.5, "b1": torch.zeros((L, 512), device=dev),
+                 "w2": rnd(L, 512, Hkv) * 512 ** -0.5, "b2": torch.zeros((L, Hkv), device=dev)}
+    return stats, q_filters, surrogate
+
+
+def capture_layer(kt, torch, runner, params, ids, layer: int):
+    """The (ctx, keys, values) a press scores in ``layer`` of a prefill of
+    ``ids`` (copies, taken from a Knorm prefill)."""
+    seen = {}
+
+    class Capture(kt.KnormPress):
+        def score(self, ctx, keys, values):
+            if ctx.layer_idx == layer:
+                seen["args"] = (ctx, keys.clone(), values.clone())
+            return super().score(ctx, keys, values)
+
+    runner.prefill(params, ids, press=Capture(0.5))
+    return seen["args"]
+
+
+def scoring_reading(torch, press, args, num_layers: int) -> str:
+    """One layer's scoring call on the card (``press.score`` on a captured
+    32K layer): its device ms from the profiler, by kernel name (no attention
+    kernel runs in it), and times the number of layers."""
+    ctx, keys, values = args
+    _, kernels = device_kernels(lambda: press.score(ctx, keys, values), 2)
+    busy = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:3]
+    return (f"scoring {busy:.3f} ms a layer on the device ({busy * num_layers:.1f} ms for "
+            f"{num_layers} layers; largest: "
+            + ", ".join(f"{name[:48]} {ms:.3f}" for name, (ms, _) in top) + ")")
+
+
+def scorer_presses_run(kt, torch, tokenizer_cls, params, report):
+    """Each press that scores without a kernel once through
+    ``KVPressPipeline`` at the flagship shape (16 layers, bf16 weights), a
+    32,768-token context, the two questions and 32 new tokens, ratio 0.5:
+    ExpectedAttention, its stats variant (statistics from
+    ``collect_query_stats`` on the card), KeyDiff, LagKV, CUR, CAP, QFilter
+    (a seeded bank), Compactor, KVzap (a seeded MLP surrogate);
+    ExpectedAttention with int8 KV; and
+    ``AdaKVPress(ExpectedAttentionPress(0.5), compact=True)`` on the
+    head-wise runner. The launch counts are set to 0 before each run and
+    read after it; each run must keep 16,384 entries in every layer (AdaKV:
+    the longest head). Each press's scoring time is read on a captured
+    layer. Returns the summed launch counts."""
+    import numpy as np
+
+    cfg = flagship_config(16)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    tok = tokenizer_cls(vocab_size=cfg.vocab_size)
+    context = " ".join(f"w{i}" for i in range(CONTEXT_TOKENS))
+    runner = kt.Runner.create(cfg, device=dev)
+    headwise = kt.Runner.create(cfg, decode_kernel=False, headwise_kernel=True, device=dev)
+    t0 = time.perf_counter()
+    stats, q_filters, surrogate = scorer_artifacts(kt, torch, runner, params, gen)
+    report(f"  query statistics over two 2,048-token samples on the card: "
+           f"{time.perf_counter() - t0:.2f} s; mu {tuple(stats['mu'].shape)}, cov "
+           f"{tuple(stats['cov'].shape)}, finite {bool(np.isfinite(stats['cov']).all())}")
+    if not (np.isfinite(stats["mu"]).all() and np.isfinite(stats["cov"]).all()):
+        raise AssertionError("collect_query_stats: non-finite statistics")
+    ea = kt.ExpectedAttentionPress(0.5)
+    presses = {
+        "ExpectedAttention": ea,
+        "ExpectedAttentionStats": kt.ExpectedAttentionStatsPress(0.5, stats=stats),
+        "KeyDiff": kt.KeyDiffPress(0.5),
+        "LagKV": kt.LagKVPress(0.5),
+        "CUR": kt.CURPress(0.5),
+        "CAP": kt.CapPress(0.5),
+        "QFilter": kt.QFilterPress(0.5, q_filters=q_filters),
+        "Compactor": kt.CompactorPress(0.5),
+        "KVzap": kt.KVzapPress(0.5, surrogate=surrogate),
+    }
+    half = CONTEXT_TOKENS // 2
+    # label: (runner, press, options, needed, unwanted)
+    runs = {label: (runner, press, {}, ("flash_attention", "decode_attention"),
+                    ("decode_headwise", "observed_lse", "observed_colsum"))
+            for label, press in presses.items()}
+    runs["ExpectedAttention, int8 KV"] = (
+        runner, ea, dict(quantized=True, kv_bits=8),
+        ("flash_attention", "flash_attention_quant", "decode_attention"), ("decode_headwise",))
+    runs["AdaKV(ExpectedAttention), compact"] = (
+        headwise, kt.AdaKVPress(ea, compact=True), {}, ("flash_attention", "decode_headwise"),
+        ("decode_attention",))
+    ids = torch.randint(3, cfg.vocab_size, (1, CONTEXT_TOKENS), generator=gen, device=dev)
+    layer_args = capture_layer(kt, torch, runner, params, ids, 1)
+    totals = {name: 0 for name in read_counts()}
+    for label, (r, press, kw, needed, unwanted) in runs.items():
+        prefills = []
+        pipe = kt.KVPressPipeline(timed_runner(kt, torch, r, prefills), params, tok)
+        counts, _, lengths = pipeline_run(kt, torch, label, pipe, prefills, needed, unwanted,
+                                          report, context=context, press=press, **kw)
+        for name, n in counts.items():
+            totals[name] += n
+        want = {half} if label.startswith(tuple(presses)) else None
+        if want is not None and set(lengths) != want:
+            raise AssertionError(f"{label}: layer lengths {sorted(set(lengths))}, not {half}")
+        if want is None and not half <= max(lengths) < CONTEXT_TOKENS:
+            raise AssertionError(f"{label}: longest head {max(lengths)}")
+        if label in presses:
+            report(f"    {scoring_reading(torch, press, layer_args, cfg.num_layers)}")
+        del pipe
+        torch.cuda.empty_cache()
+    del layer_args
+    torch.cuda.empty_cache()
+    return totals
+
+
+# Phase 3, bucketed prefill at the flagship shape: a 30,000-token context
+# padded to 32,768 (context_bucket=4096).
+BUCKET_CONTEXT, BUCKET = 30000, 4096
+
+
+def bucketed_check(kt, torch, tokenizer_cls, params, report):
+    """Bucketed prefill under Knorm(0.5) and ExpectedAttention(0.5). First
+    ``Runner.prefill`` with ``valid_len`` against the exact prefill on the
+    same ids: equal lengths (int(30,000 * 0.5) = 15,000 in every layer) and
+    offsets, and the question's last-position logits over the two caches
+    within F32_RATIO times what bf16 rounding alone moves (dense bf16 against
+    dense float32 at 2,048 tokens, depth 16, as ``compare_paths`` reads it).
+    Then each through ``KVPressPipeline`` with ``context_bucket=4096`` and
+    without (the launch counts set to 0 before and read after each), all
+    compressed to 15,000. Returns the bucketed runs' launch counts."""
+    cfg = flagship_config(16)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    runner = kt.Runner.create(cfg, device=dev)
+    want = int(BUCKET_CONTEXT * 0.5)
+    padded = -(-BUCKET_CONTEXT // BUCKET) * BUCKET
+    makes = {"Knorm": kt.KnormPress, "ExpectedAttention": kt.ExpectedAttentionPress}
+    failures = []
+
+    # The runner: bucketed against exact on the same ids, then the 152-token
+    # question over each compressed cache.
+    ids = torch.randint(3, cfg.vocab_size, (1, BUCKET_CONTEXT), generator=gen, device=dev)
+    ids_pad = torch.nn.functional.pad(ids, (0, padded - BUCKET_CONTEXT))
+    question = torch.randint(3, cfg.vocab_size, (1, 152), generator=gen, device=dev)
+    dense = kt.Runner.create(cfg, attn_impl="xla", decode_kernel=False, device=dev)
+    r_ids = torch.randperm(cfg.vocab_size, generator=gen, device=dev)[:REF_CONTEXT][None]
+    for name, make in makes.items():
+        noise, _ = f32_noise(torch, f"{name}, depth 16, bf16 KV", lambda p, log: dense.prefill(
+            p, r_ids, press=recording_scorer(torch, make, log), compute_logits=True), params,
+            report)
+        out = {}
+        for label, kw in (("exact", dict(ids=ids)),
+                          ("bucketed", dict(ids=ids_pad, valid_len=BUCKET_CONTEXT))):
+            pre, cache, _ = runner.prefill(params, kw["ids"], press=make(0.5), compute_logits=True,
+                                           valid_len=kw.get("valid_len"))
+            cache = kt.resize(cache, int(cache.length.max()) + question.shape[1] + 1)
+            q_logits, _, _ = runner.forward(params, question, cache, logits_last_only=True)
+            out[label] = (pre, cache, q_logits)
+        (pre_e, c_e, q_e), (pre_b, c_b, q_b) = out["exact"], out["bucketed"]
+        read_q, read_pre = rel(torch, q_b, q_e), rel(torch, pre_b, pre_e)
+        report(f"  {name}, runner, bucketed against exact: lengths "
+               f"{sorted(set(c_b.length.tolist()))} / {sorted(set(c_e.length.tolist()))}, "
+               f"offsets {int(c_b.offset)} / {int(c_e.offset)}; max |bucketed - exact| / "
+               f"max |exact|: question logits {read_q:.3e}, prefill logits {read_pre:.3e} ({read_q / noise:.3f}x what bf16 "
+               f"rounding alone moves at 2,048 tokens, {noise:.3e}; limit {F32_RATIO}x)")
+        if not (torch.equal(c_b.length, c_e.length) and int(c_b.offset) == int(c_e.offset)
+                == BUCKET_CONTEXT and set(c_b.length.tolist()) == {want}):
+            failures.append(f"{name}: bucketed lengths {c_b.length.tolist()} offset "
+                            f"{int(c_b.offset)} against {c_e.length.tolist()} {int(c_e.offset)}")
+        if not max(read_q, read_pre) <= F32_RATIO * noise:
+            failures.append(f"{name}: bucketed logits {read_q:.3e} / {read_pre:.3e} past "
+                            f"{F32_RATIO} x {noise:.3e}")
+        del out, c_e, c_b
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    tok = tokenizer_cls(vocab_size=cfg.vocab_size)
+    context = " ".join(f"w{i}" for i in range(BUCKET_CONTEXT))
+    totals = {name: 0 for name in read_counts()}
+    for name, make in makes.items():
+        for bucket in (BUCKET, None):
+            prefills = []
+            pipe = kt.KVPressPipeline(timed_runner(kt, torch, runner, prefills), params, tok)
+            label = f"{name}, {BUCKET_CONTEXT} tokens, " + (
+                f"context_bucket={bucket} (padded to {padded})" if bucket else "exact")
+            counts, _, lengths = pipeline_run(
+                kt, torch, label, pipe, prefills, ("flash_attention", "decode_attention"),
+                ("flash_attention_quant", "decode_headwise"), report, context=context,
+                press=make(0.5), context_bucket=bucket)
+            if bucket:
+                for n, c in counts.items():
+                    totals[n] += c
+            if set(lengths) != {want}:
+                raise AssertionError(f"{label}: layer lengths {sorted(set(lengths))}, not {want}")
+            del pipe
+            torch.cuda.empty_cache()
+    return totals
+
+
 def long_context_run(kt, torch, tokenizer_cls, report):
     """The Llama-3.1-8B-class body at full width and depth (seeded random
     weights, int4) through ``KVPressPipeline`` with int4 KV, Knorm(0.5) and a
@@ -1712,10 +1938,12 @@ def first_layers(params, n: int):
 def recording_scorer(torch, base, log: list):
     """``base(0.5)``, a ScorerPress that appends, per layer, its kept slots as
     a (B, Hkv, S) bool mask (the same top-k as ``topk_keep``)."""
+    from kvpress_tpu_torch.presses.base import order_desc
+
     class Recording(base):
         def score(self, ctx, keys, values):
             s = super().score(ctx, keys, values).to(torch.float32)
-            idx = torch.topk(s, self.n_kept(s.shape[-1]), dim=-1).indices
+            idx = order_desc(s, self.n_kept(s.shape[-1]))
             log.append(torch.zeros_like(s, dtype=torch.bool).scatter_(-1, idx, True))
             return s
 
@@ -1754,9 +1982,14 @@ def reference_paths(kt, torch):
                                             softcap=ctx.cfg.logit_softcap, chunk=128)
 
     all_kv = ((False, 8, None), (True, 8, None), (True, 4, None))
+    scorer = lambda base: lambda log: recording_scorer(torch, base, log)
     return {
-        "Knorm": ({}, lambda log: recording_scorer(torch, kt.KnormPress, log),
-                  lambda log: recording_scorer(torch, kt.KnormPress, log), all_kv),
+        "Knorm": ({}, scorer(kt.KnormPress), scorer(kt.KnormPress), all_kv),
+        # Scored from the layer's queries and keys alone: the same on both
+        # paths up to rounding, which the kept slots past layer 0 show.
+        "ExpectedAttention": ({}, scorer(kt.ExpectedAttentionPress),
+                              scorer(kt.ExpectedAttentionPress), all_kv[:1]),
+        "Compactor": ({}, scorer(kt.CompactorPress), scorer(kt.CompactorPress), all_kv[:1]),
         # dense path: the probabilities the dense attention materializes
         "path A": ({}, lambda log: recording_scorer(torch, Chunked, log),
                    lambda log: recording_scorer(torch, kt.ObservedAttentionPress, log),
@@ -1793,7 +2026,8 @@ F32_RATIO = 2.0
 # another order, so two slots whose scores are float-equal may swap: the
 # readings are 0 of the 8 x 2,048 slots, the planted faults move 270 and 432
 # (PERF.md), and the limit allows one swapped pair.
-LAYER0_SLOTS = {"Knorm": 0, "path A": 2, "path B": 2, "Knorm, chunked": 0}
+LAYER0_SLOTS = {"Knorm": 0, "path A": 2, "path B": 2, "Knorm, chunked": 0,
+                "ExpectedAttention": 0, "Compactor": 0}
 
 
 @contextlib.contextmanager
@@ -1965,11 +2199,12 @@ def reference_check(kt, torch, params, report, chunk=None):
     the runner takes on the CPU, scoring from materialized probabilities or
     the plain chunked sweep) on the same full-width weights, cut to their
     first layer and whole, with a 2,048-token context at ratio 0.5
-    (``compare_paths``): Knorm for bf16, int8 and int4 KV, paths A and B for
-    bf16 KV. With ``chunk``, the prefill is ``prefill_chunked`` in chunks of
-    that many tokens instead: Knorm for bf16 and int8 KV and for int4 KV on
-    both attention routes (``chunked_reference_paths``). The question runs
-    on flash (flash_quant for int8 KV). Layer 0's kept slots must be equal
+    (``compare_paths``): Knorm for bf16, int8 and int4 KV, paths A and B,
+    ExpectedAttention and Compactor for bf16 KV. With ``chunk``, the prefill
+    is ``prefill_chunked`` in chunks of that many tokens instead: Knorm for
+    bf16 and int8 KV and for int4 KV on both attention routes
+    (``chunked_reference_paths``). The question runs on flash (flash_quant
+    for int8 KV). Layer 0's kept slots must be equal
     (LAYER0_SLOTS). At full depth, dense bf16 against dense float32 sets the
     scale of what bf16 rounding alone moves."""
     dev = torch.device("cuda")
@@ -2022,7 +2257,7 @@ def reference_check(kt, torch, params, report, chunk=None):
                     (lambda log: prefill(kernel, p, kernel_press(log), **kw),
                      lambda log: prefill(dense, p, dense_press(log), **kw)),
                     question, REF_LIMIT[depth], report, dequantize=quantized and bits == 4,
-                    layer0_slots=LAYER0_SLOTS[path], layer0_faults=not path.startswith("Knorm"),
+                    layer0_slots=LAYER0_SLOTS[path], layer0_faults=path.startswith("path"),
                     noise=noise[path, (quantized, bits, fused) if chunk else None]
                     if depth == 16 else None)
                 failures += found
@@ -2167,8 +2402,9 @@ def pipeline_run(kt, torch, label, pipe, prefills, needed, unwanted, report, **k
 
 def qwen3_run(kt, torch, tokenizer_cls, report):
     """The Qwen3-8B body at full width and depth (seeded random bf16 weights,
-    q/k-norm spread) through ``KVPressPipeline`` with Knorm(0.5), bf16 KV, a
-    32,768-token context, the two questions and 32 new tokens; then its
+    q/k-norm spread) through ``KVPressPipeline`` with Knorm(0.5) and with
+    ExpectedAttention(0.5), bf16 KV, a 32,768-token context, the two
+    questions and 32 new tokens; then its
     decode rate and idle share over the compressed cache, and the kernel
     path against the dense path at depth 1 and 36. Returns the launch
     counts."""
@@ -2191,6 +2427,16 @@ def qwen3_run(kt, torch, tokenizer_cls, report):
         report, context=context, press=kt.KnormPress(0.5))
     if set(lengths) != {CONTEXT_TOKENS // 2}:
         raise AssertionError(f"Qwen3-8B run: layer lengths {sorted(set(lengths))}")
+    # The configuration kvpress's public leaderboard reports for its headline
+    # press: its pre-RoPE queries are post q/k-norm.
+    counts_ea, _, lengths = pipeline_run(
+        kt, torch, "Qwen3-8B, 32K, ExpectedAttention, bf16 KV", pipe, prefills,
+        ("flash_attention", "decode_attention"), ("flash_attention_quant", "decode_headwise"),
+        report, context=context, press=kt.ExpectedAttentionPress(0.5))
+    if set(lengths) != {CONTEXT_TOKENS // 2}:
+        raise AssertionError(f"Qwen3-8B ExpectedAttention run: layer lengths "
+                             f"{sorted(set(lengths))}")
+    counts = {name: n + counts_ea[name] for name, n in counts.items()}
     del pipe
     torch.cuda.empty_cache()
 
@@ -3019,6 +3265,14 @@ def main() -> int:
     report("phase 3: KVPressPipeline at the flagship shape, 32K: KnormPress(0.5), path A "
            "(ObservedAttentionPress), path B (AdaKVPress(ObservedAttentionPress), compact)")
     params, params8, launches = main_path(kt, torch, ToyTokenizer, report)
+    report("phase 3: the scorer presses at the flagship shape, 32K: ExpectedAttention (bf16 and "
+           "int8 KV, stats, AdaKV compact), KeyDiff, LagKV, CUR, CAP, QFilter, Compactor, KVzap")
+    for name, n in scorer_presses_run(kt, torch, ToyTokenizer, params, report).items():
+        launches[name] += n
+    report(f"phase 3: bucketed prefill at the flagship shape: {BUCKET_CONTEXT} tokens, "
+           f"context_bucket={BUCKET}, Knorm and ExpectedAttention")
+    for name, n in bucketed_check(kt, torch, ToyTokenizer, params, report).items():
+        launches[name] += n
     report("phase 3: chunked prefill's int4 routes at the flagship shape, 32K")
     for name, n in fused_int4_check(kt, torch, params, report).items():
         launches[name] += n

@@ -18,9 +18,13 @@ from .models.llama import (Runner, init_params, quantize_layer_int4, quantize_pa
                            quantize_params_int8)
 from .models.siglip import VisionConfig, VisionTower, encode_images, init_vision_params
 from .pipeline import KVPressPipeline
-from .presses import (AdaKVPress, BasePress, KnormPress, LayerCtx, ObservedAttentionPress,
-                      PyramidKVPress, RandomPress, ScorerPress, SnapKVPress,
-                      StreamingLLMPress, TOVAPress, topk_keep)
+from .presses import (AdaKVPress, BasePress, CapPress, CompactorPress, CURPress,
+                      ExpectedAttentionPress, ExpectedAttentionStatsPress, KeyDiffPress,
+                      KnormPress, KVzapPress, LagKVPress, LayerCtx, LeverageScorePress,
+                      NonCausalAttnPress, ObservedAttentionPress, PyramidKVPress, QFilterPress,
+                      RandomPress, ScorerPress, SnapKVPress, StreamingLLMPress, TOVAPress,
+                      collect_query_stats, load_kvzap_model, load_q_filters, load_query_stats,
+                      save_kvzap_model, save_query_stats, topk_keep)
 
 __version__ = "0.1.0"
 
@@ -30,7 +34,10 @@ __all__ = [
     "from_torch_multimodal", "multimodal_embeds", "params_from_jax", "Runner", "init_params",
     "quantize_layer_int4", "quantize_params_int4", "quantize_params_int8", "VisionConfig",
     "VisionTower", "encode_images", "init_vision_params",
-    "KVPressPipeline", "AdaKVPress", "BasePress", "KnormPress", "LayerCtx",
-    "ObservedAttentionPress", "PyramidKVPress", "RandomPress", "ScorerPress", "SnapKVPress",
-    "StreamingLLMPress", "TOVAPress", "topk_keep",
+    "KVPressPipeline", "AdaKVPress", "BasePress", "CapPress", "CompactorPress", "CURPress",
+    "ExpectedAttentionPress", "ExpectedAttentionStatsPress", "KeyDiffPress", "KnormPress",
+    "KVzapPress", "LagKVPress", "LayerCtx", "LeverageScorePress", "NonCausalAttnPress",
+    "ObservedAttentionPress", "PyramidKVPress", "QFilterPress", "RandomPress", "ScorerPress",
+    "SnapKVPress", "StreamingLLMPress", "TOVAPress", "collect_query_stats", "load_kvzap_model",
+    "load_q_filters", "load_query_stats", "save_kvzap_model", "save_query_stats", "topk_keep",
 ]

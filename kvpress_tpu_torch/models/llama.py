@@ -427,6 +427,7 @@ class Runner:
         kv_bits: int = 8,
         extra_allow: Optional[torch.Tensor] = None,   # (B, T, S_buf) image spans
         img_groups: Optional[tuple] = None,           # (q_groups, k_groups, span)
+        valid_len: Optional[int] = None,              # bucketed prefill: real tokens
     ):
         cfg = self.cfg
         apply_press = press is not None and (
@@ -452,16 +453,18 @@ class Runner:
         want_lse = apply_press and press.wants_lse(T)
 
         G = cfg.num_heads // cfg.num_kv_heads
+        # A bucketed call takes neither decode kernel (both read the keys up
+        # to prior + T, pads included): its prefill stays on flash_attention.
         use_decode_kernel = (
             self.attn_impl == "flash" and self.decode_kernel and not return_probs
-            and T <= 128 and T * G <= 512
+            and T <= 128 and T * G <= 512 and valid_len is None
         )
         # One token only: appended tokens that a head's all-live prefix
         # absorbs are visible to every row of the call.
         use_headwise = (
             self.attn_impl == "flash" and self.headwise_kernel and not use_decode_kernel
             and not return_probs and not apply_press and not quantized and T == 1
-            and cfg.sliding_window is None
+            and cfg.sliding_window is None and valid_len is None
         )
         if (extra_allow is not None or img_groups is not None) and (use_decode_kernel
                                                                    or use_headwise):
@@ -507,6 +510,11 @@ class Runner:
         else:
             keys, values, new_len = append_layer_kv(
                 cache_layer["keys"], cache_layer["values"], prior_len, k, v)
+        if valid_len is not None:
+            # Bucketed prefill: only the first valid_len of the T tokens are
+            # real. The pads sit after every real row, so causal masking keeps
+            # them out of every real row's attention; they lie past the length.
+            new_len = prior_len + valid_len
         mask = cache_layer["mask"]                       # (B, Hkv, S_buf)
         # Newly appended tokens are attendable by every head.
         mask[:, :, start:start + T] = True
@@ -559,6 +567,7 @@ class Runner:
                 keys_prerope=k_pre, positions=positions, attn_probs=probs,
                 layer_params=layer, inv_freq=self.inv_freq, cfg=cfg,
                 attention_scaling=self.attention_scaling, attn_lse=attn_lse,
+                kv_len=valid_len if phase == "prefill" else None,
             )
             # Prefill into an empty cache: compress over the first T slots.
             nk, nv, new_len, nmask, new_state = press.layer_compress(
@@ -614,6 +623,7 @@ class Runner:
         inputs_embeds: Optional[torch.Tensor] = None,   # (B, T, E): overrides ids
         token_types: Optional[torch.Tensor] = None,     # (B, T): 1 = image token
         image_span: Optional[int] = None,               # the longest image span
+        valid_len: Optional[int] = None,                # bucketed prefill
     ):
         """Run T tokens through all layers against (and appending to) the cache.
 
@@ -625,7 +635,13 @@ class Runner:
         ``inputs_embeds`` is the multimodal entry (``convert.multimodal_embeds``
         puts the vision features into the text embedding). ``token_types``
         lets the tokens of one image attend each other (prefill into an
-        empty cache only); on the flash path it needs ``image_span``."""
+        empty cache only); on the flash path it needs ``image_span``.
+
+        ``valid_len`` is bucketed prefill: the ids are padded to a bucket and
+        only the first ``valid_len`` are real. Each layer's length and the
+        offset advance by ``valid_len``, the press gets it as ``ctx.kv_len``
+        (prefill only), and the last position's logits read slot
+        ``valid_len - 1``."""
         cfg = self.cfg
         if inputs_embeds is not None:
             x = inputs_embeds
@@ -655,7 +671,7 @@ class Runner:
             state_l = None if states is None else states[l]
             x, nlen, state_l = self._layer_step(
                 x, layer, cache_layer, positions, _rope_of(rope, rope_local, sliding), l,
-                sliding, press, state_l, phase, cache.bits, extra_allow, img)
+                sliding, press, state_l, phase, cache.bits, extra_allow, img, valid_len)
             if states is not None:
                 states[l] = state_l
             new_lengths.append(nlen)
@@ -665,14 +681,16 @@ class Runner:
             ovf = ovf or bool(cache.overflowed)
         new_cache = dataclasses.replace(
             cache, length=torch.tensor(new_lengths, dtype=torch.int32), mask=mask,
-            offset=torch.tensor(offset + T, dtype=torch.int32),
+            offset=torch.tensor(offset + (T if valid_len is None else valid_len),
+                                dtype=torch.int32),
             overflowed=torch.tensor(ovf))
 
         logits = None
         if compute_logits:
             x = rms_norm(x, params.ln_f, cfg.rms_norm_eps, cfg.rms_one_offset)
             if logits_last_only:
-                x = x[:, -1:]
+                last = T if valid_len is None else valid_len
+                x = x[:, last - 1:last]
             logits = lm_head_logits(x, params, cfg)
         return logits, new_cache, states
 
@@ -680,9 +698,11 @@ class Runner:
                 max_size=None, dtype: Optional[torch.dtype] = None,
                 compute_logits: bool = False, quantized: bool = False, kv_bits: int = 8,
                 inputs_embeds: Optional[torch.Tensor] = None,
-                token_types: Optional[torch.Tensor] = None, image_span: Optional[int] = None):
+                token_types: Optional[torch.Tensor] = None, image_span: Optional[int] = None,
+                valid_len: Optional[int] = None):
         """Compress-on-prefill entry: build a fresh cache for ids (B, S), or
-        for ``inputs_embeds`` (B, S, E) (the multimodal entry)."""
+        for ``inputs_embeds`` (B, S, E) (the multimodal entry). ``valid_len``:
+        bucketed prefill over ids padded past their first ``valid_len``."""
         B, S = (ids if inputs_embeds is None else inputs_embeds).shape[:2]
         cache = init_cache(self.cfg, B, max_size or S, dtype=dtype or params.dtype,
                            quantized=quantized, bits=kv_bits, device=self.device)
@@ -690,7 +710,8 @@ class Runner:
         return self.forward(params, ids, cache, press=press, press_state=state,
                             phase="prefill", compute_logits=compute_logits,
                             logits_last_only=True, inputs_embeds=inputs_embeds,
-                            token_types=token_types, image_span=image_span)
+                            token_types=token_types, image_span=image_span,
+                            valid_len=valid_len)
 
     # ------------------------------------------------------------------ #
     # Chunked prefill

@@ -2,8 +2,9 @@
 questions against the compressed cache (port of ``kvpress_tpu/pipeline.py``,
 single-pass path).
 
-Chat-template separator split, one compressing prefill (whole, or in chunks
-of ``context_chunk`` tokens), ``resize`` of the cache, then per question a
+Chat-template separator split, one compressing prefill (whole, padded to a
+multiple of ``context_bucket`` tokens, or in chunks of ``context_chunk``
+tokens), ``resize`` of the cache, then per question a
 question forward and greedy (or nucleus) decode with positions continuing
 from the uncompressed context length, and a rollback between questions:
 restoring the pre-question ``length``/``offset`` (the runner leaves the
@@ -215,7 +216,12 @@ class KVPressPipeline:
         if context_chunk is not None and context_bucket is not None:
             raise ValueError("context_chunk does not compose with context_bucket")
         if context_bucket is not None:
-            raise NotImplementedError("bucketed prefill comes with ROADMAP Queue A item 10")
+            if pixel_values is not None:
+                raise ValueError("multimodal prefill does not compose with context_bucket "
+                                 "(bucket pads break the image-span or-mask)")
+            if press is not None and (getattr(press, "multi_pass", False)
+                                      or getattr(press, "post_mask", False)):
+                raise ValueError("context_bucket is not supported for multi-pass presses")
         if pixel_values is not None and self.vision_params is None:
             raise ValueError("pixel_values needs a multimodal pipeline "
                              "(KVPressPipeline.from_torch_multimodal)")
@@ -236,6 +242,11 @@ class KVPressPipeline:
                     0, 2 ** 62, (), generator=generator, device=generator.device)))
                 for _ in question_ids]
         context_length = len(context_ids)
+        if context_bucket is not None:
+            # Bucketed prefill: the context padded with id 0 to a multiple of
+            # the bucket; the prefill reads its first context_length tokens.
+            pad_to = -(-context_length // context_bucket) * context_bucket
+            context_ids = list(context_ids) + [0] * (pad_to - context_length)
         ids = torch.tensor([context_ids], dtype=torch.long, device=self.device)
         common = dict(press=press, compute_logits=True, dtype=self.params.dtype,
                       quantized=quantized, kv_bits=kv_bits)
@@ -256,7 +267,9 @@ class KVPressPipeline:
             prefill_logits, cache, _ = self.runner.prefill_chunked(
                 self.params, ids, chunk_size=context_chunk, **common)
         else:
-            prefill_logits, cache, _ = self.runner.prefill(self.params, ids, **common)
+            prefill_logits, cache, _ = self.runner.prefill(
+                self.params, ids, valid_len=None if context_bucket is None else context_length,
+                **common)
         compressed = int(cache.length.max())
         logger.debug("Context Length: %d", context_length)
         logger.debug("Compressed Context Length: %d", compressed)

@@ -1,12 +1,26 @@
 from .base import BasePress, LayerCtx, ScorerPress, topk_keep
+from .cap import CapPress
+from .compactor import CompactorPress, LeverageScorePress, NonCausalAttnPress
+from .cur import CURPress
+from .expected_attention import ExpectedAttentionPress
+from .expected_attention_stats import (ExpectedAttentionStatsPress, collect_query_stats,
+                                       load_query_stats, save_query_stats)
+from .keydiff import KeyDiffPress
 from .knorm import KnormPress
+from .kvzap import KVzapPress, kvzap_apply, load_kvzap_model, save_kvzap_model
+from .lagkv import LagKVPress
+from .qfilter import QFilterPress, load_q_filters
 from .random_press import RandomPress
 from .snapkv import ObservedAttentionPress, PyramidKVPress, SnapKVPress, TOVAPress
 from .streaming_llm import StreamingLLMPress
 from .wrappers import AdaKVPress
 
 __all__ = [
-    "AdaKVPress", "BasePress", "LayerCtx", "ScorerPress", "topk_keep", "KnormPress",
-    "RandomPress", "ObservedAttentionPress", "PyramidKVPress", "SnapKVPress", "TOVAPress",
-    "StreamingLLMPress",
+    "AdaKVPress", "BasePress", "LayerCtx", "ScorerPress", "topk_keep", "CapPress",
+    "CompactorPress", "LeverageScorePress", "NonCausalAttnPress", "CURPress",
+    "ExpectedAttentionPress", "ExpectedAttentionStatsPress", "collect_query_stats",
+    "load_query_stats", "save_query_stats", "KeyDiffPress", "KnormPress", "KVzapPress",
+    "kvzap_apply", "load_kvzap_model", "save_kvzap_model", "LagKVPress", "QFilterPress",
+    "load_q_filters", "RandomPress", "ObservedAttentionPress", "PyramidKVPress", "SnapKVPress",
+    "TOVAPress", "StreamingLLMPress",
 ]

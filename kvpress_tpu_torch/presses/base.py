@@ -40,6 +40,10 @@ class LayerCtx:
     # own LSE pass (ops/observed_colsum.py)
 
     @property
+    def seq_len(self) -> int:
+        return self.hidden.shape[1]
+
+    @property
     def scale(self) -> float:
         if self.cfg.query_pre_attn_scalar is not None:
             return self.cfg.query_pre_attn_scalar ** -0.5
@@ -54,6 +58,16 @@ class BasePress:
     needs_attn_probs = False
     compresses_prefill = True
     compresses_decode = False
+    # Per-token chunk scoring, for DMSPress (ROADMAP Queue A item 11): a
+    # press whose score of a token reads only that token's (hidden, k, v)
+    # sets a module-level ``(arg, layer_idx, hidden (B, T, E), keys
+    # (B, H, T, D), values) -> (B, H, T)`` and gives its arrays as
+    # ``chunk_score_arg``.
+    chunk_score_fn = None
+
+    @property
+    def chunk_score_arg(self):
+        return None
 
     def wants_probs(self, q_len: int) -> bool:
         """Whether the runner should take the attention path that
@@ -83,6 +97,27 @@ def float32_budget(length: int, ratio: float) -> int:
     return max(int(np.float32(length) * np.float32(1 - ratio)), 1)
 
 
+def layer_tensor(a, layer_idx: int, device) -> torch.Tensor:
+    """Layer ``layer_idx`` of a stacked per-layer artifact (a numpy array or
+    a tensor; filter banks, query statistics, surrogate weights) as a float32
+    tensor on ``device``: only that layer is copied."""
+    return torch.as_tensor(a[layer_idx], dtype=torch.float32, device=device)
+
+
+def layer_generator(seed: int, layer_idx: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, layer_idx): the same pair
+    always draws the same numbers (not those of the JAX package's
+    ``fold_in(PRNGKey(seed), layer_idx)``, which torch cannot draw)."""
+    state = np.random.SeedSequence((seed, layer_idx)).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def order_desc(scores: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices of the ``n`` highest scores of each row, highest first, equal
+    scores by slot: the order of ``jax.lax.top_k``."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :n]
+
+
 def topk_keep(
     scores: torch.Tensor,            # (B, H, S), higher = keep
     keys: torch.Tensor,              # (B, H, S, D)
@@ -90,10 +125,10 @@ def topk_keep(
     n_kept: int,
 ):
     """Keep the top-``n_kept`` scored entries per (batch, kv-head), gathered to
-    the buffer front in descending score order (the order of
-    ``jax.lax.top_k``). Returns new (keys, values, idx); tail slots keep
-    their old contents."""
-    _, idx = torch.topk(scores, n_kept, dim=-1)
+    the buffer front in ``order_desc`` order (LagKV's rank scores tie across
+    blocks). Returns new (keys, values, idx); tail slots keep their old
+    contents."""
+    idx = order_desc(scores, n_kept)
     gather = idx[..., None].expand(*idx.shape, keys.shape[-1])
     new_keys = keys.clone()
     new_values = values.clone()
@@ -111,6 +146,11 @@ class ScorerPress(BasePress):
     def __post_init__(self):
         if not 0.0 <= self.compression_ratio < 1.0:
             raise ValueError(f"compression_ratio must be in [0, 1): {self.compression_ratio}")
+
+    # Whether the press scores right over a bucket-padded prefill with the
+    # pad slots masked out (per-token scorers; the pooling presses override
+    # dynamic_score so that pads take no part).
+    supports_padding = True
 
     def score(self, ctx: LayerCtx, keys, values) -> torch.Tensor:
         raise NotImplementedError
@@ -145,12 +185,22 @@ class ScorerPress(BasePress):
     def layer_compress(self, ctx, keys, values, length, mask, state=None):
         if self.compression_ratio == 0.0:
             return keys, values, length, mask, state
-        if ctx.kv_len is not None:
-            raise NotImplementedError("bucketed prefill comes with ROADMAP Queue A item 10")
         B, H, S, _ = keys.shape
         n_top = self.max_kept(S, ctx.cfg)
-        scores = self.score(ctx, keys, values).to(torch.float32)
+        if ctx.kv_len is None:
+            scores = self.score(ctx, keys, values).to(torch.float32)
+            budget = self.budget(ctx, S)
+        else:
+            # Bucketed prefill: the slots from kv_len on are pads. They score
+            # -inf, and the budget comes from the valid length.
+            if not self.supports_padding:
+                raise ValueError(f"{type(self).__name__} does not support bucketed prefill")
+            kv_len = int(ctx.kv_len)
+            scores = self.dynamic_score(ctx, keys, values, kv_len).to(torch.float32)
+            pad = torch.arange(S, device=scores.device) >= kv_len
+            scores = scores.masked_fill(pad, float("-inf"))
+            budget = self.dynamic_budget(ctx, kv_len)
         keys, values, _ = topk_keep(scores, keys, values, n_top)
-        new_length = min(self.budget(ctx, S), n_top)
+        new_length = min(budget, n_top)
         new_mask = torch.ones((B, H, S), dtype=torch.bool, device=keys.device)
         return keys, values, new_length, new_mask, state

@@ -20,7 +20,7 @@ import torch
 
 from ..cache import dequantize_kv
 from ..ops.attention import NEG_INF
-from .base import BasePress, LayerCtx, ScorerPress, float32_budget
+from .base import BasePress, LayerCtx, ScorerPress, float32_budget, order_desc
 
 
 def _buffer_queries(ctx: LayerCtx, hidden: torch.Tensor, positions: torch.Tensor):
@@ -32,12 +32,6 @@ def _buffer_queries(ctx: LayerCtx, hidden: torch.Tensor, positions: torch.Tensor
     q_pre, _, _ = _project_qkv(ctx.layer_params, ctx.cfg, hidden)
     cos, sin = rope_cos_sin(ctx.inv_freq, positions, ctx.attention_scaling)
     return apply_rope(q_pre, cos[:, None], sin[:, None])
-
-
-def _order_desc(scores: torch.Tensor, n: int) -> torch.Tensor:
-    """Indices of the ``n`` highest scores of each row, highest first, equal
-    scores by slot: the order of ``jax.lax.top_k``."""
-    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :n]
 
 
 def _gather_front(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -133,7 +127,7 @@ class DecodingPress(BasePress):
         S = keys.shape[2]
         buf, buf_len, steps, do, n_top, target = self._advance(ctx, state, length, S)
         if do:
-            idx = _order_desc(self._score_buffer(ctx, buf, keys, values, length), n_top)
+            idx = order_desc(self._score_buffer(ctx, buf, keys, values, length), n_top)
             keys, values = _gather_front(keys, idx), _gather_front(values, idx)
             length = min(target, n_top)
             mask = torch.ones(keys.shape[:3], dtype=torch.bool, device=keys.device)
@@ -151,7 +145,7 @@ class DecodingPress(BasePress):
             scores = self._score_buffer(ctx, buf, dequantize_kv(keys, key_scales, kv_bits, dt),
                                         dequantize_kv(values, value_scales, kv_bits, dt),
                                         length)
-            idx = _order_desc(scores, n_top)
+            idx = order_desc(scores, n_top)
             keys, values, key_scales, value_scales = (
                 _gather_front(t, idx) for t in (keys, values, key_scales, value_scales))
             length = min(target, n_top)

@@ -121,6 +121,10 @@ class AdaKVPress(BasePress):
     def layer_compress(self, ctx, keys, values, length, mask, state=None):
         if self.compression_ratio == 0.0:
             return keys, values, length, mask, state
+        if ctx.kv_len is not None:
+            # The JAX press scores the pads and sizes its budget from the
+            # padded length: its bucketed keep is not its exact one.
+            raise ValueError("AdaKVPress does not support bucketed prefill (context_bucket)")
         B, H, S, _ = keys.shape
         scores = self.masked_scores(ctx, keys, values)
         n_kept = int(S * (1 - self.compression_ratio))

@@ -2,7 +2,8 @@
 
 Port of ``kvpress_tpu/rope.py``: ``inv_freq`` is computed once per config on
 the host in float64 and stored as float32; cos/sin and the rotation run in
-float32 whatever the activation dtype.
+float32 whatever the activation dtype. ``mean_rotation_matrix`` is the
+average rotation over a span of future positions (ExpectedAttention, CAP).
 """
 
 from __future__ import annotations
@@ -87,3 +88,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     """x: (..., S, D); cos/sin broadcastable to it. float32 rotation."""
     xf = x.to(torch.float32)
     return (xf * cos + rotate_half(xf) * sin).to(x.dtype)
+
+
+def mean_rotation_matrix(inv_freq: torch.Tensor, start, n_future: int) -> torch.Tensor:
+    """Average RoPE rotation matrix over positions [start, start + n_future).
+
+    The rotation is block diagonal in (cos, sin) pairs, so the average matrix
+    is set by the per-frequency mean cos/sin, laid out rotate-half. The
+    positions are float32 (``start`` taken to float32 first), as the JAX
+    package computes them: float64 positions would move the means at 32K.
+    Returns (D, D) float32 with ``rotated = R @ q``."""
+    d2 = inv_freq.shape[0]
+    dev = inv_freq.device
+    pos = (torch.as_tensor(start, dtype=torch.float32, device=dev)
+           + torch.arange(n_future, dtype=torch.float32, device=dev))
+    freqs = pos[:, None] * inv_freq.to(torch.float32)[None, :]       # (n, d2)
+    mcos = torch.cos(freqs).mean(dim=0)
+    msin = torch.sin(freqs).mean(dim=0)
+    # rotate_half pairing: out[i] -= sin[i] * x[i + d2]; out[i + d2] += sin[i] * x[i]
+    sin_upper = torch.diag(msin)
+    zeros = torch.zeros((d2, d2), dtype=torch.float32, device=dev)
+    return torch.diag(torch.cat([mcos, mcos])) + torch.cat(
+        [torch.cat([zeros, -sin_upper], dim=1), torch.cat([sin_upper, zeros], dim=1)], dim=0)

@@ -342,6 +342,38 @@ def test_flash_or_mask_matches_plain_on_card(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
+def test_bucketed_flash_prefill_real_rows_on_card(cuda, D):
+    """Bucketed prefill: 300 real tokens padded to a bucket of 512. The pads
+    come after every real row, so under the causal mask the real rows of the
+    bucketed launch attend what the unbucketed launch of the 300 attends.
+    Then Runner.prefill(valid_len=300) against the exact prefill: equal
+    lengths and offset, the last real position's logits within ROW_LIMIT."""
+    import kvpress_tpu_torch as kt
+
+    q, k, v, mask = _inputs(5, 1, 8, 2, 512, 512, D)
+    q, k, v = (_t(a).to(cuda, torch.bfloat16) for a in (q, k, v))
+    scale = D ** -0.5
+    bucketed = tfl.flash_attention(q, k, v, 0, None, sm_scale=scale)
+    exact = tfl.flash_attention(q[:, :, :300].contiguous(), k[:, :, :300].contiguous(),
+                                v[:, :, :300].contiguous(), 0, None, sm_scale=scale)
+    _close(bucketed[:, :, :300], exact)
+
+    cfg = kt.tiny_config(head_dim=D)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = kt.init_params(cfg, gen, dtype=torch.bfloat16, device=cuda)
+    runner = kt.Runner.create(cfg, device=cuda)
+    ids = torch.randint(3, cfg.vocab_size, (1, 300), generator=gen, device=cuda)
+    want, c_exact, _ = runner.prefill(params, ids, press=kt.KnormPress(0.5), compute_logits=True)
+    got, c_buck, _ = runner.prefill(params, torch.nn.functional.pad(ids, (0, 212)),
+                                    press=kt.KnormPress(0.5), compute_logits=True,
+                                    valid_len=300)
+    assert c_buck.length.tolist() == c_exact.length.tolist() == [150] * cfg.num_layers
+    assert int(c_buck.offset) == int(c_exact.offset) == 300
+    _close(got, want)
+
+
+@pytest.mark.cuda
 def test_runner_refuses_head_dims_without_kernels(cuda):
     """A head_dim that no architecture uses (80) has no kernel instantiation:
     Runner.create on CUDA refuses it rather than taking the dense path, unless

@@ -133,7 +133,6 @@ def test_sampled_answer_does_not_depend_on_earlier_questions(pipes):
 
 
 def test_options_of_later_slices_raise(pipes):
-    with pytest.raises(NotImplementedError):
-        pipes["torch"](pipes["context"], context_bucket=16)
+    # context_bucket is ported: tests/test_torch_bucketing.py holds it.
     with pytest.raises(NotImplementedError):
         pipes["torch"].batch([pipes["context"]])

@@ -292,17 +292,27 @@ def test_pyramidkv_budgets_match_jax():
 
 
 def test_bucketed_prefill_hooks_name_the_roadmap():
-    """Bucketed prefill, a valid length inside the one-shot prefill's layer
-    (``ctx.kv_len``), still names its ROADMAP item. (``dynamic_score`` and
-    ``dynamic_budget``, which this test first held to raise, came with
-    chunked prefill; tests/test_torch_chunked.py holds them against JAX.)"""
-    cfg = kt.tiny_config()
+    """Bucketed prefill inside the one-shot prefill's layer: ``layer_compress``
+    with a valid length (``ctx.kv_len``) keeps what the JAX press keeps, the
+    pads scored -inf and the budget from the valid length. (This test first
+    held the hook to raise and name its ROADMAP item; tests/test_torch_bucketing.py
+    holds whole prefills.)"""
+    cfg_j, cfg = kj.tiny_config(), kt.tiny_config()
     q, k = _qk(11, B=1, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads, S=32, D=cfg.head_dim)
-    tctx = dataclasses.replace(_ctxs(q, k, kj.tiny_config(), cfg)[1], kv_len=20)
-    mask = torch.ones(k.shape[:3], dtype=torch.bool)
-    for press in (kt.ObservedAttentionPress(0.5), kt.KnormPress(0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            press.layer_compress(tctx, _t(k), _t(k), 20, mask)
+    v = np.random.default_rng(12).standard_normal(k.shape).astype(np.float32)
+    jctx, tctx = _ctxs(q, k, cfg_j, cfg)
+    jctx = dataclasses.replace(jctx, kv_len=jnp.asarray(20, jnp.int32))
+    tctx = dataclasses.replace(tctx, kv_len=20)
+    mask = np.ones(k.shape[:3], bool)
+    for name in ("observed", "knorm"):
+        make = {"observed": lambda m: m.ObservedAttentionPress(0.5),
+                "knorm": lambda m: m.KnormPress(0.5)}[name]
+        jk, jv, jlen, _, _ = make(kj).layer_compress(jctx, jnp.asarray(k), jnp.asarray(v),
+                                                     jnp.asarray(32), jnp.asarray(mask))
+        tk, tv, tlen, tmask, _ = make(kt).layer_compress(tctx, _t(k), _t(v), 32, _t(mask))
+        assert tlen == int(jlen) == 10 and bool(tmask.all())
+        np.testing.assert_allclose(tk[:, :, :tlen].numpy(), np.asarray(jk)[:, :, :tlen], **TOL)
+        np.testing.assert_allclose(tv[:, :, :tlen].numpy(), np.asarray(jv)[:, :, :tlen], **TOL)
 
 
 # --------------------------------------------------------------------- #

@@ -4,7 +4,7 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes twenty-two copies of the port in a temporary directory, each with one
+# It makes twenty-three copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (in the column sums a query
 # stage dropped and every stage taken without the causal test, a key tile
 # dropped from the row logsumexp; in the head-wise decode the tail, one
@@ -26,7 +26,10 @@
 # step), and runs
 # chip_smoke.kernel_checks in each. The
 # or-mask copies must also fail the or-mask card tests
-# (tests/test_torch_kernels_card.py -k or_mask).
+# (tests/test_torch_kernels_card.py -k or_mask). One more copy breaks the
+# runner, not a kernel: bucketed prefill hands the press the bucket's length
+# in place of the valid length (runner_bucket_len), and
+# chip_smoke.bucketed_check runs in it.
 # Every copy must be rejected; the script exits 1 if one passes or if a
 # mutation did not apply. Mutant names given as arguments run those alone.
 set -u
@@ -37,7 +40,7 @@ mutants="colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
          flash_diagonal_tile flash_all_live flash_merge_range
          or_upper_range or_lower_range or_text_guard
          flash_d256_panels decode_d256_key_chunk colsum_d256_panels
-         flash_d96_k_step decode_d96_tail_words colsum_d96_k_step"
+         flash_d96_k_step decode_d96_tail_words colsum_d96_k_step runner_bucket_len"
 for m in ${@:-$mutants}; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
@@ -47,6 +50,8 @@ for m in ${@:-$mutants}; do
   dc=$d/kvpress_tpu_torch/csrc/decode.cu
   dm=$d/kvpress_tpu_torch/csrc/decode_sm90.cuh
   fl=$d/kvpress_tpu_torch/csrc/flash_sm90.cuh
+  rn=$d/kvpress_tpu_torch/models/llama.py
+  check=kernel_checks
   case $m in
     colsum_query_tile)
       sed -i 's/    if (t0 + BQ - 1 >= kw) {/    if (t0 + BQ - 1 >= kw \&\& n != w.nst - 3) {/' "$oc" ;;
@@ -92,19 +97,30 @@ for m in ${@:-$mutants}; do
       sed -i 's/const uint2 x = reinterpret_cast<const uint2\*>(p)\[j\];/const uint2 x = N > 2 \&\& j == N \/ 2 - 1 ? make_uint2(0u, 0u) : reinterpret_cast<const uint2*>(p)[j];/' "$dm" ;;
     colsum_d96_k_step)
       sed -i 's/for (int kk = 0; kk < D \/ 16; ++kk) {/for (int kk = 0; kk < D \/ 16 - (D == 96); ++kk) {/' "$oc" ;;
+    runner_bucket_len)
+      sed -i 's/kv_len=valid_len if phase == "prefill" else None,/kv_len=T if valid_len is not None and phase == "prefill" else None,/' "$rn"
+      check=bucketed_check ;;
   esac
-  changed=$(diff -r kvpress_tpu_torch/csrc "$d/kvpress_tpu_torch/csrc" | grep -c '^>')
+  changed=$(diff -r kvpress_tpu_torch "$d/kvpress_tpu_torch" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
   if [ "$changed" != 1 ]; then status=1; continue; fi
-  (cd "$d" && python3 - <<'PY' 2>&1 | tail -n 2
-import sys, torch
+  (cd "$d" && CHECK=$check python3 - <<'PY' 2>&1 | tail -n 2
+import os, sys, torch
 sys.path.insert(0, "."); sys.path.insert(0, "tests")
 import chip_smoke, kvpress_tpu_torch as kt
+from toy_tokenizer import ToyTokenizer
 # A copy must be rejected by its readings: time with CUDA events, so that a
 # profiler trace that comes back empty cannot reject it.
 chip_smoke.kernel_ms = lambda fn, symbol, iters: chip_smoke.cuda_ms(fn, 1, 1)
 try:
-    chip_smoke.kernel_checks(kt, torch, lambda m: None)
+    if os.environ["CHECK"] == "bucketed_check":
+        dev = torch.device("cuda")
+        params = kt.init_params(chip_smoke.flagship_config(16),
+                                torch.Generator(device=dev).manual_seed(0),
+                                dtype=torch.bfloat16, device=dev)
+        chip_smoke.bucketed_check(kt, torch, ToyTokenizer, params, lambda m: None)
+    else:
+        chip_smoke.kernel_checks(kt, torch, lambda m: None)
 except AssertionError as e:
     print("REJECTED:", str(e)[:300])
 else:
