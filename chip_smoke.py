@@ -70,7 +70,17 @@
    bucketed prefill (``bucketed_check``): a 30,000-token context with
    ``context_bucket=4096`` under Knorm and ExpectedAttention, held against
    the exact prefill (equal lengths, logits within F32_RATIO times what bf16
-   rounding alone moves).
+   rounding alone moves). Then the wrapper presses at the same shape
+   (``wrapper_presses_run``, the registry's shapes): CriticalKV over SnapKV
+   and ExpectedAttention, CriticalAdaKV over ExpectedAttention (mask only)
+   and SnapKV (compact, head-wise runner), KeyRerotation, Chunk (1,024),
+   ChunkKV (20), Block (128), ThinK, SnapKV then ThinK, PerLayerCompression
+   (ratios 0.25-0.75); chunked by 8,192 KeyRerotation and SnapKV-then-ThinK
+   with int8 KV and CriticalAdaKV(Knorm) compact; each with its layer
+   lengths (the keep-mask's count, ThinK's zero channels), one layer's
+   ``layer_compress`` time, and after KeyRerotation the questions from the
+   compressed length (``rerotation_check``); bucketed CriticalKV(SnapKV)
+   against exact, and KeyRerotation refused under a bucket.
    Then ``Runner.prefill_chunked`` at 32K over int4 KV on its fused route
    (``flash_attention_quant`` at 4 bits) held against its dense route
    (``fused_int4_check``; also the peak memory of chunked and one-shot
@@ -101,8 +111,9 @@
    and read after it, and every kernel of a path must have been launched in
    it. A 2,048-token run of each kernel path is also held against the dense
    path on the same weights, stage by stage, at depth 1 and 16
-   (``reference_check``: Knorm, paths A and B, ExpectedAttention and
-   Compactor; chunked prefill in chunks of 512 too).
+   (``reference_check``: Knorm, paths A and B, ExpectedAttention,
+   Compactor, KeyRerotation and CriticalAdaKV(SnapKV) compact; chunked
+   prefill in chunks of 512 too).
 4. Timings: prefill at 32K under each press and chunked (int8 KV; int4 KV
    on both routes), and decode at batch 4 x 32K
    context, ratio 0.5 (Knorm: int4 KV + int8 weights, decode kernel on and
@@ -1421,12 +1432,13 @@ QUESTIONS = ["summarise " + " ".join(f"w{i}" for i in range(0, 300, 2)) + " ?", 
              "what follows w7 ?"]
 
 
-def timed_runner(kt, torch, runner, log: list):
+def timed_runner(kt, torch, runner, log: list, summarize=None):
     """``runner`` with each prefill (one-shot or chunked) timed on a
     synchronized host clock and its peak device memory read: appends
     (seconds, peak bytes, bytes held before, the cache's layer lengths) to
-    ``log``."""
-    class Timed(kt.Runner):
+    ``log``, and ``summarize(cache)`` when it is given (read after the
+    clock stops)."""
+    class Timed(type(runner)):
         def _measure(self, call):
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
@@ -1435,7 +1447,8 @@ def timed_runner(kt, torch, runner, log: list):
             out = call()
             torch.cuda.synchronize()
             log.append((time.perf_counter() - start, torch.cuda.max_memory_allocated(), held,
-                        out[1].length.tolist()))
+                        out[1].length.tolist())
+                       + (() if summarize is None else (summarize(out[1]),)))
             return out
 
         def prefill(self, *args, **kw):
@@ -1671,16 +1684,17 @@ def capture_layer(kt, torch, runner, params, ids, layer: int):
     return seen["args"]
 
 
-def scoring_reading(torch, press, args, num_layers: int) -> str:
-    """One layer's scoring call on the card (``press.score`` on a captured
-    32K layer): its device ms from the profiler, by kernel name (no attention
-    kernel runs in it), and times the number of layers."""
-    ctx, keys, values = args
-    _, kernels = device_kernels(lambda: press.score(ctx, keys, values), 2)
+def layer_reading(what: str, fn, num_layers: int, iters: int = 2) -> str:
+    """One layer's press call on the card (``fn()`` on a captured 32K
+    layer): its device ms from the profiler, by kernel name (no attention
+    kernel runs in it), times the number of layers; its kernel launches and
+    host wall ms a call."""
+    wall, kernels = device_kernels(fn, iters)
     busy = sum(ms for ms, _ in kernels.values())
+    launches = sum(n for _, n in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:3]
-    return (f"scoring {busy:.3f} ms a layer on the device ({busy * num_layers:.1f} ms for "
-            f"{num_layers} layers; largest: "
+    return (f"{what} {busy:.3f} ms a layer on the device ({busy * num_layers:.1f} ms for "
+            f"{num_layers} layers; {launches:.0f} launches, {wall:.2f} ms wall a call; largest: "
             + ", ".join(f"{name[:48]} {ms:.3f}" for name, (ms, _) in top) + ")")
 
 
@@ -1752,7 +1766,9 @@ def scorer_presses_run(kt, torch, tokenizer_cls, params, report):
         if want is None and not half <= max(lengths) < CONTEXT_TOKENS:
             raise AssertionError(f"{label}: longest head {max(lengths)}")
         if label in presses:
-            report(f"    {scoring_reading(torch, press, layer_args, cfg.num_layers)}")
+            ctx, keys, values = layer_args
+            report("    " + layer_reading("scoring", lambda: press.score(ctx, keys, values),
+                                          cfg.num_layers))
         del pipe
         torch.cuda.empty_cache()
     del layer_args
@@ -1765,8 +1781,9 @@ def scorer_presses_run(kt, torch, tokenizer_cls, params, report):
 BUCKET_CONTEXT, BUCKET = 30000, 4096
 
 
-def bucketed_check(kt, torch, tokenizer_cls, params, report):
-    """Bucketed prefill under Knorm(0.5) and ExpectedAttention(0.5). First
+def bucketed_check(kt, torch, tokenizer_cls, params, report, makes=None):
+    """Bucketed prefill under each press of ``makes`` ({name: press of a
+    ratio}; by default Knorm(0.5) and ExpectedAttention(0.5)). First
     ``Runner.prefill`` with ``valid_len`` against the exact prefill on the
     same ids: equal lengths (int(30,000 * 0.5) = 15,000 in every layer) and
     offsets, and the question's last-position logits over the two caches
@@ -1781,7 +1798,7 @@ def bucketed_check(kt, torch, tokenizer_cls, params, report):
     runner = kt.Runner.create(cfg, device=dev)
     want = int(BUCKET_CONTEXT * 0.5)
     padded = -(-BUCKET_CONTEXT // BUCKET) * BUCKET
-    makes = {"Knorm": kt.KnormPress, "ExpectedAttention": kt.ExpectedAttentionPress}
+    makes = makes or {"Knorm": kt.KnormPress, "ExpectedAttention": kt.ExpectedAttentionPress}
     failures = []
 
     # The runner: bucketed against exact on the same ids, then the 152-token
@@ -1793,8 +1810,7 @@ def bucketed_check(kt, torch, tokenizer_cls, params, report):
     r_ids = torch.randperm(cfg.vocab_size, generator=gen, device=dev)[:REF_CONTEXT][None]
     for name, make in makes.items():
         noise, _ = f32_noise(torch, f"{name}, depth 16, bf16 KV", lambda p, log: dense.prefill(
-            p, r_ids, press=recording_scorer(torch, make, log), compute_logits=True), params,
-            report)
+            p, r_ids, press=make(0.5), compute_logits=True), params, report)
         out = {}
         for label, kw in (("exact", dict(ids=ids)),
                           ("bucketed", dict(ids=ids_pad, valid_len=BUCKET_CONTEXT))):
@@ -1843,6 +1859,195 @@ def bucketed_check(kt, torch, tokenizer_cls, params, report):
             del pipe
             torch.cuda.empty_cache()
     return totals
+
+
+# Phase 3, the wrapper presses at the flagship shape.
+
+
+def question_offsets(runner, log: list):
+    """``runner`` that appends to ``log`` the offset each question forward
+    (a decode-phase call of more than one token) starts from."""
+    class Recording(type(runner)):
+        def forward(self, params, ids, cache, *args, **kw):
+            if kw.get("phase") == "decode" and ids is not None and ids.shape[1] > 1:
+                log.append(int(cache.offset))
+            return super().forward(params, ids, cache, *args, **kw)
+
+    return Recording(**{f.name: getattr(runner, f.name) for f in dataclasses.fields(runner)})
+
+
+def cache_summary(torch, cache):
+    """Per layer: the keep-mask's kept slots over the kv heads (None without
+    a mask), and per (layer, kv head) the key channels that are 0 in every
+    valid slot."""
+    kept = None if cache.mask is None else cache.mask.sum(dim=(1, 2, 3)).tolist()
+    zero = [(cache.keys[l, :, :, :n] == 0).all(dim=2).sum(-1).flatten().tolist()
+            for l, n in enumerate(cache.length.tolist())]
+    return kept, zero
+
+
+def wrapper_runs(kt, cfg):
+    """{label: (runner kind, press, pipeline options, kernels that must have
+    been launched, kernels that must not, check of (layer lengths, cache
+    summary | None) -> the fault | None)}: the registry's wrapper presses
+    (evaluation/registry.py) at ratio 0.5."""
+    import numpy as np
+
+    L, Hkv, S = cfg.num_layers, cfg.num_kv_heads, CONTEXT_TOKENS
+    half = S // 2
+    snap, knorm = kt.SnapKVPress(0.5), kt.KnormPress(0.5)
+    ea = kt.ExpectedAttentionPress(0.5, use_vnorm=False)
+    ratios = tuple(float(r) for r in np.linspace(0.25, 0.75, L))
+    std, unwanted = ("flash_attention", "decode_attention"), ("decode_headwise",)
+    hw, hw_unwanted = ("flash_attention", "decode_headwise"), ("decode_attention",)
+    int8 = ("flash_attention_quant", "decode_attention")
+    chunked8 = dict(context_chunk=CHUNK_TOKENS, quantized=True, kv_bits=8)
+
+    def all_layers(*want):
+        return lambda lengths, _: None if set(lengths) <= set(want) else (
+            f"layer lengths {sorted(set(lengths))}, not {want}")
+
+    def longest_head(lengths, _):
+        return None if half <= max(lengths) < S else f"longest head {max(lengths)}"
+
+    def mask_only(lengths, summary):
+        kept = summary[0]
+        if set(lengths) != {S} or kept != [half * Hkv] * L:
+            return f"layer lengths {sorted(set(lengths))}, kept slots per layer {kept}"
+
+    def think(lengths, summary):
+        zero = summary[1]
+        if set(lengths) != {S} or any(z != [32] * Hkv for z in zero):
+            return f"layer lengths {sorted(set(lengths))}, zero key channels {zero}"
+
+    def per_layer(lengths, _):
+        want = [max(1, int(S * (1 - r))) for r in ratios]
+        return None if lengths == want else f"layer lengths {lengths}, not {want}"
+
+    rerotation = kt.KeyRerotationPress(knorm)
+    snap_think = kt.ComposedPress((snap, kt.ThinKPress(0.5)))
+    return {
+        "critical_snapkv": ("standard", kt.CriticalKVPress(snap), {}, std, unwanted,
+                            all_layers(half)),
+        "critical_expected_attention": ("standard", kt.CriticalKVPress(ea), {}, std, unwanted,
+                                        all_layers(half)),
+        "critical_adakv_expected_attention": ("standard", kt.CriticalAdaKVPress(ea), {}, std,
+                                              unwanted, mask_only),
+        "critical_adakv_snapkv, compact": ("headwise",
+                                           kt.CriticalAdaKVPress(snap, compact=True), {}, hw,
+                                           hw_unwanted, longest_head),
+        "key_rerotation": ("standard", rerotation, {}, std, unwanted, all_layers(half)),
+        "chunk_knorm": ("standard", kt.ChunkPress(knorm, chunk_length=1024), {}, std, unwanted,
+                        all_layers(half)),
+        # 1,639 chunks of 20 (the last of 8 slots), 819 kept
+        "chunkkv": ("standard", kt.ChunkKVPress(snap, chunk_length=20), {}, std, unwanted,
+                    all_layers(16380, 16368)),
+        "block_keydiff": ("standard", kt.BlockPress(kt.KeyDiffPress(0.5), block_size=128), {},
+                          std, unwanted, all_layers(half)),
+        "think": ("standard", kt.ThinKPress(key_channel_compression_ratio=0.5), {}, std,
+                  unwanted, think),
+        "snap_think": ("standard", snap_think, {}, std, unwanted, all_layers(half)),
+        "per_layer": ("standard", kt.PerLayerCompressionPress(knorm, compression_ratios=ratios),
+                      {}, std, unwanted, per_layer),
+        "chunked key_rerotation, int8 KV": ("standard", rerotation, chunked8, int8, unwanted,
+                                            all_layers(half)),
+        "chunked snap_think, int8 KV": ("standard", snap_think, chunked8, int8, unwanted,
+                                        all_layers(half)),
+        "chunked critical_adakv_knorm, compact": (
+            "headwise", kt.CriticalAdaKVPress(knorm, compact=True),
+            dict(context_chunk=CHUNK_TOKENS), hw, hw_unwanted, longest_head),
+    }
+
+
+def wrapper_presses_run(kt, torch, tokenizer_cls, params, report, labels=None):
+    """Each wrapper press of ``wrapper_runs`` (those of ``labels`` alone when
+    it is given) once through ``KVPressPipeline`` at the flagship shape (16
+    layers, bf16 weights), a 32,768-token context, the two questions and 32
+    new tokens: the launch counts set to 0 before each run and read after
+    it, its layer lengths (the keep-mask's count, ThinK's zero channels)
+    checked, and after a rerotating press every question's forward must
+    start from the compressed length. With every run: one layer's
+    ``layer_compress`` on a captured 32K layer (profiler device ms by kernel
+    name), then bucketed prefill under CriticalKV(SnapKV) held against the
+    exact prefill (``bucketed_check``) and a ``context_bucket`` call with
+    KeyRerotation, which must raise. Returns the summed launch counts."""
+    cfg = flagship_config(16)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tok = tokenizer_cls(vocab_size=cfg.vocab_size)
+    context = " ".join(f"w{i}" for i in range(CONTEXT_TOKENS))
+    runners = {"standard": kt.Runner.create(cfg, device=dev),
+               "headwise": kt.Runner.create(cfg, decode_kernel=False, headwise_kernel=True,
+                                            device=dev)}
+    runs = wrapper_runs(kt, cfg)
+    layer_args = None
+    if labels is None:
+        ids = torch.randint(3, cfg.vocab_size, (1, CONTEXT_TOKENS), generator=gen, device=dev)
+        layer_args = capture_layer(kt, torch, runners["standard"], params, ids, 1)
+    totals = {name: 0 for name in read_counts()}
+    failures = []
+    for label, (kind, press, kw, needed, unwanted, check) in runs.items():
+        if labels is not None and label not in labels:
+            continue
+        prefills, offsets = [], []
+        runner = question_offsets(runners[kind], offsets)
+        summarize = (lambda cache: cache_summary(torch, cache)) if label in (
+            "think", "critical_adakv_expected_attention") else None
+        pipe = kt.KVPressPipeline(timed_runner(kt, torch, runner, prefills, summarize), params,
+                                  tok)
+        counts, _, lengths = pipeline_run(kt, torch, label, pipe, prefills, needed, unwanted,
+                                          report, context=context, press=press, **kw)
+        for name, n in counts.items():
+            totals[name] += n
+        summary = prefills[-1][4] if summarize else None
+        if label == "think":
+            report(f"    key channels 0 in every valid slot, per layer and head: "
+                   f"{sorted({z for zs in summary[1] for z in zs})}")
+        elif summary is not None:
+            report(f"    keep-mask slots per layer (8 heads): {summary[0]}")
+        fault = check(lengths, summary)
+        if getattr(press, "rerotates", False) and offsets != [max(lengths)] * len(QUESTIONS):
+            fault = (f"the questions start from offsets {offsets}, not from the compressed "
+                     f"length {max(lengths)}")
+        if fault:
+            failures.append(f"{label}: {fault}")
+        if layer_args is not None:
+            ctx, keys, values = layer_args
+            mask = torch.ones(keys.shape[:3], dtype=torch.bool, device=dev)
+            report("    " + layer_reading(
+                "layer_compress", lambda: press.layer_compress(ctx, keys, values,
+                                                               keys.shape[2], mask),
+                cfg.num_layers, iters=1))
+        del pipe
+        torch.cuda.empty_cache()
+    del layer_args
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    if labels is not None:
+        return totals
+    for name, n in bucketed_check(
+            kt, torch, tokenizer_cls, params, report,
+            makes={"CriticalKV(SnapKV)": lambda r: kt.CriticalKVPress(kt.SnapKVPress(r))}).items():
+        totals[name] += n
+    pipe = kt.KVPressPipeline(runners["standard"], params, tok)
+    try:
+        pipe(" ".join(f"w{i}" for i in range(BUCKET_CONTEXT)), question="what follows w7 ?",
+             press=kt.KeyRerotationPress(kt.KnormPress(0.5)), context_bucket=BUCKET,
+             max_new_tokens=2)
+    except ValueError as e:
+        report(f"  KeyRerotation, context_bucket={BUCKET}: refused ({e})")
+    else:
+        raise AssertionError("KeyRerotationPress took a bucketed prefill")
+    return totals
+
+
+def rerotation_check(kt, torch, tokenizer_cls, params, report):
+    """KeyRerotationPress(KnormPress(0.5)) through the pipeline at 32K: after
+    the prefill the cache's offset is the compressed length (16,384), and
+    each question's forward starts from it."""
+    return wrapper_presses_run(kt, torch, tokenizer_cls, params, report,
+                               labels=("key_rerotation",))
 
 
 def long_context_run(kt, torch, tokenizer_cls, report):
@@ -1950,12 +2155,13 @@ def recording_scorer(torch, base, log: list):
     return Recording(0.5)
 
 
-def recording_adakv(kt, inner, log: list):
-    """``AdaKVPress(inner, compact=True)`` that appends, per layer, the kept
-    slots of every head (before they are compacted) as a (B, Hkv, S) mask."""
+def recording_adakv(kt, inner, log: list, base=None):
+    """``AdaKVPress(inner, compact=True)`` (or ``base``, another head-wise
+    press) that appends, per layer, the kept slots of every head (before
+    they are compacted) as a (B, Hkv, S) mask."""
     from kvpress_tpu_torch.presses.wrappers import compact_headwise
 
-    class Recording(kt.AdaKVPress):        # compact=False: compacted below
+    class Recording(base or kt.AdaKVPress):        # compact=False: compacted below
         def layer_compress(self, ctx, keys, values, length, mask, state=None):
             keys, values, length, keep, state = super().layer_compress(
                 ctx, keys, values, length, mask, state)
@@ -1983,6 +2189,10 @@ def reference_paths(kt, torch):
 
     all_kv = ((False, 8, None), (True, 8, None), (True, 4, None))
     scorer = lambda base: lambda log: recording_scorer(torch, base, log)
+    # KeyRerotation keeps its scorer's top n_kept: the scorer's log is its.
+    rerotation = lambda log: kt.KeyRerotationPress(recording_scorer(torch, kt.KnormPress, log))
+    critical_adakv = lambda log: recording_adakv(kt, kt.SnapKVPress(0.5), log,
+                                                 base=kt.CriticalAdaKVPress)
     return {
         "Knorm": ({}, scorer(kt.KnormPress), scorer(kt.KnormPress), all_kv),
         # Scored from the layer's queries and keys alone: the same on both
@@ -1997,6 +2207,12 @@ def reference_paths(kt, torch):
         "path B": (dict(decode_kernel=False, headwise_kernel=True),
                    lambda log: recording_adakv(kt, kt.ObservedAttentionPress(0.5), log),
                    lambda log: recording_adakv(kt, PlainSums(0.5), log), all_kv[:1]),
+        # Rerotated keys through flash (the question) and decode: the
+        # question continues from the compressed length (reference_check).
+        "KeyRerotation": ({}, rerotation, rerotation, all_kv[:1]),
+        # A critical head-wise cache through decode_headwise.
+        "CriticalAdaKV(SnapKV)": (dict(decode_kernel=False, headwise_kernel=True),
+                                  critical_adakv, critical_adakv, all_kv[:1]),
     }
 
 
@@ -2027,7 +2243,8 @@ F32_RATIO = 2.0
 # readings are 0 of the 8 x 2,048 slots, the planted faults move 270 and 432
 # (PERF.md), and the limit allows one swapped pair.
 LAYER0_SLOTS = {"Knorm": 0, "path A": 2, "path B": 2, "Knorm, chunked": 0,
-                "ExpectedAttention": 0, "Compactor": 0}
+                "ExpectedAttention": 0, "Compactor": 0, "KeyRerotation": 0,
+                "CriticalAdaKV(SnapKV)": 0}
 
 
 @contextlib.contextmanager
@@ -2200,7 +2417,9 @@ def reference_check(kt, torch, params, report, chunk=None):
     the plain chunked sweep) on the same full-width weights, cut to their
     first layer and whole, with a 2,048-token context at ratio 0.5
     (``compare_paths``): Knorm for bf16, int8 and int4 KV, paths A and B,
-    ExpectedAttention and Compactor for bf16 KV. With ``chunk``, the prefill
+    ExpectedAttention, Compactor, KeyRerotation(Knorm) (the question from the
+    kept length, as the pipeline runs it) and CriticalAdaKV(SnapKV) compact
+    on the head-wise runner for bf16 KV. With ``chunk``, the prefill
     is ``prefill_chunked`` in chunks of that many tokens instead: Knorm for
     bf16 and int8 KV and for int4 KV on both attention routes
     (``chunked_reference_paths``). The question runs on flash (flash_quant
@@ -2219,8 +2438,15 @@ def reference_check(kt, torch, params, report, chunk=None):
         kw = dict(max_size=REF_CONTEXT, compute_logits=True, quantized=quantized,
                   kv_bits=bits)
         if chunk is None:
-            return r.prefill(p, ids, press=press, **kw)
-        return r.prefill_chunked(p, ids, press=press, chunk_size=chunk, fused_kv=fused, **kw)
+            logits, cache, state = r.prefill(p, ids, press=press, **kw)
+        else:
+            logits, cache, state = r.prefill_chunked(p, ids, press=press, chunk_size=chunk,
+                                                     fused_kv=fused, **kw)
+        if getattr(press, "rerotates", False):
+            # as the pipeline does: the question continues from the kept length
+            cache = dataclasses.replace(cache, offset=torch.tensor(int(cache.length.max()),
+                                                                   dtype=torch.int32))
+        return logits, cache, state
 
     def head_counts(a_log, b_log):
         """Largest difference of a head's kept count, per layer."""
@@ -3272,6 +3498,11 @@ def main() -> int:
     report(f"phase 3: bucketed prefill at the flagship shape: {BUCKET_CONTEXT} tokens, "
            f"context_bucket={BUCKET}, Knorm and ExpectedAttention")
     for name, n in bucketed_check(kt, torch, ToyTokenizer, params, report).items():
+        launches[name] += n
+    report("phase 3: the wrapper presses at the flagship shape, 32K: CriticalKV, CriticalAdaKV, "
+           "KeyRerotation, Chunk, ChunkKV, Block, ThinK, Composed, PerLayerCompression (one-shot "
+           "and chunked), bucketed CriticalKV")
+    for name, n in wrapper_presses_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] += n
     report("phase 3: chunked prefill's int4 routes at the flagship shape, 32K")
     for name, n in fused_int4_check(kt, torch, params, report).items():

@@ -18,11 +18,13 @@ from .models.llama import (Runner, init_params, quantize_layer_int4, quantize_pa
                            quantize_params_int8)
 from .models.siglip import VisionConfig, VisionTower, encode_images, init_vision_params
 from .pipeline import KVPressPipeline
-from .presses import (AdaKVPress, BasePress, CapPress, CompactorPress, CURPress,
-                      ExpectedAttentionPress, ExpectedAttentionStatsPress, KeyDiffPress,
-                      KnormPress, KVzapPress, LagKVPress, LayerCtx, LeverageScorePress,
-                      NonCausalAttnPress, ObservedAttentionPress, PyramidKVPress, QFilterPress,
-                      RandomPress, ScorerPress, SnapKVPress, StreamingLLMPress, TOVAPress,
+from .presses import (AdaKVPress, BasePress, BlockPress, CapPress, ChunkKVPress, ChunkPress,
+                      CompactorPress, ComposedPress, CriticalAdaKVPress, CriticalKVPress,
+                      CURPress, ExpectedAttentionPress, ExpectedAttentionStatsPress,
+                      KeyDiffPress, KeyRerotationPress, KnormPress, KVzapPress, LagKVPress,
+                      LayerCtx, LeverageScorePress, NonCausalAttnPress, ObservedAttentionPress,
+                      PerLayerCompressionPress, PyramidKVPress, QFilterPress, RandomPress,
+                      ScorerPress, SnapKVPress, StreamingLLMPress, ThinKPress, TOVAPress,
                       collect_query_stats, load_kvzap_model, load_q_filters, load_query_stats,
                       save_kvzap_model, save_query_stats, topk_keep)
 
@@ -40,4 +42,6 @@ __all__ = [
     "ObservedAttentionPress", "PyramidKVPress", "QFilterPress", "RandomPress", "ScorerPress",
     "SnapKVPress", "StreamingLLMPress", "TOVAPress", "collect_query_stats", "load_kvzap_model",
     "load_q_filters", "load_query_stats", "save_kvzap_model", "save_query_stats", "topk_keep",
+    "BlockPress", "ChunkKVPress", "ChunkPress", "ComposedPress", "CriticalAdaKVPress",
+    "CriticalKVPress", "KeyRerotationPress", "PerLayerCompressionPress", "ThinKPress",
 ]

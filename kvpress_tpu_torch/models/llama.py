@@ -733,9 +733,12 @@ class Runner:
 
         Exact against ``prefill`` for content scorers (Knorm, Random) and for
         window scorers whose window fits in W (SnapKV, TOVA, PyramidKV,
-        StreamingLLM). A ``ScorerPress`` compresses through
+        StreamingLLM). A ``ScorerPress`` or a scorer-like wrapper
+        (CriticalKV, PerLayerCompression) compresses through
         ``BudgetDecodingPress`` (its own per-layer budget); a wrapper with
-        ``chunked_compress`` (AdaKV) compresses itself.
+        ``chunked_compress`` (the AdaKV family, KeyRerotation, Chunk,
+        ChunkKV, ThinK, Composed) compresses itself. ``BlockPress`` is
+        refused: it needs every position's hidden states.
 
         ``fused_kv`` (quantized caches): attention reads the payload through
         ``flash_attention_quant``; else each layer's buffer is dequantized and
@@ -794,6 +797,7 @@ class Runner:
         ``StopIteration`` (a server can interleave decode steps between the
         yields)."""
         from ..presses.decoding import BudgetDecodingPress
+        from ..presses.wrappers import BlockPress
 
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be positive, got {chunk_size}")
@@ -830,13 +834,24 @@ class Runner:
                     "multi-pass presses come with ROADMAP Queue A item 13 and decode-time "
                     "presses with item 12")
             if hasattr(press, "chunked_compress"):
+                # A wrapper compresses itself; a head-wise one clears bits of
+                # a keep-mask, materialized here.
                 wrap = press
                 if getattr(press, "headwise_mask", False):
                     cache.mask = torch.ones(cache.keys.shape[:4], dtype=torch.bool,
                                             device=self.device)
-            elif isinstance(press, ScorerPress):
+            elif isinstance(press, BlockPress):
+                raise ValueError(
+                    "BlockPress cannot run through prefill_chunked: its streaming top-k "
+                    "re-gathers the hidden states of every candidate set (reference "
+                    "block_press.py:49-98), which needs every position's hidden states, and the "
+                    "chunked path keeps only the trailing scoring window. Use the one-shot "
+                    "prefill (BlockPress is itself streaming: its peak memory is already bounded "
+                    "by block_size).")
+            elif isinstance(press, ScorerPress) or getattr(press, "scorer_like", False):
                 # The press's own dynamic_budget sets each layer's target, so
-                # a budget-shaping scorer (PyramidKV) keeps its shape.
+                # a budget-shaping scorer (PyramidKV, PerLayerCompression)
+                # keeps its shape.
                 wrap = BudgetDecodingPress(base_press=press,
                                            target_compression_ratio=press.compression_ratio,
                                            compression_interval=1,
@@ -844,7 +859,10 @@ class Runner:
             else:
                 raise TypeError(
                     f"prefill_chunked cannot compress with {type(press).__name__}: it takes a "
-                    "ScorerPress or a wrapper with chunked_compress (AdaKVPress)")
+                    "ScorerPress, a scorer-like wrapper (CriticalKVPress, "
+                    "PerLayerCompressionPress) or a wrapper with chunked_compress (AdaKVPress, "
+                    "CriticalAdaKVPress, KeyRerotationPress, ChunkPress, ChunkKVPress, "
+                    "ThinKPress, ComposedPress)")
 
         starts = self.chunk_starts(S, chunk_size, token_types)
         logits = hidden_win = None

@@ -271,6 +271,11 @@ class KVPressPipeline:
                 self.params, ids, valid_len=None if context_bucket is None else context_length,
                 **common)
         compressed = int(cache.length.max())
+        if press is not None and getattr(press, "rerotates", False):
+            # Rerotated keys sit at positions 0..n-1: the question and the
+            # answer continue from the compressed length (reference
+            # pipeline.py:239-241).
+            cache = dataclasses.replace(cache, offset=torch.tensor(compressed, dtype=torch.int32))
         logger.debug("Context Length: %d", context_length)
         logger.debug("Compressed Context Length: %d", compressed)
 

@@ -13,7 +13,9 @@ from .qfilter import QFilterPress, load_q_filters
 from .random_press import RandomPress
 from .snapkv import ObservedAttentionPress, PyramidKVPress, SnapKVPress, TOVAPress
 from .streaming_llm import StreamingLLMPress
-from .wrappers import AdaKVPress
+from .wrappers import (AdaKVPress, BlockPress, ChunkKVPress, ChunkPress, ComposedPress,
+                       CriticalAdaKVPress, CriticalKVPress, KeyRerotationPress,
+                       PerLayerCompressionPress, ThinKPress)
 
 __all__ = [
     "AdaKVPress", "BasePress", "LayerCtx", "ScorerPress", "topk_keep", "CapPress",
@@ -22,5 +24,7 @@ __all__ = [
     "load_query_stats", "save_query_stats", "KeyDiffPress", "KnormPress", "KVzapPress",
     "kvzap_apply", "load_kvzap_model", "save_kvzap_model", "LagKVPress", "QFilterPress",
     "load_q_filters", "RandomPress", "ObservedAttentionPress", "PyramidKVPress", "SnapKVPress",
-    "TOVAPress", "StreamingLLMPress",
+    "TOVAPress", "StreamingLLMPress", "BlockPress", "ChunkKVPress", "ChunkPress",
+    "ComposedPress", "CriticalAdaKVPress", "CriticalKVPress", "KeyRerotationPress",
+    "PerLayerCompressionPress", "ThinKPress",
 ]

@@ -62,8 +62,10 @@ class DecodingPress(BasePress):
             raise ValueError("compression_interval and target_size must be positive")
 
     def _check_base(self):
-        if not isinstance(self.base_press, ScorerPress):
-            raise TypeError(f"{type(self).__name__} requires a ScorerPress base_press")
+        if not (isinstance(self.base_press, ScorerPress)
+                or getattr(self.base_press, "scorer_like", False)):
+            raise TypeError(f"{type(self).__name__} requires a ScorerPress or a scorer-like "
+                            "base_press")
 
     @property
     def compression_ratio(self):

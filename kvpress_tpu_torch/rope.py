@@ -3,7 +3,8 @@
 Port of ``kvpress_tpu/rope.py``: ``inv_freq`` is computed once per config on
 the host in float64 and stored as float32; cos/sin and the rotation run in
 float32 whatever the activation dtype. ``mean_rotation_matrix`` is the
-average rotation over a span of future positions (ExpectedAttention, CAP).
+average rotation over a span of future positions (ExpectedAttention, CAP);
+``rerotate_cos_sin`` the rotation from old positions to new ones.
 """
 
 from __future__ import annotations
@@ -77,6 +78,16 @@ def rope_cos_sin(
     freqs = positions.to(torch.float32)[..., None] * inv_freq[None, :]
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb) * attention_scaling, torch.sin(emb) * attention_scaling
+
+
+def rerotate_cos_sin(
+    inv_freq: torch.Tensor, old_positions: torch.Tensor, new_positions: torch.Tensor,
+    attention_scaling: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin of the delta rotation that takes keys at ``old_positions`` to
+    ``new_positions`` (reference ``key_rerotation_press.py:50-98``), float32."""
+    delta = new_positions.to(torch.float32) - old_positions.to(torch.float32)
+    return rope_cos_sin(inv_freq, delta, attention_scaling)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,7 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes twenty-three copies of the port in a temporary directory, each with one
+# It makes twenty-four copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (in the column sums a query
 # stage dropped and every stage taken without the causal test, a key tile
 # dropped from the row logsumexp; in the head-wise decode the tail, one
@@ -26,10 +26,12 @@
 # step), and runs
 # chip_smoke.kernel_checks in each. The
 # or-mask copies must also fail the or-mask card tests
-# (tests/test_torch_kernels_card.py -k or_mask). One more copy breaks the
-# runner, not a kernel: bucketed prefill hands the press the bucket's length
-# in place of the valid length (runner_bucket_len), and
-# chip_smoke.bucketed_check runs in it.
+# (tests/test_torch_kernels_card.py -k or_mask). Two more copies break the
+# runner and the pipeline, not a kernel: bucketed prefill hands the press the
+# bucket's length in place of the valid length (runner_bucket_len), and
+# chip_smoke.bucketed_check runs in it; the pipeline leaves the offset at the
+# context's length after a rerotating press (pipeline_rerotation_offset), and
+# chip_smoke.rerotation_check runs in it.
 # Every copy must be rejected; the script exits 1 if one passes or if a
 # mutation did not apply. Mutant names given as arguments run those alone.
 set -u
@@ -40,7 +42,8 @@ mutants="colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
          flash_diagonal_tile flash_all_live flash_merge_range
          or_upper_range or_lower_range or_text_guard
          flash_d256_panels decode_d256_key_chunk colsum_d256_panels
-         flash_d96_k_step decode_d96_tail_words colsum_d96_k_step runner_bucket_len"
+         flash_d96_k_step decode_d96_tail_words colsum_d96_k_step runner_bucket_len
+         pipeline_rerotation_offset"
 for m in ${@:-$mutants}; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
@@ -51,6 +54,7 @@ for m in ${@:-$mutants}; do
   dm=$d/kvpress_tpu_torch/csrc/decode_sm90.cuh
   fl=$d/kvpress_tpu_torch/csrc/flash_sm90.cuh
   rn=$d/kvpress_tpu_torch/models/llama.py
+  pl=$d/kvpress_tpu_torch/pipeline.py
   check=kernel_checks
   case $m in
     colsum_query_tile)
@@ -100,6 +104,9 @@ for m in ${@:-$mutants}; do
     runner_bucket_len)
       sed -i 's/kv_len=valid_len if phase == "prefill" else None,/kv_len=T if valid_len is not None and phase == "prefill" else None,/' "$rn"
       check=bucketed_check ;;
+    pipeline_rerotation_offset)
+      sed -i 's/offset=torch.tensor(compressed, dtype=torch.int32))/offset=torch.tensor(context_length, dtype=torch.int32))/' "$pl"
+      check=rerotation_check ;;
   esac
   changed=$(diff -r kvpress_tpu_torch "$d/kvpress_tpu_torch" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
@@ -113,12 +120,13 @@ from toy_tokenizer import ToyTokenizer
 # profiler trace that comes back empty cannot reject it.
 chip_smoke.kernel_ms = lambda fn, symbol, iters: chip_smoke.cuda_ms(fn, 1, 1)
 try:
-    if os.environ["CHECK"] == "bucketed_check":
+    if os.environ["CHECK"] in ("bucketed_check", "rerotation_check"):
         dev = torch.device("cuda")
         params = kt.init_params(chip_smoke.flagship_config(16),
                                 torch.Generator(device=dev).manual_seed(0),
                                 dtype=torch.bfloat16, device=dev)
-        chip_smoke.bucketed_check(kt, torch, ToyTokenizer, params, lambda m: None)
+        getattr(chip_smoke, os.environ["CHECK"])(kt, torch, ToyTokenizer, params,
+                                                 lambda m: None)
     else:
         chip_smoke.kernel_checks(kt, torch, lambda m: None)
 except AssertionError as e:
