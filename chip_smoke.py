@@ -20,7 +20,7 @@
    at 8K, a ragged 8,000 and the 32K prefill, the decode kernels at the
    pipeline's decode shapes (a half-live 33K buffer at B=1 and B=4; the
    8B-class body's int4 cache at head_dim 128, B=1 over 66K slots; path B's
-   cache at B=4), and ``flash_attention``'s same-image or-mask at the
+   cache at B=4; the Duo split decode's retrieval and streaming buffers), and ``flash_attention``'s same-image or-mask at the
    Gemma-3-27B body's shape (GQA 32/16, head_dim 128, 8,192 queries holding
    4 images of 256 placeholders, with no window, a window of 1,024 and one
    of 128 that a span reaches behind; and over a 24,576-slot prior with an
@@ -80,7 +80,19 @@
    lengths (the keep-mask's count, ThinK's zero channels), one layer's
    ``layer_compress`` time, and after KeyRerotation the questions from the
    compressed length (``rerotation_check``); bucketed CriticalKV(SnapKV)
-   against exact, and KeyRerotation refused under a bucket.
+   against exact, and KeyRerotation refused under a bucket. Then the mask,
+   merge and head-split presses at the same shape (``mask_presses_run``):
+   Merging over Knorm, SnapKV and ExpectedAttention (the Knorm run's kept
+   keys bit-equal to Knorm's), LUKV over a seeded budget curve read back from
+   a ``.npy`` (the per-head counts), SimLayerKV with its threshold between
+   the layers' lazy scores, Finch's query-aware form with its delimiter (the
+   decode from the compressed length), Duo (its masked fraction's closed form;
+   its split-cache decode against the masked decode, token for token),
+   DMS(KVzap) mask only (``compact_masked`` over a grown cache) and compact
+   on the head-wise runner; chunked by 8,192 Duo and DMS over int8 KV and
+   SimLayerKV and Finch over bf16, each held against its one-shot run; the
+   refusals (Merging chunked, ``DMSPress(decoding=True)``, each press under a
+   bucket).
    Then ``Runner.prefill_chunked`` at 32K over int4 KV on its fused route
    (``flash_attention_quant`` at 4 bits) held against its dense route
    (``fused_int4_check``; also the peak memory of chunked and one-shot
@@ -112,8 +124,8 @@
    it. A 2,048-token run of each kernel path is also held against the dense
    path on the same weights, stage by stage, at depth 1 and 16
    (``reference_check``: Knorm, paths A and B, ExpectedAttention,
-   Compactor, KeyRerotation and CriticalAdaKV(SnapKV) compact; chunked
-   prefill in chunks of 512 too).
+   Compactor, KeyRerotation, CriticalAdaKV(SnapKV) compact, Duo and
+   DMS(KVzap) compact; chunked prefill in chunks of 512 too).
 4. Timings: prefill at 32K under each press and chunked (int8 KV; int4 KV
    on both routes), and decode at batch 4 x 32K
    context, ratio 0.5 (Knorm: int4 KV + int8 weights, decode kernel on and
@@ -878,8 +890,8 @@ def kernel_checks(kt, torch, report):
         """One shape of decode_attention: launched twice (equal bits), against
         its plain version with its planted faults (a 256-key run skipped, one
         kernel step taken for dead, one key range dropped from the merge, each
-        inside the window if there is one; a window of 1,024 applied where
-        there is none; with a window, the window not applied and the step
+        inside the window if there is one; a window of 1,024 (at most half
+        the length) applied where there is none; with a window, the window not applied and the step
         across its edge taken whole), timed beside its two bounds (the kept
         rows' bytes; the bytes of every slot of the live kernel steps) and the
         library call."""
@@ -918,7 +930,9 @@ def kernel_checks(kt, torch, report):
                 faults["the step across the window's edge taken whole"] = plain(
                     window=window + first - kfirst)
         else:
-            faults["a window of 1,024 applied"] = plain(window=1024)
+            # a window that cuts the earliest keys off the last row
+            w = min(1024, length // 2)
+            faults[f"a window of {w:,} applied"] = plain(window=w)
         if D_ == 96:
             faults.update(upper_faults(lambda q_: dec.decode_attention_plain(
                 q_, kk, vv, length, ks, vs, mask, **kw), q, ref))
@@ -996,6 +1010,17 @@ def kernel_checks(kt, torch, report):
     decode_case("bf16 B1 33K D128 GQA 32/16 window 1024", q, kd, vd, length,
                 torch.ones((1, 16, S), dtype=torch.bool, device=dev), None, iters=20,
                 window=1024)
+    # The Duo split decode's two launches a layer (flagship, 32K, half of the
+    # 128 heads streaming, room for 33 appends): a retrieval buffer of 5 of
+    # the 8 kv heads (G 4) over the 32,768 context slots and the new token,
+    # and a streaming buffer of 4 kv heads, sink 128 + recent 256 + 33 slots;
+    # every slot below the length live, no mask.
+    for heads, length, S, label in ((5, CONTEXT_TOKENS + 1, CONTEXT_TOKENS + 33,
+                                     "bf16 B1 Duo retrieval 5/8 heads 32K"),
+                                    (4, 384 + 1, 384 + 33, "bf16 B1 Duo streaming 4/8 heads 417")):
+        q = rnd(1, heads * G, 1, D)
+        kd, vd = rnd(1, heads, S, D), rnd(1, heads, S, D)
+        decode_case(label, q, kd, vd, length, None, None, iters=20)
     del q, kd, vd, mask
     torch.cuda.empty_cache()
 
@@ -1864,18 +1889,6 @@ def bucketed_check(kt, torch, tokenizer_cls, params, report, makes=None):
 # Phase 3, the wrapper presses at the flagship shape.
 
 
-def question_offsets(runner, log: list):
-    """``runner`` that appends to ``log`` the offset each question forward
-    (a decode-phase call of more than one token) starts from."""
-    class Recording(type(runner)):
-        def forward(self, params, ids, cache, *args, **kw):
-            if kw.get("phase") == "decode" and ids is not None and ids.shape[1] > 1:
-                log.append(int(cache.offset))
-            return super().forward(params, ids, cache, *args, **kw)
-
-    return Recording(**{f.name: getattr(runner, f.name) for f in dataclasses.fields(runner)})
-
-
 def cache_summary(torch, cache):
     """Per layer: the keep-mask's kept slots over the kv heads (None without
     a mask), and per (layer, kv head) the key channels that are 0 in every
@@ -1989,8 +2002,8 @@ def wrapper_presses_run(kt, torch, tokenizer_cls, params, report, labels=None):
     for label, (kind, press, kw, needed, unwanted, check) in runs.items():
         if labels is not None and label not in labels:
             continue
-        prefills, offsets = [], []
-        runner = question_offsets(runners[kind], offsets)
+        prefills, log = [], []
+        runner = decode_recorder(runners[kind], log)
         summarize = (lambda cache: cache_summary(torch, cache)) if label in (
             "think", "critical_adakv_expected_attention") else None
         pipe = kt.KVPressPipeline(timed_runner(kt, torch, runner, prefills, summarize), params,
@@ -2006,6 +2019,8 @@ def wrapper_presses_run(kt, torch, tokenizer_cls, params, report, labels=None):
         elif summary is not None:
             report(f"    keep-mask slots per layer (8 heads): {summary[0]}")
         fault = check(lengths, summary)
+        # each question's forward (a decode-phase call of more than one token)
+        offsets = [e["offset"] for e in log if e["T"] > 1]
         if getattr(press, "rerotates", False) and offsets != [max(lengths)] * len(QUESTIONS):
             fault = (f"the questions start from offsets {offsets}, not from the compressed "
                      f"length {max(lengths)}")
@@ -2048,6 +2063,522 @@ def rerotation_check(kt, torch, tokenizer_cls, params, report):
     each question's forward starts from it."""
     return wrapper_presses_run(kt, torch, tokenizer_cls, params, report,
                                labels=("key_rerotation",))
+
+
+# Phase 3, the mask, merge and head-split presses at the flagship shape.
+
+DUO_SINK, DUO_RECENT, DUO_STEPS = 128, 256, 32
+LAZY_KEEP = 4 + 1023        # a lazy layer's sink and recent slots (SimLayerKV's defaults)
+
+
+def decode_recorder(runner, log: list):
+    """``runner`` that appends to ``log``, for each decode-phase forward, its
+    new tokens, the offset it starts from, the cache's layer lengths, its
+    wall ms on a synchronized host clock and the cache it was given."""
+    import torch
+
+    class Recording(type(runner)):
+        def forward(self, params, ids, cache, *args, **kw):
+            if kw.get("phase") != "decode":
+                return super().forward(params, ids, cache, *args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().forward(params, ids, cache, *args, **kw)
+            torch.cuda.synchronize()
+            log.append(dict(T=ids.shape[1], offset=int(cache.offset),
+                            lengths=cache.length.tolist(),
+                            ms=(time.perf_counter() - t0) * 1e3, cache=cache))
+            return out
+
+    return Recording(**{f.name: getattr(runner, f.name) for f in dataclasses.fields(runner)})
+
+
+def decode_reading(torch, label, runner, params, log, report):
+    """A pipeline run's decode rate (its one-token steps on the host clock)
+    and one step's device breakdown over its last cache (idle share)."""
+    steps = [e for e in log if e["T"] == 1]
+    rate = len(steps) / (sum(e["ms"] for e in steps) / 1e3)
+    report(f"    decode {rate:.1f} tok/s over {len(steps)} steps (host clock)")
+    cache = log[-1]["cache"]
+    tok = torch.full((cache.keys.shape[1], 1), 7, dtype=torch.long, device=cache.keys.device)
+    breakdown(f"  {label}, one decode step", lambda: runner.forward(
+        params, tok, cache, logits_last_only=True), 4, report, top=2)
+
+
+def kvzap_surrogate(torch, cfg, gen, hidden: int = 512):
+    """A seeded KVzap MLP surrogate (the trainer's default width) on the card."""
+    L, E, Hkv = cfg.num_layers, cfg.hidden_size, cfg.num_kv_heads
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=gen.device,
+                                     dtype=torch.float32)
+    return {"w1": rnd(L, E, hidden) * E ** -0.5,
+            "b1": torch.zeros((L, hidden), device=gen.device),
+            "w2": rnd(L, hidden, Hkv) * hidden ** -0.5,
+            "b2": torch.zeros((L, Hkv), device=gen.device)}
+
+
+def layer0_scores(kt, cfg, params, ids, surrogate):
+    """A KVzap surrogate's scores of layer 0 (B, H_kv, S): layer 0's post-ln1
+    hidden states read only the embedding."""
+    from kvpress_tpu_torch.models.llama import embed_tokens, rms_norm
+
+    h = rms_norm(embed_tokens(params, ids, cfg), params.layers[0].ln1, cfg.rms_norm_eps,
+                 cfg.rms_one_offset)
+    return kt.presses.kvzap_apply(surrogate, 0, h)
+
+
+def widest_gap(scores) -> float:
+    """The midpoint of the widest gap between the sorted scores."""
+    s = sorted(scores)
+    return max((b - a, (a + b) / 2) for a, b in zip(s, s[1:]))[1]
+
+
+def duo_split_decode(kt, torch, params, ids, duo, report):
+    """Duo's split-cache decode against its masked decode over one 32K
+    prefill: 32 greedy steps of the masked decode (the decode kernel over the
+    keep-mask), the same steps over ``build_duo_split``'s two buffers
+    (``duo_decode_step``, teacher-forced on the masked tokens), whose tokens
+    must be the masked decode's and whose logits must lie within the depth-16
+    limit of the kernel-against-dense checks; the split's decode launches and
+    each route's step time. Returns the failures."""
+    cfg = flagship_config(16)
+    runner = kt.Runner.create(cfg, device=params.device)
+    _, cache, _ = runner.prefill(params, ids, press=duo)
+    cache = kt.resize(cache, cache.max_size + DUO_STEPS + 1)
+    ds = kt.build_duo_split(cache, duo.streaming_mask(), DUO_SINK, DUO_RECENT, DUO_STEPS + 1)
+    report(f"  duo split: retrieval buffer {tuple(ds.keys_r.shape)}, streaming buffer "
+           f"{tuple(ds.keys_s.shape)}")
+    masked, tok = clone_cache(cache), ids[:, -1:]
+    toks, want = [], []
+    for _ in range(DUO_STEPS):
+        logits, masked, _ = runner.forward(params, tok, masked, logits_last_only=True)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        toks.append(tok)
+        want.append(logits[:, -1])
+    reset_counts()
+    got, nexts = [], []
+    for t in [ids[:, -1:]] + toks[:-1]:
+        nxt, logits, ds = kt.duo_decode_step(params, t, ds, runner=runner)
+        got.append(logits)
+        nexts.append(nxt)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    read = rel(torch, torch.stack(got), torch.stack(want))
+    same = sum(torch.equal(a, b) for a, b in zip(nexts, toks))
+    report(f"  duo split decode, 32 steps: tokens equal to the masked decode's {same} of "
+           f"{DUO_STEPS}; logits max |split - masked| / max |masked| {read:.3e} (limit "
+           f"{REF_LIMIT[16]}); decode_attention launches {launches['decode_attention']} "
+           f"({2 * cfg.num_layers} a step), decode_headwise {launches['decode_headwise']}")
+    masked_ms = cuda_ms(lambda: runner.forward(params, tok, masked, logits_last_only=True), 8)
+    split_ms = cuda_ms(lambda: kt.duo_decode_step(params, tok, ds, runner=runner), 8)
+    report(f"  duo decode step (CUDA events): masked {masked_ms:.3f} ms, split {split_ms:.3f} ms")
+    breakdown("duo masked decode step", lambda: runner.forward(
+        params, tok, masked, logits_last_only=True), 4, report, top=2)
+    breakdown("duo split decode step", lambda: kt.duo_decode_step(params, tok, ds,
+                                                                 runner=runner), 4, report, top=2)
+    failures = []
+    if same != DUO_STEPS or not read <= REF_LIMIT[16]:
+        failures.append(f"duo split decode: {same} of {DUO_STEPS} tokens equal, logits {read:.3e}")
+    if launches["decode_attention"] != 2 * cfg.num_layers * DUO_STEPS:
+        failures.append(f"duo split decode: {launches['decode_attention']} decode launches")
+    return failures
+
+
+def mask_presses_run(kt, torch, tokenizer_cls, params, report, labels=None):
+    """The mask, merge and head-split presses through ``KVPressPipeline`` at
+    the flagship shape (16 layers, bf16 weights), a 32,768-token context, the
+    two questions and 32 new tokens (the runs of ``labels`` alone when it is
+    given), each run's launch counts set to 0 before it and read after it:
+
+    - Merging over Knorm, SnapKV and ExpectedAttention at 0.5 (the registry's
+      ``merging_*``): 16,384 a layer, the Knorm run's kept keys bit-equal to
+      KnormPress(0.5)'s, a merged value in every layer; the peak memory of
+      one layer's merge;
+    - LUKV over ExpectedAttention with a seeded (99, 16, 8) budget curve
+      written to a ``.npy`` and read back by ``load_budget_curve``: the
+      per-head kept counts equal ``_head_keep_counts``;
+    - SimLayerKV with its threshold in the widest gap between the layers'
+      lazy scores on this context: lazy layers keep 1,027, the others all;
+    - Finch in the query-aware form (context, delimiter, the 152-token
+      question; no question): window 152, keys rerotated, the kept count its
+      ``max_kept``, the first decode step from the compressed length;
+    - Duo with seeded (16, 8) head scores at 0.5, sink 128, recent 256: the
+      masked fraction its closed form; its split-cache decode against the
+      masked decode (``duo_split_decode``);
+    - DMS over a seeded KVzap MLP surrogate, the threshold the median of
+      layer 0's scores: mask only on the standard runner (``compact_masked``
+      over the cache grown by 64 slots keeps each layer's longest head), and
+      ``compact=True`` on the head-wise runner (each layer as long as its
+      longest head; decode on ``decode_headwise``);
+    - chunked by 8,192: Duo over int8 KV (its mask bit-equal to one-shot),
+      DMS(KVzap) over int8 KV (layer 0's mask bit-equal to one-shot; the
+      deeper layers' score drift within the depth-16 limit, the flips
+      counted), SimLayerKV over bf16 (the same lazy layers), Finch over bf16
+      (the same kept count; the overlap of the kept slots);
+    - the refusals (``mask_press_refusals``).
+    Each run prints its prefill wall and peak memory, one layer's
+    ``layer_compress`` on a captured 32K layer (profiler device ms), its
+    decode rate and one decode step's idle share. Returns the summed launch
+    counts."""
+    import numpy as np
+
+    cfg = flagship_config(16)
+    L, Hkv, S = cfg.num_layers, cfg.num_kv_heads, CONTEXT_TOKENS
+    half = S // 2
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rng = np.random.default_rng(14)
+    tok = tokenizer_cls(vocab_size=cfg.vocab_size)
+    context = " ".join(f"w{i}" for i in range(S))
+    runners = {"standard": kt.Runner.create(cfg, device=dev),
+               "headwise": kt.Runner.create(cfg, decode_kernel=False, headwise_kernel=True,
+                                            device=dev)}
+    want = lambda label: labels is None or label in labels
+    totals = {name: 0 for name in read_counts()}
+    failures = []
+    # the pipeline's context ids (the BOS joins the first word)
+    ids = torch.tensor([tok.encode(tok.bos_token + context)], device=dev)
+    layer_args = None
+    if labels is None:
+        layer_args = capture_layer(kt, torch, runners["standard"], params, ids, 1)
+
+    def run(label, kind, press, needed, unwanted, summarize=None, **kw):
+        """One pipeline run with its readings; returns (the prefill's log
+        entry, the decode log)."""
+        prefills, log = [], []
+        runner = decode_recorder(runners[kind], log)
+        pipe = kt.KVPressPipeline(timed_runner(kt, torch, runner, prefills, summarize), params,
+                                  tok)
+        kw.setdefault("context", context)
+        if "question" in kw:
+            reset_counts()
+            t0 = time.perf_counter()
+            answer = pipe(press=press, max_new_tokens=32, **kw)["answer"]
+            torch.cuda.synchronize()
+            counts = read_counts()
+            report(f"  {label}: {time.perf_counter() - t0:.2f} s in all, "
+                   f"{prefill_reading(prefills)}, layer lengths {sorted(set(prefills[-1][3]))}, "
+                   f"launches {launched(counts)}, answer tokens {len(answer.split())}")
+            if not answer:
+                raise AssertionError(f"{label}: empty answer")
+            check_run(label, counts, needed, unwanted)
+        else:
+            counts, _, _ = pipeline_run(kt, torch, label, pipe, prefills, needed, unwanted,
+                                        report, press=press, **kw)
+        for name, n in counts.items():
+            totals[name] += n
+        if layer_args is not None and not kw.get("context_chunk"):
+            ctx, keys, values = layer_args
+            mask = torch.ones(keys.shape[:3], dtype=torch.bool, device=dev)
+            p = press.with_window(152) if hasattr(press, "with_window") else press
+            report("    " + layer_reading("layer_compress", lambda: p.layer_compress(
+                ctx, keys, values, keys.shape[2], mask), L, iters=1))
+        decode_reading(torch, label, runner, params, log, report)
+        return prefills[-1], log
+
+    # the kernels each run must launch, on the payload its options ask for,
+    # and those it must not
+    std = ("flash_attention_bf16", "decode_attention_bf16")
+    std_no = ("decode_headwise", "flash_attention_quant", "decode_attention_int8",
+              "decode_attention_int4")
+    hw, hw_no = ("flash_attention_bf16", "decode_headwise_bf16"), ("decode_attention",)
+    int8 = ("flash_attention_quant_int8", "decode_attention_int8")
+    int8_no = ("decode_headwise", "flash_attention_quant_int4", "decode_attention_bf16",
+               "decode_attention_int4")
+    chunked8 = dict(context_chunk=CHUNK_TOKENS, quantized=True, kv_bits=8)
+
+    # Merging
+    for name, inner in (("merging_knorm", kt.KnormPress(0.5)),
+                        ("merging_snapkv", kt.SnapKVPress(0.5)),
+                        ("merging_expected_attention",
+                         kt.ExpectedAttentionPress(0.5, epsilon=1e-2))):
+        if not want(name):
+            continue
+        press = kt.MergingPress(inner)
+        pre, _ = run(name, "standard", press, std, std_no,
+                     summarize=lambda c: (c.keys[:, :, :, :half].clone(),
+                                          c.values[:, :, :, :half].clone()))
+        if set(pre[3]) != {half}:
+            failures.append(f"{name}: layer lengths {sorted(set(pre[3]))}")
+        k_m, v_m = pre[4]
+        if name == "merging_knorm":
+            _, c, _ = runners["standard"].prefill(params, ids, press=kt.KnormPress(0.5))
+            same = torch.equal(k_m, c.keys[:, :, :, :half])
+            changed = (v_m != c.values[:, :, :, :half]).any(-1).any(-1).any(-1)
+            del c
+            report(f"    kept keys bit-equal to KnormPress(0.5)'s: {same}; layers with a "
+                   f"merged value {int(changed.sum())} of {L}")
+            if not same or not bool(changed.all()):
+                failures.append(f"{name}: kept keys equal {same}, layers with a merged value "
+                                f"{changed.tolist()}")
+        if layer_args is not None:
+            ctx, keys, values = layer_args
+            mask = torch.ones(keys.shape[:3], dtype=torch.bool, device=dev)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            merged = press.layer_compress(ctx, keys, values, S, mask)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - held
+            plain = inner.layer_compress(ctx, keys, values, S, mask)
+            n_changed = int((merged[1][:, :, :half] != plain[1][:, :, :half]).any(-1).sum())
+            report(f"    one layer's merge at 32K: peak {peak / 2**30:.3f} GiB over the "
+                   f"{held / 2**30:.3f} GiB held (similarity slices of "
+                   f"{kt.presses.merging.SIM_BYTES >> 20} MiB); {n_changed} of {Hkv * half} "
+                   f"kept values merged in the captured layer")
+            if n_changed == 0:
+                failures.append(f"{name}: no kept value of the captured layer changed")
+            del merged, plain
+        del k_m, v_m
+        torch.cuda.empty_cache()
+
+    # LUKV: a seeded stand-in for the paper's curve, read back from a .npy
+    if want("lukv"):
+        path = ROOT / "build" / "lukv_budget_curve.npy"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.save(path, rng.uniform(0.2, 0.8, (99, L, Hkv)).astype(np.float32))
+        press = kt.LUKVPress(kt.ExpectedAttentionPress(0.5, epsilon=2e-2), compression_ratio=0.5,
+                             sink=4, window=1, budget_curves=kt.load_budget_curve(str(path)))
+        pre, _ = run("lukv", "standard", press, std, std_no,
+                     summarize=lambda c: (c.mask.sum(-1)[:, 0].cpu(),
+                                          float(kt.masked_fraction(c))))
+        counts, fraction = pre[4]
+        expect = torch.stack([press._head_keep_counts(l, S, Hkv) for l in range(L)])
+        report(f"    masked fraction {fraction:.6f}; kept per head in layer 0 "
+               f"{counts[0].tolist()} (_head_keep_counts {expect[0].tolist()})")
+        if not torch.equal(counts, expect):
+            failures.append(f"lukv: kept per head {counts.tolist()} against _head_keep_counts "
+                            f"{expect.tolist()}")
+
+    # SimLayerKV: each layer's lazy score on this context; the threshold in
+    # the widest gap
+    if want("simlayerkv") or want("chunked simlayerkv"):
+        scores = []
+
+        class RecordingLazy(kt.SimLayerKVPress):
+            def lazy_score(self, ctx, keys, length):
+                s = super().lazy_score(ctx, keys, length)
+                scores.append(float(s))
+                return s
+
+        runners["standard"].prefill(params, ids, press=RecordingLazy(0.5))
+        threshold = widest_gap(scores)
+        lazy_lengths = [LAZY_KEEP if s > threshold else S for s in scores]
+        report(f"  SimLayerKV lazy scores per layer {[round(s, 4) for s in scores]}; threshold "
+               f"{threshold:.4f} (the widest gap); lazy layers "
+               f"{[l for l, n in enumerate(lazy_lengths) if n == LAZY_KEEP]}")
+        if LAZY_KEEP not in lazy_lengths or S not in lazy_lengths:
+            failures.append(f"simlayerkv: no mix of lazy and whole layers ({lazy_lengths})")
+        press = kt.SimLayerKVPress(threshold)
+        for label, kw in (("simlayerkv", {}),
+                          ("chunked simlayerkv", dict(context_chunk=CHUNK_TOKENS))):
+            if want(label):
+                pre, _ = run(label, "standard", press, std, std_no, **kw)
+                if pre[3] != lazy_lengths:
+                    failures.append(f"{label}: layer lengths {pre[3]}, not {lazy_lengths}")
+        torch.cuda.empty_cache()
+
+    # Finch, query-aware: the context, the delimiter, the 152-token question;
+    # no question
+    finch_keep = {}
+    window = len(QUESTIONS[0].split())
+    n_ctx = S + window                   # the delimiter stripped
+    for label, kw in (("finch", {}), ("chunked finch", dict(context_chunk=CHUNK_TOKENS))):
+        if not want(label):
+            continue
+
+        class RecordingFinch(kt.FinchPress):
+            def score(self, ctx, keys, values):
+                s = super().score(ctx, keys, values)
+                finch_keep.setdefault(label, []).append(
+                    torch.zeros_like(s, dtype=torch.bool).scatter_(
+                        -1, kt.presses.base.order_desc(s.float(), self.max_kept(keys.shape[2],
+                                                                                None)), True))
+                return s
+
+            def _chunked_keep(self, ctx, keys, length):
+                keep, total = super()._chunked_keep(ctx, keys, length)
+                finch_keep.setdefault(label, []).append(keep[..., :n_ctx].clone())
+                return keep, total
+
+        press = RecordingFinch(0.5, delimiter_token_id=tok.eos_token_id)
+        kept = press.with_window(window).max_kept(n_ctx, cfg)
+        pre, log = run(label, "standard", press, std, std_no,
+                       context=context + f" {tok.eos_token} " + QUESTIONS[0], question="", **kw)
+        report(f"    window {window}, kept {sorted(set(pre[3]))} of {n_ctx} (max_kept {kept}); "
+               f"the first decode step from offset {log[0]['offset']}")
+        if set(pre[3]) != {kept} or log[0]["offset"] != kept:
+            failures.append(f"{label}: lengths {sorted(set(pre[3]))}, first decode offset "
+                            f"{log[0]['offset']}, not {kept}")
+    if len(finch_keep) == 2:
+        overlap = [int((a & b).sum()) / int(a.sum())
+                   for a, b in zip(finch_keep["finch"][:L], finch_keep["chunked finch"])]
+        report(f"  Finch, chunked against one-shot: share of the one-shot kept slots kept, per "
+               f"layer {[round(o, 4) for o in overlap]}")
+    del finch_keep
+
+    # Duo: masked decode through the pipeline, then the split-cache decode
+    duo = kt.DuoAttentionPress(0.5, sink_size=DUO_SINK, recent_size=DUO_RECENT,
+                               head_scores=rng.standard_normal((L, Hkv)).astype(np.float32))
+    n_stream = int(duo.streaming_mask().sum())
+    duo_mask = None
+    if want("duo"):
+        pre, _ = run("duo", "standard", duo, std, std_no,
+                     summarize=lambda c: (c.mask.clone(), float(kt.masked_fraction(c))))
+        duo_mask, fraction = pre[4]
+        closed = n_stream * (S - DUO_SINK - DUO_RECENT) / (L * Hkv * S)
+        report(f"    masked fraction {fraction:.7f}, closed form {closed:.7f} ({n_stream} "
+               f"streaming heads of {L * Hkv})")
+        if abs(fraction - closed) > 1e-6:
+            failures.append(f"duo: masked fraction {fraction} against {closed}")
+    if want("duo") or want("duo split"):
+        failures += duo_split_decode(kt, torch, params, ids, duo, report)
+        torch.cuda.empty_cache()
+    if want("chunked duo, int8 KV"):
+        pre, _ = run("chunked duo, int8 KV", "standard", duo, int8, int8_no,
+                     summarize=lambda c: c.mask.clone(), **chunked8)
+        same = None if duo_mask is None else torch.equal(pre[4], duo_mask)
+        report(f"    chunked mask bit-equal to one-shot: {same}")
+        if same is False:
+            failures.append("chunked duo: the mask differs from one-shot")
+    del duo_mask
+    torch.cuda.empty_cache()
+
+    # DMS over a seeded KVzap surrogate, the threshold the median of layer 0
+    surrogate = kvzap_surrogate(torch, cfg, gen)
+    threshold = float(layer0_scores(kt, cfg, params, ids, surrogate).median())
+    report(f"  DMS(KVzap): threshold {threshold:.6f}, the median of layer 0's scores")
+
+    def dms(log, compact=False):
+        class RecordingDMS(kt.DMSPress):
+            def _evict(self, scores, S_, S_buf):
+                log.append(scores)
+                return super()._evict(scores, S_, S_buf)
+
+        return RecordingDMS(kt.KVzapPress(surrogate=surrogate), threshold=threshold,
+                            compact=compact)
+
+    def compacted(cache):
+        """(the prefill's mask, each layer's longest head, compact_masked's
+        lengths over the cache grown by 64 slots, mask True past length)."""
+        valid = torch.arange(cache.max_size, device=dev) < cache.length.to(dev)[:, None,
+                                                                                None, None]
+        longest = (cache.mask & valid).sum(-1).amax(dim=(1, 2)).tolist()
+        grown = kt.compact_masked(kt.resize(clone_cache(cache), cache.max_size + 64))
+        return cache.mask.clone(), longest, grown.length.tolist()
+
+    one_shot = {}
+    if want("dms"):
+        log = []
+        pre, _ = run("dms", "standard", dms(log), std, std_no, summarize=compacted)
+        one_shot = dict(mask=pre[4][0], scores=torch.stack(log[:L]))
+        _, longest, lengths = pre[4]
+        report(f"    masked fraction {1 - one_shot['mask'].float().mean().item():.4f}; "
+               f"compact_masked over the grown cache: layer lengths {lengths}")
+        if lengths != longest:
+            failures.append(f"compact_masked: layer lengths {lengths}, longest heads {longest}")
+    if want("dms, compact"):
+        pre, log = run("dms, compact", "headwise", dms([], compact=True), hw, hw_no,
+                       summarize=compacted)
+        _, longest, _ = pre[4]
+        report(f"    layer lengths after compact_masked {log[0]['lengths']} (each layer's "
+               f"longest head)")
+        if log[0]["lengths"] != longest:
+            failures.append(f"dms compact: layer lengths {log[0]['lengths']}, longest heads "
+                            f"{longest}")
+    if want("chunked dms, int8 KV"):
+        log = []
+        pre, _ = run("chunked dms, int8 KV", "standard", dms(log), int8, int8_no,
+                     summarize=lambda c: c.mask.clone(), **chunked8)
+        if one_shot:
+            failures += dms_flips(torch, one_shot, pre[4], log[0], threshold, report)
+    del one_shot
+    torch.cuda.empty_cache()
+
+    if labels is None:
+        failures += mask_press_refusals(kt, torch, tok, params, runners["standard"], report)
+    del layer_args
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return totals
+
+
+def dms_flips(torch, one_shot, mask, scores, threshold, report):
+    """Chunked DMS (int8 KV) against one-shot (bf16 KV): layer 0's mask must
+    be bit-equal (its hidden states read only the embedding); deeper, the
+    chunks' hidden states move with the quantized KV and the rounding, so a
+    bit may flip where the score moved across the threshold: the flips are
+    counted and the scores' drift, max |chunked - one-shot| / max |one-shot|,
+    must stay within the depth-16 limit. Returns the failures."""
+    W = 128
+    S = scores.shape[-1]
+    s1 = one_shot["scores"]
+    drift = ((scores - s1).abs().amax(dim=(1, 2, 3)) / s1.abs().amax(dim=(1, 2, 3))).tolist()
+    flips = (mask[..., :S - W] != one_shot["mask"][..., :S - W]).sum(dim=(1, 2, 3)).tolist()
+    near = ((s1[..., :S - W] - threshold).abs() <= (scores - s1)[..., :S - W].abs()).sum(
+        dim=(1, 2, 3)).tolist()
+    report(f"    chunked against one-shot: flipped bits per layer {flips} (slots whose one-shot "
+           f"score lies within its drift of the threshold: {near}); score drift per layer "
+           f"{[f'{d:.2e}' for d in drift]} (limit {REF_LIMIT[16]})")
+    failures = []
+    if flips[0] != 0:
+        failures.append(f"chunked dms: layer 0's mask differs from one-shot ({flips[0]} bits)")
+    if not max(drift) <= REF_LIMIT[16]:
+        failures.append(f"chunked dms: score drift {max(drift):.3e}")
+    return failures
+
+
+def mask_press_refusals(kt, torch, tok, params, runner, report):
+    """MergingPress under context_chunk (TypeError), DMSPress(decoding=True)
+    (NotImplementedError naming ROADMAP Queue A item 12), and each press of
+    this slice under context_bucket (ValueError, raised in layer 0's
+    layer_compress). Returns the failures."""
+    import numpy as np
+
+    failures = []
+    pipe = kt.KVPressPipeline(runner, params, tok)
+    context = " ".join(f"w{i}" for i in range(BUCKET_CONTEXT))
+    knorm = kt.KnormPress(0.5)
+    cases = [("Merging under context_chunk", TypeError, lambda: pipe(
+        context, question=QUESTIONS[1], press=kt.MergingPress(knorm),
+        context_chunk=CHUNK_TOKENS, max_new_tokens=2)),
+        ("DMSPress(decoding=True)", NotImplementedError,
+         lambda: kt.DMSPress(knorm, decoding=True))]
+    cfg = runner.cfg
+    for name, press in (
+            ("Merging", kt.MergingPress(knorm)),
+            ("LUKV", kt.LUKVPress(knorm, compression_ratio=0.5, budget_curves=np.full(
+                (99, cfg.num_layers, cfg.num_kv_heads), 0.5, np.float32))),
+            ("SimLayerKV", kt.SimLayerKVPress(0.5)),
+            ("Finch", kt.FinchPress(0.5, window_size=8)),
+            ("Duo", kt.DuoAttentionPress(0.5, head_scores=np.arange(
+                cfg.num_layers * cfg.num_kv_heads, dtype=np.float32).reshape(cfg.num_layers, -1))),
+            ("DMS", kt.DMSPress(knorm))):
+        cases.append((f"{name} under context_bucket={BUCKET}", ValueError,
+                      lambda p=press: pipe(context, question=QUESTIONS[1], press=p,
+                                           context_bucket=BUCKET, max_new_tokens=2)))
+    for label, error, call in cases:
+        try:
+            call()
+        except error as e:
+            report(f"  {label}: refused ({type(e).__name__}: {str(e)[:110]})")
+            if error is NotImplementedError and "item 12" not in str(e):
+                failures.append(f"{label}: the refusal names no ROADMAP item 12")
+        else:
+            failures.append(f"{label} was not refused")
+        torch.cuda.empty_cache()
+    return failures
+
+
+def compact_masked_check(kt, torch, tokenizer_cls, params, report):
+    """DMS(KVzap) mask only through the pipeline at 32K: ``compact_masked``
+    over its cache grown by 64 slots must keep each layer's longest head."""
+    return mask_presses_run(kt, torch, tokenizer_cls, params, report, labels=("dms",))
+
+
+def duo_split_check(kt, torch, tokenizer_cls, params, report):
+    """Duo's split-cache decode against its masked decode at 32K."""
+    return mask_presses_run(kt, torch, tokenizer_cls, params, report, labels=("duo split",))
 
 
 def long_context_run(kt, torch, tokenizer_cls, report):
@@ -2174,6 +2705,8 @@ def recording_adakv(kt, inner, log: list, base=None):
 def reference_paths(kt, torch):
     """{path: (kernel runner options, press for the kernel path, press for the
     dense path, KV variants)}; a press is made by ``make(log)``."""
+    import numpy as np
+
     from kvpress_tpu_torch.ops.attention import chunked_observed_colsums
 
     class Chunked(kt.ObservedAttentionPress):
@@ -2193,6 +2726,29 @@ def reference_paths(kt, torch):
     rerotation = lambda log: kt.KeyRerotationPress(recording_scorer(torch, kt.KnormPress, log))
     critical_adakv = lambda log: recording_adakv(kt, kt.SnapKVPress(0.5), log,
                                                  base=kt.CriticalAdaKVPress)
+    cfg = flagship_config(16)
+    head_scores = np.random.default_rng(15).standard_normal(
+        (cfg.num_layers, cfg.num_kv_heads)).astype(np.float32)
+    surrogate = kvzap_surrogate(torch, cfg, torch.Generator(device="cuda").manual_seed(15))
+
+    def mask_log(base, *args, **kw):
+        """``base(*args, **kw)`` that appends each layer's keep-mask."""
+        class Recording(base):
+            def layer_compress(self, ctx, keys, values, length, mask, state=None):
+                out = super().layer_compress(ctx, keys, values, length, mask, state)
+                log.append(out[3])
+                return out
+
+        log = kw.pop("log")
+        return Recording(*args, **kw)
+
+    # Duo's keep-mask reads positions alone; DMS's layer-0 scores the
+    # embedding alone. DMS compact: compact_masked after the prefill (as the
+    # pipeline runs it), then the head-wise runner.
+    duo = lambda log: mask_log(kt.DuoAttentionPress, 0.5, sink_size=DUO_SINK,
+                               recent_size=DUO_RECENT, head_scores=head_scores, log=log)
+    dms = lambda log: mask_log(kt.DMSPress, kt.KVzapPress(surrogate=surrogate), threshold=0.0,
+                               compact=True, log=log)
     return {
         "Knorm": ({}, scorer(kt.KnormPress), scorer(kt.KnormPress), all_kv),
         # Scored from the layer's queries and keys alone: the same on both
@@ -2213,6 +2769,9 @@ def reference_paths(kt, torch):
         # A critical head-wise cache through decode_headwise.
         "CriticalAdaKV(SnapKV)": (dict(decode_kernel=False, headwise_kernel=True),
                                   critical_adakv, critical_adakv, all_kv[:1]),
+        "Duo": ({}, duo, duo, all_kv[:1]),
+        "DMS(KVzap), compact": (dict(decode_kernel=False, headwise_kernel=True), dms, dms,
+                                all_kv[:1]),
     }
 
 
@@ -2244,7 +2803,10 @@ F32_RATIO = 2.0
 # (PERF.md), and the limit allows one swapped pair.
 LAYER0_SLOTS = {"Knorm": 0, "path A": 2, "path B": 2, "Knorm, chunked": 0,
                 "ExpectedAttention": 0, "Compactor": 0, "KeyRerotation": 0,
-                "CriticalAdaKV(SnapKV)": 0}
+                "CriticalAdaKV(SnapKV)": 0, "Duo": 0, "DMS(KVzap), compact": 0}
+# Paths whose kept slots cannot move: Duo's keep-mask reads positions alone,
+# so neither rounding nor a planted fault moves it (it must stay equal).
+KEPT_FIXED = ("Duo",)
 
 
 @contextlib.contextmanager
@@ -2330,7 +2892,7 @@ def f32_noise(torch, label, prefill, params, report, **f32_kw):
 
 def compare_paths(kt, torch, label, runners, params, prefills, question, limit, report, *,
                   dequantize=False, fault_lo=256, layer0_slots=None, layer0_faults=False,
-                  noise=None):
+                  noise=None, kept_fixed=False):
     """One kernel path against the dense path, stage by stage, each stage
     starting both from one state so that no difference carries from one
     stage into the next:
@@ -2349,7 +2911,9 @@ def compare_paths(kt, torch, label, runners, params, prefills, question, limit, 
     and with ``layer0_faults`` the planted faults must move more. With
     ``noise`` (``f32_noise``), the prefill's logits and kept slots may differ
     by at most F32_RATIO times what bf16 rounding alone moves, and the
-    planted faults by more. Returns (failures, the kept-slot logs)."""
+    planted faults by more; with ``kept_fixed`` the kept slots must be equal
+    and no fault is asked to move them. Returns (failures, the kept-slot
+    logs)."""
     kernel, dense = runners
 
     def steps(r, cache):
@@ -2406,7 +2970,10 @@ def compare_paths(kt, torch, label, runners, params, prefills, question, limit, 
         failures += [f"{label}: {s} ratio {x:.3f} > {F32_RATIO}"
                      for s, x in ratios.items() if not x <= F32_RATIO]
         failures += [f"{label}: the ratio passes the planted faults at {s} ({x:.3f})"
-                     for s, x in ratios_f.items() if not x > F32_RATIO]
+                     for s, x in ratios_f.items()
+                     if not x > F32_RATIO and not (kept_fixed and s == "kept slots")]
+    if kept_fixed and sum(diff):
+        failures.append(f"{label}: position-only kept slots differ ({diff})")
     return failures, kept
 
 
@@ -2418,8 +2985,10 @@ def reference_check(kt, torch, params, report, chunk=None):
     first layer and whole, with a 2,048-token context at ratio 0.5
     (``compare_paths``): Knorm for bf16, int8 and int4 KV, paths A and B,
     ExpectedAttention, Compactor, KeyRerotation(Knorm) (the question from the
-    kept length, as the pipeline runs it) and CriticalAdaKV(SnapKV) compact
-    on the head-wise runner for bf16 KV. With ``chunk``, the prefill
+    kept length, as the pipeline runs it), CriticalAdaKV(SnapKV) compact on
+    the head-wise runner, Duo (its kept slots fixed by position) and
+    DMS(KVzap) compact (``compact_masked`` after the prefill, the head-wise
+    runner) for bf16 KV. With ``chunk``, the prefill
     is ``prefill_chunked`` in chunks of that many tokens instead: Knorm for
     bf16 and int8 KV and for int4 KV on both attention routes
     (``chunked_reference_paths``). The question runs on flash (flash_quant
@@ -2442,6 +3011,8 @@ def reference_check(kt, torch, params, report, chunk=None):
         else:
             logits, cache, state = r.prefill_chunked(p, ids, press=press, chunk_size=chunk,
                                                      fused_kv=fused, **kw)
+        if getattr(press, "host_compact", False):
+            cache = kt.compact_masked(cache)        # as the pipeline does
         if getattr(press, "rerotates", False):
             # as the pipeline does: the question continues from the kept length
             cache = dataclasses.replace(cache, offset=torch.tensor(int(cache.length.max()),
@@ -2485,7 +3056,7 @@ def reference_check(kt, torch, params, report, chunk=None):
                     question, REF_LIMIT[depth], report, dequantize=quantized and bits == 4,
                     layer0_slots=LAYER0_SLOTS[path], layer0_faults=path.startswith("path"),
                     noise=noise[path, (quantized, bits, fused) if chunk else None]
-                    if depth == 16 else None)
+                    if depth == 16 else None, kept_fixed=path in KEPT_FIXED)
                 failures += found
                 if path == "path B":
                     report(f"    largest difference of a head's kept count per layer "
@@ -3312,6 +3883,15 @@ SOURCES = {
     "decode_headwise": ("decode_headwise", _CSRC + "decode_headwise.cu",
                         "kvpress_tpu/ops/decode_headwise.py:236", "bf16 B4 T1 16K ragged",
                         "decode_headwise_d64"),
+    # the Duo split decode's two buffers (flagship, 32K)
+    "decode_attention_duo_retrieval": ("decode_attention", _CSRC + "decode.cu",
+                                       "kvpress_tpu/ops/decode.py:212",
+                                       "bf16 B1 Duo retrieval 5/8 heads 32K",
+                                       "decode_attention_bf16_d64"),
+    "decode_attention_duo_streaming": ("decode_attention", _CSRC + "decode.cu",
+                                       "kvpress_tpu/ops/decode.py:212",
+                                       "bf16 B1 Duo streaming 4/8 heads 417",
+                                       "decode_attention_bf16_d64"),
     # head_dim 128 (the 8B-class, Qwen3-8B and Gemma-3-27B bodies)
     "flash_attention_d128": ("flash_attention", _CSRC + "flash.cu", "kvpress_tpu/ops/flash.py:154",
                              "bf16 B1 T32768 S32768 D128 all-live",
@@ -3503,6 +4083,11 @@ def main() -> int:
            "KeyRerotation, Chunk, ChunkKV, Block, ThinK, Composed, PerLayerCompression (one-shot "
            "and chunked), bucketed CriticalKV")
     for name, n in wrapper_presses_run(kt, torch, ToyTokenizer, params, report).items():
+        launches[name] += n
+    report("phase 3: the mask, merge and head-split presses at the flagship shape, 32K: Merging, "
+           "LUKV, SimLayerKV, Finch, Duo (and its split-cache decode), DMS(KVzap) mask only and "
+           "compact (one-shot and chunked), the refusals")
+    for name, n in mask_presses_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] += n
     report("phase 3: chunked prefill's int4 routes at the flagship shape, 32K")
     for name, n in fused_int4_check(kt, torch, params, report).items():

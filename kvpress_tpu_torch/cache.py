@@ -145,6 +145,49 @@ def valid_mask(cache: KVCache) -> torch.Tensor:
     return m
 
 
+def masked_fraction(cache: KVCache) -> torch.Tensor:
+    """() float32: the share of valid slots masked out head-wise, the measured
+    compression ratio of mask-based presses (DMS, Duo, LUKV; reference
+    dms_press.py:122-127). 0 without a keep-mask."""
+    if cache.mask is None:
+        return torch.zeros((), dtype=torch.float32)
+    L, B, H, S, _ = cache.keys.shape
+    valid = torch.arange(S, device=cache.mask.device) < cache.length.to(
+        cache.mask.device)[:, None]
+    valid = valid[:, None, None, :].expand(L, B, H, S)
+    masked = (valid & ~cache.mask).sum()
+    return (masked / torch.clamp(valid.sum(), min=1)).to(torch.float32).cpu()
+
+
+def compact_masked(cache: KVCache) -> KVCache:
+    """Move each head's kept (mask-True, valid) entries to the front of its
+    buffer, in their order, and drop each layer's length to its longest
+    head's kept count; the mask then marks each head's prefix (the
+    stacked-cache counterpart of AdaKV's ``compact=True`` for presses that
+    evict through mask bits, such as ``DMSPress(compact=True)``). A layer at
+    a time, written back into the same tensors: the peak is the one cache
+    plus one layer's gather. Follow with ``resize`` to free the memory.
+
+    Slots at or past a layer's length carry mask True by convention; they
+    are left out of the kept set."""
+    if cache.mask is None:
+        return cache
+    S = cache.max_size
+    pos = torch.arange(S, device=cache.mask.device)
+    lengths = cache.length.clone()
+    for l in range(cache.num_layers):
+        keep = cache.mask[l] & (pos < int(cache.length[l]))          # (B, H, S)
+        order = torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)
+        for buf in (cache.keys, cache.values, cache.key_scales, cache.value_scales):
+            if buf is not None:
+                buf[l].copy_(torch.gather(
+                    buf[l], 2, order[..., None].expand(*order.shape, buf.shape[-1])))
+        counts = keep.sum(dim=-1)                                     # (B, H)
+        cache.mask[l].copy_(pos < counts[..., None])
+        lengths[l] = int(counts.max())
+    return dataclasses.replace(cache, length=lengths)
+
+
 def shrink(cache: KVCache, new_size: int) -> KVCache:
     """Slice the buffers down to ``new_size`` slots (valid entries are always
     front-compacted, so a slice keeps them). The slices are copied so the

@@ -737,8 +737,11 @@ class Runner:
         (CriticalKV, PerLayerCompression) compresses through
         ``BudgetDecodingPress`` (its own per-layer budget); a wrapper with
         ``chunked_compress`` (the AdaKV family, KeyRerotation, Chunk,
-        ChunkKV, ThinK, Composed) compresses itself. ``BlockPress`` is
-        refused: it needs every position's hidden states.
+        ChunkKV, ThinK, Composed, Duo, SimLayerKV, Finch) compresses itself.
+        ``DMSPress`` over a per-token scorer (KVzap, Knorm) scores each chunk's
+        tokens as they go through and sets its threshold mask after the last
+        chunk. ``BlockPress`` is refused: it needs every position's hidden
+        states; so is ``MergingPress``: no chunked pass merges.
 
         ``fused_kv`` (quantized caches): attention reads the payload through
         ``flash_attention_quant``; else each layer's buffer is dequantized and
@@ -750,7 +753,8 @@ class Runner:
         ``inputs_embeds`` and ``token_types`` (``image_span`` on the flash
         path) as in ``prefill``: each chunk start moves back to the first
         token of an image span it would split, so that a span's tokens see
-        each other. Returns (logits | None, cache, None)."""
+        each other. Returns (logits | None, cache, press state: DMS's ring per
+        layer, else None)."""
         steps = self.prefill_chunked_steps(
             params, ids, press=press, chunk_size=chunk_size, max_size=max_size, dtype=dtype,
             compute_logits=compute_logits, quantized=quantized, kv_bits=kv_bits,
@@ -797,6 +801,7 @@ class Runner:
         ``StopIteration`` (a server can interleave decode steps between the
         yields)."""
         from ..presses.decoding import BudgetDecodingPress
+        from ..presses.dms import DMSPress
         from ..presses.wrappers import BlockPress
 
         if chunk_size < 1:
@@ -824,11 +829,23 @@ class Runner:
         cache = init_cache(cfg, B, size, dtype=dtype or params.dtype, quantized=quantized,
                            bits=kv_bits, device=self.device)
         W = min(score_window, chunk_size, S)
-        wrap = None
+        wrap = dms = None
+        if isinstance(press, DMSPress):
+            # DMS threshold eviction: each chunk's tokens are scored as the
+            # chunk goes through (the wrapped scorer's chunk_score_fn, exact for
+            # a per-token scorer), then the threshold mask and the ring are set
+            # over the whole context (DMSPress.apply_chunked).
+            if press.press.chunk_score_fn is None:
+                raise ValueError(
+                    f"DMSPress over {type(press.press).__name__} cannot run through "
+                    "prefill_chunked: the wrapped scorer has no per-token chunk_score_fn (its "
+                    "score for token t depends on more than that token's own hidden/k/v). Use "
+                    "the one-shot prefill, or wrap a per-token scorer (KVzapPress, KnormPress).")
+            dms, press = press, None
         if press is not None:
             if getattr(press, "post_mask", False):
                 raise NotImplementedError("post-mask presses (FastKVzip) come with ROADMAP "
-                                          "Queue A items 11 and 13")
+                                          "Queue A item 13")
             if not press.compresses_prefill:
                 raise NotImplementedError(
                     "multi-pass presses come with ROADMAP Queue A item 13 and decode-time "
@@ -860,12 +877,19 @@ class Runner:
                 raise TypeError(
                     f"prefill_chunked cannot compress with {type(press).__name__}: it takes a "
                     "ScorerPress, a scorer-like wrapper (CriticalKVPress, "
-                    "PerLayerCompressionPress) or a wrapper with chunked_compress (AdaKVPress, "
+                    "PerLayerCompressionPress), a wrapper with chunked_compress (AdaKVPress, "
                     "CriticalAdaKVPress, KeyRerotationPress, ChunkPress, ChunkKVPress, "
-                    "ThinKPress, ComposedPress)")
+                    "ThinKPress, ComposedPress, DuoAttentionPress, SimLayerKVPress, FinchPress) "
+                    "or DMSPress over a per-token scorer; MergingPress merges evicted values, "
+                    "which no chunked pass keeps")
 
         starts = self.chunk_starts(S, chunk_size, token_types)
         logits = hidden_win = None
+        collect = {}
+        if dms is not None:
+            collect = dict(collect_fn=dms.press.chunk_score_fn,
+                           collect_arg=dms.press.chunk_score_arg)
+        all_scores = []
         for i, start in enumerate(starts):
             last = i == len(starts) - 1
             end = S if last else starts[i + 1]
@@ -875,7 +899,7 @@ class Runner:
                 hidden_window=W if (last and wrap is not None) else None, fused_kv=fused_kv,
                 chunk_embeds=None if inputs_embeds is None else inputs_embeds[:, start:end],
                 img_groups=None if groups is None else groups[:, start:end].contiguous(),
-                k_groups=k_groups, image_span=image_span)
+                k_groups=k_groups, image_span=image_span, scores_out=all_scores, **collect)
             yield
         if wrap is not None:
             for l, sliding in enumerate(cfg.sliding_flags()):
@@ -883,7 +907,15 @@ class Runner:
                     continue                # sliding layers are never compressed
                 cache = self._compress_layer(params, cache, hidden_win, l, wrap)
                 yield
-        return logits, cache, None
+        state = None
+        if dms is not None:
+            mask = cache.mask
+            if mask is None:
+                mask = torch.ones(cache.keys.shape[:4], dtype=torch.bool, device=self.device)
+            mask, state = dms.apply_chunked(torch.cat(all_scores, dim=-1), S, mask,
+                                            cfg.sliding_flags())
+            cache = dataclasses.replace(cache, mask=mask)
+        return logits, cache, state
 
     @torch.no_grad()
     def _chunk_forward_lean(self, params: LlamaModel, chunk_ids: Optional[torch.Tensor],
@@ -893,23 +925,25 @@ class Runner:
                             chunk_embeds: Optional[torch.Tensor] = None,
                             img_groups: Optional[torch.Tensor] = None,
                             k_groups: Optional[torch.Tensor] = None,
-                            image_span: Optional[int] = None):
+                            image_span: Optional[int] = None, collect_arg=None,
+                            scores_out: Optional[list] = None):
         """One chunk (B, T) through every layer, appended to the cache in
         place at each layer's length (port of ``_chunk_forward_lean_impl``).
         No press runs. A quantized cache stores the chunk as payload and
         scales first, and the chunk attends those. ``chunk_embeds`` (B, T, E)
         overrides the token embedding; ``img_groups`` (B, T) and ``k_groups``
         (B, S_buf) are the image ids of the chunk's queries and of every slot
-        (``image_span`` bounds a span on the flash path). Returns (last
-        position's logits | None, cache with length and offset advanced by T,
-        each layer's last ``hidden_window`` post-ln1 hidden states (L, B, W,
-        E) | None)."""
+        (``image_span`` bounds a span on the flash path). ``collect_fn`` (a
+        press's ``chunk_score_fn``, given ``collect_arg``) scores the chunk's
+        own tokens in each layer from their post-ln1 hidden states and their
+        K/V at cache width (dequantized from the payload the chunk stored):
+        the (L, B, H_kv, T) scores are appended to ``scores_out``. Returns
+        (last position's logits | None, cache with length and offset advanced
+        by T, each layer's last ``hidden_window`` post-ln1 hidden states (L,
+        B, W, E) | None)."""
         if kvzip_spec is not None or kvcompose_spec is not None:
             raise NotImplementedError("multi-pass scoring passes come with ROADMAP Queue A "
                                       "item 13")
-        if collect_fn is not None:
-            raise NotImplementedError("per-chunk score collection (DMS, FastKVzip) comes with "
-                                      "ROADMAP Queue A items 11 and 13")
         cfg = self.cfg
         if chunk_embeds is not None:
             x = chunk_embeds
@@ -938,7 +972,7 @@ class Runner:
             else:
                 extra_allow = same_image(img_groups, k_groups)
         lengths = cache.length.tolist()
-        windows = []
+        windows, scores = [], []
         for l, (layer, sliding) in enumerate(zip(params.layers, cfg.sliding_flags())):
             ln = lengths[l]
             lmask = None if cache.mask is None else cache.mask[l]
@@ -953,6 +987,11 @@ class Runner:
                 ks, vs = cache.key_scales[l], cache.value_scales[l]
                 kb[:, :, ln:ln + T], ks[:, :, ln:ln + T] = quantize_kv(k, bits)
                 vb[:, :, ln:ln + T], vs[:, :, ln:ln + T] = quantize_kv(v, bits)
+                if collect_fn is not None:
+                    scores.append(collect_fn(
+                        collect_arg, l, h,
+                        dequantize_kv(kb[:, :, ln:ln + T], ks[:, :, ln:ln + T], bits, x.dtype),
+                        dequantize_kv(vb[:, :, ln:ln + T], vs[:, :, ln:ln + T], bits, x.dtype)))
                 if use_flash and not fused_kv:
                     # Slots past ln + T are never attended: dequantize up to
                     # there (a same-image key lies inside the chunk too).
@@ -976,6 +1015,8 @@ class Runner:
             else:
                 kb[:, :, ln:ln + T] = k.to(kb.dtype)
                 vb[:, :, ln:ln + T] = v.to(vb.dtype)
+                if collect_fn is not None:
+                    scores.append(collect_fn(collect_arg, l, h, k.to(kb.dtype), v.to(vb.dtype)))
                 if use_flash:
                     o = flash_attention(q, kb, vb, ln, lmask, img_groups if span else None,
                                         None if span is None else k_groups, sm_scale=scale,
@@ -994,6 +1035,8 @@ class Runner:
             xl = rms_norm(x[:, -1:], params.ln_f, cfg.rms_norm_eps, cfg.rms_one_offset)
             logits = lm_head_logits(xl, params, cfg)
         cache = dataclasses.replace(cache, length=cache.length + T, offset=cache.offset + T)
+        if scores:
+            scores_out.append(torch.stack(scores))
         return logits, cache, (torch.stack(windows) if windows else None)
 
     @torch.no_grad()

@@ -2,9 +2,11 @@
 questions against the compressed cache (port of ``kvpress_tpu/pipeline.py``,
 single-pass path).
 
-Chat-template separator split, one compressing prefill (whole, padded to a
-multiple of ``context_bucket`` tokens, or in chunks of ``context_chunk``
-tokens), ``resize`` of the cache, then per question a
+Chat-template separator split (and FinchPress's delimiter, found and
+stripped on the host), one compressing prefill (whole, padded to a multiple
+of ``context_bucket`` tokens, or in chunks of ``context_chunk`` tokens), the
+head-wise compaction of a ``host_compact`` press (``cache.compact_masked``),
+``resize`` of the cache, then per question a
 question forward and greedy (or nucleus) decode with positions continuing
 from the uncompressed context length, and a rollback between questions:
 restoring the pre-question ``length``/``offset`` (the runner leaves the
@@ -26,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from .cache import resize
+from .cache import compact_masked, resize
 from .device import DeviceLike
 from .models.llama import LlamaModel, Runner
 from .models.siglip import VisionConfig, VisionTower
@@ -227,9 +229,26 @@ class KVPressPipeline:
                              "(KVPressPipeline.from_torch_multimodal)")
         single = questions is None
         questions = questions or ([question] if question else [""])
+        if press is not None and press.compresses_decode and len(questions) > 1:
+            raise ValueError("DecodingPress is not compatible with multiple questions. "
+                             "Please specify a single question.")
 
         context_ids, question_ids = self.preprocess(
             context, questions, answer_prefix, max_context_length, enable_thinking)
+        if press is not None and getattr(press, "delimiter_token_id", None) is not None \
+                and hasattr(press, "with_window"):
+            # FinchPress: the tokens after the delimiter are the observation
+            # window; the delimiter is stripped (reference finch_press.py:
+            # 123-137 does this in an embedding forward hook).
+            did = press.delimiter_token_id
+            if context_ids.count(did) != 1:
+                raise ValueError("Exactly one delimiter token should be present.")
+            pos = context_ids.index(did)
+            window = len(context_ids) - 1 - pos
+            if window <= 0:
+                raise ValueError("No window detected (window size must be > 0).")
+            context_ids = context_ids[:pos] + context_ids[pos + 1:]
+            press = press.with_window(window)
         # One generator a question, seeded from the call's generator (or seed)
         # before the first question: a question's draws do not depend on the
         # answers before it.
@@ -270,6 +289,11 @@ class KVPressPipeline:
             prefill_logits, cache, _ = self.runner.prefill(
                 self.params, ids, valid_len=None if context_bucket is None else context_length,
                 **common)
+        if press is not None and getattr(press, "host_compact", False):
+            # Mask presses that compact (DMS compact=True): each head's kept
+            # entries to the front of its buffer, each layer's length to its
+            # longest head's count; the resize below then frees the rest.
+            cache = compact_masked(cache)
         compressed = int(cache.length.max())
         if press is not None and getattr(press, "rerotates", False):
             # Rerotated keys sit at positions 0..n-1: the question and the

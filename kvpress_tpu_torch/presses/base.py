@@ -58,7 +58,7 @@ class BasePress:
     needs_attn_probs = False
     compresses_prefill = True
     compresses_decode = False
-    # Per-token chunk scoring, for DMSPress (ROADMAP Queue A item 11): a
+    # Per-token chunk scoring, for DMSPress through chunked prefill: a
     # press whose score of a token reads only that token's (hidden, k, v)
     # sets a module-level ``(arg, layer_idx, hidden (B, T, E), keys
     # (B, H, T, D), values) -> (B, H, T)`` and gives its arrays as

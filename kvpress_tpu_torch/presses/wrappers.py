@@ -73,8 +73,8 @@ def _refuse_bucket(press, ctx):
     if ctx.kv_len is not None:
         raise ValueError(
             f"{type(press).__name__} does not support bucketed prefill (context_bucket): the "
-            "JAX press scores the pads and sizes its budget from the padded length, so its "
-            "bucketed keep is not its exact one")
+            "JAX press reads the padded length (it scores the pads, or sizes its budget or "
+            "window from them), so its bucketed keep is not its exact one")
 
 
 def _front(x: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:

@@ -190,7 +190,7 @@ def test_unsupported_presses_and_options_raise(models, case):
 # the keys' groups (tests/test_torch_multimodal.py holds the branch itself).
 LEAN_BRANCHES = {"kvzip_spec": (NotImplementedError, "item"),
                  "kvcompose_spec": (NotImplementedError, "item"),
-                 "collect_fn": (NotImplementedError, "item"),
+                 "collect_fn": (TypeError, "callable"),
                  "img_groups": (ValueError, "k_groups")}
 
 

@@ -473,6 +473,30 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, bits):
     _close(got, ref)
 
 
+# The Duo split decode's launches (ops/duo_decode.py; flagship, 32K): a
+# retrieval buffer of 5 of the 8 kv heads, G 4, over the 32,768 context slots
+# and the new token; a streaming buffer of 4 kv heads over sink 128 + recent
+# 256 + 33 slots of room; and a layer whose every head retrieves (the
+# retrieval lanes padded to H_kv). Every slot below the length is live: no mask.
+DUO_SPLIT_CASES = [
+    # B, Hkv, S, length
+    (1, 5, 32768 + 33, 32768 + 1),
+    (1, 4, 384 + 33, 384 + 1),
+    (1, 8, 32768 + 33, 32768 + 5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DUO_SPLIT_CASES, ids=[f"H{c[1]}S{c[2]}L{c[3]}"
+                                                       for c in DUO_SPLIT_CASES])
+def test_decode_kernel_at_duo_split_shapes_on_card(cuda, case):
+    B, Hkv, S, length = case
+    q, k, v, _ = _inputs(11, B, 4 * Hkv, Hkv, 1, S, 64)
+    q, k, v = (_t(a).to(cuda).to(torch.bfloat16) for a in (q, k, v))
+    got = tdec.decode_attention(q, k, v, length, sm_scale=64 ** -0.5)
+    _close(got, tdec.decode_attention_plain(q, k, v, length, sm_scale=64 ** -0.5))
+
+
 def _sums_close(got, ref):
     """Column sums (and row LSE) are one number per slot: each is held to
     ROW_LIMIT of its own size."""

@@ -198,4 +198,5 @@ def test_chunk_score_fn_is_the_surrogate(inputs):
     press = kt.KVzapPress(0.5, surrogate=ART["mlp"])
     got = press.chunk_score_fn(press.chunk_score_arg, LAYER, _t(a["h"]), None, None)
     torch.testing.assert_close(got, press.score(tctx, _t(a["k"]), _t(a["v"])))
-    assert kt.KnormPress(0.5).chunk_score_fn is None
+    # a window scorer has none (Knorm's is held in test_torch_chunked_mask_presses.py)
+    assert kt.SnapKVPress(0.5).chunk_score_fn is None

@@ -4,7 +4,7 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes twenty-four copies of the port in a temporary directory, each with one
+# It makes twenty-six copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (in the column sums a query
 # stage dropped and every stage taken without the causal test, a key tile
 # dropped from the row logsumexp; in the head-wise decode the tail, one
@@ -31,7 +31,12 @@
 # bucket's length in place of the valid length (runner_bucket_len), and
 # chip_smoke.bucketed_check runs in it; the pipeline leaves the offset at the
 # context's length after a rerotating press (pipeline_rerotation_offset), and
-# chip_smoke.rerotation_check runs in it.
+# chip_smoke.rerotation_check runs in it. Two more break this slice's modules:
+# cache.compact_masked counts the slots at or past a layer's length among the
+# kept ones (compact_masked_past_length), and chip_smoke.compact_masked_check
+# runs in it; the Duo split decode gathers the heads back through a reversed
+# inverse permutation (duo_inverse_permutation), and chip_smoke.duo_split_check
+# runs in it.
 # Every copy must be rejected; the script exits 1 if one passes or if a
 # mutation did not apply. Mutant names given as arguments run those alone.
 set -u
@@ -43,7 +48,7 @@ mutants="colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
          or_upper_range or_lower_range or_text_guard
          flash_d256_panels decode_d256_key_chunk colsum_d256_panels
          flash_d96_k_step decode_d96_tail_words colsum_d96_k_step runner_bucket_len
-         pipeline_rerotation_offset"
+         pipeline_rerotation_offset compact_masked_past_length duo_inverse_permutation"
 for m in ${@:-$mutants}; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
@@ -55,6 +60,8 @@ for m in ${@:-$mutants}; do
   fl=$d/kvpress_tpu_torch/csrc/flash_sm90.cuh
   rn=$d/kvpress_tpu_torch/models/llama.py
   pl=$d/kvpress_tpu_torch/pipeline.py
+  ca=$d/kvpress_tpu_torch/cache.py
+  du=$d/kvpress_tpu_torch/ops/duo_decode.py
   check=kernel_checks
   case $m in
     colsum_query_tile)
@@ -107,6 +114,12 @@ for m in ${@:-$mutants}; do
     pipeline_rerotation_offset)
       sed -i 's/offset=torch.tensor(compressed, dtype=torch.int32))/offset=torch.tensor(context_length, dtype=torch.int32))/' "$pl"
       check=rerotation_check ;;
+    compact_masked_past_length)
+      sed -i 's/        keep = cache.mask\[l\] & (pos < int(cache.length\[l\]))          # (B, H, S)/        keep = cache.mask[l]/' "$ca"
+      check=compact_masked_check ;;
+    duo_inverse_permutation)
+      sed -i 's/        o = o\[:, ds.inv_idx\[l\]\].reshape(B, Hkv \* G, 1, D)/        o = o[:, ds.inv_idx[l].flip(0)].reshape(B, Hkv * G, 1, D)/' "$du"
+      check=duo_split_check ;;
   esac
   changed=$(diff -r kvpress_tpu_torch "$d/kvpress_tpu_torch" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
@@ -120,7 +133,8 @@ from toy_tokenizer import ToyTokenizer
 # profiler trace that comes back empty cannot reject it.
 chip_smoke.kernel_ms = lambda fn, symbol, iters: chip_smoke.cuda_ms(fn, 1, 1)
 try:
-    if os.environ["CHECK"] in ("bucketed_check", "rerotation_check"):
+    if os.environ["CHECK"] in ("bucketed_check", "rerotation_check", "compact_masked_check",
+                               "duo_split_check"):
         dev = torch.device("cuda")
         params = kt.init_params(chip_smoke.flagship_config(16),
                                 torch.Generator(device=dev).manual_seed(0),
