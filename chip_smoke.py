@@ -91,8 +91,19 @@
    DMS(KVzap) mask only (``compact_masked`` over a grown cache) and compact
    on the head-wise runner; chunked by 8,192 Duo and DMS over int8 KV and
    SimLayerKV and Finch over bf16, each held against its one-shot run; the
-   refusals (Merging chunked, ``DMSPress(decoding=True)``, each press under a
-   bucket).
+   refusals (Merging chunked, each press under a bucket). Then the
+   decode-time presses at the same shape with the 152-token question and 32
+   new tokens (``decode_presses_run``): DecodingPress(Knorm, interval 16,
+   target 16,384) over bf16, int8 and int4 KV (compressions after calls 16
+   and 32; the kept payload and scales a gather of the pre-compression
+   payload) and chunked by 8,192, CompressionRatioDecodingPress(0.5),
+   PrefillDecodingPress(SnapKV(0.5), DecodingPress(Knorm, 8,192)),
+   CAMPress(Knorm) over bf16 and int8 KV (the dense route), DMS(KVzap) with
+   ``decoding=True`` over int8 KV one-shot and chunked (the masked fraction
+   grows, every decode launch masked), the Gemma-3-12B body cut to 6 layers
+   (the sliding layers whole), each with the device breakdown of a
+   compressing and a plain step; the refusals (two questions,
+   ``compact`` with ``decoding``, PrefillDecodingPress chunked).
    Then ``Runner.prefill_chunked`` at 32K over int4 KV on its fused route
    (``flash_attention_quant`` at 4 bits) held against its dense route
    (``fused_int4_check``; also the peak memory of chunked and one-shot
@@ -100,8 +111,9 @@
    through the pipeline with int4 KV, Knorm and a 131,072-token context in
    chunks of 8,192 (``long_context_run``). Then the other architectures at
    full width: the Qwen3-8B body (36 layers, bf16, q/k-norm; ``qwen3_run``)
-   and the Gemma-3-27B body (62 layers, int4, sliding layers with window
-   1,024, a SigLIP tower; ``gemma3_run``) through the pipeline at 32K,
+   and the Gemma-3-27B body (int4, cut to 31 of its 62 layers, sliding
+   layers with window 1,024, a SigLIP tower; ``gemma3_run``) through the
+   pipeline at 32K,
    Knorm and bf16 KV (Qwen3 also ExpectedAttention), Gemma3 with 4 images
    one-shot and with ``context_chunk=8192``: the or-mask on every layer's prefill, the window
    on the sliding layers' flash and decode launches, the sliding layers
@@ -125,7 +137,10 @@
    path on the same weights, stage by stage, at depth 1 and 16
    (``reference_check``: Knorm, paths A and B, ExpectedAttention,
    Compactor, KeyRerotation, CriticalAdaKV(SnapKV) compact, Duo and
-   DMS(KVzap) compact; chunked prefill in chunks of 512 too).
+   DMS(KVzap) compact; chunked prefill in chunks of 512 too), and each
+   decode-time press (Decoding, DMS(KVzap) decoding, CAM) stage by stage
+   through 16 decode steps past its compressions
+   (``decode_reference_check``).
 4. Timings: prefill at 32K under each press and chunked (int8 KV; int4 KV
    on both routes), and decode at batch 4 x 32K
    context, ratio 0.5 (Knorm: int4 KV + int8 weights, decode kernel on and
@@ -2073,8 +2088,11 @@ LAZY_KEEP = 4 + 1023        # a lazy layer's sink and recent slots (SimLayerKV's
 
 def decode_recorder(runner, log: list):
     """``runner`` that appends to ``log``, for each decode-phase forward, its
-    new tokens, the offset it starts from, the cache's layer lengths, its
-    wall ms on a synchronized host clock and the cache it was given."""
+    new tokens, the offset it starts from, the cache's layer lengths before
+    and after it, its wall ms on a synchronized host clock, the cache it was
+    given, and the cache and a copy of the press state it returned; the
+    first decode-phase call also starts the peak-memory reading
+    (``log[0]["held"]``)."""
     import torch
 
     class Recording(type(runner)):
@@ -2082,12 +2100,18 @@ def decode_recorder(runner, log: list):
             if kw.get("phase") != "decode":
                 return super().forward(params, ids, cache, *args, **kw)
             torch.cuda.synchronize()
+            held = None
+            if not log:
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             out = super().forward(params, ids, cache, *args, **kw)
             torch.cuda.synchronize()
             log.append(dict(T=ids.shape[1], offset=int(cache.offset),
-                            lengths=cache.length.tolist(),
-                            ms=(time.perf_counter() - t0) * 1e3, cache=cache))
+                            lengths=cache.length.tolist(), after=out[1].length.tolist(),
+                            ms=(time.perf_counter() - t0) * 1e3, cache=cache, out=out[1],
+                            state=None if out[2] is None else [dict(s) for s in out[2]],
+                            held=held))
             return out
 
     return Recording(**{f.name: getattr(runner, f.name) for f in dataclasses.fields(runner)})
@@ -2529,9 +2553,8 @@ def dms_flips(torch, one_shot, mask, scores, threshold, report):
 
 
 def mask_press_refusals(kt, torch, tok, params, runner, report):
-    """MergingPress under context_chunk (TypeError), DMSPress(decoding=True)
-    (NotImplementedError naming ROADMAP Queue A item 12), and each press of
-    this slice under context_bucket (ValueError, raised in layer 0's
+    """MergingPress under context_chunk (TypeError) and each press of this
+    slice under context_bucket (ValueError, raised in layer 0's
     layer_compress). Returns the failures."""
     import numpy as np
 
@@ -2541,9 +2564,7 @@ def mask_press_refusals(kt, torch, tok, params, runner, report):
     knorm = kt.KnormPress(0.5)
     cases = [("Merging under context_chunk", TypeError, lambda: pipe(
         context, question=QUESTIONS[1], press=kt.MergingPress(knorm),
-        context_chunk=CHUNK_TOKENS, max_new_tokens=2)),
-        ("DMSPress(decoding=True)", NotImplementedError,
-         lambda: kt.DMSPress(knorm, decoding=True))]
+        context_chunk=CHUNK_TOKENS, max_new_tokens=2))]
     cfg = runner.cfg
     for name, press in (
             ("Merging", kt.MergingPress(knorm)),
@@ -2562,8 +2583,6 @@ def mask_press_refusals(kt, torch, tok, params, runner, report):
             call()
         except error as e:
             report(f"  {label}: refused ({type(e).__name__}: {str(e)[:110]})")
-            if error is NotImplementedError and "item 12" not in str(e):
-                failures.append(f"{label}: the refusal names no ROADMAP item 12")
         else:
             failures.append(f"{label} was not refused")
         torch.cuda.empty_cache()
@@ -2579,6 +2598,572 @@ def compact_masked_check(kt, torch, tokenizer_cls, params, report):
 def duo_split_check(kt, torch, tokenizer_cls, params, report):
     """Duo's split-cache decode against its masked decode at 32K."""
     return mask_presses_run(kt, torch, tokenizer_cls, params, report, labels=("duo split",))
+
+
+# --------------------------------------------------------------------- #
+# Phase 3, the decode-time presses at the flagship shape.
+
+DEC_INTERVAL, DEC_TARGET, DEC_BUFFER = 16, 16384, 256
+# The dense-path check's scale (2,048 tokens): interval 8, target 1,024, and
+# 16 teacher-forced steps after the 150-token question (call 1), so that
+# calls 8 and 16 compress.
+DEC_REF_INTERVAL, DEC_REF_TARGET, DEC_REF_STEPS = 8, 1024, 16
+
+
+def compressed_calls(log) -> list[int]:
+    """The 1-based decode-phase calls (1: the question forward) after which
+    some layer is shorter than before plus its new tokens."""
+    return [i + 1 for i, e in enumerate(log)
+            if any(a < b + e["T"] for a, b in zip(e["after"], e["lengths"]))]
+
+
+def step_readings(torch, label, runner, params, log, press, report, interval=None,
+                  plain=False):
+    """Readings of a decode-time run: the decode steps' host ms with and
+    without a compression in them (the pipeline's own steps), the peak memory
+    of the decode over what was held, and the device breakdown (profiler:
+    busy ms, idle share, the largest kernels) of one step that compresses
+    and, with ``plain``, of one that does not, taken from the run's last
+    cache and state (``steps`` set to ``interval - 1`` and to 0; DMS evicts
+    in every step)."""
+    steps = [e for e in log if e["T"] == 1]
+    hit = set(compressed_calls(log))
+    with_c = [e["ms"] for i, e in enumerate(log) if e["T"] == 1 and i + 1 in hit]
+    without = [e["ms"] for i, e in enumerate(log) if e["T"] == 1 and i + 1 not in hit]
+    peak = torch.cuda.max_memory_allocated() - log[0]["held"]
+    med = lambda xs: f"{statistics.median(xs):.2f} ms (n={len(xs)})" if xs else "none"
+    report(f"    decode steps (host clock): {len(steps)}, with a compression {med(with_c)}, "
+           f"without {med(without)}; the question forward {log[0]['ms']:.2f} ms; decode peak "
+           f"{peak / 2**30:.3f} GiB over the {log[0]['held'] / 2**30:.3f} GiB held")
+    cache, state = log[-1]["out"], log[-1]["state"]
+    tok = torch.full((cache.keys.shape[1], 1), 7, dtype=torch.long, device=cache.keys.device)
+    forms = {"a step that compresses": interval and interval - 1}
+    if plain:
+        forms["a step that does not"] = 0
+    if interval is None:
+        forms = {"a step (it evicts)": None}
+    for what, n in forms.items():
+        def fn(n=n):
+            st = [dict(s) if n is None else dict(s, steps=n) for s in state]
+            return runner.forward(params, tok, cache, press=press, press_state=st,
+                                  phase="decode", logits_last_only=True)
+        did = any(a <= b for a, b in zip(fn()[1].length.tolist(), cache.length.tolist()))
+        if n and not did:
+            what += " (it did not: the target no longer binds at this length)"
+        breakdown(f"  {label}, {what}", fn, 3, report, top=4)
+
+
+def recording_cam(kt, log: list, **kw):
+    """A CAMPress whose merges append, without a device sync, whether they
+    changed a value."""
+    class Recording(kt.CAMPress):
+        def merge(self, keys, values, *args):
+            merged = super().merge(keys, values, *args)
+            log.append((merged != values).any())
+            return merged
+
+    return Recording(**kw)
+
+
+def gather_check(kt, torch, runner, params, cache, state, press, report):
+    """One compressing step over a quantized cache (from the run's last cache
+    and state, ``steps`` at ``interval - 1``): in every layer the kept
+    payload and scale rows must be bit-equal to a gather of the
+    pre-compression payload (the appended token included) at the kept slots,
+    those of ``order_desc`` of the press's scores. Returns the failures."""
+    from kvpress_tpu_torch.presses.base import order_desc
+
+    seen, equal = [], []
+
+    class Checking(type(press)):
+        def _score_buffer(self, *args):
+            scores = super()._score_buffer(*args)
+            seen.append(scores)
+            return scores
+
+        def decode_compress_quantized(self, ctx, keys, values, ks, vs, bits, length, mask,
+                                      st):
+            before = [t.clone() for t in (keys, values, ks, vs)]
+            out = super().decode_compress_quantized(ctx, keys, values, ks, vs, bits, length,
+                                                    mask, st)
+            n = out[4]
+            idx = order_desc(seen.pop(), n)
+            for got, src in zip(out[:4], before):
+                want = torch.gather(src, 2, idx[..., None].expand(*idx.shape, src.shape[-1]))
+                equal.append(torch.equal(got[:, :, :n], want))
+            return out
+
+    checking = Checking(**{f.name: getattr(press, f.name) for f in dataclasses.fields(press)})
+    tok = torch.full((cache.keys.shape[1], 1), 7, dtype=torch.long, device=cache.keys.device)
+    st = [dict(s, steps=press.compression_interval - 1) for s in state]
+    runner.forward(params, tok, clone_cache(cache), press=checking, press_state=st,
+                   phase="decode", logits_last_only=True)
+    L = runner.cfg.num_layers
+    report(f"    gather check, int{cache.bits}: kept payload and scale rows bit-equal to the "
+           f"gather at the kept slots in {sum(equal)} of {4 * L} (layer, tensor) pairs")
+    return [] if len(equal) == 4 * L and all(equal) else [
+        f"gather check int{cache.bits}: {sum(equal)} of {len(equal)} equal"]
+
+
+def masked_launches(torch):
+    """A context manager under which each ``decode_attention`` launch of the
+    runner appends to the returned list whether its keep-mask had a clear
+    bit among its valid slots (a device tensor: no sync)."""
+    from kvpress_tpu_torch.models import llama
+
+    seen = []
+    original = llama.decode_attention
+
+    @contextlib.contextmanager
+    def patched():
+        def wrapper(q, k, v, length, *args, **kw):
+            mask = kw.get("mask", args[2] if len(args) > 2 else None)
+            seen.append(torch.zeros((), dtype=torch.bool, device=q.device) if mask is None
+                        else ~mask[..., :int(length)].all())
+            return original(q, k, v, length, *args, **kw)
+
+        llama.decode_attention = wrapper
+        try:
+            yield seen
+        finally:
+            llama.decode_attention = original
+
+    return patched()
+
+
+def decode_presses_run(kt, torch, tokenizer_cls, params, report):
+    """The decode-time presses through ``KVPressPipeline`` at the flagship
+    shape (16 layers, bf16 weights), a 32,768-token context, the 152-token
+    question and 32 new tokens (a decode-time press takes one question), each
+    run's launch counts set to 0 before it and read after it:
+
+    (a) DecodingPress(Knorm, interval 16, target 16,384, buffer 256), bf16 KV:
+        compressions after calls 16 and 32 (call 1 the question forward),
+        every layer at 16,384 after each and in [16,384, 16,400) at the end;
+    (b) the same over int8 and int4 KV, with ``gather_check``;
+    (c) CompressionRatioDecodingPress(Knorm, 0.5, interval 16): after each
+        compression every layer at ``float32_budget`` of the tokens seen;
+    (d) PrefillDecodingPress(SnapKV(0.5), DecodingPress(Knorm, interval 16,
+        target 8,192)): 16,384 after the prefill, [8,192, 8,208) at the end;
+    (e) CAMPress(Knorm, interval 16, target 16,384, merge budget 32), bf16 and
+        int8 KV (the dense route: the layer requantized every step): a merged
+        value in every compressing call;
+    (f) DMS(KVzap MLP surrogate) with ``decoding=True``, the threshold the
+        median of layer 0's scores, int8 KV, one-shot and chunked by 8,192:
+        the masked fraction grows in the decode, every decode launch masked;
+    (g) (a)'s press chunked by 8,192 with bf16 KV;
+    (h) the Gemma-3-12B body cut to 6 layers (five sliding, one global) with
+        (a)'s press: the sliding layers keep every token, the global one
+        compresses;
+    then the refusals (``decode_press_refusals``). Each run prints its launches
+    by kernel, its prefill wall and peak, the decode steps' host ms with and
+    without a compression, the decode's peak over what was held, and the
+    device breakdown and idle share of a compressing and a plain step. Returns
+    the summed launch counts."""
+    from kvpress_tpu_torch.presses.base import float32_budget
+
+    cfg = flagship_config(16)
+    L, S = cfg.num_layers, CONTEXT_TOKENS
+    dev = params.device
+    gen = torch.Generator(device=dev).manual_seed(16)
+    tok = tokenizer_cls(vocab_size=cfg.vocab_size)
+    context = " ".join(f"w{i}" for i in range(S))
+    question = QUESTIONS[0]
+    runner = kt.Runner.create(cfg, device=dev)
+    totals = {name: 0 for name in read_counts()}
+    failures = []
+
+    def decoding(target=DEC_TARGET):
+        return kt.DecodingPress(kt.KnormPress(), compression_interval=DEC_INTERVAL,
+                                target_size=target, hidden_states_buffer_size=DEC_BUFFER)
+
+    def run(label, press, expect, r=runner, p=params, t=tok, interval=DEC_INTERVAL,
+            summarize=None, plain=False, **kw):
+        """One pipeline run; ``expect(n_steps)`` gives the launch counts it must
+        read exactly, and every kernel it does not name must not launch; with
+        ``plain`` a step without a compression is profiled too. Returns (the
+        prefill's log entry, the decode log, the answer)."""
+        prefills, log = [], []
+        rec = decode_recorder(r, log)
+        pipe = kt.KVPressPipeline(timed_runner(kt, torch, rec, prefills, summarize), p, t)
+        reset_counts()
+        t0 = time.perf_counter()
+        answer = pipe(context, question=question, press=press, max_new_tokens=32,
+                      **kw)["answer"]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        n_steps = sum(e["T"] == 1 for e in log)
+        report(f"  {label}: {time.perf_counter() - t0:.2f} s in all, "
+               f"{prefill_reading(prefills)}, layer lengths after the prefill "
+               f"{sorted(set(prefills[-1][3]))}, after the last call "
+               f"{sorted(set(log[-1]['after']))}, compressed after calls "
+               f"{compressed_calls(log)}, launches {launched(counts)}, answer tokens "
+               f"{len(answer.split())}")
+        if not answer:
+            raise AssertionError(f"{label}: empty answer")
+        want = expect(n_steps)
+        failures.extend(f"{label}: {name} launched {counts[name]}, not {n}"
+                        for name, n in want.items() if counts[name] != n)
+        failures.extend(f"{label}: {name} launched {counts[name]} times" for name in counters()
+                        if name not in want and counts[name])
+        for name, n in counts.items():
+            totals[name] += n
+        step_readings(torch, label, r, p, log, press, report,
+                      interval=interval if hasattr(press, "compression_interval")
+                      or hasattr(press, "decoding_press") else None, plain=plain)
+        return prefills[-1], log, answer
+
+    def lengths_in(label, log, lo, hi, layers=None):
+        final = log[-1]["after"]
+        layers = range(len(final)) if layers is None else layers
+        if not all(lo <= final[l] < hi for l in layers):
+            failures.append(f"{label}: final layer lengths {final}, not in [{lo}, {hi})")
+
+    def at_calls(label, log, want_calls):
+        """Compressions after calls 16 and 32 (those reached: an EOS may end
+        the answer first)."""
+        reached = [c for c in want_calls if c <= len(log)]
+        got = compressed_calls(log)
+        report(f"    layer lengths after each compression: "
+               + "; ".join(f"call {c}: {sorted(set(log[c - 1]['after']))}" for c in got))
+        if got != reached:
+            failures.append(f"{label}: compressed after calls {got}, not {reached}")
+
+    bf16 = lambda n: {"flash_attention_bf16": 2 * L, "flash_attention": 2 * L,
+                      "decode_attention_bf16": n * L, "decode_attention": n * L}
+    calls = (DEC_INTERVAL, 2 * DEC_INTERVAL)
+
+    # (a), (b): DecodingPress over bf16, int8 and int4 KV
+    for label, kw, expect in (
+            ("(a) DecodingPress(Knorm), bf16 KV", {}, bf16),
+            ("(b) DecodingPress(Knorm), int8 KV", dict(quantized=True, kv_bits=8),
+             lambda n: {"flash_attention_quant_int8": 2 * L, "flash_attention_quant": 2 * L,
+                        "decode_attention_int8": n * L, "decode_attention": n * L}),
+            ("(b) DecodingPress(Knorm), int4 KV", dict(quantized=True, kv_bits=4),
+             lambda n: {"flash_attention_bf16": 2 * L, "flash_attention": 2 * L,
+                        "decode_attention_int4": n * L, "decode_attention": n * L})):
+        press = decoding()
+        _, log, _ = run(label, press, expect, plain=not kw, **kw)
+        at_calls(label, log, calls)
+        for c in compressed_calls(log):
+            if set(log[c - 1]["after"]) != {DEC_TARGET}:
+                failures.append(f"{label}: lengths {log[c - 1]['after']} after call {c}")
+        lengths_in(label, log, DEC_TARGET, DEC_TARGET + DEC_INTERVAL)
+        if kw:
+            failures += gather_check(kt, torch, runner, params, log[-1]["out"],
+                                     log[-1]["state"], press, report)
+        del log
+        torch.cuda.empty_cache()
+
+    # (c) CompressionRatioDecodingPress
+    label = "(c) CompressionRatioDecodingPress(Knorm, 0.5)"
+    _, log, _ = run(label, kt.CompressionRatioDecodingPress(
+        kt.KnormPress(), target_compression_ratio=0.5, compression_interval=DEC_INTERVAL), bf16)
+    at_calls(label, log, calls)
+    for c in compressed_calls(log):
+        e = log[c - 1]
+        want = float32_budget(e["offset"] + e["T"], 0.5)
+        report(f"    call {c}: {e['offset'] + e['T']} tokens seen, target {want}")
+        if set(e["after"]) != {want}:
+            failures.append(f"{label}: lengths {e['after']} after call {c}, not {want}")
+    del log
+
+    # (d) PrefillDecodingPress: SnapKV in the prefill, Knorm in the decode
+    half = DEC_TARGET // 2
+    label = f"(d) PrefillDecodingPress(SnapKV(0.5), DecodingPress(Knorm, {half}))"
+    pre, log, _ = run(label, kt.PrefillDecodingPress(kt.SnapKVPress(0.5), decoding(half)), bf16)
+    at_calls(label, log, calls)
+    if set(pre[3]) != {S // 2}:
+        failures.append(f"{label}: prefill lengths {sorted(set(pre[3]))}")
+    lengths_in(label, log, half, half + DEC_INTERVAL)
+    del log
+    torch.cuda.empty_cache()
+
+    # (e) CAM over bf16 and int8 KV
+    for label, kw, expect in (
+            ("(e) CAMPress(Knorm), bf16 KV", {}, bf16),
+            ("(e) CAMPress(Knorm), int8 KV (dense route)", dict(quantized=True, kv_bits=8),
+             lambda n: {"flash_attention_quant_int8": L, "flash_attention_quant": L,
+                        "flash_attention_bf16": L, "flash_attention": L,
+                        "decode_attention_int8": n * L, "decode_attention": n * L})):
+        merges = []
+        press = recording_cam(kt, merges, base_press=kt.KnormPress(),
+                              compression_interval=DEC_INTERVAL, target_size=DEC_TARGET,
+                              merge_budget=32)
+        _, log, _ = run(label, press, expect, plain=True, **kw)
+        at_calls(label, log, calls)
+        lengths_in(label, log, DEC_TARGET, DEC_TARGET + DEC_INTERVAL)
+        n_merged = int(torch.stack(merges[:L * len(compressed_calls(log))]).sum())
+        report(f"    compressions with a merged value: {n_merged} of "
+               f"{L * len(compressed_calls(log))} (layer, call) pairs")
+        if n_merged == 0:
+            failures.append(f"{label}: no value merged")
+        del log
+        torch.cuda.empty_cache()
+
+    # (f) DMS(KVzap) decoding, int8 KV, one-shot and chunked
+    ids = torch.tensor([tok.encode(tok.bos_token + context)], device=dev)
+    surrogate = kvzap_surrogate(torch, cfg, gen)
+    threshold = float(layer0_scores(kt, cfg, params, ids, surrogate).median())
+    report(f"  DMS(KVzap), decoding: threshold {threshold:.6f}, the median of layer 0's scores")
+    dms = kt.DMSPress(kt.KVzapPress(surrogate=surrogate), threshold=threshold, decoding=True)
+    def masked_slots(c):
+        """(the masked fraction, the masked slots below the lengths)."""
+        valid = torch.arange(c.max_size, device=dev) < c.length.to(dev)[:, None, None, None]
+        return float(kt.masked_fraction(c)), int((valid & ~c.mask).sum())
+
+    for label, kw, expect in (
+            ("(f) DMS(KVzap), decoding, int8 KV", dict(quantized=True, kv_bits=8),
+             lambda n: {"flash_attention_bf16": 2 * L, "flash_attention": 2 * L,
+                        "decode_attention_int8": n * L, "decode_attention": n * L}),
+            ("(f) DMS(KVzap), decoding, int8 KV, chunked", dict(
+                quantized=True, kv_bits=8, context_chunk=CHUNK_TOKENS),
+             lambda n: {"flash_attention_quant_int8": (S // CHUNK_TOKENS) * L,
+                        "flash_attention_quant": (S // CHUNK_TOKENS) * L,
+                        "flash_attention_bf16": L, "flash_attention": L,
+                        "decode_attention_int8": n * L, "decode_attention": n * L})):
+        with masked_launches(torch) as masked:
+            pre, log, _ = run(label, dms, expect, summarize=masked_slots, **kw)
+        (f0, before), (f1, after) = pre[4], masked_slots(log[-1]["out"])
+        left = sum(e["T"] for e in log) * L * cfg.num_kv_heads
+        n_masked = int(torch.stack(masked).sum()) if masked else 0
+        report(f"    masked slots after the prefill {before} (fraction {f0:.6f}), after the "
+               f"decode {after} ({f1:.6f}): {after - before} of the {left} (layer, head) slots "
+               f"that left the window were evicted in the decode; decode launches with a clear "
+               f"keep bit {n_masked} of {len(masked)}")
+        if not after > before or not masked or n_masked != len(masked):
+            failures.append(f"{label}: masked slots {before} -> {after}, masked launches "
+                            f"{n_masked} of {len(masked)}")
+        del log
+        torch.cuda.empty_cache()
+
+    # (g) DecodingPress chunked, bf16 KV
+    label = "(g) DecodingPress(Knorm), bf16 KV, chunked"
+    n_chunks = S // CHUNK_TOKENS
+    _, log, _ = run(label, decoding(), lambda n: {
+        "flash_attention_bf16": (n_chunks + 1) * L, "flash_attention": (n_chunks + 1) * L,
+        "decode_attention_bf16": n * L, "decode_attention": n * L},
+        context_chunk=CHUNK_TOKENS)
+    at_calls(label, log, calls)
+    lengths_in(label, log, DEC_TARGET, DEC_TARGET + DEC_INTERVAL)
+    del log
+    torch.cuda.empty_cache()
+
+    # (h) a sliding body: Gemma-3-12B cut to 6 layers
+    gcfg = gemma3_12b_config(6)
+    ggen = torch.Generator(device=dev).manual_seed(12)
+    gparams = kt.init_params(gcfg, ggen, dtype=torch.bfloat16, device=dev)
+    spread_norms(torch, gparams, gcfg, ggen)
+    sliding = gcfg.sliding_flags()
+    n_sl = sum(sliding)
+    label = "(h) DecodingPress(Knorm), Gemma-3-12B cut to 6 layers"
+    _, log, _ = run(label, decoding(), lambda n: {
+        "flash_attention_bf16_d256": 12, "flash_attention": 12,
+        "decode_attention_bf16_d256": 6 * n, "decode_attention": 6 * n,
+        "flash_attention_windowed": 2 * n_sl, "decode_attention_windowed": n_sl * n},
+        r=kt.Runner.create(gcfg, device=dev), p=gparams,
+        t=tokenizer_cls(vocab_size=gcfg.vocab_size))
+    whole = S + len(question.split()) + sum(e["T"] == 1 for e in log)
+    final = log[-1]["after"]
+    report(f"    sliding layers {[l for l, s in enumerate(sliding) if s]} at "
+           f"{sorted({final[l] for l, s in enumerate(sliding) if s})} (every token: {whole}); "
+           f"global at {[final[l] for l, s in enumerate(sliding) if not s]}")
+    if any(final[l] != whole for l, s in enumerate(sliding) if s):
+        failures.append(f"{label}: sliding layers at {final}, not {whole}")
+    lengths_in(label, log, DEC_TARGET, DEC_TARGET + DEC_INTERVAL,
+               [l for l, s in enumerate(sliding) if not s])
+    del log, gparams
+    torch.cuda.empty_cache()
+
+    failures += decode_press_refusals(kt, torch, tok, params, runner, report)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return totals
+
+
+def decode_press_refusals(kt, torch, tok, params, runner, report):
+    """A decode-time press with two questions (ValueError: its compression
+    rewrites slots below the length the rollback restores),
+    ``DMSPress(compact=True, decoding=True)`` (ValueError: compaction moves
+    the slots the ring tracks) and ``PrefillDecodingPress`` under
+    ``context_chunk`` (TypeError, as JAX's assertion). Returns the
+    failures."""
+    pipe = kt.KVPressPipeline(runner, params, tok)
+    context = " ".join(f"w{i}" for i in range(BUCKET_CONTEXT))
+    knorm = kt.KnormPress()
+    decoding = kt.DecodingPress(knorm, compression_interval=4, target_size=1024)
+    cases = [
+        ("DecodingPress with two questions", ValueError,
+         lambda: pipe(context, questions=QUESTIONS, press=decoding, max_new_tokens=2)),
+        ("CAMPress with two questions", ValueError,
+         lambda: pipe(context, questions=QUESTIONS, press=kt.CAMPress(knorm),
+                      max_new_tokens=2)),
+        ("DMSPress(compact=True, decoding=True)", ValueError,
+         lambda: kt.DMSPress(knorm, decoding=True, compact=True)),
+        ("PrefillDecodingPress under context_chunk", TypeError, lambda: pipe(
+            context, question=QUESTIONS[1], press=kt.PrefillDecodingPress(
+                kt.KnormPress(0.5), decoding), context_chunk=CHUNK_TOKENS, max_new_tokens=2))]
+    failures = []
+    for label, error, call in cases:
+        try:
+            call()
+        except error as e:
+            report(f"  {label}: refused ({type(e).__name__}: {str(e)[:110]})")
+        else:
+            failures.append(f"{label} was not refused")
+        torch.cuda.empty_cache()
+    return failures
+
+
+def decode_reference_paths(kt, torch, cfg, ids):
+    """{path: press} of the dense-path check: (a)'s press scaled to 2,048
+    tokens, (f)'s (its threshold the median of layer 0's scores of ``ids``),
+    (e)'s scaled (the same draws on both routes: they come from (seed, layer,
+    step))."""
+    surrogate = kvzap_surrogate(torch, cfg, torch.Generator(device=ids.device).manual_seed(15))
+    return {
+        "DecodingPress(Knorm)": kt.DecodingPress(
+            kt.KnormPress(), compression_interval=DEC_REF_INTERVAL, target_size=DEC_REF_TARGET,
+            hidden_states_buffer_size=DEC_BUFFER),
+        "DMS(KVzap), decoding": lambda params: kt.DMSPress(
+            kt.KVzapPress(surrogate=surrogate),
+            threshold=float(layer0_scores(kt, cfg, params, ids, surrogate).median()),
+            decoding=True),
+        "CAMPress(Knorm)": kt.CAMPress(
+            kt.KnormPress(), compression_interval=DEC_REF_INTERVAL, target_size=DEC_REF_TARGET,
+            hidden_states_buffer_size=DEC_BUFFER, merge_budget=32),
+    }
+
+
+def _state_as(state, dtype):
+    """A copy of a press state with its hidden-state ring in ``dtype`` (the
+    attention sum and the score ring stay float32, as the presses keep
+    them)."""
+    return [{k: v.to(dtype, copy=True) if k == "buffer" else v for k, v in s.items()}
+            for s in state]
+
+
+def _kept(cache):
+    """(each layer's length, each layer's kept count: the keep bits set
+    below its length)."""
+    import torch
+
+    if cache.mask is None:
+        return cache.length.tolist(), None
+    valid = torch.arange(cache.max_size, device=cache.mask.device) < cache.length.to(
+        cache.mask.device)[:, None, None, None]
+    return cache.length.tolist(), (cache.mask & valid).sum(dim=(1, 2, 3)).tolist()
+
+
+def decode_reference_check(kt, torch, params, report):
+    """Each decode-time press on the kernel path (flash, the decode kernel)
+    against the dense path (``attn_impl="xla"``, ``decode_kernel=False``) on
+    the same weights, cut to their first layer and whole, with a 2,048-token
+    context, the 150-token question and 16 teacher-forced steps, stage by
+    stage, each stage starting both paths from one state (the kernel path's
+    cache and press state): the prefill's last logits, the question
+    forward's logits, the steps' logits. Every stage must read at most
+    REF_LIMIT[depth], and at full depth at most F32_RATIO times what bf16
+    rounding alone moves in the same stage (the dense path in float32 from
+    the same state). The layer lengths must be equal after every stage; under
+    DMS the keep bits of layer 0 too, and the deeper layers' kept counts may
+    differ by at most F32_RATIO times as much as dense bf16 and float32
+    differ (compare_paths' yardstick for kept slots)."""
+    dev = params.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    vocab = flagship_config().vocab_size
+    ids = torch.randperm(vocab, generator=gen, device=dev)[:REF_CONTEXT][None]
+    question = torch.randperm(vocab, generator=gen, device=dev)[:REF_QUESTION][None]
+    size = REF_CONTEXT + REF_QUESTION + DEC_REF_STEPS + 1
+    failures = []
+
+    def as32(cache):
+        return dataclasses.replace(clone_cache(cache), keys=cache.keys.float(),
+                                   values=cache.values.float())
+
+    def question_stage(r, p, press, cache, state, dtype):
+        logits, cache, state = r.forward(p, question, clone_cache(cache), press=press,
+                                         press_state=_state_as(state, dtype), phase="decode")
+        return logits, cache, state
+
+    def decode_stage(r, p, press, cache, state, dtype):
+        cache, state, out, kept = clone_cache(cache), _state_as(state, dtype), [], []
+        for i in range(DEC_REF_STEPS):
+            logits, cache, state = r.forward(p, question[:, i:i + 1], cache, press=press,
+                                             press_state=state, phase="decode",
+                                             logits_last_only=True)
+            out.append(logits)
+            kept.append(_kept(cache))
+        return torch.cat(out, dim=1), kept
+
+    def count_diff(a, b):
+        """Per layer, the summed |kept-count difference| of two kept logs."""
+        pairs = [(x[1], y[1]) for x, y in zip(a, b) if x[1] is not None]
+        return [sum(abs(u[l] - v[l]) for u, v in pairs) for l in range(len(a[0][0]))]
+
+    for depth in (1, 16):
+        cfg = flagship_config(depth)
+        p = first_layers(params, depth) if depth < len(params.layers) else params
+        p32 = copy.deepcopy(p).float() if depth == 16 else None
+        kernel = kt.Runner.create(cfg, device=dev)
+        dense = kt.Runner.create(cfg, attn_impl="xla", decode_kernel=False, device=dev)
+        bf16 = torch.bfloat16
+        for path, make in decode_reference_paths(kt, torch, cfg, ids).items():
+            press = make(p) if callable(make) else make
+            label = f"{path}, depth {depth}"
+            kw = dict(press=press, max_size=size, compute_logits=True)
+            pre_k, cache, state = kernel.prefill(p, ids, **kw)
+            pre_d, cache_d, _ = dense.prefill(p, ids, **kw)
+            q_k, cache_q, state_q = question_stage(kernel, p, press, cache, state, bf16)
+            q_d, cache_qd, _ = question_stage(dense, p, press, cache, state, bf16)
+            d_k, kept_k = decode_stage(kernel, p, press, cache_q, state_q, bf16)
+            d_d, kept_d = decode_stage(dense, p, press, cache_q, state_q, bf16)
+            kept = {"kernel": [_kept(cache), _kept(cache_q)] + kept_k,
+                    "dense": [_kept(cache_d), _kept(cache_qd)] + kept_d}
+            read = {"prefill": rel(torch, pre_k, pre_d), "question": rel(torch, q_k, q_d),
+                    "decode": rel(torch, d_k, d_d)}
+            noise = noise_kept = None
+            if p32 is not None:
+                pre_32, cache_32, _ = dense.prefill(p32, ids, dtype=torch.float32, **kw)
+                q_32, cache_q32, _ = question_stage(dense, p32, press, as32(cache), state,
+                                                    torch.float32)
+                d_32, kept_32 = decode_stage(dense, p32, press, as32(cache_q), state_q,
+                                             torch.float32)
+                noise = {"prefill": rel(torch, pre_d, pre_32), "question": rel(torch, q_d, q_32),
+                         "decode": rel(torch, d_d, d_32)}
+                noise_kept = count_diff(kept["dense"],
+                                        [_kept(cache_32), _kept(cache_q32)] + kept_32)
+                del pre_32, cache_32, q_32, cache_q32, d_32
+            diff = count_diff(kept["kernel"], kept["dense"])
+            lengths_equal = all(a[0] == b[0] for a, b in zip(kept["kernel"], kept["dense"]))
+            report(f"  {label}: max |kernel - dense| / max |dense|: "
+                   + ", ".join(f"{s} {x:.3e}" for s, x in read.items())
+                   + f" (limit {REF_LIMIT[depth]})"
+                   + ("" if noise is None else "; dense bf16 against float32: "
+                      + ", ".join(f"{s} {x:.3e}" for s, x in noise.items()))
+                   + f"; layer lengths after the prefill {sorted(set(kept['kernel'][0][0]))}, "
+                   f"the question {sorted(set(kept['kernel'][1][0]))}, the last step "
+                   f"{sorted(set(kept['kernel'][-1][0]))}, equal on both paths: "
+                   f"{lengths_equal}"
+                   + ("" if kept["kernel"][0][1] is None else
+                      f"; kept-count differences per layer over the stages {diff}"
+                      + ("" if noise_kept is None else f" (bf16 against float32: {noise_kept})")))
+            failures += [f"{label}: {s} reads {x:.3e} > {REF_LIMIT[depth]}"
+                         for s, x in read.items() if not x <= REF_LIMIT[depth]]
+            if noise is not None:
+                failures += [f"{label}: {s} reads {read[s]:.3e}, over {F32_RATIO} x "
+                             f"{noise[s]:.3e}" for s in read if not read[s] <= F32_RATIO * noise[s]]
+            if not lengths_equal:
+                failures.append(f"{label}: layer lengths differ between the paths")
+            if diff[0] or (noise_kept is not None
+                           and sum(diff) > F32_RATIO * max(sum(noise_kept), 1)):
+                failures.append(f"{label}: kept counts differ by {diff} (bf16 against float32: "
+                                f"{noise_kept})")
+            del cache, cache_d, cache_q, cache_qd, state, state_q
+        del kernel, dense, p32
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def long_context_run(kt, torch, tokenizer_cls, report):
@@ -3278,8 +3863,15 @@ def qwen3_run(kt, torch, tokenizer_cls, report):
     return counts
 
 
+# The Gemma-3-27B pipeline runs' depth: 31 of its 62 layers (26 sliding, 5
+# global) keep the whole script near 700 s since the decode-time phase came.
+GEMMA3_27B_RUN_LAYERS = 31
+
+
 def gemma3_run(kt, torch, tokenizer_cls, report):
-    """The Gemma-3-27B body at full width, all 62 layers, with random int4
+    """The Gemma-3-27B body at full width, cut to its first
+    ``GEMMA3_27B_RUN_LAYERS`` of 62 layers (for the whole script's time; its
+    pattern of five sliding layers to one global kept), with random int4
     weights drawn and quantized layer by layer (the bf16 model never exists
     whole) and its SigLIP tower (bf16), through ``KVPressPipeline`` with
     ``pixel_values``: a 32,768-token context holding 4 images of 256
@@ -3291,7 +3883,7 @@ def gemma3_run(kt, torch, tokenizer_cls, report):
     keep half the context and the sliding layers all of it. Then the body cut
     to 6 layers (5 sliding, 1 global) against the dense path at 4,096 tokens
     with two images. Returns the launch counts of both runs."""
-    cfg, vcfg = gemma3_27b_config(), gemma3_vision_config()
+    cfg, vcfg = gemma3_27b_config(GEMMA3_27B_RUN_LAYERS), gemma3_vision_config()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(27)
     t0 = time.perf_counter()
@@ -4089,6 +4681,14 @@ def main() -> int:
            "compact (one-shot and chunked), the refusals")
     for name, n in mask_presses_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] += n
+    report("phase 3: the decode-time presses at the flagship shape, 32K: DecodingPress (bf16, "
+           "int8, int4 KV; chunked), CompressionRatioDecodingPress, PrefillDecodingPress, "
+           "CAMPress (bf16, int8 KV), DMS(KVzap) decoding (one-shot, chunked), a sliding body, "
+           "the refusals")
+    t_phase = time.perf_counter()
+    for name, n in decode_presses_run(kt, torch, ToyTokenizer, params, report).items():
+        launches[name] += n
+    report(f"  the decode-time phase took {time.perf_counter() - t_phase:.1f} s")
     report("phase 3: chunked prefill's int4 routes at the flagship shape, 32K")
     for name, n in fused_int4_check(kt, torch, params, report).items():
         launches[name] += n
@@ -4098,7 +4698,8 @@ def main() -> int:
     report("phase 3: the Qwen3-8B body at full width and depth, 32K")
     for name, n in qwen3_run(kt, torch, ToyTokenizer, report).items():
         launches[name] += n
-    report("phase 3: the Gemma-3-27B body (int4, 62 layers) with 4 images, 32K, one-shot and "
+    report(f"phase 3: the Gemma-3-27B body (int4, {GEMMA3_27B_RUN_LAYERS} of 62 layers) with 4 "
+           "images, 32K, one-shot and "
            "chunked")
     for name, n in gemma3_run(kt, torch, ToyTokenizer, report).items():
         launches[name] += n
@@ -4114,6 +4715,8 @@ def main() -> int:
     reference_check(kt, torch, params, report)
     report(f"phase 3: chunked prefill (chunks of {REF_CHUNK}) against the dense path")
     reference_check(kt, torch, params, report, chunk=REF_CHUNK)
+    report("phase 3: the decode-time presses against the dense path")
+    decode_reference_check(kt, torch, params, report)
 
     report(f"phase 4: timings on {card}")
     timings(kt, torch, params, params8, report)

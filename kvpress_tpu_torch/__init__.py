@@ -20,8 +20,9 @@ from .models.llama import (Runner, init_params, quantize_layer_int4, quantize_pa
 from .models.siglip import VisionConfig, VisionTower, encode_images, init_vision_params
 from .ops.duo_decode import DuoSplitCache, build_duo_split, duo_decode_step
 from .pipeline import KVPressPipeline
-from .presses import (AdaKVPress, BasePress, BlockPress, CapPress, ChunkKVPress, ChunkPress,
-                      CompactorPress, ComposedPress, CriticalAdaKVPress, CriticalKVPress,
+from .presses import (AdaKVPress, BasePress, BlockPress, CAMPress, CapPress, ChunkKVPress,
+                      ChunkPress, CompactorPress, CompressionRatioDecodingPress, DecodingPress,
+                      PrefillDecodingPress, ComposedPress, CriticalAdaKVPress, CriticalKVPress,
                       CURPress, ExpectedAttentionPress, ExpectedAttentionStatsPress,
                       KeyDiffPress, KeyRerotationPress, KnormPress, KVzapPress, LagKVPress,
                       LayerCtx, LeverageScorePress, NonCausalAttnPress, ObservedAttentionPress,
@@ -51,4 +52,5 @@ __all__ = [
     "masked_fraction", "compact_masked", "DuoSplitCache", "build_duo_split", "duo_decode_step",
     "DMSPress", "DuoAttentionPress", "FinchPress", "LUKVPress", "MergingPress",
     "SimLayerKVPress", "duo_attention_on_the_fly", "load_budget_curve", "load_duo_head_scores",
+    "CAMPress", "CompressionRatioDecodingPress", "DecodingPress", "PrefillDecodingPress",
 ]

@@ -8,7 +8,11 @@ Weights live in an ``nn.Module`` (``LlamaModel``: embedding, a
 ``ModuleList`` of decoder layers, final norm, head) in the JAX package's
 ``(in, out)`` layout, so ``h @ w`` is the JAX ``_lin``. The JAX ``lax.scan``
 over stacked layers is a Python loop over layers; the press runs inside the
-layer body during prefill, with the same ``LayerCtx``.
+layer body, with the same ``LayerCtx``: ``layer_compress`` in the prefill,
+and in a decode-phase call (``press.compresses_decode``) ``decode_compress``
+over the whole layer buffer after the call's attention and append
+(``decode_compress_quantized`` on the payload for a press that supports it;
+any other press runs on the dequantized buffer, which is then requantized).
 
 Attention routing is the JAX runner's (``llama.py:446-683``): a press that
 wants attention probabilities gets the dense path; other multi-token calls
@@ -341,6 +345,14 @@ def image_groups(token_types: torch.Tensor) -> torch.Tensor:
     return torch.where(is_img, group, torch.full_like(group, -1)).to(torch.int32)
 
 
+def _write_back(dst: tuple, src: tuple) -> None:
+    """Copy each tensor a press returned into the cache tensor it replaces
+    (skipped where the press returned that tensor itself)."""
+    for d, x in zip(dst, src):
+        if x is not d:
+            d.copy_(x)
+
+
 def _rope_of(cos_sin, cos_sin_local, sliding: bool):
     return cos_sin_local if sliding and cos_sin_local is not None else cos_sin
 
@@ -428,14 +440,13 @@ class Runner:
         extra_allow: Optional[torch.Tensor] = None,   # (B, T, S_buf) image spans
         img_groups: Optional[tuple] = None,           # (q_groups, k_groups, span)
         valid_len: Optional[int] = None,              # bucketed prefill: real tokens
+        last_position: Optional[int] = None,          # positions[:, -1] on the host
     ):
         cfg = self.cfg
         apply_press = press is not None and (
             (phase == "prefill" and press.compresses_prefill)
             or (phase == "decode" and press.compresses_decode)
         )
-        if apply_press and phase == "decode":
-            raise NotImplementedError("decode-time presses come with ROADMAP Queue A item 12")
         B, T, E = x.shape
         h = rms_norm(x, layer.ln1, cfg.rms_norm_eps, cfg.rms_one_offset)
         q_pre, k_pre, v = _project_qkv(layer, cfg, h)
@@ -445,6 +456,11 @@ class Runner:
 
         prior_len = int(cache_layer["length"])
         quantized = cache_layer.get("key_scales") is not None
+        # A DecodingPress-family press compresses the payload at its width
+        # (decode_compress_quantized): no dense buffer is built for it.
+        quant_press_decode = (quantized and apply_press and phase == "decode"
+                              and getattr(press, "supports_quantized_decode", False))
+        dense_press = apply_press and not quant_press_decode
         scale = _sm_scale(cfg)
         window = cfg.sliding_window if sliding else None
         # Routing follows the press on every layer, sliding ones included, as
@@ -475,8 +491,9 @@ class Runner:
         qkeys = qvalues = key_scales = value_scales = None
         if quantized:
             # Store the new K/V as payload + scales. The whole layer buffer is
-            # dequantized only when dense K/V are needed (press scoring, or a
-            # multi-token call the quantized kernel does not take).
+            # dequantized only when dense K/V are needed (a press that scores
+            # dense K/V, or a multi-token call the quantized kernel does not
+            # take).
             qk, k_scale = quantize_kv(k, kv_bits)
             qv, v_scale = quantize_kv(v, kv_bits)
             qkeys, qvalues = cache_layer["keys"], cache_layer["values"]
@@ -491,9 +508,9 @@ class Runner:
             # both runners route alike); flash_attention_quant has no or-mask.
             use_quant_flash = (
                 self.attn_impl == "flash" and T > 1 and kv_bits == 8 and img_groups is None
-                and not use_decode_kernel and not apply_press
+                and not use_decode_kernel and not dense_press
             )
-            needs_dense = apply_press or return_probs or (
+            needs_dense = dense_press or return_probs or (
                 self.attn_impl == "flash" and T > 1
                 and not use_decode_kernel and not use_quant_flash
             )
@@ -561,6 +578,10 @@ class Runner:
                                                 return_probs=return_probs)
 
         new_state = press_state
+        # Sliding layers are never compressed. The JAX runner calls the press
+        # there and restores the layer after it; skipping it gives the same
+        # cache, but the press state of a sliding layer (which nothing reads)
+        # stays as it was given.
         if apply_press and not sliding:
             ctx = LayerCtx(
                 layer_idx=layer_idx, hidden=h, queries=q, queries_prerope=q_pre,
@@ -568,21 +589,34 @@ class Runner:
                 layer_params=layer, inv_freq=self.inv_freq, cfg=cfg,
                 attention_scaling=self.attention_scaling, attn_lse=attn_lse,
                 kv_len=valid_len if phase == "prefill" else None,
+                last_position=last_position,
             )
-            # Prefill into an empty cache: compress over the first T slots.
-            nk, nv, new_len, nmask, new_state = press.layer_compress(
-                ctx, keys[:, :, :T], values[:, :, :T], new_len, mask[:, :, :T], press_state)
-            keys[:, :, :T] = nk
-            values[:, :, :T] = nv
-            mask[:, :, :T] = nmask
-            if quantized:
-                # The press moved entries in the dense buffer: requantize.
+            if phase == "prefill":
+                # Prefill into an empty cache: compress over the first T slots.
+                nk, nv, new_len, nmask, new_state = press.layer_compress(
+                    ctx, keys[:, :, :T], values[:, :, :T], new_len, mask[:, :, :T],
+                    press_state)
+                keys[:, :, :T] = nk
+                values[:, :, :T] = nv
+                mask[:, :, :T] = nmask
+            elif quant_press_decode:
+                # After this call's attention and append, over the whole
+                # buffer: the payload and scales are gathered, not requantized.
+                out = press.decode_compress_quantized(
+                    ctx, qkeys, qvalues, key_scales, value_scales, kv_bits, new_len, mask,
+                    press_state)
+                *bufs, new_len, nmask, new_state = out
+                _write_back((qkeys, qvalues, key_scales, value_scales, mask), (*bufs, nmask))
+            else:
+                nk, nv, new_len, nmask, new_state = press.decode_compress(
+                    ctx, keys, values, new_len, mask, press_state)
+                _write_back((keys, values, mask), (nk, nv, nmask))
+            if quantized and dense_press:
+                # The press moved (or merged) entries in the dense buffer:
+                # requantize the whole layer.
                 qk2, ks2 = quantize_kv(keys, kv_bits)
                 qv2, vs2 = quantize_kv(values, kv_bits)
-                qkeys.copy_(qk2)
-                qvalues.copy_(qv2)
-                key_scales.copy_(ks2)
-                value_scales.copy_(vs2)
+                _write_back((qkeys, qvalues, key_scales, value_scales), (qk2, qv2, ks2, vs2))
 
         return _finish_layer(x, attn_out, layer, cfg), int(new_len), new_state
 
@@ -671,7 +705,8 @@ class Runner:
             state_l = None if states is None else states[l]
             x, nlen, state_l = self._layer_step(
                 x, layer, cache_layer, positions, _rope_of(rope, rope_local, sliding), l,
-                sliding, press, state_l, phase, cache.bits, extra_allow, img, valid_len)
+                sliding, press, state_l, phase, cache.bits, extra_allow, img, valid_len,
+                offset + T - 1)
             if states is not None:
                 states[l] = state_l
             new_lengths.append(nlen)
@@ -704,9 +739,11 @@ class Runner:
         for ``inputs_embeds`` (B, S, E) (the multimodal entry). ``valid_len``:
         bucketed prefill over ids padded past their first ``valid_len``."""
         B, S = (ids if inputs_embeds is None else inputs_embeds).shape[:2]
-        cache = init_cache(self.cfg, B, max_size or S, dtype=dtype or params.dtype,
-                           quantized=quantized, bits=kv_bits, device=self.device)
-        state = press.init_state(self.cfg, B, S) if press is not None else None
+        dtype = dtype or params.dtype
+        cache = init_cache(self.cfg, B, max_size or S, dtype=dtype, quantized=quantized,
+                           bits=kv_bits, device=self.device)
+        state = (None if press is None else
+                 press.init_state(self.cfg, B, S, dtype=dtype, device=self.device))
         return self.forward(params, ids, cache, press=press, press_state=state,
                             phase="prefill", compute_logits=compute_logits,
                             logits_last_only=True, inputs_embeds=inputs_embeds,
@@ -740,8 +777,11 @@ class Runner:
         ChunkKV, ThinK, Composed, Duo, SimLayerKV, Finch) compresses itself.
         ``DMSPress`` over a per-token scorer (KVzap, Knorm) scores each chunk's
         tokens as they go through and sets its threshold mask after the last
+        chunk. A decode-time press (the ``DecodingPress`` family, ``CAMPress``)
+        leaves the prefill whole, as in JAX: its state is made after the last
         chunk. ``BlockPress`` is refused: it needs every position's hidden
-        states; so is ``MergingPress``: no chunked pass merges.
+        states; so are ``MergingPress``: no chunked pass merges, and
+        ``PrefillDecodingPress``, as JAX's assertion refuses it.
 
         ``fused_kv`` (quantized caches): attention reads the payload through
         ``flash_attention_quant``; else each layer's buffer is dequantized and
@@ -754,7 +794,7 @@ class Runner:
         path) as in ``prefill``: each chunk start moves back to the first
         token of an image span it would split, so that a span's tokens see
         each other. Returns (logits | None, cache, press state: DMS's ring per
-        layer, else None)."""
+        layer, a decode-time press's initial state, else None)."""
         steps = self.prefill_chunked_steps(
             params, ids, press=press, chunk_size=chunk_size, max_size=max_size, dtype=dtype,
             compute_logits=compute_logits, quantized=quantized, kv_bits=kv_bits,
@@ -826,10 +866,11 @@ class Runner:
                 raise ValueError("token_types on the flash path needs image_span")
             if quantized:
                 fused_kv = False    # flash_attention_quant has no or-mask
-        cache = init_cache(cfg, B, size, dtype=dtype or params.dtype, quantized=quantized,
-                           bits=kv_bits, device=self.device)
+        dtype = dtype or params.dtype
+        cache = init_cache(cfg, B, size, dtype=dtype, quantized=quantized, bits=kv_bits,
+                           device=self.device)
         W = min(score_window, chunk_size, S)
-        wrap = dms = None
+        wrap = dms = deferred = None
         if isinstance(press, DMSPress):
             # DMS threshold eviction: each chunk's tokens are scored as the
             # chunk goes through (the wrapped scorer's chunk_score_fn, exact for
@@ -846,10 +887,13 @@ class Runner:
             if getattr(press, "post_mask", False):
                 raise NotImplementedError("post-mask presses (FastKVzip) come with ROADMAP "
                                           "Queue A item 13")
-            if not press.compresses_prefill:
-                raise NotImplementedError(
-                    "multi-pass presses come with ROADMAP Queue A item 13 and decode-time "
-                    "presses with item 12")
+            if getattr(press, "multi_pass", False):
+                raise NotImplementedError("multi-pass presses come with ROADMAP Queue A item 13")
+        if press is not None and not press.compresses_prefill:
+            # A decode-time press leaves the prefill whole: its state is made
+            # after the last chunk, for the decode loop.
+            deferred, press = press, None
+        if press is not None:
             if hasattr(press, "chunked_compress"):
                 # A wrapper compresses itself; a head-wise one clears bits of
                 # a keep-mask, materialized here.
@@ -879,9 +923,10 @@ class Runner:
                     "ScorerPress, a scorer-like wrapper (CriticalKVPress, "
                     "PerLayerCompressionPress), a wrapper with chunked_compress (AdaKVPress, "
                     "CriticalAdaKVPress, KeyRerotationPress, ChunkPress, ChunkKVPress, "
-                    "ThinKPress, ComposedPress, DuoAttentionPress, SimLayerKVPress, FinchPress) "
-                    "or DMSPress over a per-token scorer; MergingPress merges evicted values, "
-                    "which no chunked pass keeps")
+                    "ThinKPress, ComposedPress, DuoAttentionPress, SimLayerKVPress, FinchPress), "
+                    "DMSPress over a per-token scorer or a decode-time press; MergingPress "
+                    "merges evicted values, which no chunked pass keeps, and "
+                    "PrefillDecodingPress compresses its prefill in the layer body")
 
         starts = self.chunk_starts(S, chunk_size, token_types)
         logits = hidden_win = None
@@ -908,6 +953,8 @@ class Runner:
                 cache = self._compress_layer(params, cache, hidden_win, l, wrap)
                 yield
         state = None
+        if deferred is not None:
+            state = deferred.init_state(cfg, B, S, dtype=dtype, device=self.device)
         if dms is not None:
             mask = cache.mask
             if mask is None:
@@ -1060,7 +1107,7 @@ class Runner:
         ctx = LayerCtx(layer_idx=l, hidden=hidden_l, queries=None, queries_prerope=None,
                        keys_prerope=None, positions=positions, attn_probs=None,
                        layer_params=layer, inv_freq=self.inv_freq, cfg=cfg,
-                       attention_scaling=self.attention_scaling)
+                       attention_scaling=self.attention_scaling, last_position=last_pos)
         ctx = dataclasses.replace(ctx, queries=_buffer_queries(ctx, hidden_l, positions))
         keys_l, values_l = cache.keys[l], cache.values[l]
         mask_l = (cache.mask[l] if cache.mask is not None else

@@ -8,7 +8,9 @@ of ``context_bucket`` tokens, or in chunks of ``context_chunk`` tokens), the
 head-wise compaction of a ``host_compact`` press (``cache.compact_masked``),
 ``resize`` of the cache, then per question a
 question forward and greedy (or nucleus) decode with positions continuing
-from the uncompressed context length, and a rollback between questions:
+from the uncompressed context length (a decode-time press compressing in
+the question forward and the decode steps, its state carried from the
+prefill), and a rollback between questions:
 restoring the pre-question ``length``/``offset`` (the runner leaves the
 caller's copies untouched). Nucleus sampling draws from one generator a
 question, seeded before the first question.
@@ -61,13 +63,20 @@ def _generate_answer(
     temperature: float = 1.0,
     top_p: float = 1.0,
     generator: Optional[torch.Generator] = None,
+    press: Optional[BasePress] = None,
+    press_state=None,
 ) -> tuple[list[int], object]:
-    """Question forward, then decode until ``max_new_tokens`` or an EOS.
-    Returns (generated tokens, final cache). An empty question starts from
-    the prefill's logits."""
+    """Question forward, then decode until ``max_new_tokens`` or an EOS, with
+    a decode-time press (``press.compresses_decode``) and its state threaded
+    through the question forward and every step. Returns (generated tokens,
+    final cache). An empty question starts from the prefill's logits and
+    state."""
+    if press is None or not press.compresses_decode:
+        press = press_state = None
     if question_ids.shape[1] > 0:
-        logits, cache, _ = runner.forward(params, question_ids, cache,
-                                          logits_last_only=True, phase="decode")
+        logits, cache, press_state = runner.forward(
+            params, question_ids, cache, press=press, press_state=press_state,
+            logits_last_only=True, phase="decode")
     else:
         logits = prefill_logits
 
@@ -80,8 +89,9 @@ def _generate_answer(
     out = [tok]
     while len(out) < max_new_tokens and tok not in eos_ids:
         ids = torch.tensor([[tok]], dtype=torch.long, device=question_ids.device)
-        logits, cache, _ = runner.forward(params, ids, cache, logits_last_only=True,
-                                          phase="decode")
+        logits, cache, press_state = runner.forward(
+            params, ids, cache, press=press, press_state=press_state, logits_last_only=True,
+            phase="decode")
         tok = pick(logits[0, -1])
         out.append(tok)
     return out, cache
@@ -229,6 +239,9 @@ class KVPressPipeline:
                              "(KVPressPipeline.from_torch_multimodal)")
         single = questions is None
         questions = questions or ([question] if question else [""])
+        # A decode-time press rewrites the slots below the length that the
+        # rollback between questions restores (the runner writes in place),
+        # so it answers one question only.
         if press is not None and press.compresses_decode and len(questions) > 1:
             raise ValueError("DecodingPress is not compatible with multiple questions. "
                              "Please specify a single question.")
@@ -283,10 +296,10 @@ class KVPressPipeline:
         if context_chunk is not None:
             # Bounded activations: the context goes through in chunks of
             # context_chunk tokens, compressed once after the last one.
-            prefill_logits, cache, _ = self.runner.prefill_chunked(
+            prefill_logits, cache, press_state = self.runner.prefill_chunked(
                 self.params, ids, chunk_size=context_chunk, **common)
         else:
-            prefill_logits, cache, _ = self.runner.prefill(
+            prefill_logits, cache, press_state = self.runner.prefill(
                 self.params, ids, valid_len=None if context_bucket is None else context_length,
                 **common)
         if press is not None and getattr(press, "host_compact", False):
@@ -322,7 +335,7 @@ class KVPressPipeline:
                 self.runner, self.params, q, cache, prefill_logits,
                 max_new_tokens=max_new_tokens, eos_ids=self._eos(),
                 do_sample=do_sample, temperature=temperature, top_p=top_p,
-                generator=gen,
+                generator=gen, press=press, press_state=press_state,
             )
             answers.append(self.tokenizer.decode(tokens, skip_special_tokens=True))
             # Rollback: slots past the restored length are stale and are

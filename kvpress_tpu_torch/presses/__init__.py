@@ -1,7 +1,9 @@
 from .base import BasePress, LayerCtx, ScorerPress, topk_keep
+from .cam import CAMPress
 from .cap import CapPress
 from .compactor import CompactorPress, LeverageScorePress, NonCausalAttnPress
 from .cur import CURPress
+from .decoding import CompressionRatioDecodingPress, DecodingPress, PrefillDecodingPress
 from .dms import DMSPress
 from .duo import DuoAttentionPress, duo_attention_on_the_fly, load_duo_head_scores
 from .expected_attention import ExpectedAttentionPress
@@ -34,5 +36,6 @@ __all__ = [
     "ComposedPress", "CriticalAdaKVPress", "CriticalKVPress", "KeyRerotationPress",
     "PerLayerCompressionPress", "ThinKPress", "DMSPress", "DuoAttentionPress",
     "duo_attention_on_the_fly", "load_duo_head_scores", "FinchPress", "LUKVPress",
-    "load_budget_curve", "MergingPress", "SimLayerKVPress",
+    "load_budget_curve", "MergingPress", "SimLayerKVPress", "CAMPress",
+    "CompressionRatioDecodingPress", "DecodingPress", "PrefillDecodingPress",
 ]

@@ -38,6 +38,8 @@ class LayerCtx:
     attn_lse: Optional[torch.Tensor] = None   # (B, Hq, S) f32 row logsumexp of
     # the flash prefill (press.wants_lse): column-sum scoring then skips its
     # own LSE pass (ops/observed_colsum.py)
+    last_position: Optional[int] = None  # positions[:, -1] as a host int (the
+    # runner's offset + T - 1): a decode press reads it without a device sync
 
     @property
     def seq_len(self) -> int:
@@ -79,8 +81,11 @@ class BasePress:
         (``ctx.attn_lse``)."""
         return False
 
-    def init_state(self, cfg: ModelConfig, batch: int, seq_len: int):
-        """Per-layer press state (a list over layers), or None if stateless."""
+    def init_state(self, cfg: ModelConfig, batch: int, seq_len: int,
+                   dtype: Optional[torch.dtype] = None, device=None):
+        """Per-layer press state (a list over layers) on ``device``, its
+        buffers of hidden states in ``dtype`` (the cache's), or None if
+        stateless."""
         return None
 
     def max_kept(self, seq_len: int, cfg: ModelConfig) -> int:
@@ -104,11 +109,11 @@ def layer_tensor(a, layer_idx: int, device) -> torch.Tensor:
     return torch.as_tensor(a[layer_idx], dtype=torch.float32, device=device)
 
 
-def layer_generator(seed: int, layer_idx: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded from (seed, layer_idx): the same pair
-    always draws the same numbers (not those of the JAX package's
+def layer_generator(seed: int, layer_idx: int, device, *streams: int) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, layer_idx, *streams): the
+    same tuple always draws the same numbers (not those of the JAX package's
     ``fold_in(PRNGKey(seed), layer_idx)``, which torch cannot draw)."""
-    state = np.random.SeedSequence((seed, layer_idx)).generate_state(1, np.uint64)[0]
+    state = np.random.SeedSequence((seed, layer_idx, *streams)).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
 

@@ -1,20 +1,26 @@
 """Decode-time compression presses (port of ``kvpress_tpu/presses/decoding.py``):
-DecodingPress, CompressionRatioDecodingPress, BudgetDecodingPress.
+DecodingPress, CompressionRatioDecodingPress, PrefillDecodingPress and the
+internal BudgetDecodingPress.
 
 A press's hidden-state ring buffer and step counter are an explicit
-per-layer state dict (``{"buffer", "buf_len", "steps"}``). Compression
-scores the whole buffer against queries re-projected from the buffered
-hidden states, orders it by score (``jax.lax.top_k``'s order: descending,
-ties by slot) and drops the length to the target. On a quantized cache the
-payload and scales ride the same gather: nothing is requantized.
+per-layer state dict (``{"buffer", "buf_len", "steps"}``, ``init_state``).
+``Runner.forward(phase="decode")`` calls ``decode_compress`` in every layer
+after the call's attention and append: compression scores the whole buffer
+against queries re-projected from the buffered hidden states, orders it by
+score (``jax.lax.top_k``'s order: descending, ties by slot) and drops the
+length to the target. On a quantized cache (``decode_compress_quantized``)
+the payload and scales ride the same gather: nothing is requantized.
+``Runner.prefill_chunked``'s compression pass uses BudgetDecodingPress.
 
-The runner uses them inside ``Runner.prefill_chunked``'s compression pass.
-Threading them through the decode loop comes with ROADMAP Queue A item 12.
+Not ported yet: ``target_value_vec`` (the serving engine's per-slot
+targets, ROADMAP Queue A item 14) and ``sync_state`` (the distributed
+decode's replicated counters, item 16).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -77,6 +83,12 @@ class DecodingPress(BasePress):
         return {"buffer": torch.zeros((batch, buf, cfg.hidden_size), dtype=dtype,
                                       device=device),
                 "buf_len": 0, "steps": 0}
+
+    def init_state(self, cfg, batch: int, seq_len: int, dtype=None, device=None) -> list:
+        """Every layer's ``init_layer_state`` (float32 buffers by default, as
+        in JAX)."""
+        return [self.init_layer_state(cfg, batch, dtype or torch.float32, device)
+                for _ in range(cfg.num_layers)]
 
     def target_bound(self, ctx: LayerCtx, buf_size: int) -> int:
         return self.target_size
@@ -177,7 +189,8 @@ class CompressionRatioDecodingPress(DecodingPress):
         return 2 ** 30      # the whole buffer; the target sets the kept length
 
     def target_value(self, ctx: LayerCtx, length: int) -> int:
-        return float32_budget(int(ctx.positions.max()) + 1, self.target_compression_ratio)
+        # The logical tokens seen: the host's last position, no device sync.
+        return float32_budget(ctx.last_position + 1, self.target_compression_ratio)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,3 +201,54 @@ class BudgetDecodingPress(CompressionRatioDecodingPress):
 
     def target_value(self, ctx: LayerCtx, length: int) -> int:
         return self.base_press.dynamic_budget(ctx, length)
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillDecodingPress(BasePress):
+    """Phase router (reference prefill_decoding_press.py:45-81): the
+    prefilling press compresses the prefill, the decoding press the decode.
+    As in JAX, the prefilling press's ``wants_probs`` / ``wants_lse`` are
+    not forwarded, so it scores on the route the router takes."""
+
+    prefilling_press: Optional[BasePress] = None
+    decoding_press: Optional[DecodingPress] = None
+
+    compresses_prefill = True
+    compresses_decode = True
+
+    @property
+    def compression_ratio(self):
+        return 0.0 if self.prefilling_press is None else self.prefilling_press.compression_ratio
+
+    def max_kept(self, seq_len, cfg):
+        if self.prefilling_press is None:
+            return seq_len
+        return self.prefilling_press.max_kept(seq_len, cfg)
+
+    def init_state(self, cfg, batch: int, seq_len: int, dtype=None, device=None):
+        if self.decoding_press is None:
+            return None
+        return self.decoding_press.init_state(cfg, batch, seq_len, dtype, device)
+
+    def layer_compress(self, ctx, keys, values, length, mask, state=None):
+        if self.prefilling_press is None:
+            return keys, values, length, mask, state
+        k, v, n, m, _ = self.prefilling_press.layer_compress(ctx, keys, values, length, mask,
+                                                             None)
+        return k, v, n, m, state
+
+    def decode_compress(self, ctx, keys, values, length: int, mask, state):
+        if self.decoding_press is None:
+            return keys, values, length, mask, state
+        return self.decoding_press.decode_compress(ctx, keys, values, length, mask, state)
+
+    @property
+    def supports_quantized_decode(self) -> bool:
+        return self.decoding_press is None or self.decoding_press.supports_quantized_decode
+
+    def decode_compress_quantized(self, ctx, keys, values, key_scales, value_scales,
+                                  kv_bits: int, length: int, mask, state):
+        if self.decoding_press is None:
+            return keys, values, key_scales, value_scales, length, mask, state
+        return self.decoding_press.decode_compress_quantized(
+            ctx, keys, values, key_scales, value_scales, kv_bits, length, mask, state)

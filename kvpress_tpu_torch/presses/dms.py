@@ -1,14 +1,17 @@
 """DMSPress: threshold eviction behind a sliding protection window
 (reference dms_press.py:69-130, arXiv:2506.05345, the dense-prefill variant;
-port of the prefill side of ``kvpress_tpu/presses/dms.py``).
+port of ``kvpress_tpu/presses/dms.py``).
 
 Eviction is head-wise and depends on the data (no fixed ratio), so it clears
 keep-mask bits: a token's bit is cleared when it lies outside the protection
 window of the last ``sliding_window_size`` slots with a score below
-``threshold``. The press state of a layer is a ring of the window's scores
-and the slot of the oldest one, for decode-time eviction, which comes with
-ROADMAP Queue A item 12. ``compact=True`` has the pipeline move each head's
-kept entries to the front of its buffer (``cache.compact_masked``)."""
+``threshold``. The press state of a layer is a ring of the window's scores,
+their count and the slot of the oldest one (host ints). With
+``decoding=True`` every decode-phase call pushes its tokens' scores into the
+ring, and a score that leaves the full ring clears its slot's bit when it is
+below the threshold (``decode_compress``). ``compact=True`` has the pipeline
+move each head's kept entries to the front of its buffer
+(``cache.compact_masked``)."""
 
 from __future__ import annotations
 
@@ -40,9 +43,6 @@ class DMSPress(BasePress):
             raise ValueError("DMSPress(compact=True) is prefill-only: decode-time threshold "
                              "eviction tracks absolute slot indices (first_slot), which "
                              "compaction remaps")
-        if self.decoding:
-            raise NotImplementedError("DMSPress(decoding=True): decode-time threshold eviction "
-                                      "comes with ROADMAP Queue A item 12")
 
     @property
     def host_compact(self) -> bool:
@@ -56,12 +56,13 @@ class DMSPress(BasePress):
     def compression_ratio(self):
         return 0.0   # measured (cache.masked_fraction), not set
 
-    def init_state(self, cfg, batch: int, seq_len: int):
-        """Per layer: {"scores": (B, H_kv, W) float32 ring, "count": buffered
-        scores, "first_slot": the slot of the oldest}; the prefill refills
-        each compressed layer's."""
+    def init_state(self, cfg, batch: int, seq_len: int, dtype=None, device=None):
+        """Per layer: {"scores": (B, H_kv, W) float32 ring on ``device``,
+        "count": buffered scores, "first_slot": the slot of the oldest}; the
+        prefill refills each compressed layer's."""
         W = self.sliding_window_size
-        return [{"scores": torch.zeros((batch, cfg.num_kv_heads, W), dtype=torch.float32),
+        return [{"scores": torch.zeros((batch, cfg.num_kv_heads, W), dtype=torch.float32,
+                                       device=device),
                  "count": 0, "first_slot": 0} for _ in range(cfg.num_layers)]
 
     def _ring(self, scores: torch.Tensor, S: int) -> dict:
@@ -102,3 +103,37 @@ class DMSPress(BasePress):
             evict &= ~torch.as_tensor(list(sliding), device=mask.device)[:, None, None, None]
             mask = mask & ~evict
         return mask, [self._ring(s, S) for s in scores]
+
+    def decode_compress(self, ctx, keys, values, length: int, mask, state):
+        """Score this call's T tokens (slots ``length - T .. length - 1``,
+        without attention probabilities) and push them into the ring. The
+        JAX press's token loop, taken at once: while the ring has room the
+        scores fill it and nothing leaves; then each new score pushes out the
+        oldest, so the scores that leave are the ring's first ones followed
+        by the new ones, and the slots they stand for run on from
+        ``first_slot``. A leaving score below the threshold clears its slot's
+        bit. Returns (keys, values, length, mask, state)."""
+        W = self.sliding_window_size
+        T = ctx.hidden.shape[1]
+        S = keys.shape[2]
+        start = max(0, min(length - T, S - T))
+        scores = self.press.score(dataclasses.replace(ctx, attn_probs=None),
+                                  keys[:, :, start:start + T],
+                                  values[:, :, start:start + T]).to(torch.float32)
+        ring, count, first = state["scores"], state["count"], state["first_slot"]
+        n_fill = min(W - count, T)
+        if n_fill > 0:
+            ring = ring.clone()
+            ring[..., count:count + n_fill] = scores[..., :n_fill]
+            count += n_fill
+        n_out = T - n_fill
+        if n_out > 0:
+            seq = torch.cat([ring, scores[..., n_fill:]], dim=-1)     # (B, H, W + n_out)
+            n_in = max(0, min(n_out, S - first))                      # slots past S: none
+            if n_in:
+                evict = seq[..., :n_in] < self.threshold
+                mask = mask.clone()
+                mask[..., first:first + n_in] &= ~evict
+            ring = seq[..., n_out:]
+            first += n_out
+        return keys, values, length, mask, {"scores": ring, "count": count, "first_slot": first}

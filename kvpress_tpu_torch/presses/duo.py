@@ -36,7 +36,7 @@ class _MeanQKCollector(BasePress):
     """Each layer's mean pre-RoPE queries (Hq, D) and keys (Hkv, D) over the
     batch and the sequence (after the q/k-norm), as float32."""
 
-    def init_state(self, cfg, batch: int, seq_len: int):
+    def init_state(self, cfg, batch: int, seq_len: int, dtype=None, device=None):
         return [None] * cfg.num_layers
 
     def layer_compress(self, ctx, keys, values, length, mask, state=None):

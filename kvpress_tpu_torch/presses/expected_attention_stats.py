@@ -54,7 +54,7 @@ class _QueryStatsCollector(BasePress):
 
     n_sink: int = 4
 
-    def init_state(self, cfg, batch: int, seq_len: int):
+    def init_state(self, cfg, batch: int, seq_len: int, dtype=None, device=None):
         return [None] * cfg.num_layers
 
     def layer_compress(self, ctx, keys, values, length, mask, state=None):

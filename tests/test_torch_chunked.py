@@ -170,8 +170,10 @@ class _NotAScorer(kt.BasePress):
 
 UNSUPPORTED = {
     "not a scorer": (dict(press=_NotAScorer()), TypeError),
-    "decode-time press": (dict(press=DecodingPress(base_press=kt.KnormPress(0.5))),
-                          NotImplementedError),
+    # a decode-time press that also compresses the prefill: refused, as by
+    # JAX's assertion (a plain decode-time press leaves the prefill whole)
+    "decode-time press": (dict(press=kt.PrefillDecodingPress(
+        kt.KnormPress(0.5), DecodingPress(base_press=kt.KnormPress(0.5)))), TypeError),
     "no chunk size": (dict(chunk_size=0), ValueError),
     "no room for the context": (dict(max_size=S - 1), ValueError),
 }

@@ -475,8 +475,8 @@ def test_bucketed_refusals(models, name):
 
 
 def test_dms_decoding_is_refused():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        kt.DMSPress(kt.KnormPress(), decoding=True)
+    """Decode-time DMS is taken alone; with compact=True it is refused."""
+    assert kt.DMSPress(kt.KnormPress(), decoding=True).compresses_decode
     with pytest.raises(ValueError, match="prefill-only"):
         kt.DMSPress(kt.KnormPress(), decoding=True, compact=True)
     with pytest.raises(AssertionError):
