@@ -16,7 +16,10 @@
    (``flash_attention_quant`` at int4: 8,192 queries over a 32K buffer after
    0, 8K, 16K and 24K slots; ``flash_attention``: the last 8,192-query chunk
    of the 32K flagship with no keep-mask and with every bit set, and of the
-   8B-class body at head_dim 128 over 131,072 slots), the column-sum passes
+   8B-class body at head_dim 128 over 131,072 slots; and, with the row
+   LSE, KVCompose's re-feed chunk: 8,192 queries over 57,344 of 65,536
+   slots, ``flash_attention`` and ``flash_attention_quant`` at int8), the
+   column-sum passes
    at 8K, a ragged 8,000 and the 32K prefill, the decode kernels at the
    pipeline's decode shapes (a half-live 33K buffer at B=1 and B=4; the
    8B-class body's int4 cache at head_dim 128, B=1 over 66K slots; path B's
@@ -103,11 +106,24 @@
    grows, every decode launch masked), the Gemma-3-12B body cut to 6 layers
    (the sliding layers whole), each with the device breakdown of a
    compressing and a plain step; the refusals (two questions,
-   ``compact`` with ``decoding``, PrefillDecodingPress chunked).
+   ``compact`` with ``decoding``, PrefillDecodingPress chunked). Then the
+   multi-pass presses at the same shape (``multipass_presses_run``):
+   KVzipPress over bf16 KV one-shot (the cache grown for its 16 repeat
+   passes), compact on the head-wise runner, over int8 KV chunked by 8,192
+   (presized: no grow), KVzip+ over bf16 and int8 KV (the scorer route),
+   RestoreKVPress (16 restore embeddings and a rank-8 LoRA read back from
+   their ``.npz``), FastKVzipPress (seeded gates) one-shot, chunked and
+   compact, KVComposePress structured and unstructured chunked by 8,192 (the
+   re-feed over a 65,536-slot buffer), structured over int8 KV, and one-shot
+   at 4,096 tokens; each with its scoring passes' wall and peak, the kept
+   entries per layer (KVzip's and FastKVzip's masked share exact, RestoreKV
+   budget-matched, KVCompose's lengths its budgets and its rebuilt layers the
+   context's kept entries in position order), the context's slots, length
+   and offset bit-equal through the scoring passes, every launch count exact.
    Then ``Runner.prefill_chunked`` at 32K over int4 KV on its fused route
    (``flash_attention_quant`` at 4 bits) held against its dense route
    (``fused_int4_check``; also the peak memory of chunked and one-shot
-   prefill), and a Llama-3.1-8B-class body (32 layers, random int4 weights)
+   prefill), and a Llama-3.1-8B-class body (16 of 32 layers, random int4 weights)
    through the pipeline with int4 KV, Knorm and a 131,072-token context in
    chunks of 8,192 (``long_context_run``). Then the other architectures at
    full width: the Qwen3-8B body (36 layers, bf16, q/k-norm; ``qwen3_run``)
@@ -119,8 +135,8 @@
    on the sliding layers' flash and decode launches, the sliding layers
    uncompressed; each also held against the dense path (Qwen3 at depth 1
    and 36, Gemma3 cut to 6 layers at 4,096 tokens with two images), and
-   Qwen3's decode rate and idle share. Then the Gemma-3-12B body (48
-   layers, bf16, head_dim 256; ``gemma3_12b_run``) at 32K: Knorm with the
+   Qwen3's decode rate and idle share. Then the Gemma-3-12B body (24 of
+   its 48 layers, bf16, head_dim 256; ``gemma3_12b_run``) at 32K: Knorm with the
    4 images one-shot and chunked, ObservedAttention and
    AdaKV(ObservedAttention) without images, Knorm with int8 KV, every
    launch on a head_dim-256 instantiation; cut to 6 layers against the
@@ -140,7 +156,9 @@
    DMS(KVzap) compact; chunked prefill in chunks of 512 too), and each
    decode-time press (Decoding, DMS(KVzap) decoding, CAM) stage by stage
    through 16 decode steps past its compressions
-   (``decode_reference_check``).
+   (``decode_reference_check``), and KVzip, FastKVzip and chunked KVCompose
+   stage by stage through their scoring passes
+   (``multipass_reference_check``).
 4. Timings: prefill at 32K under each press and chunked (int8 KV; int4 KV
    on both routes), and decode at batch 4 x 32K
    context, ratio 0.5 (Knorm: int4 KV + int8 weights, decode kernel on and
@@ -723,6 +741,21 @@ def kernel_checks(kt, torch, report):
         flash_case("flash_attention", f"bf16 B1 T{T} prior{prior} S{CONTEXT_TOKENS} chunk {label}",
                    None, q, [kd, vd], prior, mask, chunk=1024, iters=5, lib_mask="lower_right")
     del q, kd, vd, mask
+
+    # KVCompose's chunked re-feed (multipass_presses_run (g), (h)): its last
+    # chunk of 8,192 queries over the 57,344 slots before it in the doubled
+    # 65,536-slot buffer, no keep-mask, with the row LSE the column sweep
+    # reads; bf16, and int8 through flash_attention_quant.
+    S = 2 * CONTEXT_TOKENS
+    prior = S - T
+    q = rnd(B, Hq, T, D)
+    kd, vd = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+    flash_case("flash_attention", f"bf16 B1 T{T} prior{prior} S{S} re-feed", None, q, [kd, vd],
+               prior, None, chunk=512, iters=5, lib_mask="lower_right")
+    flash_case("flash_attention_quant", f"int8 B1 T{T} prior{prior} S{S} re-feed", 8, q,
+               quantized(kd, vd, 8), prior, None, chunk=512, iters=5, lib_mask="lower_right")
+    del q, kd, vd
+    torch.cuda.empty_cache()
 
     # The 8B-class body's last chunk (head_dim 128): 8,192 queries over the
     # 122,880 slots before them, the dense route's 131,072 dequantized slots,
@@ -3166,14 +3199,506 @@ def decode_reference_check(kt, torch, params, report):
         raise AssertionError("; ".join(failures))
 
 
+# --------------------------------------------------------------------- #
+# Phase 3, the multi-pass presses at the flagship shape.
+
+MP_SMALL_CONTEXT = 4096     # one-shot KVCompose: (B, Hq, S, 2S) float32 probabilities a layer
+MP_RESTORE_TOKENS, MP_LORA_RANK = 16, 8
+MP_GATE_DIM, MP_GATE_SINK = 16, 16
+MP_CHUNK = 2048             # KVzip's repeat chunk (the press's default)
+# The dense-path check: 2,048 tokens, repeat chunks and re-feed chunks of 512.
+MP_REF_CHUNK = 512
+
+
+def context_snapshot(cache, n: int):
+    """Copies of the first ``n`` slots (payloads, scales) and the length and
+    offset of ``cache``."""
+    return ([None if t is None else t[:, :, :, :n].clone()
+             for t in (cache.keys, cache.values, cache.key_scales, cache.value_scales)],
+            cache.length.clone(), cache.offset.clone())
+
+
+def context_equal(torch, cache, snap) -> bool:
+    """Whether ``cache`` holds the snapshot's slots, length and offset, bit
+    for bit."""
+    tensors, length, offset = snap
+    n = tensors[0].shape[3]
+    return (all(b is None or torch.equal(t[:, :, :, :n], b) for t, b in zip(
+        (cache.keys, cache.values, cache.key_scales, cache.value_scales), tensors))
+        and torch.equal(cache.length, length) and torch.equal(cache.offset, offset))
+
+
+def kept_per_layer(torch, cache):
+    """Each layer's kept entries: the keep bits set below its length (every
+    slot below it without a mask), summed over batch and heads."""
+    L, B, H, S = cache.keys.shape[:4]
+    valid = torch.arange(S, device=cache.keys.device) < cache.length.to(
+        cache.keys.device)[:, None, None, None]
+    if cache.mask is not None:
+        valid = valid & cache.mask
+    return valid.sum(dim=(1, 2, 3)).tolist()
+
+
+@contextlib.contextmanager
+def multipass_recorder(kt, torch, log: dict):
+    """While active, the pipeline's scoring stages (KVzip's repeat passes,
+    ``_kvzip_scores``; KVCompose's re-feed, ``_kvcompose_scores``) append to
+    ``log["scoring"]`` their wall ms on a synchronized host clock, their peak
+    memory over what was held, and whether the context's slots, length and
+    offset came back bit-equal; each ``grow`` of the cache appends to
+    ``log["grows"]``; KVCompose's budgets and keep-mask go to
+    ``log["budgets"]``; its structured rebuild appends whether every layer's
+    kept entries are those of the context at the kept slots in position order
+    (``log["rebuild"]``); and the compressed cache handed to
+    ``_generate_answer`` gives ``log["kept"]`` (kept entries per layer) and
+    ``log["masked"]`` (``masked_fraction``)."""
+    from kvpress_tpu_torch import pipeline as tp
+
+    P = kt.KVPressPipeline
+    originals = {(P, name): getattr(P, name)
+                 for name in ("_kvzip_scores", "_kvcompose_scores", "_kvcompose_compress")}
+    originals[(tp, "grow")] = tp.grow
+    originals[(tp, "_generate_answer")] = tp._generate_answer
+    originals[(kt.KVComposePress, "budgets_and_masks")] = kt.KVComposePress.budgets_and_masks
+    snaps = []
+
+    def scoring(name):
+        def wrapper(self, cache, context_ids, *args, **kw):
+            n = len(context_ids)
+            snap = context_snapshot(cache, n)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cache, scores = originals[(P, name)](self, cache, context_ids, *args, **kw)
+            torch.cuda.synchronize()
+            log["scoring"].append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                peak=torch.cuda.max_memory_allocated() - held, held=held,
+                unchanged=context_equal(torch, cache, snap)))
+            snaps.append(snap)
+            return cache, scores
+        return wrapper
+
+    def compress(self, cache, scores, press, ctx_len):
+        out = originals[(P, "_kvcompose_compress")](self, cache, scores, press, ctx_len)
+        if press.structured:
+            # the rebuilt prefix of each layer: the context's entries at the
+            # kept slots, in position order (each head keeps the layer's budget)
+            budgets, keep = log["budgets"][-1]
+            tensors = snaps[-1][0]
+            keep_t = torch.from_numpy(keep).to(cache.keys.device)
+            same = True
+            for l, n in enumerate(budgets.tolist()):
+                idx = keep_t[l].nonzero()[:, 1].reshape(keep.shape[1], n)       # (H, n)
+                for got, src in zip((out.keys, out.values, out.key_scales, out.value_scales),
+                                    tensors):
+                    if src is not None:
+                        want = torch.gather(src[l], 2, idx[None, :, :, None].expand(
+                            1, *idx.shape, src.shape[-1]))
+                        same = same and torch.equal(got[l, :, :, :n], want)
+            log["rebuild"].append(same)
+        return out
+
+    def budgets(self, scores, values):
+        out = originals[(kt.KVComposePress, "budgets_and_masks")](self, scores, values)
+        log["budgets"].append(out)
+        return out
+
+    def growing(cache, extra):
+        log["grows"].append((cache.max_size, cache.max_size + extra))
+        return originals[(tp, "grow")](cache, extra)
+
+    def probe(runner, params, q, cache, *args, **kw):
+        log["kept"].append(kept_per_layer(torch, cache))
+        log["masked"].append(float(kt.masked_fraction(cache)) if cache.mask is not None else 0.0)
+        return originals[(tp, "_generate_answer")](runner, params, q, cache, *args, **kw)
+
+    for key in ("scoring", "grows", "budgets", "rebuild", "kept", "masked"):
+        log.setdefault(key, [])
+    P._kvzip_scores = scoring("_kvzip_scores")
+    P._kvcompose_scores = scoring("_kvcompose_scores")
+    P._kvcompose_compress = compress
+    tp.grow = growing
+    tp._generate_answer = probe
+    kt.KVComposePress.budgets_and_masks = budgets
+    try:
+        yield log
+    finally:
+        for (owner, name), fn in originals.items():
+            setattr(owner, name, fn)
+
+
+def restore_artifacts(kt, torch, cfg, gen, path):
+    """RestoreKV's artifacts drawn from ``gen``: 16 restore embeddings and a
+    rank-8 LoRA on wq/wk/wv/wo (``init_random_lora``'s A, and B drawn too:
+    a zero B merges nothing), written with ``save_restore_artifacts`` and
+    read back with ``load_restore_artifacts``."""
+    emb = torch.randn((MP_RESTORE_TOKENS, cfg.hidden_size), generator=gen,
+                      device=gen.device) * 0.02
+    lora = kt.init_random_lora(gen, cfg, rank=MP_LORA_RANK, device=gen.device)
+    for ab in lora.values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen, device=gen.device) * 0.01
+    kt.save_restore_artifacts(path, emb, lora, scaling=2.0)
+    return kt.load_restore_artifacts(path, device=gen.device)
+
+
+def multipass_presses_run(kt, torch, tokenizer_cls, params, report, labels=None):
+    """The multi-pass presses through ``KVPressPipeline`` at the flagship
+    shape (16 layers, bf16 weights), a 32,768-token context, the 152-token
+    question and 32 new tokens, ratio 0.5, each run's launch counts set to 0
+    before it and read after it and held exactly to its prediction
+    (``expect(n)``, n the decode steps; PERF.md):
+
+    (a) KVzipPress, bf16 KV, one-shot (the cache grown for the repeat passes);
+    (b) KVzipPress(compact=True) on the head-wise runner;
+    (c) KVzipPress over int8 KV, chunked by 8,192, presized: no grow;
+    (d) KVzipPress(kvzip_plus_normalization=True), the scorer route through
+        ``Runner.forward``, bf16 and int8 KV (its layer must not be
+        requantized);
+    (e) RestoreKVPress with 16 restore embeddings and a rank-8 LoRA on
+        wq/wk/wv/wo, round-tripped through the artifacts' ``.npz``;
+    (f) FastKVzipPress with random gates (output_dim 16, sink 16): one-shot,
+        chunked by 8,192, and compact on the head-wise runner;
+    (g) KVComposePress structured and unstructured, chunked by 8,192: the
+        re-feed over a 65,536-slot buffer;
+    (h) the structured press over int8 KV, chunked: ``flash_attention_quant``
+        with its row LSE;
+    (i) one-shot structured KVCompose at 4,096 tokens (the collector's
+        probabilities, 4.3 GB a layer).
+
+    Each run prints its prefill wall and peak, its scoring passes' wall and
+    peak, the kept entries per layer, the masked fraction, the decode rate
+    and the launches. Each checks that the scoring passes left the context's
+    slots, length and offset bit-equal; KVzip's masked entries are the
+    ratio's share of the context's (RestoreKV's budget-matched); KVCompose's
+    layer lengths are its budgets and a structured layer's kept entries are
+    the context's at the kept slots in position order; (c) took no grow.
+    ``labels`` runs those runs alone (their label's start). Returns the
+    summed launch counts."""
+    import tempfile
+
+    cfg = flagship_config(16)
+    L, S, H = cfg.num_layers, CONTEXT_TOKENS, cfg.num_kv_heads
+    dev = params.device
+    gen = torch.Generator(device=dev).manual_seed(14)
+    tok = tokenizer_cls(vocab_size=cfg.vocab_size)
+    context = " ".join(f"w{i}" for i in range(S))
+    small = " ".join(f"w{i}" for i in range(MP_SMALL_CONTEXT))
+    question = QUESTIONS[0]
+    runner = kt.Runner.create(cfg, device=dev)
+    headwise = kt.Runner.create(cfg, decode_kernel=False, headwise_kernel=True, device=dev)
+    gates = kt.init_random_gates(gen, cfg, output_dim=MP_GATE_DIM, sink=MP_GATE_SINK, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        emb, lora, scaling = restore_artifacts(kt, torch, cfg, gen, f"{tmp}/restore.npz")
+    totals = {name: 0 for name in read_counts()}
+    failures = []
+    n_rep = -(-S // MP_CHUNK)               # repeat passes
+    n_chunks = S // CHUNK_TOKENS            # prefill chunks, and re-feed chunks
+
+    def kind(name, payload, n):
+        return {f"{name}_{payload}_d64": n, f"{name}_{payload}": n, name: n}
+
+    def flash(n, payload="bf16"):
+        return kind("flash_attention" if payload == "bf16" else "flash_attention_quant",
+                    payload, n)
+
+    def decode(n, payload="bf16"):
+        return kind("decode_attention", payload, n)
+
+    def run(label, press, expect, r=runner, ctx=context, masked_share=None, **kw):
+        """One pipeline run; ``expect(n_steps)`` gives the launch counts it
+        must read exactly (every other kernel must not launch);
+        ``masked_share`` the exact share of the context's (layer, head,
+        slot) entries whose keep bit is cleared."""
+        if labels is not None and not label.startswith(tuple(labels)):
+            return None
+        prefills, steps, log = [], [], {}
+        rec = decode_recorder(r, steps)
+        pipe = kt.KVPressPipeline(timed_runner(kt, torch, rec, prefills), params, tok)
+        with multipass_recorder(kt, torch, log):
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                answer = pipe(ctx, question=question, press=press, max_new_tokens=32,
+                              **kw)["answer"]
+            except Exception as e:      # the phase fails, after the other runs
+                failures.append(f"{label}: {type(e).__name__}: {e}")
+                report(f"  {label}: FAILED ({type(e).__name__}: {str(e)[:200]})")
+                torch.cuda.empty_cache()
+                return None
+            torch.cuda.synchronize()
+            counts = read_counts()
+        n_ctx = len(ctx.split())
+        n = sum(e["T"] == 1 for e in steps)
+        one = [e["ms"] for e in steps if e["T"] == 1]
+        passes = log["scoring"]
+        report(f"  {label}: {time.perf_counter() - t0:.2f} s in all, {prefill_reading(prefills)}; "
+               + (f"scoring passes {passes[0]['ms']:.1f} ms, peak {passes[0]['peak'] / 2**30:.3f} "
+                  f"GiB over the {passes[0]['held'] / 2**30:.3f} GiB held; " if passes else "")
+               + f"kept per layer {log['kept'][-1]}, masked fraction {log['masked'][-1]:.6f}; "
+               + (f"decode {len(one) / (sum(one) / 1e3):.1f} tok/s over {len(one)} steps (host "
+                  f"clock); " if one else "no decode step; ")
+               + f"grows {log['grows']}; launches {launched(counts)}; answer tokens "
+               f"{len(answer.split())}")
+        if not answer:
+            failures.append(f"{label}: empty answer")
+        want = expect(n)
+        failures.extend(f"{label}: {name} launched {counts[name]}, not {k}"
+                        for name, k in want.items() if counts[name] != k)
+        failures.extend(f"{label}: {name} launched {counts[name]} times" for name in counters()
+                        if name not in want and counts[name])
+        for name, k in counts.items():
+            totals[name] += k
+        if not all(p["unchanged"] for p in passes):
+            failures.append(f"{label}: a scoring pass moved the context's slots, length or "
+                            "offset")
+        if masked_share is not None:
+            valid = n_ctx * L * H
+            want_masked = int(valid * masked_share)
+            got_masked = valid + extra_kept(press, L, H) - sum(log["kept"][-1])
+            report(f"    masked context entries {got_masked} of {valid} (the press's share: "
+                   f"{want_masked})")
+            if got_masked != want_masked:
+                failures.append(f"{label}: {got_masked} masked entries, not {want_masked}")
+        if log["budgets"]:
+            budgets = log["budgets"][-1][0].tolist()
+            lengths = log["kept"][-1] if press.structured else None
+            report(f"    budgets (important_per_layer) {budgets}")
+            if press.structured and [k // H for k in lengths] != budgets:
+                failures.append(f"{label}: layer lengths {lengths} are not the budgets "
+                                f"{budgets} x {H} heads")
+            if log["rebuild"] and not all(log["rebuild"]):
+                failures.append(f"{label}: the rebuilt layers are not the context's kept "
+                                "entries in position order")
+        del steps, prefills, pipe
+        torch.cuda.empty_cache()
+        return log
+
+    def extra_kept(press, L_, H_):
+        """Entries kept past the context: RestoreKV's restore slots."""
+        return getattr(press, "num_restore_tokens", 0) * L_ * H_
+
+    # (a) KVzip, bf16 KV, one-shot: the prefill, the repeat passes, the
+    # question over flash_attention; the steps over the decode kernel.
+    run("(a) KVzip, bf16 KV, one-shot", kt.KVzipPress(0.5),
+        lambda n: {**flash((2 + n_rep) * L), **decode(n * L)}, masked_share=0.5)
+    # (b) compact on the head-wise runner: one-token steps take the head-wise
+    # kernel over each head's kept prefix.
+    run("(b) KVzip compact, head-wise runner", kt.KVzipPress(0.5, compact=True),
+        lambda n: {**flash((2 + n_rep) * L), "decode_headwise": n * L,
+                   "decode_headwise_bf16_d64": n * L}, r=headwise, masked_share=0.5)
+    # (c) int8 KV chunked and presized: every chunk, pass and the question
+    # through flash_attention_quant at int8.
+    log = run("(c) KVzip, int8 KV, chunked", kt.KVzipPress(0.5),
+              lambda n: {**flash((n_chunks + n_rep + 1) * L, "int8"), **decode(n * L, "int8")},
+              masked_share=0.5, quantized=True, kv_bits=8, context_chunk=CHUNK_TOKENS)
+    if log is not None and log["grows"]:
+        failures.append(f"(c) grew the presized cache: {log['grows']}")
+    # (d) KVzip+: the repeat prompts through Runner.forward with the scorer
+    # (flash_attention over the dense buffer: a press scores dense K/V).
+    run("(d) KVzip+, bf16 KV", kt.KVzipPress(0.5, kvzip_plus_normalization=True),
+        lambda n: {**flash((2 + n_rep) * L), **decode(n * L)}, masked_share=0.5)
+    run("(d) KVzip+, int8 KV", kt.KVzipPress(0.5, kvzip_plus_normalization=True),
+        lambda n: {**flash(n_rep * L), **flash(2 * L, "int8"), **decode(n * L, "int8")},
+        masked_share=0.5, quantized=True, kv_bits=8)
+    # (e) RestoreKV: the restore pass's 16 tokens take the decode kernel.
+    restore = kt.RestoreKVPress(0.5, restore_embeddings=emb, lora=lora, lora_scaling=scaling)
+    run("(e) RestoreKV, bf16 KV", restore,
+        lambda n: {**flash((2 + n_rep) * L), **decode((n + 1) * L)},
+        masked_share=min(0.999999, 0.5 + MP_RESTORE_TOKENS / S))
+    # (f) FastKVzip: gate scores in the prefill, the post-mask after it.
+    fast = dict(gates=gates, n_sink=4)
+    run("(f) FastKVzip, one-shot", kt.FastKVzipPress(0.5, **fast),
+        lambda n: {**flash(2 * L), **decode(n * L)}, masked_share=0.5)
+    run("(f) FastKVzip, chunked", kt.FastKVzipPress(0.5, **fast),
+        lambda n: {**flash((n_chunks + 1) * L), **decode(n * L)}, masked_share=0.5,
+        context_chunk=CHUNK_TOKENS)
+    run("(f) FastKVzip compact, head-wise runner", kt.FastKVzipPress(0.5, compact=True, **fast),
+        lambda n: {**flash(2 * L), "decode_headwise": n * L, "decode_headwise_bf16_d64": n * L},
+        r=headwise, masked_share=0.5)
+    # (g), (h) KVCompose chunked: the prefill's chunks, the re-feed's chunks
+    # (with the row LSE), the question; (i) one-shot at 4,096 tokens: the
+    # collector's re-feed on the dense route (no kernel).
+    for structured in (True, False):
+        run(f"(g) KVCompose {'structured' if structured else 'unstructured'}, chunked",
+            kt.KVComposePress(structured=structured, compression_ratio=0.5),
+            lambda n: {**flash((2 * n_chunks + 1) * L), **decode(n * L)},
+            masked_share=None if structured else 0.5, context_chunk=CHUNK_TOKENS)
+    run("(h) KVCompose structured, int8 KV, chunked", kt.KVComposePress(compression_ratio=0.5),
+        lambda n: {**flash((2 * n_chunks + 1) * L, "int8"), **decode(n * L, "int8")},
+        quantized=True, kv_bits=8, context_chunk=CHUNK_TOKENS)
+    run(f"(i) KVCompose structured, one-shot, {MP_SMALL_CONTEXT} tokens",
+        kt.KVComposePress(compression_ratio=0.5),
+        lambda n: {**flash(2 * L), **decode(n * L)}, ctx=small)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return totals
+
+
+def kvzip_context_check(kt, torch, tokenizer_cls, params, report):
+    """KVzip over int8 KV at 32K, chunked and presized: its repeat passes must
+    leave the context's payload, scales, length and offset bit-equal."""
+    return multipass_presses_run(kt, torch, tokenizer_cls, params, report,
+                                 labels=("(c) KVzip, int8",))
+
+
+def kvcompose_rebuild_check(kt, torch, tokenizer_cls, params, report):
+    """Structured KVCompose chunked at 32K: each rebuilt layer must hold the
+    context's entries at the kept slots in position order."""
+    return multipass_presses_run(kt, torch, tokenizer_cls, params, report,
+                                 labels=("(g) KVCompose structured",))
+
+
+def multipass_reference_check(kt, torch, tokenizer_cls, params, report):
+    """KVzip, FastKVzip and chunked structured KVCompose on the kernel path
+    (flash, the decode kernel) against the dense path (``attn_impl="xla"``,
+    ``decode_kernel=False``) on the same weights, cut to their first layer
+    and whole, with a 2,048-token context (repeat and re-feed chunks of 512),
+    the 150-token question and 4 teacher-forced steps, stage by stage, each
+    stage starting both paths from the kernel path's state:
+      prefill:  the last logits (FastKVzip: and its gate scores);
+      scores:   the scoring passes' scores over the kernel path's prefilled
+                cache (FastKVzip: the prefill's gate scores);
+      kept:     the kept entries per layer of the mask or rebuild each path's
+                scores give;
+      question: the question forward's logits over the kernel path's
+                compressed cache;
+      decode:   the steps' logits after it.
+    Every stage must read at most REF_LIMIT[depth], and at full depth at most
+    F32_RATIO times what bf16 rounding alone moves in the same stage (the
+    dense path in float32 from the same state). Layer 0's scores must be
+    bit-equal on both paths for KVzip and FastKVzip (its queries and keys do
+    not depend on attention), and at depth 1 its kept entries too; at full
+    depth the kept entries per layer may differ by at most F32_RATIO times
+    what dense bf16 and float32 differ (a global bottom-k or budget ranks
+    every layer's scores together)."""
+    dev = params.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cfg16 = flagship_config()
+    vocab = cfg16.vocab_size
+    ids = torch.randperm(vocab, generator=gen, device=dev)[:REF_CONTEXT][None]
+    question = torch.randperm(vocab, generator=gen, device=dev)[:REF_QUESTION][None]
+    ctx_ids = ids[0].tolist()
+    gates16 = kt.init_random_gates(torch.Generator(device=dev).manual_seed(17), cfg16,
+                                   output_dim=MP_GATE_DIM, sink=MP_GATE_SINK, device=dev)
+    tok = tokenizer_cls(vocab_size=cfg16.vocab_size)
+    size = 2 * REF_CONTEXT + REF_QUESTION + REF_STEPS + 1
+    failures = []
+
+    def as32(cache):
+        return dataclasses.replace(clone_cache(cache), keys=cache.keys.float(),
+                                   values=cache.values.float())
+
+    def steps(r, p, cache):
+        out = []
+        for i in range(REF_STEPS):
+            logits, cache, _ = r.forward(p, question[:, i:i + 1], cache, logits_last_only=True)
+            out.append(logits)
+        return torch.cat(out, dim=1)
+
+    def stages(path, r, p, press, kernel_state=None, f32=False):
+        """One path's stages: (readings {stage: tensor}, kept per layer, the
+        state the next path starts from). ``kernel_state`` (the kernel path's
+        prefilled cache and compressed cache) starts this path's scoring and
+        question stages; None makes this the kernel path."""
+        pipe = kt.KVPressPipeline(r, p, tok)
+        dtype = torch.float32 if f32 else torch.bfloat16
+        conv = as32 if f32 else clone_cache
+        if path == "KVCompose, chunked":
+            pre, cache, _ = r.prefill_chunked(p, ids, chunk_size=MP_REF_CHUNK, max_size=size,
+                                              compute_logits=True, dtype=dtype)
+        else:
+            pre, cache, state = r.prefill(p, ids, press=press if path == "FastKVzip" else None,
+                                          max_size=size, compute_logits=True, dtype=dtype)
+        base = cache if kernel_state is None else kernel_state[0]
+        if path == "KVzip":
+            _, sc = pipe._kvzip_scores(conv(base), ctx_ids, press)
+            keep = press.head_mask_from_scores(sc)
+            scores = torch.from_numpy(sc)
+            compressed = lambda c: pipe._apply_keep_mask(c, keep)
+        elif path == "FastKVzip":
+            scores = torch.stack([s["scores"] for s in state]).float().cpu()
+            compressed = lambda c: press.apply_post_mask(c, state)
+        else:
+            _, sc = pipe._kvcompose_scores(conv(base), ctx_ids, press, MP_REF_CHUNK)
+            scores = torch.from_numpy(sc)
+            compressed = lambda c: pipe._kvcompose_compress(c, sc, press, REF_CONTEXT)
+        kept = kept_per_layer(torch, compressed(conv(base)))
+        after = compressed(clone_cache(base)) if kernel_state is None else kernel_state[1]
+        q_logits, after_q, _ = r.forward(p, question, conv(after))
+        d_logits = steps(r, p, conv(after_q) if kernel_state is None else conv(kernel_state[2]))
+        if kernel_state is None:
+            kernel_state = (cache, after, after_q)
+        return ({"prefill": pre, "scores": scores, "question": q_logits, "decode": d_logits},
+                kept, kernel_state)
+
+    for depth in (1, 16):
+        cfg = flagship_config(depth)
+        p = first_layers(params, depth) if depth < len(params.layers) else params
+        p32 = copy.deepcopy(p).float() if depth == 16 else None
+        kernel = kt.Runner.create(cfg, device=dev)
+        dense = kt.Runner.create(cfg, attn_impl="xla", decode_kernel=False, device=dev)
+        presses = {"KVzip": kt.KVzipPress(0.5, chunk_size=MP_REF_CHUNK),
+                   "FastKVzip": kt.FastKVzipPress(0.5, gates={k: v[:depth]
+                                                              for k, v in gates16.items()}),
+                   "KVCompose, chunked": kt.KVComposePress(compression_ratio=0.5)}
+        for path, press in presses.items():
+            label = f"{path}, depth {depth}"
+            k_read, k_kept, state = stages(path, kernel, p, press)
+            d_read, d_kept, _ = stages(path, dense, p, press, state)
+            read = {s: rel(torch, k_read[s], d_read[s]) for s in k_read}
+            diff = [abs(a - b) for a, b in zip(k_kept, d_kept)]
+            noise = noise_kept = None
+            if p32 is not None:
+                f_read, f_kept, _ = stages(path, dense, p32, press, state, f32=True)
+                noise = {s: rel(torch, d_read[s], f_read[s]) for s in d_read}
+                noise_kept = [abs(a - b) for a, b in zip(d_kept, f_kept)]
+            same0 = path == "KVCompose, chunked" or torch.equal(k_read["scores"][0],
+                                                                d_read["scores"][0])
+            report(f"  {label}: max |kernel - dense| / max |dense|: "
+                   + ", ".join(f"{s} {x:.3e}" for s, x in read.items())
+                   + f" (limit {REF_LIMIT[depth]})"
+                   + ("" if noise is None else "; dense bf16 against float32: "
+                      + ", ".join(f"{s} {x:.3e}" for s, x in noise.items()))
+                   + f"; kept per layer {k_kept}, differences {diff}"
+                   + ("" if noise_kept is None else f" (bf16 against float32: {noise_kept})")
+                   + ("" if path == "KVCompose, chunked" else
+                      f"; layer 0's scores bit-equal: {same0}"))
+            failures += [f"{label}: {s} reads {x:.3e} > {REF_LIMIT[depth]}"
+                         for s, x in read.items() if not x <= REF_LIMIT[depth]]
+            if noise is not None:
+                failures += [f"{label}: {s} reads {read[s]:.3e}, over {F32_RATIO} x "
+                             f"{noise[s]:.3e}" for s in read if not read[s] <= F32_RATIO * noise[s]]
+                if sum(diff) > F32_RATIO * max(sum(noise_kept), 1):
+                    failures.append(f"{label}: kept entries differ by {diff} (bf16 against "
+                                    f"float32: {noise_kept})")
+            elif diff[0]:
+                failures.append(f"{label}: layer 0 keeps {diff[0]} other entries")
+            if not same0:
+                failures.append(f"{label}: layer 0's scores differ between the paths")
+            del state
+        del kernel, dense, p32
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+# The 8B-class and Gemma-3-12B pipeline runs use the first half of their
+# layers, for the whole script's time (its multi-pass phase added about 70 s);
+# every layer does the same work at the same shapes.
+LONG_CONTEXT_RUN_LAYERS = 16
+GEMMA3_12B_RUN_LAYERS = 24
+
+
 def long_context_run(kt, torch, tokenizer_cls, report):
-    """The Llama-3.1-8B-class body at full width and depth (seeded random
-    weights, int4) through ``KVPressPipeline`` with int4 KV, Knorm(0.5) and a
-    131,072-token context in chunks of 8,192, two questions with 32 new
-    tokens. At exactly 131,072 tokens the dense transient is 2^29 bytes, not
+    """The Llama-3.1-8B-class body at full width (seeded random weights,
+    int4; ``LONG_CONTEXT_RUN_LAYERS`` of its 32 layers) through
+    ``KVPressPipeline`` with int4 KV, Knorm(0.5) and a 131,072-token context
+    in chunks of 8,192, two questions with 32 new tokens. At exactly 131,072 tokens the dense transient is 2^29 bytes, not
     over it, so the int4 chunks take the dense route (flash_attention).
     Prints the prefill's wall time and peak memory. Returns the launch counts."""
-    cfg = llama31_8b_config()
+    cfg = llama31_8b_config(LONG_CONTEXT_RUN_LAYERS)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
     t0 = time.perf_counter()
@@ -3212,7 +3737,7 @@ def long_context_run(kt, torch, tokenizer_cls, report):
               ("flash_attention_quant",))
     del pipe, out
     torch.cuda.empty_cache()
-    # Where the prefill's time goes, on the body cut to 4 of its 32 layers
+    # Where the prefill's time goes, on the body cut to 4 of its layers
     # (every layer does the same work).
     depth = 4
     cut = kt.Runner.create(llama31_8b_config(depth), device=dev)
@@ -3968,8 +4493,8 @@ def gemma3_run(kt, torch, tokenizer_cls, report):
 
 
 def gemma3_12b_run(kt, torch, tokenizer_cls, report):
-    """The Gemma-3-12B body at full width and depth (48 layers, seeded random
-    bf16 weights, head_dim 256) with its SigLIP tower, through
+    """The Gemma-3-12B body at full width (``GEMMA3_12B_RUN_LAYERS`` of its 48
+    layers, seeded random bf16 weights, head_dim 256) with its SigLIP tower, through
     ``KVPressPipeline`` at 32,768 tokens, two questions and 32 new tokens:
     (a) Knorm(0.5), bf16 KV, the 4 images of the Gemma-3-27B run, one-shot
     and with ``context_chunk=8192`` (flash with the or-mask at 256, windowed
@@ -3983,7 +4508,7 @@ def gemma3_12b_run(kt, torch, tokenizer_cls, report):
     Then where the prefill's time goes on the body cut to 6 layers, and the
     cut body against the dense path at 4,096 tokens with two images, at
     depth 1 and 6. Returns the launch counts of the runs."""
-    cfg, vcfg = gemma3_12b_config(), gemma3_vision_config()
+    cfg, vcfg = gemma3_12b_config(GEMMA3_12B_RUN_LAYERS), gemma3_vision_config()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
     t0 = time.perf_counter()
@@ -4689,6 +5214,14 @@ def main() -> int:
     for name, n in decode_presses_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] += n
     report(f"  the decode-time phase took {time.perf_counter() - t_phase:.1f} s")
+    report("phase 3: the multi-pass presses at the flagship shape, 32K: KVzip (bf16, compact, "
+           "int8 chunked, KVzip+ bf16 and int8), RestoreKV, FastKVzip (one-shot, chunked, "
+           "compact), KVCompose (structured and unstructured chunked, int8, one-shot at "
+           f"{MP_SMALL_CONTEXT})")
+    t_phase = time.perf_counter()
+    for name, n in multipass_presses_run(kt, torch, ToyTokenizer, params, report).items():
+        launches[name] += n
+    report(f"  the multi-pass phase took {time.perf_counter() - t_phase:.1f} s")
     report("phase 3: chunked prefill's int4 routes at the flagship shape, 32K")
     for name, n in fused_int4_check(kt, torch, params, report).items():
         launches[name] += n
@@ -4703,7 +5236,8 @@ def main() -> int:
            "chunked")
     for name, n in gemma3_run(kt, torch, ToyTokenizer, report).items():
         launches[name] += n
-    report("phase 3: the Gemma-3-12B body (bf16, 48 layers, head_dim 256): 4 images one-shot and "
+    report(f"phase 3: the Gemma-3-12B body (bf16, {GEMMA3_12B_RUN_LAYERS} of 48 layers, head_dim "
+           "256): 4 images one-shot and "
            "chunked, paths A and AdaKV(Observed), int8 KV, 32K")
     for name, n in gemma3_12b_run(kt, torch, ToyTokenizer, report).items():
         launches[name] += n
@@ -4717,6 +5251,8 @@ def main() -> int:
     reference_check(kt, torch, params, report, chunk=REF_CHUNK)
     report("phase 3: the decode-time presses against the dense path")
     decode_reference_check(kt, torch, params, report)
+    report("phase 3: the multi-pass presses against the dense path")
+    multipass_reference_check(kt, torch, ToyTokenizer, params, report)
 
     report(f"phase 4: timings on {card}")
     timings(kt, torch, params, params8, report)

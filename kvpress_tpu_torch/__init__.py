@@ -31,7 +31,11 @@ from .presses import (AdaKVPress, BasePress, BlockPress, CAMPress, CapPress, Chu
                       collect_query_stats, load_kvzap_model, load_q_filters, load_query_stats,
                       save_kvzap_model, save_query_stats, topk_keep, DMSPress,
                       DuoAttentionPress, FinchPress, LUKVPress, MergingPress, SimLayerKVPress,
-                      duo_attention_on_the_fly, load_budget_curve, load_duo_head_scores)
+                      duo_attention_on_the_fly, load_budget_curve, load_duo_head_scores,
+                      FastKVzipPress, KVComposeCollector, KVComposePress, KVzipChunkScorer,
+                      KVzipPress, RestoreKVPress, apply_lora, init_random_gates,
+                      init_random_lora, load_fastkvzip_gates, load_restore_artifacts,
+                      save_fastkvzip_gates, save_restore_artifacts)
 
 __version__ = "0.1.0"
 
@@ -53,4 +57,8 @@ __all__ = [
     "DMSPress", "DuoAttentionPress", "FinchPress", "LUKVPress", "MergingPress",
     "SimLayerKVPress", "duo_attention_on_the_fly", "load_budget_curve", "load_duo_head_scores",
     "CAMPress", "CompressionRatioDecodingPress", "DecodingPress", "PrefillDecodingPress",
+    "FastKVzipPress", "KVComposeCollector", "KVComposePress", "KVzipChunkScorer", "KVzipPress",
+    "RestoreKVPress", "apply_lora", "init_random_gates", "init_random_lora",
+    "load_fastkvzip_gates", "load_restore_artifacts", "save_fastkvzip_gates",
+    "save_restore_artifacts",
 ]

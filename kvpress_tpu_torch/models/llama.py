@@ -580,9 +580,11 @@ class Runner:
         new_state = press_state
         # Sliding layers are never compressed. The JAX runner calls the press
         # there and restores the layer after it; skipping it gives the same
-        # cache, but the press state of a sliding layer (which nothing reads)
-        # stays as it was given.
-        if apply_press and not sliding:
+        # cache, but the press state of a sliding layer stays as it was
+        # given. A press that only scores (``writes_cache`` False: the
+        # multi-pass scorers, FastKVzip) is called there too, for its scores.
+        writes = apply_press and press.writes_cache
+        if apply_press and not (sliding and writes):
             ctx = LayerCtx(
                 layer_idx=layer_idx, hidden=h, queries=q, queries_prerope=q_pre,
                 keys_prerope=k_pre, positions=positions, attn_probs=probs,
@@ -596,9 +598,10 @@ class Runner:
                 nk, nv, new_len, nmask, new_state = press.layer_compress(
                     ctx, keys[:, :, :T], values[:, :, :T], new_len, mask[:, :, :T],
                     press_state)
-                keys[:, :, :T] = nk
-                values[:, :, :T] = nv
-                mask[:, :, :T] = nmask
+                if writes:
+                    keys[:, :, :T] = nk
+                    values[:, :, :T] = nv
+                    mask[:, :, :T] = nmask
             elif quant_press_decode:
                 # After this call's attention and append, over the whole
                 # buffer: the payload and scales are gathered, not requantized.
@@ -610,8 +613,9 @@ class Runner:
             else:
                 nk, nv, new_len, nmask, new_state = press.decode_compress(
                     ctx, keys, values, new_len, mask, press_state)
-                _write_back((keys, values, mask), (nk, nv, nmask))
-            if quantized and dense_press:
+                if writes:
+                    _write_back((keys, values, mask), (nk, nv, nmask))
+            if quantized and dense_press and writes:
                 # The press moved (or merged) entries in the dense buffer:
                 # requantize the whole layer.
                 qk2, ks2 = quantize_kv(keys, kv_bits)
@@ -777,9 +781,14 @@ class Runner:
         ChunkKV, ThinK, Composed, Duo, SimLayerKV, Finch) compresses itself.
         ``DMSPress`` over a per-token scorer (KVzap, Knorm) scores each chunk's
         tokens as they go through and sets its threshold mask after the last
-        chunk. A decode-time press (the ``DecodingPress`` family, ``CAMPress``)
-        leaves the prefill whole, as in JAX: its state is made after the last
-        chunk. ``BlockPress`` is refused: it needs every position's hidden
+        chunk. ``FastKVzipPress`` (a post-mask press) collects each chunk's
+        gate scores the same way and returns them, protected over the whole
+        context, as its state (one entry a layer) for the pipeline's
+        ``apply_post_mask``. A decode-time press (the ``DecodingPress``
+        family, ``CAMPress``) and a multi-pass press (``KVzipPress``,
+        ``RestoreKVPress``, ``KVComposePress``: the pipeline's scoring passes
+        follow) leave the prefill whole, as in JAX: the state is made after
+        the last chunk. ``BlockPress`` is refused: it needs every position's hidden
         states; so are ``MergingPress``: no chunked pass merges, and
         ``PrefillDecodingPress``, as JAX's assertion refuses it.
 
@@ -794,7 +803,8 @@ class Runner:
         path) as in ``prefill``: each chunk start moves back to the first
         token of an image span it would split, so that a span's tokens see
         each other. Returns (logits | None, cache, press state: DMS's ring per
-        layer, a decode-time press's initial state, else None)."""
+        layer, FastKVzip's scores per layer, a decode-time press's initial
+        state, else None)."""
         steps = self.prefill_chunked_steps(
             params, ids, press=press, chunk_size=chunk_size, max_size=max_size, dtype=dtype,
             compute_logits=compute_logits, quantized=quantized, kv_bits=kv_bits,
@@ -852,8 +862,7 @@ class Runner:
         if size < S:
             raise ValueError(f"max_size {size} cannot hold the {S}-token context")
         if fused_kv is None:
-            dense_bytes = 2 * 2 * B * cfg.num_kv_heads * size * cfg.head_dim
-            fused_kv = kv_bits == 8 or dense_bytes > (1 << 29)
+            fused_kv = self._fused_kv(B, size, kv_bits)
         groups = k_groups = None
         if token_types is not None:
             # Group ids over the whole context (slot == position until the
@@ -883,15 +892,15 @@ class Runner:
                     "score for token t depends on more than that token's own hidden/k/v). Use "
                     "the one-shot prefill, or wrap a per-token scorer (KVzapPress, KnormPress).")
             dms, press = press, None
-        if press is not None:
-            if getattr(press, "post_mask", False):
-                raise NotImplementedError("post-mask presses (FastKVzip) come with ROADMAP "
-                                          "Queue A item 13")
-            if getattr(press, "multi_pass", False):
-                raise NotImplementedError("multi-pass presses come with ROADMAP Queue A item 13")
+        post = None
+        if press is not None and getattr(press, "post_mask", False):
+            # FastKVzip: each chunk's gate scores are collected as it goes
+            # through; the pipeline sets the cross-layer mask afterwards.
+            post, press = press, None
         if press is not None and not press.compresses_prefill:
-            # A decode-time press leaves the prefill whole: its state is made
-            # after the last chunk, for the decode loop.
+            # A decode-time press, or a multi-pass press (KVzip, KVCompose:
+            # the pipeline runs its scoring passes after the prefill), leaves
+            # the prefill whole: its state is made after the last chunk.
             deferred, press = press, None
         if press is not None:
             if hasattr(press, "chunked_compress"):
@@ -934,6 +943,8 @@ class Runner:
         if dms is not None:
             collect = dict(collect_fn=dms.press.chunk_score_fn,
                            collect_arg=dms.press.chunk_score_arg)
+        elif post is not None:
+            collect = dict(collect_fn=post.chunk_score_fn, collect_arg=post.chunk_score_arg)
         all_scores = []
         for i, start in enumerate(starts):
             last = i == len(starts) - 1
@@ -962,7 +973,72 @@ class Runner:
             mask, state = dms.apply_chunked(torch.cat(all_scores, dim=-1), S, mask,
                                             cfg.sliding_flags())
             cache = dataclasses.replace(cache, mask=mask)
+        if post is not None:
+            # The raw gate scores over the whole context, protected once
+            # (the one-shot layer_compress's window), one entry a layer.
+            state = [{"scores": s} for s in post.protect_scores(torch.cat(all_scores, dim=-1),
+                                                                S)]
         return logits, cache, state
+
+    def _fused_kv(self, B: int, size: int, bits: int) -> bool:
+        """The chunk route over a quantized cache of ``size`` slots: the
+        payload through ``flash_attention_quant`` for int8, or for int4 when
+        the layer's dense transient (2 x 2 bytes x B x H_kv x size x D) is
+        over 512 MiB; else each layer dequantized for ``flash_attention``."""
+        dense_bytes = 2 * 2 * B * self.cfg.num_kv_heads * size * self.cfg.head_dim
+        return bits == 8 or dense_bytes > (1 << 29)
+
+    @torch.no_grad()
+    def kvzip_repeat_pass(self, params: LlamaModel, rep_ids: Optional[torch.Tensor],
+                          cache: KVCache, start: int, sink: int, chunk_len: int,
+                          rep_embeds: Optional[torch.Tensor] = None):
+        """One KVzip repeat-chunk scoring pass (reference score_kvzip,
+        kvzip_press.py:287-358) over the lean chunk forward, a layer at a
+        time (the JAX package's host-loop form; its scan form computes the
+        same). The repeat prompt ``rep_ids`` (B, T) (or ``rep_embeds``
+        (B, T, E)) attends the cache after its live slots; each layer scores
+        the chunk's slots ``start .. start + chunk_len`` with the ``sink``
+        first slots beside them. The repeat K/V are written past the length
+        (the buffer must have room for them); the slots below the length,
+        the length and the offset stay as they were. Returns ``(cache,
+        scores)``, the cache the one given and scores (L, B, H_kv,
+        chunk_len) float32. Sliding layers take their window."""
+        B = (rep_ids if rep_embeds is None else rep_embeds).shape[0]
+        out = []
+        _, cache, _ = self._chunk_forward_lean(
+            params, None if rep_embeds is not None else rep_ids, cache,
+            fused_kv=self._fused_kv(B, cache.max_size, cache.bits),
+            kvzip_spec=(int(start), int(sink), int(chunk_len)),
+            chunk_embeds=rep_embeds, scores_out=out)
+        return cache, out[0]
+
+    @torch.no_grad()
+    def kvcompose_refeed_pass(self, params: LlamaModel, ids_chunk: Optional[torch.Tensor],
+                              cache: KVCache, ctx_len: int, agg_task: str,
+                              chunk_embeds: Optional[torch.Tensor] = None):
+        """One chunk of KVCompose's scoring pass (reference
+        kvcompose_press.py :197-219, :384-424: the extra pass over the
+        context, here in bounded chunks). The chunk's K/V are appended (a
+        later chunk's queries attend it: the one-shot causality over the
+        doubled sequence), and each layer aggregates the chunk's attention
+        onto the first ``ctx_len`` columns (``refeed_colagg`` with the
+        attention's own logsumexp). Returns ``(cache, part)``, the cache
+        advanced by the chunk and part (L, B, Hq, ctx_len): combine chunks by
+        max or running sum, and roll back by restoring the length and offset
+        after the last (the first ``ctx_len`` slots are not touched).
+        Sliding-window models are refused, as in JAX (the sweep has no
+        window)."""
+        if self.cfg.sliding_window is not None:
+            raise ValueError("KVCompose chunked re-feed does not support sliding-window models "
+                             "(the press skips sliding layers; use the one-shot prefill)")
+        B = (ids_chunk if chunk_embeds is None else chunk_embeds).shape[0]
+        out = []
+        _, cache, _ = self._chunk_forward_lean(
+            params, None if chunk_embeds is not None else ids_chunk, cache,
+            fused_kv=self._fused_kv(B, cache.max_size, cache.bits),
+            kvcompose_spec=(int(ctx_len), agg_task),
+            chunk_embeds=chunk_embeds, scores_out=out)
+        return cache, out[0]
 
     @torch.no_grad()
     def _chunk_forward_lean(self, params: LlamaModel, chunk_ids: Optional[torch.Tensor],
@@ -984,14 +1060,47 @@ class Runner:
         press's ``chunk_score_fn``, given ``collect_arg``) scores the chunk's
         own tokens in each layer from their post-ln1 hidden states and their
         K/V at cache width (dequantized from the payload the chunk stored):
-        the (L, B, H_kv, T) scores are appended to ``scores_out``. Returns
-        (last position's logits | None, cache with length and offset advanced
-        by T, each layer's last ``hidden_window`` post-ln1 hidden states (L,
-        B, W, E) | None)."""
-        if kvzip_spec is not None or kvcompose_spec is not None:
-            raise NotImplementedError("multi-pass scoring passes come with ROADMAP Queue A "
-                                      "item 13")
+        the (L, B, H_kv, T) scores are appended to ``scores_out``.
+
+        The scoring passes of the multi-pass presses:
+
+        - ``kvzip_spec = (start, sink, chunk_len)`` (host ints): a KVzip
+          repeat pass. Each layer scores the chunk's slots ``start ..
+          start + chunk_len`` with ``subset_max_scores`` over the ``[sink |
+          chunk]`` keys read from the buffer (dequantized) and the repeat
+          keys as computed; (L, B, H_kv, chunk_len) to ``scores_out``. The
+          repeat K/V are written past the length, and the length and offset
+          do not move: the cache returned is the one given.
+        - ``kvcompose_spec = (ctx_len, agg)``: a KVCompose re-feed chunk. The
+          attention also gives each query's logsumexp (``return_lse``), and
+          ``refeed_colagg`` aggregates the chunk's probabilities onto the
+          first ``ctx_len`` columns (the dense route aggregates the
+          probabilities it builds); (L, B, Hq, ctx_len) to ``scores_out``,
+          bfloat16 under ``max`` from 65,536 columns on, as in JAX.
+
+        Returns (last position's logits | None, cache with length and offset
+        advanced by T, each layer's last ``hidden_window`` post-ln1 hidden
+        states (L, B, W, E) | None)."""
+        from ..presses.kvzip import subset_max_scores
+        from ..ops.attention import refeed_colagg
+
+        if kvzip_spec is not None and (
+                not isinstance(kvzip_spec, tuple) or len(kvzip_spec) != 3
+                or not all(isinstance(v, int) for v in kvzip_spec)):
+            raise TypeError(f"kvzip_spec must be (start, sink, chunk_len), host ints: "
+                            f"{kvzip_spec!r}")
+        if kvcompose_spec is not None and (
+                not isinstance(kvcompose_spec, tuple) or len(kvcompose_spec) != 2
+                or not isinstance(kvcompose_spec[0], int)
+                or kvcompose_spec[1] not in ("max", "mean")):
+            raise TypeError(f"kvcompose_spec must be (ctx_len, 'max' | 'mean'): "
+                            f"{kvcompose_spec!r}")
         cfg = self.cfg
+        if kvcompose_spec is not None and (
+                cfg.sliding_window is not None or kvzip_spec is not None
+                or collect_fn is not None):
+            raise ValueError("a KVCompose re-feed pass takes no sliding window, KVzip pass or "
+                             "chunk scores")
         if chunk_embeds is not None:
             x = chunk_embeds
             B, T = x.shape[:2]
@@ -1007,6 +1116,7 @@ class Runner:
         bits = cache.bits
         S_buf = cache.max_size
         use_flash = self.attn_impl == "flash" and T > 1
+        want_lse = kvcompose_spec is not None
         extra_allow = span = None
         if img_groups is not None:
             if k_groups is None:
@@ -1019,6 +1129,11 @@ class Runner:
             else:
                 extra_allow = same_image(img_groups, k_groups)
         lengths = cache.length.tolist()
+        if max(lengths) + T > S_buf:
+            # A write past the buffer would land on live slots (the JAX
+            # update clamps its start back).
+            raise ValueError(f"the chunk's {T} tokens do not fit after the longest layer's "
+                             f"{max(lengths)} slots in a {S_buf}-slot buffer (presize or grow)")
         windows, scores = [], []
         for l, (layer, sliding) in enumerate(zip(params.layers, cfg.sliding_flags())):
             ln = lengths[l]
@@ -1030,6 +1145,7 @@ class Runner:
             q = apply_rope(q_pre, cos, sin).contiguous()
             k = apply_rope(k_pre, cos, sin)
             kb, vb = cache.keys[l], cache.values[l]
+            lse = probs = None
             if quantized:
                 ks, vs = cache.key_scales[l], cache.value_scales[l]
                 kb[:, :, ln:ln + T], ks[:, :, ln:ln + T] = quantize_kv(k, bits)
@@ -1049,17 +1165,25 @@ class Runner:
                     kg = None if span is None else k_groups[:, :end].contiguous()
                     o = flash_attention(q, kd, vd, ln, m, img_groups if span else None, kg,
                                         sm_scale=scale, softcap=softcap, window=window,
-                                        or_span=span)
+                                        or_span=span, return_lse=want_lse)
                     del kd, vd
                 elif use_flash:
                     o = flash_attention_quant(q, kb, vb, ks, vs, ln, lmask, bits=bits,
-                                              sm_scale=scale, softcap=softcap, window=window)
+                                              sm_scale=scale, softcap=softcap, window=window,
+                                              return_lse=want_lse)
                 else:
                     bias = attention_bias(ln, T, S_buf, sliding_window=window, head_mask=lmask,
                                           device=x.device, extra_allow=extra_allow)
-                    o = quant_gqa_attention(q, kb, vb, ks, vs, bias, scale, bits,
-                                            softcap=softcap)
+                    if want_lse:
+                        # the dense re-feed builds its probabilities anyway
+                        o, probs = gqa_attention(q, dequantize_kv(kb, ks, bits, x.dtype),
+                                                 dequantize_kv(vb, vs, bits, x.dtype), bias,
+                                                 scale, softcap=softcap, return_probs=True)
+                    else:
+                        o = quant_gqa_attention(q, kb, vb, ks, vs, bias, scale, bits,
+                                                softcap=softcap)
             else:
+                ks = None
                 kb[:, :, ln:ln + T] = k.to(kb.dtype)
                 vb[:, :, ln:ln + T] = v.to(vb.dtype)
                 if collect_fn is not None:
@@ -1067,11 +1191,43 @@ class Runner:
                 if use_flash:
                     o = flash_attention(q, kb, vb, ln, lmask, img_groups if span else None,
                                         None if span is None else k_groups, sm_scale=scale,
-                                        softcap=softcap, window=window, or_span=span)
+                                        softcap=softcap, window=window, or_span=span,
+                                        return_lse=want_lse)
                 else:
                     bias = attention_bias(ln, T, S_buf, sliding_window=window, head_mask=lmask,
                                           device=x.device, extra_allow=extra_allow)
-                    o, _ = gqa_attention(q, kb, vb, bias, scale, softcap=softcap)
+                    o, probs = gqa_attention(q, kb, vb, bias, scale, softcap=softcap,
+                                             return_probs=want_lse)
+            if want_lse and use_flash:
+                o, lse = o
+            if kvcompose_spec is not None:
+                zctx, zagg = kvcompose_spec
+                red = "max" if zagg == "max" else "sum"
+                big = zctx >= (1 << 16)
+                if probs is None:
+                    part = refeed_colagg(q, kb, ks, bits, lse, zctx, red, scale, softcap,
+                                         block=256 if big else 512)
+                else:
+                    pc = probs[..., :zctx].float()
+                    part = pc.amax(dim=2) if red == "max" else pc.sum(dim=2)
+                    del probs
+                if big and red == "max":
+                    # the stacked (L, B, Hq, ctx_len) partials next to the
+                    # doubled buffer: max is monotone, bf16 halves them
+                    part = part.to(torch.bfloat16)
+                scores.append(part)
+            if kvzip_spec is not None:
+                zstart, zsink, zcl = kvzip_spec
+                if quantized:
+                    parts = ([dequantize_kv(kb[:, :, :zsink], ks[:, :, :zsink], bits, x.dtype)]
+                             if zsink else [])
+                    parts.append(dequantize_kv(kb[:, :, zstart:zstart + zcl],
+                                               ks[:, :, zstart:zstart + zcl], bits, x.dtype))
+                else:
+                    parts = ([kb[:, :, :zsink]] if zsink else []) + [
+                        kb[:, :, zstart:zstart + zcl]]
+                parts.append(k.to(parts[-1].dtype))
+                scores.append(subset_max_scores(q, torch.cat(parts, dim=2), zsink, zcl))
             if hidden_window is not None:
                 # a copy: a view would keep every layer's whole chunk of
                 # hidden states alive until the stack below
@@ -1081,7 +1237,8 @@ class Runner:
         if compute_logits:
             xl = rms_norm(x[:, -1:], params.ln_f, cfg.rms_norm_eps, cfg.rms_one_offset)
             logits = lm_head_logits(xl, params, cfg)
-        cache = dataclasses.replace(cache, length=cache.length + T, offset=cache.offset + T)
+        if kvzip_spec is None:
+            cache = dataclasses.replace(cache, length=cache.length + T, offset=cache.offset + T)
         if scores:
             scores_out.append(torch.stack(scores))
         return logits, cache, (torch.stack(windows) if windows else None)

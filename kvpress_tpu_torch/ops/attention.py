@@ -285,3 +285,47 @@ def window_attention_probs(
     logits = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float()) * scale
     logits = logits + attention_bias(int(prior_length), W, S, device=k.device)
     return torch.softmax(logits, dim=-1).reshape(B, Hq, W, S)
+
+
+def refeed_colagg(
+    q: torch.Tensor,             # (B, Hq, T, D): the re-feed chunk's post-RoPE queries
+    kb: torch.Tensor,            # (B, Hkv, S_buf, D | payload): the cache's keys
+    k_scales: Optional[torch.Tensor],   # (B, Hkv, S_buf, 1) f32, or None
+    bits: int,
+    lse: torch.Tensor,           # (B, Hq, T) f32: each query's logsumexp over its
+                                 # whole visible range (the chunk's own attention)
+    ctx_len: int,
+    agg: str,                    # "max" | "sum" over the T query rows
+    scale: float,
+    softcap: Optional[float] = None,
+    block: int = 512,
+) -> torch.Tensor:
+    """The softmax probabilities of the re-feed queries onto the first
+    ``ctx_len`` cache columns, aggregated over the queries, block by block
+    (KVCompose's chunked scoring pass; the reference streams eager attention
+    the same way, kvcompose_press.py:28-99). Every context column precedes
+    every re-feed query, so no causal mask applies; ``p = exp(s - lse)`` with
+    the chunk's own logsumexp makes each block's probabilities exact without
+    the (T, ctx_len) matrix. A quantized cache's blocks are dequantized one
+    at a time. Returns (B, Hq, ctx_len) float32, the max or sum over this
+    chunk's queries of each attention head (chunks combine by max or running
+    sum outside). The JAX package computes this in plain ``jnp``, so this is
+    plain PyTorch too."""
+    from ..cache import dequantize_kv
+
+    B, Hq, T, D = q.shape
+    Hkv = kb.shape[1]
+    qg = q.reshape(B, Hkv, Hq // Hkv, T, D).float()
+    lse_g = lse.reshape(B, Hkv, Hq // Hkv, T, 1)
+    out = torch.empty((B, Hkv, Hq // Hkv, ctx_len), dtype=torch.float32, device=q.device)
+    for c0 in range(0, ctx_len, max(block, 1)):
+        c1 = min(c0 + block, ctx_len)
+        kblk = kb[:, :, c0:c1]
+        if k_scales is not None:
+            kblk = dequantize_kv(kblk, k_scales[:, :, c0:c1], bits, q.dtype)
+        s = torch.einsum("bhgtd,bhsd->bhgts", qg, kblk.float()).mul_(scale)
+        if softcap is not None:
+            s = s.div_(softcap).tanh_().mul_(softcap)
+        p = s.sub_(lse_g).exp_()
+        out[..., c0:c1] = p.amax(dim=3) if agg == "max" else p.sum(dim=3)
+    return out.reshape(B, Hq, ctx_len)

@@ -1,11 +1,15 @@
 """Text-generation pipeline: compress a long context once, answer many
-questions against the compressed cache (port of ``kvpress_tpu/pipeline.py``,
-single-pass path).
+questions against the compressed cache (port of ``kvpress_tpu/pipeline.py``;
+``batch`` is not ported yet).
 
 Chat-template separator split (and FinchPress's delimiter, found and
 stripped on the host), one compressing prefill (whole, padded to a multiple
-of ``context_bucket`` tokens, or in chunks of ``context_chunk`` tokens), the
-head-wise compaction of a ``host_compact`` press (``cache.compact_masked``),
+of ``context_bucket`` tokens, or in chunks of ``context_chunk`` tokens), a
+multi-pass press's scoring passes over the whole cache (KVzip's repeat
+prompts, KVCompose's re-feed; the chunked prefill's buffer presized for
+them) and the keep-mask or rebuild they give, a post-mask press's mask
+(FastKVzip), the head-wise compaction of a ``host_compact`` press
+(``cache.compact_masked``),
 ``resize`` of the cache, then per question a
 question forward and greedy (or nucleus) decode with positions continuing
 from the uncompressed context length (a decode-time press compressing in
@@ -28,9 +32,10 @@ import dataclasses
 import logging
 from typing import Optional
 
+import numpy as np
 import torch
 
-from .cache import compact_masked, resize
+from .cache import compact_masked, dequantize_kv, grow, resize
 from .device import DeviceLike
 from .models.llama import LlamaModel, Runner
 from .models.siglip import VisionConfig, VisionTower
@@ -99,18 +104,43 @@ def _generate_answer(
 
 def _chat_affixes(tok) -> tuple[int, list[int]]:
     """(prefix_len, suffix_ids) of the chat template around a user message,
-    probed with a dummy separator (reference kvzip_press.py:96-117)."""
+    probed with a dummy separator (reference kvzip_press.py:96-117).
+    Memoised on the tokenizer, keyed by its template text (a template set
+    after the first call is probed anew): the presize bound and the repeat
+    passes both need the affixes."""
+    cached = getattr(tok, "_kvpress_chat_affixes", None)
+    if cached is not None and cached[0] == tok.chat_template:
+        return cached[1]
     if tok.chat_template is None:
-        return 0, tok.encode("\n", add_special_tokens=False)
-    dummy = "dummy context"
-    separator = "\n" + "#" * len(dummy)
-    templated = tok.apply_chat_template(
-        [{"role": "user", "content": dummy + separator}],
-        add_generation_prompt=True, tokenize=False, enable_thinking=False,
-    )
-    ctx_part, suffix_text = templated.split(separator)
-    prefix_len = len(tok.encode(ctx_part.split(dummy)[0], add_special_tokens=False))
-    return prefix_len, tok.encode(suffix_text, add_special_tokens=False)
+        out = (0, tok.encode("\n", add_special_tokens=False))
+    else:
+        dummy = "dummy context"
+        separator = "\n" + "#" * len(dummy)
+        templated = tok.apply_chat_template(
+            [{"role": "user", "content": dummy + separator}],
+            add_generation_prompt=True, tokenize=False, enable_thinking=False,
+        )
+        ctx_part, suffix_text = templated.split(separator)
+        prefix_len = len(tok.encode(ctx_part.split(dummy)[0], add_special_tokens=False))
+        out = (prefix_len, tok.encode(suffix_text, add_special_tokens=False))
+    try:
+        tok._kvpress_chat_affixes = (tok.chat_template, out)
+    except (AttributeError, TypeError):
+        pass                              # tokenizer objects that take no attribute
+    return out
+
+
+def kvzip_repeat_bound(press, context_ids, tokenizer) -> int:
+    """The exact room a KVzip-family press's repeat passes need after the
+    context: the longest repeat prompt of this context (probed through the
+    tokenizer and its chat template) plus RestoreKV's restore tokens; the
+    press's static ``repeat_room()`` without a tokenizer."""
+    if tokenizer is None or press.compression_ratio <= 0:
+        return press.repeat_room()
+    prefix_len, suffix_ids = _chat_affixes(tokenizer)
+    pairs = press.chunk_pairs(list(context_ids), prefix_len, suffix_ids, tokenizer)
+    room = max((len(r) for _, r in pairs), default=0)
+    return room + getattr(press, "num_restore_tokens", 0)
 
 
 @dataclasses.dataclass
@@ -293,26 +323,53 @@ class KVPressPipeline:
                 token_types=(ids == self.image_token_id).to(torch.int32),
                 image_span=self.vision_cfg.mm_tokens_per_image)
             ids = None
+        context_embeds = common.get("inputs_embeds")
+        multi_pass = getattr(press, "multi_pass", False) if press is not None else False
         if context_chunk is not None:
             # Bounded activations: the context goes through in chunks of
-            # context_chunk tokens, compressed once after the last one.
+            # context_chunk tokens, compressed once after the last one. A
+            # multi-pass press's buffer is presized for its scoring passes
+            # (growing it afterwards holds two caches at once): KVzip's exact
+            # repeat room, KVCompose's whole re-fed context.
+            extra = 0
+            if multi_pass is True:
+                extra = kvzip_repeat_bound(press, context_ids, self.tokenizer)
+            elif multi_pass == "kvcompose" and press.compression_ratio > 0:
+                extra = context_length
             prefill_logits, cache, press_state = self.runner.prefill_chunked(
-                self.params, ids, chunk_size=context_chunk, **common)
+                self.params, ids, chunk_size=context_chunk,
+                max_size=context_length + extra if extra else None, **common)
         else:
             prefill_logits, cache, press_state = self.runner.prefill(
                 self.params, ids, valid_len=None if context_bucket is None else context_length,
                 **common)
-        if press is not None and getattr(press, "host_compact", False):
-            # Mask presses that compact (DMS compact=True): each head's kept
-            # entries to the front of its buffer, each layer's length to its
-            # longest head's count; the resize below then frees the rest.
-            cache = compact_masked(cache)
-        compressed = int(cache.length.max())
         if press is not None and getattr(press, "rerotates", False):
             # Rerotated keys sit at positions 0..n-1: the question and the
             # answer continue from the compressed length (reference
             # pipeline.py:239-241).
-            cache = dataclasses.replace(cache, offset=torch.tensor(compressed, dtype=torch.int32))
+            cache = dataclasses.replace(
+                cache, offset=torch.tensor(int(cache.length.max()), dtype=torch.int32))
+        if multi_pass == "kvcompose":
+            # KVCompose: re-feed the context against its own cache, then
+            # rebuild each layer to its budget or clear keep bits.
+            cache = self._run_kvcompose(cache, context_ids, press, context_chunk=context_chunk,
+                                        context_embeds=context_embeds)
+        elif multi_pass:
+            # KVzip (RestoreKV): score by reconstructing the context in repeat
+            # passes over the whole cache, then clear keep bits (reference
+            # kvzip_press.py __call__ / _perform_kvzip_compression).
+            cache = self._run_kvzip(cache, context_ids, press, context_embeds=context_embeds)
+        if press is not None and getattr(press, "post_mask", False):
+            # FastKVzip: the cross-layer bottom-k over the scores it collected
+            # in the prefill (reference compress_post).
+            cache = press.apply_post_mask(cache, press_state)
+        if press is not None and getattr(press, "host_compact", False):
+            # Mask presses that compact (KVzip, FastKVzip, DMS compact=True):
+            # each head's kept entries to the front of its buffer, each
+            # layer's length to its longest head's count; the resize below
+            # then frees the rest.
+            cache = compact_masked(cache)
+        compressed = int(cache.length.max())
         logger.debug("Context Length: %d", context_length)
         logger.debug("Compressed Context Length: %d", compressed)
 
@@ -347,3 +404,209 @@ class KVPressPipeline:
 
     def batch(self, *args, **kwargs):
         raise NotImplementedError("batched serving comes with ROADMAP Queue A item 14")
+
+    # ------------------------------------------------------------------ #
+    # The multi-pass presses' scoring passes
+
+    def _grow_for(self, cache, size: int, what: str):
+        """``cache`` grown to ``size`` slots when it is smaller (the one-shot
+        prefill sizes it to the context): a copy that holds two caches at
+        once, so a large one warns."""
+        if cache.max_size >= size:
+            return cache
+        logger.debug("%s grow: max_size %d -> %d", what, cache.max_size, size)
+        nbytes = cache.keys.numel() * cache.keys.element_size()
+        if nbytes > (1 << 30):
+            logger.warning("%s grow fallback on a %.1f GiB cache (max_size %d -> %d): the grow "
+                           "copy holds two full caches; presize through context_chunk",
+                           what, nbytes / 2**30, cache.max_size, size)
+        return grow(cache, size - cache.max_size)
+
+    def _run_kvzip(self, cache, context_ids, press, context_embeds=None):
+        """KVzip's context reconstruction (``_kvzip_scores``), then the global
+        (or layerwise) bottom-k clears keep bits. RestoreKV first appends its
+        restore tokens in one forward with the LoRA-merged weights, and
+        evicts budget-matched (ratio + n / context length)."""
+        if press.compression_ratio <= 0:
+            return cache
+        cache, score_val = self._kvzip_scores(cache, context_ids, press, context_embeds)
+        ctx_len = len(context_ids)
+        eff_press = press
+        if getattr(press, "num_restore_tokens", 0) > 0:
+            # RestoreKV: one LoRA-adapted pass appends the restore tokens'
+            # slots; the eviction is then budget-matched (reference
+            # restorekv_press.py:67-100).
+            from .presses.restorekv import apply_lora
+
+            restore_params = (apply_lora(self.params, press.lora, press.lora_scaling)
+                              if press.lora else self.params)
+            embeds = torch.as_tensor(press.restore_embeddings).to(
+                device=self.device, dtype=self.params.dtype)[None]
+            _, cache, _ = self.runner.forward(restore_params, None, cache, inputs_embeds=embeds,
+                                              compute_logits=False)
+            del restore_params
+            overhead = press.num_restore_tokens / max(ctx_len, 1)
+            eff_press = dataclasses.replace(
+                press, compression_ratio=min(0.999999, press.compression_ratio + overhead))
+        return self._apply_keep_mask(cache, eff_press.head_mask_from_scores(score_val))
+
+    def _kvzip_scores(self, cache, context_ids, press, context_embeds=None):
+        """KVzip's scoring passes: for each chunk, a repeat prompt attends the
+        whole cache and scores the chunk's slots. Plain KVzip scores in
+        ``Runner.kvzip_repeat_pass``; KVzip+ through ``Runner.forward`` with
+        ``KVzipChunkScorer``, whose returned cache is dropped. Neither moves
+        the context's slots, length or offset, so every pass starts from the
+        same cache. The passes are queued back to back and their scores read
+        once at the end. The cache is grown first when it has no room for
+        the longest repeat prompt (the one-shot prefill sizes it to the
+        context).
+
+        ``context_embeds`` (1, S, E) (a multimodal context): each repeat
+        prompt re-feeds its chunk's captured embeddings (vision features
+        included) after the embedded repeat question. Returns (cache, scores
+        (L, 1, H_kv, S) float32 numpy, the sink slots at 1)."""
+        from .models.llama import embed_tokens
+        from .presses.kvzip import KVzipChunkScorer
+
+        tok = self.tokenizer
+        prefix_len, suffix_ids = _chat_affixes(tok)
+        pairs = press.chunk_pairs(list(context_ids), prefix_len, suffix_ids, tok)
+        ctx_len = len(context_ids)
+        cache = self._grow_for(cache, ctx_len + max(len(r) for _, r in pairs),
+                               "KVzip repeat-pass")
+        cfg = self.runner.cfg
+        score_val = np.zeros((cfg.num_layers, 1, cfg.num_kv_heads, ctx_len), np.float32)
+        score_val[..., :press.n_sink] = 1.0
+        start, spans, score_arrs = prefix_len, [], []
+        for chunk, repeat in pairs:
+            end = start + len(chunk)
+            rep = torch.tensor([repeat], dtype=torch.long, device=self.device)
+            rep_embeds = None
+            if context_embeds is not None:
+                head = rep[:, :len(repeat) - len(chunk)]
+                rep_embeds = torch.cat([embed_tokens(self.params, head, cfg),
+                                        context_embeds[:, start:end]], dim=1)
+            if not press.kvzip_plus_normalization:
+                cache, sc = self.runner.kvzip_repeat_pass(self.params, rep, cache, start,
+                                                          min(press.n_sink, start), end - start,
+                                                          rep_embeds=rep_embeds)
+            else:
+                scorer = KVzipChunkScorer(start_idx=start, end_idx=end, context_length=ctx_len,
+                                          n_sink=press.n_sink, plus=True)
+                state = scorer.init_state(cfg, 1, ctx_len, device=self.device)
+                _, _, state = self.runner.forward(
+                    self.params, None if rep_embeds is not None else rep, cache, press=scorer,
+                    press_state=state, phase="decode", compute_logits=False,
+                    inputs_embeds=rep_embeds)
+                sc = torch.stack([s["scores"] for s in state])
+            score_arrs.append(sc)
+            spans.append((start, end))
+            start = end
+        for (s0, s1), arr in zip(spans, score_arrs):
+            score_val[..., s0:s1] = arr.float().cpu().numpy()
+        return cache, score_val
+
+    def _kvcompose_scores(self, cache, context_ids, press, context_chunk=None,
+                          context_embeds=None):
+        """KVCompose's scoring pass: the context re-fed against its own cache,
+        its attention aggregated onto the context's columns. The cache is
+        grown to twice the context first when it is smaller.
+
+        With ``context_chunk`` (a context longer than one chunk) the re-feed
+        runs in chunks (``Runner.kvcompose_refeed_pass``): the chunks append
+        (chunk i's queries see the context and the re-fed chunks before it,
+        the one-shot causality), each gives its per-head aggregation by the
+        blockwise logsumexp sweep, the chunks combine by max or running sum,
+        the cache is rolled back, and the group aggregation runs once at the
+        end. Else one forward with ``KVComposeCollector`` over materialized
+        probabilities ((B, Hq, S, 2S) float32 a layer: short contexts).
+        Either way the context's slots, length and offset come back as they
+        were. Returns (cache, scores (L, H_kv, S) float32 numpy)."""
+        from .presses.kvcompose import KVComposeCollector
+
+        ctx_len = len(context_ids)
+        cache = self._grow_for(cache, 2 * ctx_len, "KVCompose re-feed")
+        cfg = self.runner.cfg
+        if context_chunk is not None and ctx_len > context_chunk:
+            base_len, base_off = cache.length, cache.offset
+            acc = None
+            for start in range(0, ctx_len, context_chunk):
+                ids_chunk = torch.tensor([context_ids[start:start + context_chunk]],
+                                         dtype=torch.long, device=self.device)
+                cache, part = self.runner.kvcompose_refeed_pass(
+                    self.params, ids_chunk, cache, ctx_len, press.agg_task,
+                    chunk_embeds=(None if context_embeds is None
+                                  else context_embeds[:, start:start + context_chunk]))
+                acc = part if acc is None else (
+                    torch.maximum(acc, part) if press.agg_task == "max" else acc + part)
+            # Rollback: the re-fed K/V sit past ctx_len, dead once the length
+            # and offset are restored.
+            cache = dataclasses.replace(cache, length=base_len, offset=base_off)
+            acc = acc.float()                 # max partials may be bf16 (65,536+ columns)
+            task = acc if press.agg_task == "max" else acc / ctx_len
+            L, B, Hq = task.shape[:3]
+            grouped = task.reshape(L, B, cfg.num_kv_heads, Hq // cfg.num_kv_heads, ctx_len)
+            gagg = grouped.amax(dim=3) if press.agg_group == "max" else grouped.mean(dim=3)
+            return cache, gagg[:, 0].cpu().numpy()
+        collector = KVComposeCollector(context_len=ctx_len, agg_task=press.agg_task,
+                                       agg_group=press.agg_group)
+        state = collector.init_state(cfg, 1, ctx_len, device=self.device)
+        ids = torch.tensor([context_ids], dtype=torch.long, device=self.device)
+        _, _, state = self.runner.forward(
+            self.params, None if context_embeds is not None else ids, cache, press=collector,
+            press_state=state, phase="decode", compute_logits=False,
+            inputs_embeds=context_embeds)
+        return cache, torch.stack([s["scores"][0] for s in state]).cpu().numpy()
+
+    @staticmethod
+    def _apply_keep_mask(cache, keep: np.ndarray):
+        """keep (L, B, H, ctx_len) bool, ANDed into the cache's keep-mask
+        (slots past ctx_len stay as they are)."""
+        L, B, H, ctx_len = keep.shape
+        keep_padded = np.ones((L, B, H, cache.max_size), dtype=bool)
+        keep_padded[..., :ctx_len] = keep
+        keep_t = torch.from_numpy(keep_padded).to(cache.keys.device)
+        return dataclasses.replace(cache, mask=keep_t if cache.mask is None
+                                   else cache.mask & keep_t)
+
+    def _run_kvcompose(self, cache, context_ids, press, context_chunk=None,
+                       context_embeds=None):
+        """KVCompose: the scoring pass (``_kvcompose_scores``), then
+        ``_kvcompose_compress``."""
+        if press.compression_ratio <= 0:
+            return cache
+        cache, scores = self._kvcompose_scores(cache, context_ids, press, context_chunk,
+                                               context_embeds)
+        return self._kvcompose_compress(cache, scores, press, len(context_ids))
+
+    def _kvcompose_compress(self, cache, scores: np.ndarray, press, ctx_len: int):
+        """The composite budgets from the scores (L, H_kv, ctx_len) (and the
+        dequantized values' norms with ``add_v_norm``), then the structured
+        per-layer rebuild or the unstructured keep-mask."""
+        cfg = self.runner.cfg
+        values = None
+        if press.add_v_norm:
+            v = cache.values[:, 0, :, :ctx_len]
+            if cache.value_scales is not None:
+                v = dequantize_kv(v, cache.value_scales[:, 0, :, :ctx_len], cache.bits,
+                                  torch.float32)
+            values = v.float().cpu().numpy()
+        budgets, keep = press.budgets_and_masks(scores, values)
+        if not press.structured:
+            return self._apply_keep_mask(cache, keep[:, None])
+
+        # Structured: each layer rebuilt to its budget in place, a layer at a
+        # time (the peak is one layer's gather): the kept entries gathered to
+        # the front in position order (a stable sort, kept first), scales too.
+        keep_buf = torch.zeros((cfg.num_layers, 1, cfg.num_kv_heads, cache.max_size),
+                               dtype=torch.bool, device=self.device)
+        keep_buf[..., :ctx_len] = torch.from_numpy(keep[:, None]).to(self.device)
+        for l in range(cfg.num_layers):
+            order = torch.argsort((~keep_buf[l]).to(torch.int8), dim=-1, stable=True)
+            for buf in (cache.keys, cache.values, cache.key_scales, cache.value_scales):
+                if buf is not None:
+                    buf[l].copy_(torch.gather(
+                        buf[l], 2, order[..., None].expand(*order.shape, buf.shape[-1])))
+        return dataclasses.replace(
+            cache, mask=torch.ones(keep_buf.shape, dtype=torch.bool, device=self.device),
+            length=torch.tensor(budgets, dtype=torch.int32))

@@ -66,6 +66,11 @@ class BasePress:
     # (B, H, T, D), values) -> (B, H, T)`` and gives its arrays as
     # ``chunk_score_arg``.
     chunk_score_fn = None
+    # False for a press that only scores (its state carries the scores): the
+    # runner calls it on sliding layers too, as the JAX runner does, and
+    # writes nothing of the layer back (no requantization of a quantized
+    # layer either), so a scoring pass leaves the cache's slots as they were.
+    writes_cache = True
 
     @property
     def chunk_score_arg(self):

@@ -187,11 +187,13 @@ def test_unsupported_presses_and_options_raise(models, case):
         models["torch"].prefill_chunked(models["params_t"], ids, **{"chunk_size": CHUNK, **kw})
 
 
-# The lean forward's branches of later slices name their ROADMAP item.
-# Image groups came with the multimodal slice: they are refused only without
-# the keys' groups (tests/test_torch_multimodal.py holds the branch itself).
-LEAN_BRANCHES = {"kvzip_spec": (NotImplementedError, "item"),
-                 "kvcompose_spec": (NotImplementedError, "item"),
+# The lean forward's optional branches refuse a malformed argument. Image
+# groups are refused only without the keys' groups (tests/
+# test_torch_multimodal.py holds the branch itself); the multi-pass scoring
+# specs are tuples of host ints (tests/test_torch_kvzip.py and
+# test_torch_kvcompose.py hold those branches).
+LEAN_BRANCHES = {"kvzip_spec": (TypeError, "kvzip_spec"),
+                 "kvcompose_spec": (TypeError, "kvcompose_spec"),
                  "collect_fn": (TypeError, "callable"),
                  "img_groups": (ValueError, "k_groups")}
 

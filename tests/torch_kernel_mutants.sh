@@ -4,7 +4,7 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes twenty-six copies of the port in a temporary directory, each with one
+# It makes twenty-eight copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (in the column sums a query
 # stage dropped and every stage taken without the causal test, a key tile
 # dropped from the row logsumexp; in the head-wise decode the tail, one
@@ -36,7 +36,12 @@
 # kept ones (compact_masked_past_length), and chip_smoke.compact_masked_check
 # runs in it; the Duo split decode gathers the heads back through a reversed
 # inverse permutation (duo_inverse_permutation), and chip_smoke.duo_split_check
-# runs in it.
+# runs in it. Two more break the multi-pass presses: KVzip's lean repeat pass
+# advances the cache's length and offset as a chunk forward does
+# (kvzip_pass_writes_context), and chip_smoke.kvzip_context_check runs in it;
+# KVCompose's structured rebuild
+# gathers the kept entries in score order instead of position order
+# (kvcompose_rebuild_order), and chip_smoke.kvcompose_rebuild_check runs in it.
 # Every copy must be rejected; the script exits 1 if one passes or if a
 # mutation did not apply. Mutant names given as arguments run those alone.
 set -u
@@ -48,7 +53,8 @@ mutants="colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
          or_upper_range or_lower_range or_text_guard
          flash_d256_panels decode_d256_key_chunk colsum_d256_panels
          flash_d96_k_step decode_d96_tail_words colsum_d96_k_step runner_bucket_len
-         pipeline_rerotation_offset compact_masked_past_length duo_inverse_permutation"
+         pipeline_rerotation_offset compact_masked_past_length duo_inverse_permutation
+         kvzip_pass_writes_context kvcompose_rebuild_order"
 for m in ${@:-$mutants}; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
@@ -120,6 +126,12 @@ for m in ${@:-$mutants}; do
     duo_inverse_permutation)
       sed -i 's/        o = o\[:, ds.inv_idx\[l\]\].reshape(B, Hkv \* G, 1, D)/        o = o[:, ds.inv_idx[l].flip(0)].reshape(B, Hkv * G, 1, D)/' "$du"
       check=duo_split_check ;;
+    kvzip_pass_writes_context)
+      sed -i 's/        if kvzip_spec is None:/        if True:/' "$rn"
+      check=kvzip_context_check ;;
+    kvcompose_rebuild_order)
+      sed -i 's/            order = torch.argsort((~keep_buf\[l\]).to(torch.int8), dim=-1, stable=True)/            order = torch.argsort((~keep_buf[l]).float() * 2 - torch.nn.functional.pad(torch.from_numpy(scores[l]).to(self.device), (0, cache.max_size - ctx_len)).clamp(0, 1), dim=-1, stable=True)/' "$pl"
+      check=kvcompose_rebuild_check ;;
   esac
   changed=$(diff -r kvpress_tpu_torch "$d/kvpress_tpu_torch" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
@@ -134,7 +146,8 @@ from toy_tokenizer import ToyTokenizer
 chip_smoke.kernel_ms = lambda fn, symbol, iters: chip_smoke.cuda_ms(fn, 1, 1)
 try:
     if os.environ["CHECK"] in ("bucketed_check", "rerotation_check", "compact_masked_check",
-                               "duo_split_check"):
+                               "duo_split_check", "kvzip_context_check",
+                               "kvcompose_rebuild_check"):
         dev = torch.device("cuda")
         params = kt.init_params(chip_smoke.flagship_config(16),
                                 torch.Generator(device=dev).manual_seed(0),
