@@ -158,7 +158,17 @@
    through 16 decode steps past its compressions
    (``decode_reference_check``), and KVzip, FastKVzip and chunked KVCompose
    stage by stage through their scoring passes
-   (``multipass_reference_check``).
+   (``multipass_reference_check``). The continuous-batching engine
+   (``serving_run``): ``ServingEngine`` at the flagship shape with 8 slots,
+   Knorm over bf16, int8 and int4 slots (16 requests of 8,192 and 16,384
+   tokens, 64 new tokens each), PrefillDecodingPress with per-slot decode
+   compression, chunked interleaved admission with the context LRU,
+   ``KVPressPipeline.batch()``, 1 slot against 8, and sampling; answers
+   teacher-forced against the single-request path, the pool's rows, host
+   lengths, LRU entries, launch counts and the in-step kernel against its
+   plain version checked, each check with its planted fault; phase 2 also
+   holds ``decode_attention`` at the slot step's ragged shape (8 slots of
+   8,449, each slot's causality and window in the mask).
 4. Timings: prefill at 32K under each press and chunked (int8 KV; int4 KV
    on both routes), and decode at batch 4 x 32K
    context, ratio 0.5 (Knorm: int4 KV + int8 weights, decode kernel on and
@@ -1034,6 +1044,26 @@ def kernel_checks(kt, torch, report):
         for bits in (None, 4):
             name = "bf16" if bits is None else f"int{bits}"
             decode_case(f"{name} B{B} 33K half live", q, kd, vd, length, mask, bits, iters=20)
+    # The serving engine's slot step (8 slots of 8,449, batch()'s capacity for
+    # the serving phase's S1): each slot's causality, keep bits (and a window
+    # of 1,024, folded in) in the mask; lengths ragged from 1 to S; the
+    # launch's length the longest slot's, no window argument.
+    B, S = SV_SLOTS, 8449
+    q = rnd(B, Hq, 1, D)
+    kd, vd = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+    clen = torch.linspace(0, S - 1, B, device=dev).long()
+    slot = torch.arange(S, device=dev)
+    for window in (None, 1024):
+        allowed = slot[None] <= clen[:, None]
+        if window:
+            allowed &= slot[None] > clen[:, None] - window
+        mask = keep_mask(B, S, p=0.2) & allowed[:, None]
+        mask[torch.arange(B, device=dev), :, clen] = True
+        for bits in (None, 8, 4):
+            name = "bf16" if bits is None else f"int{bits}"
+            decode_case(f"{name} B{B} slots of {S} ragged" + (f", window {window} in the mask"
+                                                             if window else ""),
+                        q, kd, vd, S, mask, bits, iters=20)
     # The 8B-class body's decode (head_dim 128): B=1 over the int4 cache that
     # Knorm leaves of 131,072 tokens (65,536 kept slots, compacted), a
     # 152-token question and the new token; room for 32 more.
@@ -3684,6 +3714,660 @@ def multipass_reference_check(kt, torch, tokenizer_cls, params, report):
         raise AssertionError("; ".join(failures))
 
 
+# --------------------------------------------------------------------- #
+# Phase 3: the continuous-batching ServingEngine and KVPressPipeline.batch()
+
+SV_CONTEXTS = (8192, 16384)   # S1-S4: the requests alternate these context lengths
+SV_QUESTIONS = (24, 152)      # and, two by two, these question lengths
+SV_REQUESTS = 16
+SV_NEW = 64                   # new tokens a request
+SV_SLOTS = 8
+SV_QUESTION_BUCKET = 64
+SV_FETCH_LAG = 4
+SV_CHUNK = 4096               # S5's context_chunk
+SV_SMALL_CONTEXT = 2048       # the sampling check's contexts and the bf16 reading's
+SV_TF = 4                     # requests teacher-forced in each run but S1 (all of them)
+SV_INTERVAL = 16              # S4's compression interval
+SV_SAMPLE_NEW = 32            # new tokens a request of the sampling check
+# A served token is the single-request path's argmax, or within a tie limit
+# of it in that path's logits: F32_RATIO x 2 x what bf16 rounding alone moves
+# the two largest logits of the single-request path (its dense route in bf16
+# against float32, read in the same run: the engine and the reference are
+# each about that far from float32, and a flip trades the top two). At most a
+# third of a request's tokens may be such near-tie flips (JAX's
+# tests/test_serving.py). The rows the engine appended
+# to a slot (question and answer) may differ from the reference's by
+# SV_ROW_LIMIT of a row's scale (a quantized row by one code more); the kept
+# context's rows are bit-equal (the same prefill call).
+SV_ROW_LIMIT = 1e-1          # REF_LIMIT at depth 16
+
+
+def serving_requests(gen, vocab: int, contexts, n_new: int = None):
+    """(context ids, question ids, max_new_tokens), random ids drawn from the
+    CPU generator ``gen``, one per context length; questions of SV_QUESTIONS
+    tokens, two by two."""
+    import torch
+
+    def ids(n):
+        return torch.randint(3, vocab, (n,), generator=gen).tolist()
+
+    return [(ids(c), ids(SV_QUESTIONS[(i // 2) % 2]), n_new or SV_NEW)
+            for i, c in enumerate(contexts)]
+
+
+def serving_capacity(cfg, press, reqs) -> int:
+    """``KVPressPipeline.batch()``'s default capacity for ``reqs``: the kept
+    bound of the longest context, the bucketed longest question, the
+    generation room and the final-logits slot."""
+    longest = max(len(r[0]) for r in reqs)
+    kept = longest if press is None else press.max_kept(longest, cfg)
+    max_q = max(len(r[1]) for r in reqs)
+    return (kept + -(-max_q // SV_QUESTION_BUCKET) * SV_QUESTION_BUCKET
+            + max(r[2] for r in reqs) + 1)
+
+
+def must_reject(what, check, *args):
+    """A check must raise on its planted fault."""
+    try:
+        check(*args)
+    except AssertionError:
+        return
+    raise AssertionError(f"a serving check passed its planted fault: {what}")
+
+
+def serving_noise(kt, torch, params, report) -> float:
+    """What bf16 rounding alone moves the two largest logits of the
+    single-request path: a SV_SMALL_CONTEXT-token request (Knorm 0.5, a
+    24-token question, 32 steps fed the bf16 path's greedy tokens) on the
+    dense route in bf16 against float32. Returns the largest |difference| of
+    the float32 path's two largest logits over the steps."""
+    cfg = flagship_config(16)
+    dev = params.device
+    dense = kt.Runner.create(cfg, attn_impl="xla", decode_kernel=False, device=dev)
+    ctx, q, _ = serving_requests(torch.Generator().manual_seed(41), cfg.vocab_size,
+                                 [SV_SMALL_CONTEXT], 32)[0]
+
+    def replay(p, tokens):
+        """The last logits of the question and of each step; the steps fed
+        ``tokens``, or the greedy ones (returned)."""
+        logits, cache, _ = dense.prefill(p, torch.tensor([ctx], device=dev),
+                                         press=kt.KnormPress(0.5), compute_logits=True)
+        cache = kt.resize(cache, int(cache.length.max()) + len(q) + 32)
+        logits, cache, _ = dense.forward(p, torch.tensor([q], device=dev), cache,
+                                         logits_last_only=True, valid_len=len(q))
+        rows, fed = [logits[0, -1].float()], []
+        for i in range(31):
+            fed.append(int(torch.argmax(rows[-1])) if tokens is None else tokens[i])
+            logits, cache, _ = dense.forward(p, torch.tensor([[fed[-1]]], device=dev), cache,
+                                             logits_last_only=True)
+            rows.append(logits[0, -1].float())
+        return torch.stack(rows), fed
+
+    bf16, tokens = replay(params, None)
+    p32 = copy.deepcopy(params).float()
+    f32, _ = replay(p32, tokens)
+    del p32
+    torch.cuda.empty_cache()
+    top2 = f32.topk(2, dim=-1)
+    eps = (bf16.gather(1, top2.indices) - top2.values).abs().max().item()
+    gaps = (top2.values[:, 0] - top2.values[:, 1]).sort().values
+    report(f"  the single-request path, dense bf16 against dense float32 ({SV_SMALL_CONTEXT} "
+           f"tokens, a 24-token question, 32 steps): the two largest logits move by at most "
+           f"{eps:.4f}, any logit by {(bf16 - f32).abs().max().item():.4f} (the largest logit "
+           f"{f32.abs().max().item():.3f}; top-2 gaps: median "
+           f"{gaps[len(gaps) // 2].item():.4f}, smallest {gaps[0].item():.4f})")
+    return eps
+
+
+def serving_reference(kt, torch, runner, params, press, req, got, quantized=False, kv_bits=8,
+                      chunk=None, decode_press=None):
+    """``got`` replayed through the single-request path on ``runner``: the
+    prefill with the press (whole, or in chunks of ``chunk``), the question
+    forward, one forward a token (with ``decode_press`` compressing in the
+    decode phase from the prefill's state). Returns (the tokens off the
+    reference's argmax, the largest such gap, the reference's cache, its
+    per-layer kept context)."""
+    ctx, q = req[0], req[1]
+    dev = params.device
+    ids = torch.tensor([ctx], device=dev)
+    kw = dict(press=press, compute_logits=True, quantized=quantized, kv_bits=kv_bits)
+    if chunk:
+        logits, cache, state = runner.prefill_chunked(
+            params, ids, chunk_size=chunk, max_size=-(-len(ctx) // chunk) * chunk, **kw)
+    else:
+        logits, cache, state = runner.prefill(params, ids, **kw)
+    kept = cache.length.clone()
+    cache = kt.resize(cache, int(kept.max()) + len(q) + len(got) + 1)
+    if q:
+        logits, cache, _ = runner.forward(params, torch.tensor([q], device=dev), cache,
+                                          logits_last_only=True, valid_len=len(q))
+    gaps = []
+    for tok in got:
+        row = logits[0, -1].float()
+        gaps.append(row.max() - row[tok])
+        logits, cache, state = runner.forward(
+            params, torch.tensor([[tok]], device=dev), cache, logits_last_only=True,
+            press=decode_press, press_state=state if decode_press else None,
+            phase="decode" if decode_press else "none")
+    gaps = torch.stack(gaps).cpu()
+    return int((gaps > 0).sum()), float(gaps.max()), cache, kept
+
+
+def check_teacher_forced(label, flips, worst, n, tie):
+    if worst > tie or flips > max(1, n // 3):
+        raise AssertionError(f"{label}: {flips} of {n} tokens off the single-request path's "
+                             f"argmax, the largest gap {worst:.4f} (limit {tie:.4f})")
+
+
+def check_slot_rows(torch, label, sc, slot, cache, kept, n_rows):
+    """The pool's rows of ``slot`` against the reference's cache: the kept
+    context bit-equal, the next ``n_rows`` (question and answer) within
+    SV_ROW_LIMIT of each row's scale (one code more on a quantized pool)."""
+    from kvpress_tpu_torch.cache import dequantize_kv
+
+    pairs = [(sc.keys, cache.keys, sc.key_scales, cache.key_scales),
+             (sc.values, cache.values, sc.value_scales, cache.value_scales)]
+    for l, k in enumerate(kept.tolist()):
+        for got, want, got_s, want_s in pairs:
+            got, want = got[l, slot, :, :k + n_rows], want[l, 0, :, :k + n_rows]
+            if not torch.equal(got[:, :k], want[:, :k]):
+                raise AssertionError(f"{label}: layer {l}'s kept context is not the "
+                                     "reference prefill's")
+            got, want, limit = got[:, k:], want[:, k:], SV_ROW_LIMIT
+            if got_s is not None:
+                got = dequantize_kv(got, got_s[l, slot, :, k:k + n_rows], sc.bits, torch.float32)
+                want = dequantize_kv(want, want_s[l, 0, :, k:k + n_rows], sc.bits,
+                                     torch.float32)
+                limit += 1 / (127 if sc.bits == 8 else 7)
+            err = ((got.float() - want.float()).abs().amax(-1)
+                   / want.float().abs().amax(-1).clamp_min(1e-3)).max().item()
+            if not err <= limit:
+                raise AssertionError(f"{label}: layer {l}'s appended rows differ from the "
+                                     f"reference's by {err:.3e} of their scale (limit "
+                                     f"{limit:.3e})")
+
+
+def check_host_lengths(label, lengths, offsets, served, reqs, answers, kept_of):
+    """Each slot's host lengths and offset after the run: the kept context,
+    the question and the tokens appended (every generated token but the
+    last) of the last request it served."""
+    for s, r in served.items():
+        ctx, q = reqs[r][0], reqs[r][1]
+        n = len(answers[r]) - 1
+        want = [kept_of(len(ctx)) + len(q) + n] * lengths.shape[0]
+        if lengths[:, s].tolist() != want or int(offsets[s]) != len(ctx) + len(q) + n:
+            raise AssertionError(f"{label}: slot {s} (request {r}) holds lengths "
+                                 f"{lengths[:, s].tolist()}, offset {int(offsets[s])}; the "
+                                 f"request needs {want[0]} and {len(ctx) + len(q) + n}")
+
+
+def check_serving_launches(label, counts, steps, kind, flash, quant, L):
+    """decode_attention exactly L times a slot step, on the instantiation of
+    the pool's payload only; the flash kernels as many times as predicted."""
+    want = {"decode_attention": L * steps, f"decode_attention_{kind}_d64": L * steps,
+            "flash_attention": flash, "flash_attention_quant": quant, "decode_headwise": 0,
+            "observed_lse": 0, "observed_colsum": 0}
+    got = {name: counts[name] for name in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, predicted {want}")
+
+
+@contextlib.contextmanager
+def serving_probe(kt):
+    """Records, on ``kt.ServingEngine``: the engines that ran, each decode
+    step's tokens with a copy (the tokens contract: nothing writes them after
+    the step returned them), and the last request each slot served."""
+    rec = dict(engines=[], steps=[], served={})
+    cls = kt.ServingEngine
+    run, complete, step = cls.run, cls._complete_admission, cls._step
+
+    def running(self, *a, **kw):
+        rec["engines"].append(self)
+        return run(self, *a, **kw)
+
+    def completing(self, adm):
+        complete(self, adm)
+        if self.live[adm["slot"]] and self.slots[adm["slot"]].req_idx == adm["req_idx"]:
+            rec["served"][adm["slot"]] = adm["req_idx"]
+
+    def stepping(self):
+        tokens = step(self)
+        rec["steps"].append((tokens, tokens.clone()))
+        return tokens
+
+    cls.run, cls._complete_admission, cls._step = running, completing, stepping
+    try:
+        yield rec
+    finally:
+        cls.run, cls._complete_admission, cls._step = run, complete, step
+
+
+def serving_once(kt, torch, label, call, report):
+    """``call()`` (one engine run, or one ``batch()``) with the launch counts
+    set to 0 before it and read after it, the tokens contract held, and its
+    readings printed: wall time, generated and processed tok/s, slot steps
+    and their utilization, inter-token gaps, TTFT, peak memory over what was
+    held. Returns (answers, counts, the engine, {slot: last request})."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with serving_probe(kt) as rec:
+        answers = call()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for i, (tokens, kept) in enumerate(rec["steps"]):
+        if not torch.equal(tokens, kept):
+            raise AssertionError(f"{label}: the tokens of slot step {i} were written after it")
+    eng = rec["engines"][-1]
+    st = eng.last_stats
+    sc = eng.sc
+    report(f"  {label}: {st['requests']} requests in {st['wall_s']:.2f} s; generated "
+           f"{st['generated_tokens']} tokens ({st['generated_tok_s']:.1f} tok/s), processed "
+           f"{st['processed_tokens']} ({st['processed_tok_s']:.0f} tok/s); {st['decode_steps']} "
+           f"slot steps of {eng.n_slots}, utilization {st['slot_step_utilization']:.3f}; "
+           f"inter-token gap p50 / p99 / max {st.get('p50_intertoken_gap_s', 0) * 1e3:.1f} / "
+           f"{st.get('p99_intertoken_gap_s', 0) * 1e3:.1f} / "
+           f"{st.get('max_intertoken_gap_s', 0) * 1e3:.1f} ms; TTFT p50 / p99 / max "
+           f"{st.get('p50_ttft_s', 0):.3f} / {st.get('p99_ttft_s', 0):.3f} / "
+           f"{st.get('max_ttft_s', 0):.3f} s; peak {(peak - held) / 2**30:.3f} GiB over the "
+           f"{held / 2**30:.3f} GiB held (the pool "
+           f"{nbytes(sc.keys, sc.values, sc.mask, sc.key_scales, sc.value_scales) / 2**30:.3f} "
+           f"GiB at capacity {eng.capacity}); context hits {st['ctx_hits']}; launches "
+           f"{launched(counts)}")
+    return answers, counts, eng, dict(rec["served"])
+
+
+@contextlib.contextmanager
+def slot_attention_probe(kt, torch, at_call: int):
+    """At the ``at_call``-th decode_attention launch of the slot steps: the
+    kernel's output, decode_attention_plain's on the same pool state, and the
+    plain version with one live 256-slot run of the longer slots taken for
+    dead (the planted fault)."""
+    from kvpress_tpu_torch import serving as sv
+    from kvpress_tpu_torch.ops import decode as dec
+
+    original = sv.decode_attention
+    seen, calls = {}, [0]
+
+    def probe(q, k, v, length, k_scales=None, v_scales=None, mask=None, **kw):
+        out = original(q, k, v, length, k_scales, v_scales, mask, **kw)
+        calls[0] += 1
+        if calls[0] == at_call:
+            kw.pop("block_k", None)
+            fault = mask.clone()
+            lo = length // 2 // 256 * 256
+            fault[..., lo:lo + 256] = False
+            seen.update(got=out.clone(), length=length, live=int(mask.sum()),
+                        ref=dec.decode_attention_plain(q, k, v, length, k_scales, v_scales, mask,
+                                                       **kw),
+                        fault=dec.decode_attention_plain(q, k, v, length, k_scales, v_scales,
+                                                         fault, **kw))
+        return out
+
+    sv.decode_attention = probe
+    try:
+        yield seen
+    finally:
+        sv.decode_attention = original
+
+
+def worst_row(torch, got, ref) -> float:
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite output")
+    return ((got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-3)).max().item()
+
+
+@contextlib.contextmanager
+def lru_probe(kt):
+    """Clones of each entry the engines store in their context LRU, by key."""
+    stored = {}
+    cls = kt.ServingEngine
+    original = cls._lru_store
+
+    def store(self, key, cache, pre_row):
+        stored[key] = {name: getattr(cache, name).clone() for name in
+                       ("keys", "values", "mask", "key_scales", "value_scales")
+                       if getattr(cache, name) is not None}
+        return original(self, key, cache, pre_row)
+
+    cls._lru_store = store
+    try:
+        yield stored
+    finally:
+        cls._lru_store = original
+
+
+def check_lru_entries(torch, label, lru, stored):
+    """Each entry left in the LRU bit-equal, below its per-layer lengths, to
+    what was stored."""
+    for key, (cache, _) in lru.items():
+        for name, t in stored[key].items():
+            for l, n in enumerate(cache.length.tolist()):
+                if not torch.equal(getattr(cache, name)[l, :, :, :n], t[l, :, :, :n]):
+                    raise AssertionError(f"{label}: an LRU entry's {name} changed in layer {l}")
+
+
+def serving_run(kt, torch, tokenizer_cls, params, report, labels=None):
+    """The continuous-batching engine at the flagship shape (all 16 layers,
+    8 slots, 64 new tokens a request), each run's launch counts set to 0
+    before it and read after it:
+      S1  KnormPress(0.5) over bf16 slots: 16 requests, 8 of 8,192 and 8 of
+          16,384 tokens, questions of 24 and 152 tokens, batch()'s default
+          capacity (8,449);
+      S2, S3  S1 over int8 and int4 slots;
+      S4  PrefillDecodingPress(Knorm(0.5), CompressionRatioDecodingPress(
+          Knorm, interval 16, ratio 0.5)): every slot compressed in the step;
+      S5  context_chunk 4,096, interleave, context_cache 2: 16 requests over 4
+          contexts of 16,384 tokens, 12 LRU hits;
+      S6  KVPressPipeline.batch() on 8 strings of 8,192 words;
+      S7  8 requests of 8,192 tokens at 1 slot and at 8: the batching reading;
+    and the sampling check (4 requests of 2,048 tokens). Checks: answers
+    teacher-forced against the single-request path (all of S1, SV_TF of each
+    other run), the pool rows of each such request that was last in its slot
+    against the reference's cache, host lengths, the LRU entries bit-equal
+    after their hits, decode_attention exactly 16 times a slot step on the
+    payload's instantiation, flash launches per admission as predicted, the
+    slot step's kernel attention against decode_attention_plain inside a
+    step, the tokens contract; each with its planted fault. ``labels``
+    restricts the runs (the mutation checks). Returns the launch counts."""
+    cfg = flagship_config(16)
+    dev = params.device
+    L, V = cfg.num_layers, cfg.vocab_size
+    gen = torch.Generator().manual_seed(15)
+    runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=dev)
+    knorm = kt.KnormPress(0.5)
+    kept_knorm = knorm.exact_kept
+    totals = {}
+    failures = []
+
+    def wanted(label):
+        return labels is None or label in labels
+
+    def add(counts):
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+
+    tie = F32_RATIO * 2 * serving_noise(kt, torch, params, report)
+
+    def teacher_force(label, reqs, answers, eng, served, idx, press=knorm, **kw):
+        """Teacher-force requests ``idx``; the pool rows of those last in
+        their slot too. Returns the flips."""
+        last = {r: s for s, r in served.items()}
+        flips, widest = [], 0.0
+        for i in idx:
+            n_flip, worst, cache, kept = serving_reference(kt, torch, runner, params, press,
+                                                           reqs[i], answers[i], **kw)
+            flips.append(n_flip)
+            widest = max(widest, worst)
+            check_teacher_forced(f"{label} request {i}", n_flip, worst, len(answers[i]), tie)
+            if i in last and "decode_press" not in kw:
+                check_slot_rows(torch, f"{label} request {i}", eng.sc, last[i], cache, kept,
+                                len(reqs[i][1]) + len(answers[i]) - 1)
+            del cache
+        report(f"    teacher-forced against the single-request path: requests {list(idx)}, "
+               f"near-tie flips {flips} of {[len(answers[i]) for i in idx][0]}, the widest "
+               f"{widest:.4f} (limit {tie:.4f}); the pool rows of requests "
+               f"{[i for i in idx if i in last and 'decode_press' not in kw]} against the "
+               "reference's")
+
+    def engine(**kw):
+        return kt.ServingEngine(runner, params, n_slots=SV_SLOTS, question_bucket=SV_QUESTION_BUCKET,
+                                fetch_lag=SV_FETCH_LAG, **kw)
+
+    reqs = serving_requests(gen, V, [SV_CONTEXTS[i % 2] for i in range(SV_REQUESTS)])
+    cap = serving_capacity(cfg, knorm, reqs)
+    n_adm = len(reqs)
+
+    # S1, S2, S3: Knorm over bf16, int8 and int4 slots.
+    for label, kv, kind, flash, quant in (
+            ("S1", {}, "bf16", 2 * L * n_adm, 0),
+            ("S2", dict(quantized=True, kv_bits=8), "int8", L * n_adm, L * n_adm),
+            ("S3", dict(quantized=True, kv_bits=4), "int4", 2 * L * n_adm, 0)):
+        if not wanted(label):
+            continue
+        eng = engine(capacity=cap, press=knorm, **kv)
+        at_call = L * 9 + L              # the last layer of the 10th slot step
+        probe = slot_attention_probe(kt, torch, at_call) if label == "S1" else \
+            contextlib.nullcontext({})
+        with probe as seen:
+            answers, counts, eng, served = serving_once(
+                kt, torch, f"{label}, Knorm(0.5), {kind} slots",
+                lambda: eng.run([kt.Request(*r) for r in reqs]), report)
+        add(counts)
+        steps = eng.last_stats["decode_steps"]
+        check_serving_launches(label, counts, steps, kind, flash, quant, L)
+        check_host_lengths(label, eng.sc.lengths, eng.sc.offsets, served, reqs, answers,
+                           kept_knorm)
+        idx = list(range(len(reqs))) if label == "S1" else sorted(served.values())[:SV_TF]
+        q = dict(quantized=bool(kv), kv_bits=kv.get("kv_bits", 8))
+        teacher_force(label, reqs, answers, eng, served, idx, **q)
+        if label == "S1":
+            row = worst_row(torch, seen["got"], seen["ref"])
+            fault = worst_row(torch, seen["fault"], seen["ref"])
+            report(f"    slot step 10, layer {L - 1}: decode_attention against "
+                   f"decode_attention_plain over the pool ({seen['live']} live (slot, head) "
+                   f"keys, length {seen['length']}): worst row {row:.3e} (limit {ROW_LIMIT}; one "
+                   f"live 256-key run taken for dead: {fault:.3e})")
+            if not row <= ROW_LIMIT:
+                failures.append(f"S1: the slot step's decode_attention differs from its plain "
+                                f"version by {row:.3e}")
+            if not fault > ROW_LIMIT:
+                failures.append("S1: the in-step check passes a live run taken for dead")
+            # the planted faults of the other checks
+            s0, r0 = next(iter(served.items()))
+            other = next(r for r in range(len(reqs)) if r != r0)
+            n_flip, worst, _, _ = serving_reference(kt, torch, runner, params, knorm, reqs[r0],
+                                                    answers[other])
+            must_reject("another request's answer", check_teacher_forced, "planted", n_flip,
+                        worst, len(answers[other]), tie)
+            _, _, cache, kept = serving_reference(kt, torch, runner, params, knorm, reqs[r0],
+                                                  answers[r0])
+            shifted = dataclasses.replace(eng.sc, keys=eng.sc.keys.clone())
+            n_rows = len(reqs[r0][1]) + len(answers[r0]) - 1
+            for l, k in enumerate(kept.tolist()):   # an append at length + 1
+                shifted.keys[l, s0, :, k + 1:k + n_rows + 1] = \
+                    eng.sc.keys[l, s0, :, k:k + n_rows].clone()
+            must_reject("the rows appended one slot late", check_slot_rows, torch, "planted",
+                        shifted, s0, cache, kept, n_rows)
+            del cache, shifted
+            advanced = eng.sc.lengths.clone()
+            advanced[:, s0] += 1                    # a dead lane's advance
+            must_reject("one slot's lengths advanced once more", check_host_lengths, "planted",
+                        advanced, eng.sc.offsets, served, reqs, answers, kept_knorm)
+            must_reject("one slot step more", check_serving_launches, "planted",
+                        dict(counts, decode_attention=counts["decode_attention"] + L),
+                        steps, kind, flash, quant, L)
+            # Where a slot step's time goes: one step with every slot live.
+            eng.live[:] = True
+            names = breakdown(f"{label}: one slot step, 8 slots live (lengths up to "
+                              f"{int(eng.sc.lengths.max())} of {eng.capacity})", eng._step, 1,
+                              report, top=3)
+            if any("sort" in name.lower() for name in names):
+                failures.append(f"S1: a sort ran in the slot step: {names}")
+        del eng
+        torch.cuda.empty_cache()
+
+    if wanted("S4"):
+        decoding = kt.CompressionRatioDecodingPress(
+            base_press=kt.KnormPress(), compression_interval=SV_INTERVAL,
+            target_compression_ratio=0.5)
+        press = kt.PrefillDecodingPress(prefilling_press=knorm, decoding_press=decoding)
+        eng = engine(capacity=serving_capacity(cfg, press, reqs), press=press)
+        answers, counts, eng, served = serving_once(
+            kt, torch, "S4, PrefillDecodingPress(Knorm(0.5), CompressionRatioDecodingPress("
+            f"Knorm, interval {SV_INTERVAL}, 0.5)), bf16 slots",
+            lambda: eng.run([kt.Request(*r) for r in reqs]), report)
+        add(counts)
+        check_serving_launches("S4", counts, eng.last_stats["decode_steps"], "bf16",
+                               2 * L * n_adm, 0, L)
+        target = decoding.target_value_vec(eng.sc.offsets - 1, eng.sc.lengths[0])
+        for s, r in served.items():
+            whole = kept_knorm(len(reqs[r][0])) + len(reqs[r][1]) + len(answers[r]) - 1
+            got = eng.sc.lengths[:, s]
+            if not (got <= int(target[s]) + SV_INTERVAL + SV_FETCH_LAG).all() or \
+                    not (got < whole).all():
+                raise AssertionError(f"S4: slot {s}'s lengths {got.tolist()}: the target is "
+                                     f"{int(target[s])}, uncompressed {whole}")
+        report(f"    slot lengths after the run {eng.sc.lengths[0].tolist()} (targets "
+               f"{target.tolist()}; uncompressed they would be "
+               f"{[kept_knorm(len(reqs[r][0])) + len(reqs[r][1]) + len(answers[r]) - 1 for s, r in sorted(served.items())]})")
+        teacher_force("S4", reqs, answers, eng, served, sorted(served.values())[:SV_TF],
+                      press=press, decode_press=press)
+        del eng
+        torch.cuda.empty_cache()
+
+    if wanted("S5"):
+        contexts = serving_requests(gen, V, [SV_CONTEXTS[1]] * 4)
+        reqs5 = [(contexts[i // 4][0],
+                  torch.randint(3, V, (SV_QUESTIONS[i % 2],), generator=gen).tolist(), SV_NEW)
+                 for i in range(SV_REQUESTS)]
+        eng = engine(capacity=serving_capacity(cfg, knorm, reqs5), press=knorm,
+                     context_chunk=SV_CHUNK, interleave=True, context_cache=2)
+        with lru_probe(kt) as stored:
+            answers, counts, eng, served = serving_once(
+                kt, torch, f"S5, Knorm(0.5), context_chunk {SV_CHUNK}, interleave, "
+                "context_cache 2, 4 contexts", lambda: eng.run([kt.Request(*r) for r in reqs5]),
+                report)
+        add(counts)
+        misses = 4
+        chunks = SV_CONTEXTS[1] // SV_CHUNK
+        check_serving_launches("S5", counts, eng.last_stats["decode_steps"], "bf16",
+                               L * (misses * chunks + len(reqs5)), 0, L)
+        if eng.last_stats["ctx_hits"] != len(reqs5) - misses:
+            raise AssertionError(f"S5: {eng.last_stats['ctx_hits']} context hits")
+        check_host_lengths("S5", eng.sc.lengths, eng.sc.offsets, served, reqs5, answers,
+                           kept_knorm)
+        check_lru_entries(torch, "S5", eng._ctx_lru, stored)
+        key = next(iter(eng._ctx_lru))
+        flipped = {name: t.clone() for name, t in stored[key].items()}
+        flipped["keys"][0, 0, 0, 0] += 1
+        must_reject("an LRU entry's key changed", check_lru_entries, torch, "planted",
+                    {key: eng._ctx_lru[key]}, {key: flipped})
+        report(f"    LRU: {len(eng._ctx_lru)} entries of {[e.max_size for e, _ in eng._ctx_lru.values()]} "
+               f"slots ({eng.last_stats['lru_bytes'] / 2**30:.3f} GiB), bit-equal below their "
+               "lengths after their hits")
+        teacher_force("S5", reqs5, answers, eng, served, sorted(served.values())[:SV_TF],
+                      chunk=SV_CHUNK)
+        del eng
+        torch.cuda.empty_cache()
+
+    if wanted("S6"):
+        tok = tokenizer_cls(vocab_size=V)
+        pipe = kt.KVPressPipeline(runner, params, tok)
+        texts = [" ".join(f"w{i}x{j}" for i in range(SV_CONTEXTS[0])) for j in range(8)]
+        questions = [QUESTIONS[j % 2] for j in range(8)]
+        streamed = {}
+        answers_s, counts, eng, served = serving_once(
+            kt, torch, f"S6, KVPressPipeline.batch() on 8 strings of {SV_CONTEXTS[0]:,} words, "
+            "Knorm(0.5)",
+            lambda: pipe.batch(texts, questions, press=knorm, max_new_tokens=SV_NEW,
+                               n_slots=SV_SLOTS, on_token=lambda i, t, n: streamed.setdefault(
+                                   i, []).append(t)), report)
+        add(counts)
+        reqs6 = []
+        for text, question in zip(texts, questions):
+            ctx_ids, q_ids = pipe.preprocess(text, [question])
+            reqs6.append((ctx_ids, q_ids[0], SV_NEW))
+        answers = [streamed[i] for i in range(len(texts))]
+        if [tok.decode(a, skip_special_tokens=True) for a in answers] != answers_s:
+            raise AssertionError("S6: the streamed tokens are not the answers")
+        check_serving_launches("S6", counts, eng.last_stats["decode_steps"], "bf16",
+                               2 * L * len(texts), 0, L)
+        full = {s: r for s, r in served.items() if len(answers[r]) == SV_NEW}
+        check_host_lengths("S6", eng.sc.lengths, eng.sc.offsets, full, reqs6, answers,
+                           kept_knorm)
+        teacher_force("S6", reqs6, answers, eng, served, sorted(full.values())[:SV_TF])
+        del eng, pipe
+        torch.cuda.empty_cache()
+
+    if wanted("S7"):
+        reqs7 = serving_requests(gen, V, [SV_CONTEXTS[0]] * 8)
+        rates = {}
+        for n_slots in (1, SV_SLOTS):
+            eng = kt.ServingEngine(runner, params, n_slots=n_slots, question_bucket=SV_QUESTION_BUCKET,
+                                   fetch_lag=SV_FETCH_LAG, press=knorm,
+                                   capacity=serving_capacity(cfg, knorm, reqs7))
+            answers, counts, eng, served = serving_once(
+                kt, torch, f"S7, 8 requests of {SV_CONTEXTS[0]:,} tokens, Knorm(0.5), "
+                f"{n_slots} slot{'s' if n_slots > 1 else ''}",
+                lambda: eng.run([kt.Request(*r) for r in reqs7]), report)
+            add(counts)
+            rates[n_slots] = eng.last_stats["generated_tok_s"]
+            check_serving_launches(f"S7 ({n_slots})", counts, eng.last_stats["decode_steps"],
+                                   "bf16", 2 * L * len(reqs7), 0, L)
+            check_host_lengths(f"S7 ({n_slots})", eng.sc.lengths, eng.sc.offsets, served, reqs7,
+                               answers, kept_knorm)
+            last = sorted(served.values())
+            idx = (last + [r for r in range(len(reqs7)) if r not in last])[:SV_TF]
+            teacher_force(f"S7 ({n_slots})", reqs7, answers, eng, served, idx)
+            del eng
+            torch.cuda.empty_cache()
+        report(f"    8 slots against 1: {rates[SV_SLOTS] / rates[1]:.2f}x the generated tok/s")
+
+    if wanted("sampling"):
+        # bf16 logits tie at the top now and then: a draw at temperature 1e-4
+        # must be one of its row's largest logits, ties included (greedy
+        # takes the first of them).
+        from kvpress_tpu_torch import serving as sv
+
+        reqs_s = serving_requests(gen, V, [SV_SMALL_CONTEXT] * 4, SV_SAMPLE_NEW)
+        runs, draws = {}, []
+        sample = sv._sample_rows
+
+        def recording(logits, generator, temperature, top_p):
+            out = sample(logits, generator, temperature, top_p)
+            draws.append((logits.gather(-1, out[..., None])[..., 0] == logits.amax(-1),
+                          (logits == logits.amax(-1, keepdim=True)).sum(-1) > 1))
+            return out
+
+        for name, kw in (("greedy", {}), ("temperature 1e-4", dict(do_sample=True,
+                                                                    temperature=1e-4, seed=7)),
+                         ("seed 1", dict(do_sample=True, temperature=1.0, top_p=0.95, seed=1)),
+                         ("seed 1 again", dict(do_sample=True, temperature=1.0, top_p=0.95,
+                                               seed=1)),
+                         ("seed 2", dict(do_sample=True, temperature=1.0, top_p=0.95, seed=2))):
+            eng = kt.ServingEngine(runner, params, n_slots=4, question_bucket=SV_QUESTION_BUCKET,
+                                   press=knorm, capacity=serving_capacity(cfg, knorm, reqs_s),
+                                   **kw)
+            sv._sample_rows = recording if name == "temperature 1e-4" else sample
+            try:
+                reset_counts()
+                runs[name] = eng.run([kt.Request(*r) for r in reqs_s])
+                add(read_counts())
+            finally:
+                sv._sample_rows = sample
+            del eng
+        top = torch.cat([t.reshape(-1) for t, _ in draws])
+        tied = torch.cat([t.reshape(-1) for _, t in draws])
+        differ = sum(a != b for x, y in zip(runs["seed 1"], runs["seed 2"]) for a, b in zip(x, y))
+        report(f"  sampling, 4 requests of {SV_SMALL_CONTEXT:,} tokens, {SV_SAMPLE_NEW} new: at "
+               f"temperature 1e-4, {int(top.sum())} of {top.numel()} draws (first tokens and "
+               f"slot-step rows) a largest logit of their row, {int(tied.sum())} rows with a "
+               f"tie at the top; the answers "
+               f"{'equal' if runs['temperature 1e-4'] == runs['greedy'] else 'differ from'} "
+               f"greedy's; seed 1 "
+               f"{'reproduces' if runs['seed 1'] == runs['seed 1 again'] else 'does not reproduce'}"
+               f"; seeds 1 and 2 differ in {differ} of {4 * SV_SAMPLE_NEW} tokens")
+        if not bool(top.all()):
+            failures.append("sampling: a draw at temperature 1e-4 is not a largest logit")
+        if runs["temperature 1e-4"] != runs["greedy"] and not bool(tied.any()):
+            failures.append("sampling: temperature 1e-4 differs from greedy without a tie")
+        if runs["seed 1"] != runs["seed 1 again"] or runs["seed 1"] == runs["seed 2"]:
+            failures.append("sampling: a seed does not reproduce, or two seeds agree")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return totals
+
+
+def serving_check(kt, torch, tokenizer_cls, params, report):
+    """S1 and S5 (the serving mutants' check: S5's admissions land while other
+    slots decode, so its dead lanes take steps)."""
+    return serving_run(kt, torch, tokenizer_cls, params, report, labels=("S1", "S5"))
+
+
 # The 8B-class and Gemma-3-12B pipeline runs use the first half of their
 # layers, for the whole script's time (its multi-pass phase added about 70 s);
 # every layer does the same work at the same shapes.
@@ -5222,6 +5906,14 @@ def main() -> int:
     for name, n in multipass_presses_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] += n
     report(f"  the multi-pass phase took {time.perf_counter() - t_phase:.1f} s")
+    report("phase 3: the continuous-batching ServingEngine at the flagship shape (16 layers, "
+           f"{SV_SLOTS} slots): Knorm over bf16, int8 and int4 slots, PrefillDecodingPress, "
+           "chunked interleaved admission with the context LRU, KVPressPipeline.batch(), 1 "
+           "slot against 8, sampling")
+    t_phase = time.perf_counter()
+    for name, n in serving_run(kt, torch, ToyTokenizer, params, report).items():
+        launches[name] += n
+    report(f"  the serving phase took {time.perf_counter() - t_phase:.1f} s")
     report("phase 3: chunked prefill's int4 routes at the flagship shape, 32K")
     for name, n in fused_int4_check(kt, torch, params, report).items():
         launches[name] += n

@@ -3,7 +3,7 @@
 The same modules and names as the JAX package (config, rope, cache,
 ops.attention, ops.flash, ops.decode, ops.observed_colsum,
 ops.decode_headwise, ops.duo_decode, models.llama, models.convert, models.siglip, presses,
-pipeline), in
+pipeline, serving), in
 PyTorch. The JAX package's Pallas kernels are hand-written CUDA kernels for
 ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -20,6 +20,7 @@ from .models.llama import (Runner, init_params, quantize_layer_int4, quantize_pa
 from .models.siglip import VisionConfig, VisionTower, encode_images, init_vision_params
 from .ops.duo_decode import DuoSplitCache, build_duo_split, duo_decode_step
 from .pipeline import KVPressPipeline
+from .serving import Request, ServingEngine, SlotCache, init_slot_cache
 from .presses import (AdaKVPress, BasePress, BlockPress, CAMPress, CapPress, ChunkKVPress,
                       ChunkPress, CompactorPress, CompressionRatioDecodingPress, DecodingPress,
                       PrefillDecodingPress, ComposedPress, CriticalAdaKVPress, CriticalKVPress,
@@ -60,5 +61,5 @@ __all__ = [
     "FastKVzipPress", "KVComposeCollector", "KVComposePress", "KVzipChunkScorer", "KVzipPress",
     "RestoreKVPress", "apply_lora", "init_random_gates", "init_random_lora",
     "load_fastkvzip_gates", "load_restore_artifacts", "save_fastkvzip_gates",
-    "save_restore_artifacts",
+    "save_restore_artifacts", "Request", "ServingEngine", "SlotCache", "init_slot_cache",
 ]

@@ -1,6 +1,7 @@
 """Text-generation pipeline: compress a long context once, answer many
-questions against the compressed cache (port of ``kvpress_tpu/pipeline.py``;
-``batch`` is not ported yet).
+questions against the compressed cache (port of ``kvpress_tpu/pipeline.py``).
+``batch`` serves many requests through the continuous-batching engine
+(``serving.ServingEngine``).
 
 Chat-template separator split (and FinchPress's delimiter, found and
 stripped on the host), one compressing prefill (whole, padded to a multiple
@@ -35,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .cache import compact_masked, dequantize_kv, grow, resize
+from .cache import compact_masked, grow, resize
 from .device import DeviceLike
 from .models.llama import LlamaModel, Runner
 from .models.siglip import VisionConfig, VisionTower
@@ -402,8 +403,99 @@ class KVPressPipeline:
             return {"answer": answers[0]}
         return {"answers": answers}
 
-    def batch(self, *args, **kwargs):
-        raise NotImplementedError("batched serving comes with ROADMAP Queue A item 14")
+    @torch.no_grad()
+    def batch(
+        self,
+        contexts: list[str],
+        questions: Optional[list[Optional[str]]] = None,
+        press: Optional[BasePress] = None,
+        max_new_tokens: int = 50,
+        answer_prefix: str = "",
+        max_context_length: Optional[int] = None,
+        enable_thinking: bool = False,
+        n_slots: int = 8,
+        capacity: Optional[int] = None,
+        quantized: bool = False,
+        kv_bits: int = 8,
+        context_bucket: Optional[int] = None,
+        context_chunk: Optional[int] = None,
+        interleave: bool = False,
+        question_bucket: int = 64,
+        mesh=None,
+        context_cache: int = 0,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        seed: int = 0,
+        pixel_values: Optional[list] = None,   # per request: (n_images, C, I, I) or None
+        on_token=None,       # (req_idx, token_id, n_so_far) as tokens are read
+    ) -> list[str]:
+        """Serve many (context, question) requests through the continuous-
+        batching engine (``serving.ServingEngine``): per-request
+        press-compressed prefill, one decode step over ``n_slots`` slots,
+        admission as slots retire. Each answer follows the single ``__call__``
+        contract (greedy, or nucleus sampling with ``do_sample``; requests
+        that share a context can reuse one compressed cache through
+        ``context_cache``).
+
+        ``capacity`` (the per-slot KV budget) defaults to the longest
+        context's kept bound + the bucketed longest question + the generation
+        room + 1."""
+        from .serving import Request, ServingEngine
+
+        if questions is None:
+            questions = [None] * len(contexts)
+        if pixel_values is None:
+            pixel_values = [None] * len(contexts)
+        if not len(questions) == len(pixel_values) == len(contexts):
+            raise ValueError("contexts, questions and pixel_values differ in length")
+        image_span = None
+        reqs = []
+        for ctx, q, px in zip(contexts, questions, pixel_values):
+            context_ids, q_ids = self.preprocess(ctx, [q] if q else [""], answer_prefix,
+                                                 max_context_length, enable_thinking)
+            embeds = token_types = content_key = None
+            if px is not None:
+                if self.vision_params is None:
+                    raise ValueError("pixel_values needs a multimodal pipeline "
+                                     "(KVPressPipeline.from_torch_multimodal)")
+                import hashlib
+
+                from .models.convert import multimodal_embeds
+                from .models.siglip import encode_images
+
+                ids = torch.tensor([context_ids], dtype=torch.long, device=self.device)
+                embeds = multimodal_embeds(self.params, self.runner.cfg, ids,
+                                           encode_images(self.vision_params, px),
+                                           self.image_token_id)
+                token_types = (ids == self.image_token_id).to(torch.int32)
+                image_span = self.vision_cfg.mm_tokens_per_image
+                # The image fingerprint: multimodal admissions share the
+                # context LRU without colliding across images.
+                pixels = px.cpu().numpy() if isinstance(px, torch.Tensor) else np.asarray(px)
+                content_key = hashlib.sha1(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+            reqs.append(Request(context_ids, q_ids[0], max_new_tokens, inputs_embeds=embeds,
+                                token_types=token_types, content_key=content_key))
+        if capacity is None:
+            longest = max(len(r.context_ids) for r in reqs)
+            if context_bucket is not None:
+                longest = -(-longest // context_bucket) * context_bucket
+            kept = press.max_kept(longest, self.runner.cfg) if press is not None else longest
+            if self.runner.cfg.sliding_window is not None:
+                kept = longest        # sliding layers keep the whole context
+            max_q = max(len(r.question_ids) for r in reqs)
+            capacity = (kept + -(-max(max_q, 1) // question_bucket) * question_bucket
+                        + max_new_tokens + 1)
+        eng = ServingEngine(
+            self.runner, self.params, n_slots=max(1, min(n_slots, len(reqs))),
+            capacity=capacity, press=press, quantized=quantized, kv_bits=kv_bits,
+            context_bucket=context_bucket, context_chunk=context_chunk, interleave=interleave,
+            question_bucket=question_bucket, eos_ids=tuple(e for e in self._eos() if e >= 0),
+            mesh=mesh, tokenizer=self.tokenizer, context_cache=context_cache,
+            do_sample=do_sample, temperature=temperature, top_p=top_p, seed=seed,
+            image_span=image_span)
+        outs = eng.run(reqs, on_token=on_token)
+        return [self.tokenizer.decode(list(toks), skip_special_tokens=True) for toks in outs]
 
     # ------------------------------------------------------------------ #
     # The multi-pass presses' scoring passes
@@ -581,16 +673,15 @@ class KVPressPipeline:
 
     def _kvcompose_compress(self, cache, scores: np.ndarray, press, ctx_len: int):
         """The composite budgets from the scores (L, H_kv, ctx_len) (and the
-        dequantized values' norms with ``add_v_norm``), then the structured
-        per-layer rebuild or the unstructured keep-mask."""
+        values' norms with ``add_v_norm``), then the structured per-layer
+        rebuild or the unstructured keep-mask. Over a quantized cache the
+        norms are those of the raw payload, as in JAX
+        (``kvpress_tpu/pipeline.py:879-880``): the int8 codes, or at int4 the
+        packed bytes (D/2 wide)."""
         cfg = self.runner.cfg
         values = None
         if press.add_v_norm:
-            v = cache.values[:, 0, :, :ctx_len]
-            if cache.value_scales is not None:
-                v = dequantize_kv(v, cache.value_scales[:, 0, :, :ctx_len], cache.bits,
-                                  torch.float32)
-            values = v.float().cpu().numpy()
+            values = cache.values[:, 0, :, :ctx_len].to(torch.float32).cpu().numpy()
         budgets, keep = press.budgets_and_masks(scores, values)
         if not press.structured:
             return self._apply_keep_mask(cache, keep[:, None])

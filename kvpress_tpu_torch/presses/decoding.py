@@ -12,9 +12,9 @@ length to the target. On a quantized cache (``decode_compress_quantized``)
 the payload and scales ride the same gather: nothing is requantized.
 ``Runner.prefill_chunked``'s compression pass uses BudgetDecodingPress.
 
-Not ported yet: ``target_value_vec`` (the serving engine's per-slot
-targets, ROADMAP Queue A item 14) and ``sync_state`` (the distributed
-decode's replicated counters, item 16).
+``target_value_vec`` gives the serving engine's per-slot targets from the
+host's per-slot positions. Not ported yet: ``sync_state`` (the distributed
+decode's replicated counters, ROADMAP Queue A item 16).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..cache import dequantize_kv
@@ -95,6 +96,12 @@ class DecodingPress(BasePress):
 
     def target_value(self, ctx: LayerCtx, length: int) -> int:
         return self.target_size
+
+    def target_value_vec(self, last_positions: torch.Tensor, length: torch.Tensor
+                         ) -> torch.Tensor:
+        """Per-slot targets for the serving engine: ``last_positions`` and
+        ``length`` are (N,) host int tensors, one per request slot."""
+        return torch.full_like(length, self.target_size)
 
     def _advance(self, ctx, state, length: int, S: int):
         """Ring-buffer append of this call's hidden states and the interval
@@ -192,6 +199,12 @@ class CompressionRatioDecodingPress(DecodingPress):
         # The logical tokens seen: the host's last position, no device sync.
         return float32_budget(ctx.last_position + 1, self.target_compression_ratio)
 
+    def target_value_vec(self, last_positions: torch.Tensor, length: torch.Tensor
+                         ) -> torch.Tensor:
+        seen = (last_positions.numpy() + 1).astype(np.float32)
+        kept = (seen * np.float32(1 - self.target_compression_ratio)).astype(np.int32)
+        return torch.from_numpy(np.maximum(kept, 1)).to(length.dtype)
+
 
 @dataclasses.dataclass(frozen=True)
 class BudgetDecodingPress(CompressionRatioDecodingPress):
@@ -201,6 +214,10 @@ class BudgetDecodingPress(CompressionRatioDecodingPress):
 
     def target_value(self, ctx: LayerCtx, length: int) -> int:
         return self.base_press.dynamic_budget(ctx, length)
+
+    def target_value_vec(self, last_positions, length):
+        raise NotImplementedError("BudgetDecodingPress is a chunked-prefill internal; the serving "
+                                  "engine uses DecodingPress/CompressionRatioDecodingPress")
 
 
 @dataclasses.dataclass(frozen=True)

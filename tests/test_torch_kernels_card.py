@@ -473,6 +473,36 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, bits):
     _close(got, ref)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [None, 8, 4])
+@pytest.mark.parametrize("window", [None, 1024])
+def test_decode_kernel_at_the_slot_step_shape_on_card(cuda, bits, window):
+    """The serving engine's slot step (``serving._decode_step``; flagship,
+    8 slots of 8,449): each slot's causality, keep bits and, on a sliding
+    layer, its window in the mask; lengths ragged from 1 to S; the launch's
+    length the longest slot's, no window argument."""
+    B, Hq, Hkv, S, D = 8, 32, 8, 8449, 64
+    q, k, v, mask = _inputs(17, B, Hq, Hkv, 1, S, D)
+    clen = np.linspace(0, S - 1, B).astype(np.int64)
+    slot = np.arange(S)
+    allowed = slot[None] <= clen[:, None]
+    if window:
+        allowed &= slot[None] > clen[:, None] - window
+    mask = mask & allowed[:, None]
+    mask[np.arange(B), :, clen] = True
+    q, k, v = (_t(a).to(cuda) for a in (q, k, v))
+    mask = _t(mask).to(cuda)
+    q = q.to(torch.bfloat16)
+    ks = vs = None
+    if bits is None:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    else:
+        (k, ks), (v, vs) = quantize_kv(k, bits), quantize_kv(v, bits)
+    kw = dict(bits=bits, sm_scale=D ** -0.5)
+    got = tdec.decode_attention(q, k, v, S, ks, vs, mask, **kw)
+    _close(got, tdec.decode_attention_plain(q, k, v, S, ks, vs, mask, **kw))
+
+
 # The Duo split decode's launches (ops/duo_decode.py; flagship, 32K): a
 # retrieval buffer of 5 of the 8 kv heads, G 4, over the 32,768 context slots
 # and the new token; a streaming buffer of 4 kv heads over sink 128 + recent

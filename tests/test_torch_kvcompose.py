@@ -10,11 +10,7 @@ unstructured masks, ``add_v_norm``, the pipelines over float32 and int8 KV,
 and the sliding-config refusal.
 
 Tolerances: aggregated probabilities within 1e-6 absolute / 1e-5 relative;
-budgets, masks, rebuilt caches and answers equal.
-
-``add_v_norm`` over a quantized cache: the port weights the scores by the
-norms of the dequantized values (the JAX package reads the raw payload
-codes), so that case is held against JAX given the dequantized values."""
+budgets, masks, rebuilt caches and answers equal."""
 
 import jax
 import jax.numpy as jnp
@@ -253,16 +249,15 @@ def test_add_v_norm_matches_jax(pipes):
 
 
 def test_add_v_norm_reads_dequantized_values(pipes, monkeypatch):
-    """Over int8 KV the scores are weighted by the dequantized values'
-    norms: the values handed to budgets_and_masks are the cache's,
-    dequantized."""
+    """Over int8 KV the values handed to budgets_and_masks are the cache's
+    raw payload codes as float32 (not the dequantized values), as JAX reads
+    them (kvpress_tpu/pipeline.py:879-880)."""
     p = pipes
     ids = seeded_ids(p.cfg_t.vocab_size, S, 13)
     _, rt = _runners(p)
     _, ct, _ = rt.prefill(p.params_t, torch.from_numpy(ids).long(), max_size=2 * S,
                           **KV["int8"])
-    want = kt.dequantize_kv(ct.values[:, 0, :, :S], ct.value_scales[:, 0, :, :S], 8,
-                            torch.float32).numpy()
+    want = ct.values[:, 0, :, :S].float().numpy()
     seen = []
     original = kt.KVComposePress.budgets_and_masks
     monkeypatch.setattr(kt.KVComposePress, "budgets_and_masks",
@@ -270,6 +265,41 @@ def test_add_v_norm_reads_dequantized_values(pipes, monkeypatch):
     p.torch_pipe()._run_kvcompose(ct, ids[0].tolist(), make_press(kt, "kvcompose_vnorm", NO_ART),
                                   context_chunk=16)
     np.testing.assert_array_equal(seen[0], want)
+
+
+@pytest.mark.parametrize("structured", [True, False])
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+def test_add_v_norm_over_quantized_kv_matches_jax(pipes, monkeypatch, kv, structured):
+    """``add_v_norm`` over int8 and int4 KV (at int4 the packed bytes, D/2
+    wide): JAX's budgets and kept sets exactly, on the same prefilled cache
+    (the port's, handed to JAX)."""
+    from kvpress_tpu.cache import KVCache as JaxCache
+
+    p = pipes
+    ids = seeded_ids(p.cfg_t.vocab_size, S, 13)
+    rj, rt = _runners(p)
+    _, ct, _ = rt.prefill(p.params_t, torch.from_numpy(ids).long(), max_size=2 * S, **KV[kv])
+    arr = lambda t: None if t is None else jnp.asarray(t.numpy())
+    cj = JaxCache(keys=arr(ct.keys), values=arr(ct.values), length=arr(ct.length),
+                  offset=arr(ct.offset), mask=None, key_scales=arr(ct.key_scales),
+                  value_scales=arr(ct.value_scales), bits=KV[kv]["kv_bits"])
+    seen = {}
+    for side, cls in (("jax", jp.KVComposePress), ("torch", kt.KVComposePress)):
+        original = cls.budgets_and_masks
+        monkeypatch.setattr(cls, "budgets_and_masks",
+                            lambda self, s, v, side=side, original=original: seen.setdefault(
+                                side, (s, original(self, s, v)))[1])
+    over = dict(compression_ratio=0.4, add_v_norm=True, agg_head="max", keep_token_lower_bound=4,
+                structured=structured)
+    ctx_ids = ids[0].tolist()
+    p.jax_pipe()._run_kvcompose(cj, ctx_ids, jp.KVComposePress(**over), context_chunk=16)
+    p.torch_pipe()._run_kvcompose(ct, ctx_ids, kt.KVComposePress(**over), context_chunk=16)
+    (scores, (budgets, keep)), (_, (budgets_j, keep_j)) = seen["torch"], seen["jax"]
+    np.testing.assert_array_equal(budgets, budgets_j)
+    np.testing.assert_array_equal(keep, keep_j)
+    # the norms move the kept sets
+    unweighted = original(kt.KVComposePress(**dict(over, add_v_norm=False)), scores, None)
+    assert not np.array_equal(unweighted[1], keep)
 
 
 # --------------------------------------------------------------------- #

@@ -133,6 +133,7 @@ def test_sampled_answer_does_not_depend_on_earlier_questions(pipes):
 
 
 def test_options_of_later_slices_raise(pipes):
-    # context_bucket is ported: tests/test_torch_bucketing.py holds it.
-    with pytest.raises(NotImplementedError):
-        pipes["torch"].batch([pipes["context"]])
+    # context_bucket is ported (tests/test_torch_bucketing.py), batch() too
+    # (tests/test_torch_pipeline_batch.py); tensor-parallel serving is not.
+    with pytest.raises(NotImplementedError, match="item 16"):
+        pipes["torch"].batch([pipes["context"]], mesh=object())

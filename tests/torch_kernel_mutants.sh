@@ -4,7 +4,7 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes twenty-eight copies of the port in a temporary directory, each with one
+# It makes thirty-two copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (in the column sums a query
 # stage dropped and every stage taken without the causal test, a key tile
 # dropped from the row logsumexp; in the head-wise decode the tail, one
@@ -42,6 +42,13 @@
 # KVCompose's structured rebuild
 # gathers the kept entries in score order instead of position order
 # (kvcompose_rebuild_order), and chip_smoke.kvcompose_rebuild_check runs in it.
+# Four more break the serving engine, and chip_smoke.serving_check (the
+# serving phase's S1 with its checks) runs in each: the slot step appends at
+# each slot's length + 1 (serving_append_late), an admission's cache goes into
+# the next slot (serving_insert_slot), dead lanes advance their lengths
+# (serving_dead_lane_advance), and an admission writes its first token into
+# the tokens tensor a pending step holds (serving_tokens_in_place); the CPU
+# serving tests (tests/test_torch_serving*.py) fail on each too.
 # Every copy must be rejected; the script exits 1 if one passes or if a
 # mutation did not apply. Mutant names given as arguments run those alone.
 set -u
@@ -54,7 +61,8 @@ mutants="colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
          flash_d256_panels decode_d256_key_chunk colsum_d256_panels
          flash_d96_k_step decode_d96_tail_words colsum_d96_k_step runner_bucket_len
          pipeline_rerotation_offset compact_masked_past_length duo_inverse_permutation
-         kvzip_pass_writes_context kvcompose_rebuild_order"
+         kvzip_pass_writes_context kvcompose_rebuild_order serving_append_late
+         serving_insert_slot serving_dead_lane_advance serving_tokens_in_place"
 for m in ${@:-$mutants}; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
@@ -68,6 +76,7 @@ for m in ${@:-$mutants}; do
   pl=$d/kvpress_tpu_torch/pipeline.py
   ca=$d/kvpress_tpu_torch/cache.py
   du=$d/kvpress_tpu_torch/ops/duo_decode.py
+  sv=$d/kvpress_tpu_torch/serving.py
   check=kernel_checks
   case $m in
     colsum_query_tile)
@@ -132,6 +141,18 @@ for m in ${@:-$mutants}; do
     kvcompose_rebuild_order)
       sed -i 's/            order = torch.argsort((~keep_buf\[l\]).to(torch.int8), dim=-1, stable=True)/            order = torch.argsort((~keep_buf[l]).float() * 2 - torch.nn.functional.pad(torch.from_numpy(scores[l]).to(self.device), (0, cache.max_size - ctx_len)).clamp(0, 1), dim=-1, stable=True)/' "$pl"
       check=kvcompose_rebuild_check ;;
+    serving_append_late)
+      sed -i 's/            rows, at = lanes, lengths_dev\[l\]$/            rows, at = lanes, lengths_dev[l] + 1/' "$sv"
+      check=serving_check ;;
+    serving_insert_slot)
+      sed -i 's/        self.sc = _insert_slot(self.sc, cache, slot)/        self.sc = _insert_slot(self.sc, cache, (slot + 1) % self.n_slots)/' "$sv"
+      check=serving_check ;;
+    serving_dead_lane_advance)
+      sed -i 's/        lengths\[l\] = torch.where(live, clen + 1, clen)/        lengths[l] = clen + 1/' "$sv"
+      check=serving_check ;;
+    serving_tokens_in_place)
+      sed -i 's/        tokens = self.tokens.clone()/        tokens = self.tokens/' "$sv"
+      check=serving_check ;;
   esac
   changed=$(diff -r kvpress_tpu_torch "$d/kvpress_tpu_torch" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
@@ -147,7 +168,7 @@ chip_smoke.kernel_ms = lambda fn, symbol, iters: chip_smoke.cuda_ms(fn, 1, 1)
 try:
     if os.environ["CHECK"] in ("bucketed_check", "rerotation_check", "compact_masked_check",
                                "duo_split_check", "kvzip_context_check",
-                               "kvcompose_rebuild_check"):
+                               "kvcompose_rebuild_check", "serving_check"):
         dev = torch.device("cuda")
         params = kt.init_params(chip_smoke.flagship_config(16),
                                 torch.Generator(device=dev).manual_seed(0),
