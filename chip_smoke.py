@@ -168,7 +168,17 @@
    lengths, LRU entries, launch counts and the in-step kernel against its
    plain version checked, each check with its planted fault; phase 2 also
    holds ``decode_attention`` at the slot step's ragged shape (8 slots of
-   8,449, each slot's causality and window in the mask).
+   8,449, each slot's causality and window in the mask). Tensor-parallel
+   serving (``tp_serving_run``): S2's mix through ``ServingEngine(mesh=)``
+   over a world of one over NCCL in this process, its answers, host lengths
+   and offsets and every pool tensor identical to the single-process
+   engine's (a world of one sums over one rank), decode 16 a slot step and
+   flash 16 + ``flash_attention_quant`` 16 an admission; then worlds of two
+   spawned ranks sharing the card over gloo (NCCL refuses two ranks on one
+   device; gloo takes CUDA tensors), ``model=2`` and ``data=2``, 8 requests
+   of 2,048 and 4,096 tokens each: every answer teacher-forced against the
+   single-process runner, host lengths, each rank's launches and the (16, 4)
+   or (32, 8) heads its kernels took.
 4. Timings: prefill at 32K under each press and chunked (int8 KV; int4 KV
    on both routes), and decode at batch 4 x 32K
    context, ratio 0.5 (Knorm: int4 KV + int8 weights, decode kernel on and
@@ -4368,6 +4378,258 @@ def serving_check(kt, torch, tokenizer_cls, params, report):
     return serving_run(kt, torch, tokenizer_cls, params, report, labels=("S1", "S5"))
 
 
+# --------------------------------------------------------------------- #
+# Tensor-parallel serving: parallel/, ServingEngine(mesh=)
+
+
+TP_CONTEXTS = SV_CONTEXTS     # the world of one: S2's mix (int8 slots), whole
+TP_REQUESTS = SV_REQUESTS
+TP_NEW = SV_NEW
+TP_GLOO_CONTEXTS = (2048, 4096)   # the 2-rank worlds over gloo: short contexts
+TP_GLOO_REQUESTS = 8
+TP_GLOO_NEW = 16
+# The 2-rank worlds share the one card over gloo (NCCL refuses two ranks on
+# one device); gloo takes CUDA tensors for all_reduce and all_gather.
+TP_GLOO_WORLDS = {"model2": {"data": 1, "model": 2}, "data2": {"data": 2, "model": 1}}
+
+
+TP_RANK_TIMEOUT = 600         # seconds for a 2-rank world, and for a collective in it
+
+
+def tp_rank(rank: int, world: int, d: str):
+    """One rank of a 2-rank world on the one card (its own process, started
+    by ``tp_gloo_world``): gloo through a FileStore under ``d``, the
+    flagship's params drawn as ``main_path`` draws them and sharded over the
+    mesh of ``d/job.json``, one engine run over bf16 slots on its requests.
+    Each rank writes its answers, host lengths and offsets, launch counts
+    and the (query, kv) head counts its kernels took to ``d/rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import kvpress_tpu_torch as kt
+    from kvpress_tpu_torch import serving as sv
+    from kvpress_tpu_torch.models import llama as ll
+    from kvpress_tpu_torch.parallel import make_mesh
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"rank {rank}: no CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with open(f"{d}/job.json") as f:
+        job = json.load(f)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{d}/store", world), rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT))
+    try:
+        mesh = make_mesh(**job["shape"], device_type="cuda")
+        cfg = flagship_config(16)
+        params = kt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                dtype=torch.bfloat16, device=dev)
+        runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=dev)
+        heads = {}
+
+        def recording(name, fn):
+            def wrapped(q, k, *a, **kw):
+                heads.setdefault(name, set()).add((q.shape[1], k.shape[1]))
+                return fn(q, k, *a, **kw)
+            return wrapped
+
+        ll.flash_attention = recording("flash_attention", ll.flash_attention)
+        ll.flash_attention_quant = recording("flash_attention_quant", ll.flash_attention_quant)
+        sv.decode_attention = recording("decode_attention", sv.decode_attention)
+        eng = kt.ServingEngine(runner, params, n_slots=SV_SLOTS, capacity=job["cap"],
+                               press=kt.KnormPress(0.5), question_bucket=SV_QUESTION_BUCKET,
+                               fetch_lag=SV_FETCH_LAG, mesh=mesh)
+        torch.cuda.synchronize()
+        reset_counts()
+        answers = eng.run([kt.Request(*r) for r in job["reqs"]])
+        torch.cuda.synchronize()
+        out = dict(answers=answers, lengths=eng.sc.lengths.tolist(),
+                   offsets=eng.sc.offsets.tolist(), counts=launched(read_counts()),
+                   heads={k: sorted(v) for k, v in heads.items()},
+                   local_pool=list(eng.sc.keys.shape), own=[eng.own.start, eng.own.stop],
+                   stats={k: v for k, v in eng.last_stats.items() if not isinstance(v, list)})
+        with open(f"{d}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_world_of_one(kt, torch, params, report):
+    """The flagship engine (8 slots, int8 slots, Knorm(0.5)) over a world of
+    one over NCCL, against the single-process engine on the same card and
+    requests: with a world of one a shard is the whole and an all-reduce a
+    copy, so the answers, the host lengths and offsets and every pool tensor
+    must be identical. Returns the mesh run's launch counts."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from kvpress_tpu_torch.parallel import make_mesh
+
+    cfg = flagship_config(16)
+    L, dev = cfg.num_layers, params.device
+    runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=dev)
+    knorm = kt.KnormPress(0.5)
+    reqs = serving_requests(torch.Generator().manual_seed(16), cfg.vocab_size,
+                            [TP_CONTEXTS[i % 2] for i in range(TP_REQUESTS)], TP_NEW)
+    kw = dict(n_slots=SV_SLOTS, capacity=serving_capacity(cfg, knorm, reqs), press=knorm,
+              quantized=True, kv_bits=8, question_bucket=SV_QUESTION_BUCKET,
+              fetch_lag=SV_FETCH_LAG)
+    names = ("keys", "values", "key_scales", "value_scales", "mask", "lengths", "offsets")
+
+    def run(label, mesh=None):
+        eng = kt.ServingEngine(runner, params, mesh=mesh, **kw)
+        answers, counts, eng, _ = serving_once(
+            kt, torch, label, lambda: eng.run([kt.Request(*r) for r in reqs]), report)
+        pool = {n: getattr(eng.sc, n).clone() for n in names}
+        return answers, counts, eng.last_stats["decode_steps"], pool
+
+    ref = run("TP reference: the single-process engine, int8 slots")
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", init_method=f"file://{store}/nccl", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT))
+    try:
+        mesh = make_mesh(1, 1)
+        got = run(f"TP world of one over {dist.get_backend()} (mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}), int8 slots", mesh)
+    finally:
+        dist.destroy_process_group()
+
+    def identical(label, a, b):
+        if a[0] != b[0]:
+            raise AssertionError(f"{label}: the answers differ")
+        for n in names:
+            if not torch.equal(a[3][n], b[3][n]):
+                raise AssertionError(f"{label}: the pool's {n} differ")
+
+    identical("TP world of one", ref, got)
+    planted = (ref[0], ref[1], ref[2], dict(ref[3], keys=ref[3]["keys"].clone()))
+    planted[3]["keys"].view(-1)[12345] += 1
+    must_reject("one pool code moved", identical, "planted", planted, got)
+    steps, n_adm = got[2], len(reqs)
+    check_serving_launches("TP world of one", got[1], steps, "int8", L * n_adm, L * n_adm, L)
+    report(f"  TP world of one: answers, host lengths and offsets and the pool "
+           f"({', '.join(names[:5])}) identical to the single-process engine's; launches per "
+           f"rank: decode_attention {got[1]['decode_attention'] / steps:g} a slot step, flash "
+           f"{(got[1]['flash_attention'] + got[1]['flash_attention_quant']) / n_adm:g} an "
+           f"admission ({got[1]['flash_attention'] / n_adm:g} flash_attention + "
+           f"{got[1]['flash_attention_quant'] / n_adm:g} flash_attention_quant)")
+    return got[1]
+
+
+def tp_gloo_world(kt, torch, params, report, name: str, tie: float):
+    """A 2-rank world on the one card over gloo (``TP_GLOO_WORLDS[name]``):
+    the ranks' answers teacher-forced against the single-process runner
+    (the bf16 tie limit of the serving phase), their host lengths, the
+    launch counts per rank, and the head counts each rank's kernels took."""
+    import tempfile
+
+    cfg = flagship_config(16)
+    L, shape = cfg.num_layers, TP_GLOO_WORLDS[name]
+    tp = shape["model"]
+    knorm = kt.KnormPress(0.5)
+    reqs = serving_requests(torch.Generator().manual_seed(17), cfg.vocab_size,
+                            [TP_GLOO_CONTEXTS[i % 2] for i in range(TP_GLOO_REQUESTS)],
+                            TP_GLOO_NEW)
+    d = tempfile.mkdtemp(dir=ROOT / "build")
+    with open(f"{d}/job.json", "w") as f:
+        json.dump(dict(shape=shape, reqs=reqs, cap=serving_capacity(cfg, knorm, reqs)), f)
+    start = time.perf_counter()
+    # Each rank is a fresh interpreter that imports this file (not a fork,
+    # and not a re-run of whatever script imported it); a rank that fails
+    # ends the world.
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'tests')!r}]; "
+            f"import chip_smoke; chip_smoke.tp_rank(int(sys.argv[1]), 2, {d!r})")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], cwd=ROOT) for r in range(2)]
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                raise AssertionError(f"TP {name}: a rank failed (exit codes "
+                                     f"{[p.poll() for p in procs]})")
+            if time.perf_counter() - start > TP_RANK_TIMEOUT:
+                raise AssertionError(f"TP {name}: the world did not end in {TP_RANK_TIMEOUT} s")
+            time.sleep(0.2)
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"TP {name}: a rank failed (exit codes "
+                                 f"{[p.returncode for p in procs]})")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - start
+    ranks = [json.load(open(f"{d}/rank{r}.json")) for r in range(2)]
+    answers = ranks[0]["answers"]
+    for r in ranks[1:]:
+        if r["answers"] != answers or r["lengths"] != ranks[0]["lengths"]:
+            raise AssertionError(f"TP {name}: the ranks' host states differ")
+    runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=params.device)
+    flips, widest = [], 0.0
+    for req, got in zip(reqs, answers):
+        n_flip, worst, cache, _ = serving_reference(kt, torch, runner, params, knorm, req, got)
+        check_teacher_forced(f"TP {name}", n_flip, worst, len(got), tie)
+        flips.append(n_flip)
+        widest = max(widest, worst)
+        del cache
+    served = {s: r for s, r in enumerate(range(len(reqs)))}
+    check_host_lengths(f"TP {name}", torch.tensor(ranks[0]["lengths"]),
+                       torch.tensor(ranks[0]["offsets"]), served, reqs, answers,
+                       knorm.exact_kept)
+    steps = ranks[0]["stats"]["decode_steps"]
+    want_heads = [[cfg.num_heads // tp, cfg.num_kv_heads // tp]]
+    for r, out in enumerate(ranks):
+        c = out["counts"]
+        check_serving_launches(f"TP {name} rank {r}", dict.fromkeys(counters(), 0) | c, steps,
+                               "bf16", 2 * L * len(reqs), 0, L)
+        if any(v != want_heads for v in out["heads"].values()):
+            raise AssertionError(f"TP {name} rank {r}: the kernels took heads {out['heads']}, "
+                                 f"not {want_heads[0]}")
+        report(f"  TP {name} rank {r} (gloo, CUDA tensors, one card): pool {out['local_pool']} "
+               f"holding slots {out['own']}; launches: decode_attention "
+               f"{c['decode_attention'] / steps:g} a slot step, flash_attention "
+               f"{c['flash_attention'] / len(reqs):g} an admission; (query, kv) heads "
+               f"{out['heads']}")
+    st = ranks[0]["stats"]
+    report(f"  TP {name}: {len(reqs)} requests of {TP_GLOO_CONTEXTS} tokens, {TP_GLOO_NEW} new, "
+           f"teacher-forced against the single-process runner: near-tie flips {flips}, the "
+           f"widest {widest:.4f} (limit {tie:.4f}); host lengths as predicted; {steps} slot "
+           f"steps, inter-token gap p50 / max {st['p50_intertoken_gap_s'] * 1e3:.1f} / "
+           f"{st['max_intertoken_gap_s'] * 1e3:.1f} ms, TTFT p50 {st['p50_ttft_s']:.3f} s; the "
+           f"run {st['wall_s']:.2f} s inside a world of {wall:.1f} s (spawn and weights "
+           f"included; gloo through the host: no multi-card speed)")
+
+
+def tp_serving_run(kt, torch, tokenizer_cls, params, report, worlds=("one", "model2", "data2")):
+    """Tensor-parallel serving at the flagship shape: the world of one over
+    NCCL held identical to the single-process engine, then the 2-rank gloo
+    worlds (model 2, data 2) on the one card teacher-forced against the
+    single-process runner. Returns the world of one's launch counts."""
+    from kvpress_tpu_torch.ops import _build
+
+    # Built here, before any rank is spawned: ranks never race nvcc into one
+    # build directory (a no-op when phase 2 built them).
+    _build.build()
+    counts = {}
+    if "one" in worlds:
+        counts = tp_world_of_one(kt, torch, params, report)
+    gloo = [w for w in worlds if w in TP_GLOO_WORLDS]
+    if gloo:
+        tie = F32_RATIO * 2 * serving_noise(kt, torch, params, report)
+        for name in gloo:
+            tp_gloo_world(kt, torch, params, report, name, tie)
+    return counts
+
+
+def tp_serving_check(kt, torch, tokenizer_cls, params, report):
+    """The TP mutant's check: the model 2 world (a world of one sums over one
+    rank, so a dropped all-reduce shows only across two)."""
+    return tp_serving_run(kt, torch, tokenizer_cls, params, report, worlds=("model2",))
+
+
 # The 8B-class and Gemma-3-12B pipeline runs use the first half of their
 # layers, for the whole script's time (its multi-pass phase added about 70 s);
 # every layer does the same work at the same shapes.
@@ -5914,6 +6176,13 @@ def main() -> int:
     for name, n in serving_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] += n
     report(f"  the serving phase took {time.perf_counter() - t_phase:.1f} s")
+    report("phase 3: tensor-parallel serving at the flagship shape: a world of one over NCCL "
+           "against the single-process engine, then model 2 and data 2 worlds over gloo on the "
+           "one card")
+    t_phase = time.perf_counter()
+    for name, n in tp_serving_run(kt, torch, ToyTokenizer, params, report).items():
+        launches[name] += n
+    report(f"  the tensor-parallel phase took {time.perf_counter() - t_phase:.1f} s")
     report("phase 3: chunked prefill's int4 routes at the flagship shape, 32K")
     for name, n in fused_int4_check(kt, torch, params, report).items():
         launches[name] += n

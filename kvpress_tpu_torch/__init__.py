@@ -3,7 +3,7 @@
 The same modules and names as the JAX package (config, rope, cache,
 ops.attention, ops.flash, ops.decode, ops.observed_colsum,
 ops.decode_headwise, ops.duo_decode, models.llama, models.convert, models.siglip, presses,
-pipeline, serving), in
+pipeline, serving, parallel), in
 PyTorch. The JAX package's Pallas kernels are hand-written CUDA kernels for
 ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -19,6 +19,7 @@ from .models.llama import (Runner, init_params, quantize_layer_int4, quantize_pa
                            quantize_params_int8)
 from .models.siglip import VisionConfig, VisionTower, encode_images, init_vision_params
 from .ops.duo_decode import DuoSplitCache, build_duo_split, duo_decode_step
+from . import parallel
 from .pipeline import KVPressPipeline
 from .serving import Request, ServingEngine, SlotCache, init_slot_cache
 from .presses import (AdaKVPress, BasePress, BlockPress, CAMPress, CapPress, ChunkKVPress,
@@ -62,4 +63,5 @@ __all__ = [
     "RestoreKVPress", "apply_lora", "init_random_gates", "init_random_lora",
     "load_fastkvzip_gates", "load_restore_artifacts", "save_fastkvzip_gates",
     "save_restore_artifacts", "Request", "ServingEngine", "SlotCache", "init_slot_cache",
+    "parallel",
 ]

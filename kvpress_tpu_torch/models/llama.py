@@ -65,6 +65,7 @@ from ..ops.attention import attention_bias, gqa_attention, quant_gqa_attention
 from ..ops.decode import decode_attention
 from ..ops.decode_headwise import decode_attention_headwise, prefix_tail_from_mask
 from ..ops.flash import check_head_dim, flash_attention, flash_attention_quant, same_image
+from ..parallel.mesh import ModelShard, local_config, model_shard, vocab_sharded
 from ..presses.base import BasePress, LayerCtx, ScorerPress
 from ..rope import apply_rope, compute_inv_freq, rope_cos_sin
 
@@ -279,19 +280,29 @@ def embed_tokens(params: LlamaModel, ids: torch.Tensor, cfg: ModelConfig) -> tor
     return x
 
 
-def lm_head_logits(x: torch.Tensor, params: LlamaModel, cfg: ModelConfig) -> torch.Tensor:
-    """Final-normed hidden -> float32 logits (+ softcap)."""
+def lm_head_logits(x: torch.Tensor, params: LlamaModel, cfg: ModelConfig,
+                   shard: Optional[ModelShard] = None) -> torch.Tensor:
+    """Final-normed hidden -> float32 logits (+ softcap). Under a mesh whose
+    model size divides the vocabulary, a rank computes its block of the
+    vocabulary (its ``lm_head`` shard, or its rows of the tied embedding) and
+    the blocks are all-gathered before the softcap."""
     head = params.get("lm_head")
+    split = vocab_sharded(cfg.vocab_size, shard)
     if head is not None:
         logits = (x @ head.to(x.dtype)).to(torch.float32)
         scale = params.get("lm_head_scale")
         if scale is not None and head.dtype == torch.int8:
             logits = logits * scale.to(torch.float32)
     else:
-        emb = params.embed
-        logits = (x @ emb.t().to(x.dtype)).to(torch.float32)
+        emb, rows = params.embed, slice(None)
+        if split:
+            n = cfg.vocab_size // shard.size
+            rows = slice(shard.rank * n, (shard.rank + 1) * n)
+        logits = (x @ emb[rows].t().to(x.dtype)).to(torch.float32)
         if emb.dtype == torch.int8:
-            logits = logits * params.embed_scale[:, 0].to(torch.float32)
+            logits = logits * params.embed_scale[rows, 0].to(torch.float32)
+    if split:
+        logits = shard.all_gather(logits, dim=-1)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -319,17 +330,24 @@ def _sm_scale(cfg: ModelConfig) -> float:
             else cfg.head_dim ** -0.5)
 
 
-def _finish_layer(x: torch.Tensor, attn_out: torch.Tensor, layer, cfg: ModelConfig):
+def _finish_layer(x: torch.Tensor, attn_out: torch.Tensor, layer, cfg: ModelConfig,
+                  shard: Optional[ModelShard] = None):
     """The residual stream after a layer's attention output (B, Hq, T, D): the
     output projection, then the MLP block, each followed by its post-norm
-    where the config has them."""
+    where the config has them. Under a mesh (``shard``) the two row-parallel
+    products are partial sums, all-reduced over "model" before the
+    post-norms."""
     B, _, T, _ = attn_out.shape
     o = _lin(attn_out.transpose(1, 2).reshape(B, T, -1), layer, "wo")
+    if shard is not None:
+        shard.all_reduce(o)
     if cfg.post_norms:
         o = rms_norm(o, layer.ln1_post, cfg.rms_norm_eps, cfg.rms_one_offset)
     x = x + o
     h2 = rms_norm(x, layer.ln2, cfg.rms_norm_eps, cfg.rms_one_offset)
     mlp = _lin(_act(_lin(h2, layer, "wg"), cfg.act) * _lin(h2, layer, "wu"), layer, "wd")
+    if shard is not None:
+        shard.all_reduce(mlp)
     if cfg.post_norms:
         mlp = rms_norm(mlp, layer.ln2_post, cfg.rms_norm_eps, cfg.rms_one_offset)
     return x + mlp
@@ -379,11 +397,17 @@ class Runner:
     # meaningful with attn_impl="flash", the decode kernel off and no
     # sliding layers.
     headwise_kernel: bool = False
+    # Tensor parallelism: the rank's place on the mesh's "model" axis. A
+    # sharded runner's ``cfg`` holds the rank's head and MLP counts
+    # (``parallel.mesh.local_config``) and it runs the params of
+    # ``parallel.mesh.shard_params``.
+    shard: Optional[ModelShard] = dataclasses.field(default=None, compare=False)
 
     @staticmethod
     def create(cfg: ModelConfig, attn_impl: str = "auto",
                decode_kernel: Optional[bool] = None, decode_block_k: int = 2048,
-               headwise_kernel: bool = False, device: DeviceLike = "cuda") -> "Runner":
+               headwise_kernel: bool = False, device: DeviceLike = "cuda",
+               mesh=None) -> "Runner":
         """``attn_impl="auto"`` is "flash" on CUDA and "xla" on the CPU;
         ``decode_kernel=None`` turns the decode kernel on for CUDA. (The JAX
         runner leaves it off for a TPU-only reason: Mosaic's per-grid-cell
@@ -393,7 +417,12 @@ class Runner:
         On CUDA the kernels take head_dim 64, 96 (Phi-3-mini), 128 and 256
         (Gemma-3 1B/4B/12B): another head_dim, which no architecture of the
         package has, raises unless the dense path is asked for
-        (``attn_impl="xla"``)."""
+        (``attn_impl="xla"``).
+
+        ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with a "model"
+        axis) makes the rank's runner: its local heads and MLP slice, the
+        two all-reduces a layer and the vocabulary all-gather; run it with
+        ``parallel.mesh.shard_params``' params."""
         device = resolve_device(device)
         inv, scaling = compute_inv_freq(cfg)
         if attn_impl == "auto":
@@ -407,10 +436,31 @@ class Runner:
             local, _ = compute_inv_freq(dataclasses.replace(
                 cfg, rope_theta=cfg.rope_local_base_freq, rope_scaling=None))
             local = torch.from_numpy(local).to(device)
-        return Runner(cfg=cfg, attention_scaling=scaling, device=device,
-                      inv_freq=torch.from_numpy(inv).to(device), inv_freq_local=local,
-                      attn_impl=attn_impl, decode_kernel=decode_kernel,
-                      decode_block_k=decode_block_k, headwise_kernel=headwise_kernel)
+        runner = Runner(cfg=cfg, attention_scaling=scaling, device=device,
+                        inv_freq=torch.from_numpy(inv).to(device), inv_freq_local=local,
+                        attn_impl=attn_impl, decode_kernel=decode_kernel,
+                        decode_block_k=decode_block_k, headwise_kernel=headwise_kernel)
+        return runner if mesh is None else runner.sharded(mesh)
+
+    def sharded(self, mesh) -> "Runner":
+        """This runner for the rank's shard of ``mesh``'s "model" axis."""
+        if self.shard is not None:
+            raise ValueError("the runner is sharded already")
+        shard = model_shard(mesh, self.device)
+        return dataclasses.replace(self, cfg=local_config(self.cfg, shard.size), shard=shard)
+
+    def _check_params(self, params: LlamaModel, press=None) -> None:
+        """A sharded runner takes the params of ``shard_params`` on its own
+        shard, and only the presses that run under a mesh."""
+        pshard = getattr(params, "shard", None)
+        if (pshard is None) != (self.shard is None) or (
+                pshard is not None and (pshard.rank, pshard.size)
+                != (self.shard.rank, self.shard.size)):
+            raise ValueError("a sharded runner takes parallel.mesh.shard_params' params of its "
+                             "own shard, an unsharded runner unsharded params")
+        if self.shard is not None and press is not None:
+            from ..parallel.presses import check_press
+            check_press(press)
 
     def _ropes(self, positions: torch.Tensor):
         """(global, local) cos/sin pairs (B, 1, T, D) at ``positions``; local
@@ -591,7 +641,7 @@ class Runner:
                 layer_params=layer, inv_freq=self.inv_freq, cfg=cfg,
                 attention_scaling=self.attention_scaling, attn_lse=attn_lse,
                 kv_len=valid_len if phase == "prefill" else None,
-                last_position=last_position,
+                last_position=last_position, shard=self.shard,
             )
             if phase == "prefill":
                 # Prefill into an empty cache: compress over the first T slots.
@@ -621,8 +671,12 @@ class Runner:
                 qk2, ks2 = quantize_kv(keys, kv_bits)
                 qv2, vs2 = quantize_kv(values, kv_bits)
                 _write_back((qkeys, qvalues, key_scales, value_scales), (qk2, qv2, ks2, vs2))
+            if self.shard is not None:
+                # A head-wise compaction ends at its longest head: over every
+                # rank's heads, as on one device.
+                new_len = self.shard.max(new_len)
 
-        return _finish_layer(x, attn_out, layer, cfg), int(new_len), new_state
+        return _finish_layer(x, attn_out, layer, cfg, self.shard), int(new_len), new_state
 
     # ------------------------------------------------------------------ #
 
@@ -681,6 +735,7 @@ class Runner:
         (prefill only), and the last position's logits read slot
         ``valid_len - 1``."""
         cfg = self.cfg
+        self._check_params(params, press)
         if inputs_embeds is not None:
             x = inputs_embeds
             B, T = x.shape[:2]
@@ -730,7 +785,7 @@ class Runner:
             if logits_last_only:
                 last = T if valid_len is None else valid_len
                 x = x[:, last - 1:last]
-            logits = lm_head_logits(x, params, cfg)
+            logits = lm_head_logits(x, params, cfg, self.shard)
         return logits, new_cache, states
 
     def prefill(self, params: LlamaModel, ids: Optional[torch.Tensor], press=None,
@@ -857,6 +912,7 @@ class Runner:
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be positive, got {chunk_size}")
         cfg = self.cfg
+        self._check_params(params, press)
         B, S = (ids if inputs_embeds is None else inputs_embeds).shape[:2]
         size = max_size or S
         if size < S:
@@ -1096,6 +1152,7 @@ class Runner:
             raise TypeError(f"kvcompose_spec must be (ctx_len, 'max' | 'mean'): "
                             f"{kvcompose_spec!r}")
         cfg = self.cfg
+        self._check_params(params)
         if kvcompose_spec is not None and (
                 cfg.sliding_window is not None or kvzip_spec is not None
                 or collect_fn is not None):
@@ -1232,11 +1289,11 @@ class Runner:
                 # a copy: a view would keep every layer's whole chunk of
                 # hidden states alive until the stack below
                 windows.append(h[:, -hidden_window:].clone())
-            x = _finish_layer(x, o, layer, cfg)
+            x = _finish_layer(x, o, layer, cfg, self.shard)
         logits = None
         if compute_logits:
             xl = rms_norm(x[:, -1:], params.ln_f, cfg.rms_norm_eps, cfg.rms_one_offset)
-            logits = lm_head_logits(xl, params, cfg)
+            logits = lm_head_logits(xl, params, cfg, self.shard)
         if kvzip_spec is None:
             cache = dataclasses.replace(cache, length=cache.length + T, offset=cache.offset + T)
         if scores:
@@ -1264,7 +1321,8 @@ class Runner:
         ctx = LayerCtx(layer_idx=l, hidden=hidden_l, queries=None, queries_prerope=None,
                        keys_prerope=None, positions=positions, attn_probs=None,
                        layer_params=layer, inv_freq=self.inv_freq, cfg=cfg,
-                       attention_scaling=self.attention_scaling, last_position=last_pos)
+                       attention_scaling=self.attention_scaling, last_position=last_pos,
+                       shard=self.shard)
         ctx = dataclasses.replace(ctx, queries=_buffer_queries(ctx, hidden_l, positions))
         keys_l, values_l = cache.keys[l], cache.values[l]
         mask_l = (cache.mask[l] if cache.mask is not None else
@@ -1295,6 +1353,6 @@ class Runner:
         if new_mask is not None and cache.mask is not None:
             cache.mask[l].copy_(new_mask)
         lengths = cache.length.clone()
-        lengths[l] = int(nlen)
+        lengths[l] = int(nlen) if self.shard is None else self.shard.max(nlen)
         return dataclasses.replace(cache, length=lengths)
 

@@ -1,0 +1,53 @@
+"""Which presses run under a mesh (tensor-parallel serving).
+
+A press sees the rank's kv heads only. Three classes (``ROADMAP.md``,
+"Presses under a mesh"):
+
+- (a) shard-local: each kv head is scored from its own keys, values and
+  group queries, and kept by its own top-k. These run as they are.
+- (b) an artifact or a draw by global head index (query statistics,
+  Q-filters, a surrogate's outputs, Duo's head pattern, gates, LoRA,
+  random draws): the rank would have to read its slice of the head axis.
+- (c) a decision across heads: ``AdaKVPress`` all-gathers its scores over
+  "model" (``LayerCtx.shard``) and keeps its own heads' part; a compacted
+  layer's length is the largest over the ranks (``Runner._layer_step``).
+
+The presses of ``MESH_PRESSES`` are held against the JAX package under a
+mesh; every other press raises ``NotImplementedError`` naming its ROADMAP
+item.
+"""
+
+from __future__ import annotations
+
+# Class (a), and the wrappers that run over them.
+SCORERS = ("KnormPress", "SnapKVPress", "PyramidKVPress", "ObservedAttentionPress",
+           "StreamingLLMPress", "ExpectedAttentionPress", "KeyDiffPress", "LagKVPress")
+DECODING = ("DecodingPress", "CompressionRatioDecodingPress")
+MESH_PRESSES = SCORERS + DECODING + ("AdaKVPress", "PrefillDecodingPress", "BasePress")
+
+# ROADMAP Queue A item 18: the presses refused under a mesh, one item each.
+MESH_ITEMS = {name: f"18.{i}" for i, name in enumerate((
+    # (a) shard-local arithmetic, not yet held against JAX under a mesh
+    "CapPress", "CURPress", "CriticalKVPress", "KeyRerotationPress",
+    "PerLayerCompressionPress", "ThinKPress", "ChunkPress", "ComposedPress", "MergingPress",
+    "BlockPress", "FinchPress", "DMSPress",
+    # (b) an artifact or a draw by global head index
+    "RandomPress", "QFilterPress", "KVzapPress", "ExpectedAttentionStatsPress",
+    "DuoAttentionPress", "FastKVzipPress", "RestoreKVPress",
+    # (c) a decision across heads
+    "TOVAPress", "CriticalAdaKVPress", "ChunkKVPress", "LUKVPress", "SimLayerKVPress",
+    "CompactorPress", "LeverageScorePress", "NonCausalAttnPress", "CAMPress", "KVzipPress",
+    "KVzipChunkScorer", "KVComposePress", "KVComposeCollector"), start=1)}
+
+
+def check_press(press) -> None:
+    """Raise ``NotImplementedError`` unless ``press`` and every press it
+    wraps run under a mesh."""
+    name = type(press).__name__
+    if name not in MESH_PRESSES:
+        raise NotImplementedError(f"{name} does not run under a mesh yet: ROADMAP Queue A item "
+                                  f"{MESH_ITEMS.get(name, '18')} (presses under a mesh)")
+    for attr in ("press", "base_press", "prefilling_press", "decoding_press"):
+        inner = getattr(press, attr, None)
+        if inner is not None:
+            check_press(inner)

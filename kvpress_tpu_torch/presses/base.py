@@ -40,6 +40,10 @@ class LayerCtx:
     # own LSE pass (ops/observed_colsum.py)
     last_position: Optional[int] = None  # positions[:, -1] as a host int (the
     # runner's offset + T - 1): a decode press reads it without a device sync
+    shard: Any = None                    # the runner's parallel.mesh.ModelShard
+    # under a mesh: the heads above are the rank's, from kv head
+    # ``shard.rank * H_kv`` on; a press that decides across heads gathers
+    # its scores over ``shard``
 
     @property
     def seq_len(self) -> int:

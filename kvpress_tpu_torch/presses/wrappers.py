@@ -141,6 +141,21 @@ def compact_headwise(keys, values, keep: torch.Tensor):
     return k2, v2, length, new_mask
 
 
+def _top_across_heads(ctx, scores: torch.Tensor, n_kept: int) -> torch.Tensor:
+    """(B, H, S) keep: the top ``n_kept * H`` of (B, H, S) scores across heads
+    x seq, by flat rank. Under a mesh (``ctx.shard``) the decision is taken
+    over every rank's heads (the scores all-gathered over "model", the
+    budget sized over all kv heads) and the rank keeps its own heads'
+    part."""
+    shard = ctx.shard
+    H = scores.shape[1]
+    if shard is not None:
+        scores = shard.all_gather(scores, dim=1)
+    B, Ha, S = scores.shape
+    keep = (_rank_desc(scores.reshape(B, Ha * S)) < n_kept * Ha).reshape(B, Ha, S)
+    return keep if shard is None else keep[:, shard.rank * H:(shard.rank + 1) * H]
+
+
 @dataclasses.dataclass(frozen=True)
 class AdaKVPress(BasePress):
     """Head-wise budget allocation (reference adakv_press.py:53-78): the top
@@ -177,12 +192,10 @@ class AdaKVPress(BasePress):
         if self.compression_ratio == 0.0:
             return keys, values, length, mask, state
         _refuse_bucket(self, ctx)
-        B, H, S, _ = keys.shape
+        S = keys.shape[2]
         scores = self.masked_scores(ctx, keys, values)
         n_kept = int(S * (1 - self.compression_ratio))
-        # Keep the top n_kept * H across heads x seq, by flat rank.
-        keep = _rank_desc(scores.reshape(B, H * S)) < n_kept * H
-        new_mask = mask & keep.reshape(B, H, S)
+        new_mask = mask & _top_across_heads(ctx, scores, n_kept)
         if self.compact:
             keys, values, length, new_mask = compact_headwise(keys, values, new_mask)
         return keys, values, length, new_mask, state
@@ -194,12 +207,10 @@ class AdaKVPress(BasePress):
         valid length. Slots past it score NEG_INF: they are never pinned or
         kept, since each head's valid slots alone fill the budget."""
         scores = _window_scores(self.press, ctx, keys, values, length)
-        B, H, S, _ = keys.shape
         n_kept = float32_budget(length, self.compression_ratio)
         n_safe = int(np.float32(n_kept) * np.float32(self.alpha_safeguard))
         scores = torch.where(_rank_desc(scores) < n_safe, BIG, scores)
-        keep = _rank_desc(scores.reshape(B, H * S)) < n_kept * H
-        return mask & keep.reshape(B, H, S)
+        return mask & _top_across_heads(ctx, scores, n_kept)
 
     def chunked_compress(self, ctx, keys, values, length: int, mask):
         """Returns (keys, values, length, mask)."""

@@ -36,8 +36,14 @@ through ``Runner`` (prefill with the press, question forward, decode).
   are copied to the host without blocking and read ``fetch_lag`` steps
   later, and nothing may change a step's tokens after it returned them.
 
+Tensor-parallel serving (``mesh=``, a ``torch.distributed`` ``DeviceMesh``):
+one process a rank, each with the same host loop; weights and the pool's kv
+heads over "model", slots over the batch axes (``ServingEngine._shard``).
+The presses of ``parallel.presses.MESH_PRESSES`` run there; others raise
+``NotImplementedError``.
+
 Not supported (``ValueError``, where JAX asserts): CAM-style merge presses
-and other decode-time presses; ``mesh=`` raises ``NotImplementedError``.
+and other decode-time presses.
 """
 
 from __future__ import annotations
@@ -176,7 +182,7 @@ def _compress_slot(runner: Runner, press, layer, l: int, b: int, sc: SlotCache, 
                     keys_prerope=None, positions=positions, attn_probs=None,
                     layer_params=layer, inv_freq=runner.inv_freq, cfg=cfg,
                     attention_scaling=runner.attention_scaling, kv_len=length,
-                    last_position=offset)
+                    last_position=offset, shard=runner.shard)
     scores = press.score_dynamic(dctx, dk, dv, length).to(torch.float32)   # (1, H, C)
     valid = (torch.arange(C, device=scores.device) < length) & sc.mask[l, b:b + 1]
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
@@ -190,10 +196,18 @@ def _compress_slot(runner: Runner, press, layer, l: int, b: int, sc: SlotCache, 
 def _decode_step(params: LlamaModel, tokens: torch.Tensor, sc: SlotCache, live: torch.Tensor,
                  dp_state: Optional[dict] = None, generator: Optional[torch.Generator] = None,
                  *, runner: Runner, decode_press=None, do_sample: bool = False,
-                 temperature: float = 1.0, top_p: float = 1.0):
+                 temperature: float = 1.0, top_p: float = 1.0, own: Optional[slice] = None,
+                 gather=None):
     """One token for every slot: ``tokens (N,)`` on the device, ``live (N,)``
     bool on the host. Returns (next tokens (N,), the pool with new host
     lengths and offsets, the decode press's state).
+
+    Under a mesh the pool's device tensors hold the slots ``own`` (their
+    kv heads on a sharded runner) and the host state every slot: the device
+    work runs for ``own`` only, the host bookkeeping for every slot, and
+    ``gather`` (``parallel.mesh.gather_batch``) brings every data shard's
+    rows: the next tokens, or under sampling the logits, so that every rank
+    draws every slot's token from its generator as one process would.
 
     ``Runner._layer_step``'s decode path with per-slot lengths: each layer
     appends at each slot's own length (a lane whose length is the capacity
@@ -204,15 +218,17 @@ def _decode_step(params: LlamaModel, tokens: torch.Tensor, sc: SlotCache, live: 
     token in a dead lane before the slot goes live."""
     cfg = runner.cfg
     dev = tokens.device
-    N, C = tokens.shape[0], sc.capacity
-    live_dev = live.to(dev)
-    x = embed_tokens(params, tokens[:, None], cfg)                          # (N, 1, E)
+    C = sc.capacity
+    own = own or slice(0, tokens.shape[0])
+    live_own = live[own]
+    live_dev = live_own.to(dev)
+    x = embed_tokens(params, tokens[own, None], cfg)                        # (n, 1, E)
     offsets = sc.offsets
-    rope, rope_local = runner._ropes(offsets.to(dev, torch.int64)[:, None])
+    rope, rope_local = runner._ropes(offsets[own].to(dev, torch.int64)[:, None])
     lengths = sc.lengths.clone()
-    lengths_dev = lengths.to(dev, torch.int64)
+    lengths_dev = lengths[:, own].to(dev, torch.int64)
     k_slot = torch.arange(C, device=dev)
-    lanes = torch.arange(N, device=dev)
+    lanes = torch.arange(live_own.shape[0], device=dev)
     if decode_press is not None:
         steps, buf_len = dp_state["steps"].clone(), dp_state["buf_len"].clone()
         buf_size = dp_state["buffer"].shape[2]
@@ -227,7 +243,7 @@ def _decode_step(params: LlamaModel, tokens: torch.Tensor, sc: SlotCache, live: 
         ck, cv, cmask = sc.keys[l], sc.values[l], sc.mask[l]
         cks = None if sc.key_scales is None else sc.key_scales[l]
         cvs = None if sc.value_scales is None else sc.value_scales[l]
-        clen = lengths[l]
+        clen = lengths[l, own]
         if bool((clen < C).all()):
             rows, at = lanes, lengths_dev[l]
         else:
@@ -249,8 +265,8 @@ def _decode_step(params: LlamaModel, tokens: torch.Tensor, sc: SlotCache, live: 
         allowed = cmask & allowed[:, None]
         attn = _slot_attention(runner, q, ck, cv, cks, cvs, allowed,
                                min(int(clen.max()) + 1, C), sc.bits)
-        x = _finish_layer(x, attn, layer, cfg)
-        lengths[l] = torch.where(live, clen + 1, clen)
+        x = _finish_layer(x, attn, layer, cfg, runner.shard)
+        lengths[l] = torch.where(live, lengths[l] + 1, lengths[l])
 
         if decode_press is None:
             continue
@@ -266,46 +282,59 @@ def _decode_step(params: LlamaModel, tokens: torch.Tensor, sc: SlotCache, live: 
         do = live & (steps[l] >= decode_press.compression_interval) & (lengths[l] > target)
         if sliding:
             do = torch.zeros_like(do)      # sliding layers are never compressed
-        for b in torch.nonzero(do)[:, 0].tolist():
+        for b in torch.nonzero(do[own])[:, 0].tolist():
+            g = own.start + b                  # the slot's index among all slots
             _compress_slot(runner, decode_press, layer, l, b, sc, ring[b:b + 1],
-                           int(lengths[l, b]), int(offsets[b]), n_top, x.dtype)
+                           int(lengths[l, g]), int(offsets[g]), n_top, x.dtype)
         lengths[l] = torch.where(do, torch.clamp(target, max=n_top), lengths[l])
         steps[l] = torch.where(do, 0, steps[l])
         buf_len[l] = torch.where(do, 0, buf_len[l])
 
     x = rms_norm(x, params.ln_f, cfg.rms_norm_eps, cfg.rms_one_offset)
-    logits = lm_head_logits(x[:, 0], params, cfg)                          # (N, V)
+    logits = lm_head_logits(x[:, 0], params, cfg, runner.shard)            # (n, V)
     if do_sample:
-        nxt = _sample_rows(logits, generator, temperature, top_p)
+        nxt = _sample_rows(logits if gather is None else gather(logits), generator,
+                           temperature, top_p)
     else:
         nxt = torch.argmax(logits, dim=-1)
+        if gather is not None:
+            nxt = gather(nxt)
     if decode_press is not None:
         dp_state = dict(dp_state, steps=steps, buf_len=buf_len)
     new_sc = dataclasses.replace(sc, lengths=lengths,
                                  offsets=torch.where(live, offsets + 1, offsets))
-    return torch.where(live_dev, nxt, tokens), new_sc, dp_state
+    return torch.where(live.to(dev), nxt, tokens), new_sc, dp_state
 
 
-def _insert_slot(sc: SlotCache, pc: KVCache, slot: int) -> SlotCache:
-    """Copy a (L, 1, H, C, D) request cache into slot ``slot`` of the pool."""
-    bufs = [(sc.keys, pc.keys), (sc.values, pc.values)]
-    if sc.key_scales is not None:
-        bufs += [(sc.key_scales, pc.key_scales), (sc.value_scales, pc.value_scales)]
-    for dst, src in bufs:
-        dst[:, slot].copy_(src[:, 0])
-    if pc.mask is None:
-        sc.mask[:, slot] = True
-    else:
-        sc.mask[:, slot].copy_(pc.mask[:, 0])
+def _insert_slot(sc: SlotCache, pc: KVCache, slot: int, own: Optional[slice] = None
+                 ) -> SlotCache:
+    """Copy a (L, 1, H, C, D) request cache into slot ``slot`` of the pool;
+    under a mesh, into the rank's pool if it holds the slot (``own``), the
+    host lengths and offset on every rank."""
+    own = own or slice(0, sc.n_slots)
+    if own.start <= slot < own.stop:
+        b = slot - own.start
+        bufs = [(sc.keys, pc.keys), (sc.values, pc.values)]
+        if sc.key_scales is not None:
+            bufs += [(sc.key_scales, pc.key_scales), (sc.value_scales, pc.value_scales)]
+        for dst, src in bufs:
+            dst[:, b].copy_(src[:, 0])
+        if pc.mask is None:
+            sc.mask[:, b] = True
+        else:
+            sc.mask[:, b].copy_(pc.mask[:, 0])
     lengths, offsets = sc.lengths.clone(), sc.offsets.clone()
     lengths[:, slot] = pc.length
     offsets[slot] = pc.offset
     return dataclasses.replace(sc, lengths=lengths, offsets=offsets)
 
 
-def _reset_slot_state(state: dict, slot: int) -> dict:
-    """Zero one slot's decode-press ring buffer and counters (admission)."""
-    state["buffer"][:, slot] = 0
+def _reset_slot_state(state: dict, slot: int, own: Optional[slice] = None) -> dict:
+    """Zero one slot's decode-press ring buffer (where the rank holds it)
+    and counters (admission)."""
+    own = own or slice(0, state["buffer"].shape[1])
+    if own.start <= slot < own.stop:
+        state["buffer"][:, slot - own.start] = 0
     steps, buf_len = state["steps"].clone(), state["buf_len"].clone()
     steps[:, slot] = 0
     buf_len[:, slot] = 0
@@ -421,9 +450,6 @@ class ServingEngine:
         max_admissions: Optional[int] = None,   # concurrent admissions; None: one
         # per free slot (each holds a whole uncompressed prefill until it lands)
     ):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving comes with ROADMAP Queue A "
-                                      "item 16 (parallel/)")
         self.decode_press = None
         if isinstance(press, PrefillDecodingPress):
             self.decode_press = press.decoding_press
@@ -462,6 +488,11 @@ class ServingEngine:
         if interleave and context_chunk is None:
             raise ValueError("interleave=True requires context_chunk= (the chunk is the "
                              "scheduling unit: a one-shot prefill is one indivisible call)")
+        # The slots this rank's pool holds, and how a step's rows of every
+        # data shard are gathered (both for every slot without a mesh).
+        self.own, self._gather = slice(0, n_slots), None
+        if mesh is not None:
+            runner, params = self._shard(runner, params, mesh, n_slots, press)
         self.tokenizer = tokenizer
         self.runner = runner
         self.params = params
@@ -481,14 +512,19 @@ class ServingEngine:
         self.interleave = bool(interleave)
         self.eos_ids = set(int(e) for e in eos_ids)
         self.dtype = params.dtype
-        self.sc = init_slot_cache(runner.cfg, n_slots, capacity, dtype=self.dtype,
+        n_own = self.own.stop - self.own.start
+        self.sc = init_slot_cache(runner.cfg, n_own, capacity, dtype=self.dtype,
                                   quantized=quantized, bits=kv_bits, device=self.device)
+        # The host lengths and offsets cover every slot on every rank.
+        self.sc = dataclasses.replace(self.sc, lengths=torch.zeros((runner.cfg.num_layers,
+                                                                    n_slots), dtype=torch.int32),
+                                      offsets=torch.zeros((n_slots,), dtype=torch.int32))
         self.dp_state = None
         if self.decode_press is not None:
             L, E = runner.cfg.num_layers, runner.cfg.hidden_size
             buf = max(self.decode_press.hidden_states_buffer_size, 1)
             self.dp_state = {
-                "buffer": torch.zeros((L, n_slots, buf, E), dtype=self.dtype, device=self.device),
+                "buffer": torch.zeros((L, n_own, buf, E), dtype=self.dtype, device=self.device),
                 "steps": torch.zeros((L, n_slots), dtype=torch.int32),
                 "buf_len": torch.zeros((L, n_slots), dtype=torch.int32),
             }
@@ -523,6 +559,38 @@ class ServingEngine:
         self._adm_gen = torch.Generator(device=self.device).manual_seed(adm_seed)
         self._t_run_start = None
         self._ttfts: list = []
+
+    def _shard(self, runner: Runner, params: LlamaModel, mesh, n_slots: int, press):
+        """Tensor-parallel serving over ``mesh`` (a ``DeviceMesh`` with a
+        "model" axis and optional "data" / "dcn" axes), as the JAX engine
+        lays it out: weights and the pool's kv heads over "model"; slots over
+        the batch axes when ``n_slots`` divides by their size, else every
+        data shard holds every slot. Every rank runs the same host loop, and
+        every admission (a batch of one, which cannot split over "data"), so
+        its queue, slot states, host lengths, LRU and statistics are those of
+        one process; only the rank that holds a slot inserts into it.
+        Returns the rank's runner and params."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from .parallel.mesh import batch_coord, gather_batch, shard_params
+        from .parallel.presses import check_press
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh= takes a torch.distributed DeviceMesh "
+                            f"(parallel.make_mesh), not {type(mesh).__name__}")
+        for p in (press, self.decode_press):
+            if p is not None:
+                check_press(p)
+        if runner.shard is None:
+            runner = runner.sharded(mesh)
+        if getattr(params, "shard", None) is None:
+            params = shard_params(params, mesh)
+        index, count = batch_coord(mesh)
+        if n_slots % count == 0:
+            n = n_slots // count
+            self.own = slice(index * n, (index + 1) * n)
+            self._gather = lambda x: gather_batch(x, mesh)
+        return runner, params
 
     # ---------------- admission ---------------- #
 
@@ -708,9 +776,9 @@ class ServingEngine:
         """Insert an issued admission's cache into the pool and stage its
         first token in a new tokens tensor (a pending step may hold the old
         one); the slot goes live in :meth:`_complete_admission`."""
-        self.sc = _insert_slot(self.sc, cache, slot)
+        self.sc = _insert_slot(self.sc, cache, slot, self.own)
         if self.dp_state is not None:
-            self.dp_state = _reset_slot_state(self.dp_state, slot)
+            self.dp_state = _reset_slot_state(self.dp_state, slot, self.own)
         tokens = self.tokens.clone()
         tokens[slot] = first
         self.tokens = tokens
@@ -796,7 +864,8 @@ class ServingEngine:
         self.tokens, self.sc, self.dp_state = _decode_step(
             self.params, self.tokens, self.sc, torch.from_numpy(self.live.copy()),
             self.dp_state, self._step_gen, runner=self.runner, decode_press=self.decode_press,
-            do_sample=self.do_sample, temperature=self.temperature, top_p=self.top_p)
+            do_sample=self.do_sample, temperature=self.temperature, top_p=self.top_p,
+            own=self.own, gather=self._gather)
         return self.tokens
 
     # ---------------- main loop ---------------- #
@@ -971,7 +1040,9 @@ class ServingEngine:
             "dropped": list(self._dropped),
             "retried_admissions": self._retries,
             "lru_entries": len(self._ctx_lru),
-            "lru_bytes": sum(_cache_nbytes(c) + r.numel() * r.element_size()
+            # Over every rank's kv heads, as one device would hold them.
+            "lru_bytes": sum(_cache_nbytes(c) * (self.runner.shard.size if self.runner.shard
+                                                 else 1) + r.numel() * r.element_size()
                              for c, r in self._ctx_lru.values()),
         }
         gaps = sorted(b - a for a, b in zip(drain_times, drain_times[1:]))

@@ -134,6 +134,8 @@ def test_sampled_answer_does_not_depend_on_earlier_questions(pipes):
 
 def test_options_of_later_slices_raise(pipes):
     # context_bucket is ported (tests/test_torch_bucketing.py), batch() too
-    # (tests/test_torch_pipeline_batch.py); tensor-parallel serving is not.
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # (tests/test_torch_pipeline_batch.py), and batch(mesh=) over a
+    # torch.distributed DeviceMesh (tests/test_torch_serving_parallel.py):
+    # any other mesh is refused.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pipes["torch"].batch([pipes["context"]], mesh=object())

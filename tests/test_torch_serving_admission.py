@@ -7,7 +7,7 @@ the in-flight dedup and with bucketing (the stored entry bit-equal below its
 length after its hits), compacting presses' measured shrink and their
 optimistic admission with its clamped retry and drop, DMS compact at a small
 capacity, a KeyRerotation admission's offset, and every refusal (JAX asserts
-where the port raises ValueError; ``mesh=`` raises NotImplementedError)."""
+where the port raises ValueError; ``mesh=`` takes only a DeviceMesh)."""
 
 import contextlib
 
@@ -367,5 +367,7 @@ def test_refusals_as_jax(m, tok, case):
 
 
 def test_mesh_is_refused_until_the_parallel_layer(m):
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # Tensor-parallel serving takes a torch.distributed DeviceMesh
+    # (tests/test_torch_serving_parallel.py); anything else is refused.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         kt.ServingEngine(m.runners()[1], m.params_t, mesh=object())

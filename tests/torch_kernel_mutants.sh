@@ -4,7 +4,7 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes thirty-two copies of the port in a temporary directory, each with one
+# It makes thirty-three copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (in the column sums a query
 # stage dropped and every stage taken without the causal test, a key tile
 # dropped from the row logsumexp; in the head-wise decode the tail, one
@@ -48,7 +48,11 @@
 # the next slot (serving_insert_slot), dead lanes advance their lengths
 # (serving_dead_lane_advance), and an admission writes its first token into
 # the tokens tensor a pending step holds (serving_tokens_in_place); the CPU
-# serving tests (tests/test_torch_serving*.py) fail on each too.
+# serving tests (tests/test_torch_serving*.py) fail on each too. One more
+# breaks tensor parallelism: a layer drops its all-reduce over "model" after
+# wd (tp_mlp_all_reduce), and chip_smoke.tp_serving_check (the model 2 world
+# over gloo on the one card) runs in it; tests/test_torch_parallel.py and
+# tests/test_torch_serving_parallel.py fail on it too.
 # Every copy must be rejected; the script exits 1 if one passes or if a
 # mutation did not apply. Mutant names given as arguments run those alone.
 set -u
@@ -62,7 +66,8 @@ mutants="colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
          flash_d96_k_step decode_d96_tail_words colsum_d96_k_step runner_bucket_len
          pipeline_rerotation_offset compact_masked_past_length duo_inverse_permutation
          kvzip_pass_writes_context kvcompose_rebuild_order serving_append_late
-         serving_insert_slot serving_dead_lane_advance serving_tokens_in_place"
+         serving_insert_slot serving_dead_lane_advance serving_tokens_in_place
+         tp_mlp_all_reduce"
 for m in ${@:-$mutants}; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
@@ -145,14 +150,17 @@ for m in ${@:-$mutants}; do
       sed -i 's/            rows, at = lanes, lengths_dev\[l\]$/            rows, at = lanes, lengths_dev[l] + 1/' "$sv"
       check=serving_check ;;
     serving_insert_slot)
-      sed -i 's/        self.sc = _insert_slot(self.sc, cache, slot)/        self.sc = _insert_slot(self.sc, cache, (slot + 1) % self.n_slots)/' "$sv"
+      sed -i 's/        self.sc = _insert_slot(self.sc, cache, slot, self.own)/        self.sc = _insert_slot(self.sc, cache, (slot + 1) % self.n_slots, self.own)/' "$sv"
       check=serving_check ;;
     serving_dead_lane_advance)
-      sed -i 's/        lengths\[l\] = torch.where(live, clen + 1, clen)/        lengths[l] = clen + 1/' "$sv"
+      sed -i 's/        lengths\[l\] = torch.where(live, lengths\[l\] + 1, lengths\[l\])/        lengths[l] = lengths[l] + 1/' "$sv"
       check=serving_check ;;
     serving_tokens_in_place)
       sed -i 's/        tokens = self.tokens.clone()/        tokens = self.tokens/' "$sv"
       check=serving_check ;;
+    tp_mlp_all_reduce)
+      sed -i 's/^        shard.all_reduce(mlp)$/        pass/' "$rn"
+      check=tp_serving_check ;;
   esac
   changed=$(diff -r kvpress_tpu_torch "$d/kvpress_tpu_torch" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
@@ -168,7 +176,8 @@ chip_smoke.kernel_ms = lambda fn, symbol, iters: chip_smoke.cuda_ms(fn, 1, 1)
 try:
     if os.environ["CHECK"] in ("bucketed_check", "rerotation_check", "compact_masked_check",
                                "duo_split_check", "kvzip_context_check",
-                               "kvcompose_rebuild_check", "serving_check"):
+                               "kvcompose_rebuild_check", "serving_check",
+                               "tp_serving_check"):
         dev = torch.device("cuda")
         params = kt.init_params(chip_smoke.flagship_config(16),
                                 torch.Generator(device=dev).manual_seed(0),

@@ -1,0 +1,189 @@
+"""Rank workers of the tensor-parallel tests (tests/test_torch_parallel.py,
+tests/test_torch_serving_parallel.py). This module imports neither JAX nor
+``kvpress_tpu``: the tests compute the JAX references in their own process
+and hand the ranks numpy arrays and the port's objects.
+
+``run_world(world, jobs, tmp_path)`` starts ``world`` ranks with the
+``spawn`` method (forking a process that runs JAX's threads is not safe).
+The ranks meet over gloo through a ``FileStore`` under ``tmp_path``, so that
+concurrent test workers never clash on a port, and each runs every job
+``{label: (kind, job)}`` with one CPU thread: ``KINDS[kind](job, mesh)`` on
+the mesh of ``job["mesh"]`` (meshes made in order, one per shape). Every
+job gathers its result over the mesh, and rank 0 returns them. The same
+functions with ``mesh=None`` are the port's single-process run.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def run_world(world: int, jobs: dict, tmp_path) -> dict:
+    """{label: rank 0's result} of ``jobs`` on a gloo world of ``world``
+    ranks."""
+    d = os.path.join(str(tmp_path), f"world-{world}-{len(os.listdir(tmp_path))}")
+    os.makedirs(d)
+    with open(os.path.join(d, "in.pkl"), "wb") as f:
+        pickle.dump(jobs, f)
+    mp.start_processes(_rank, args=(world, d), nprocs=world, start_method="spawn")
+    with open(os.path.join(d, "out.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def _rank(rank: int, world: int, d: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(d, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        with open(os.path.join(d, "in.pkl"), "rb") as f:
+            jobs = pickle.load(f)
+        meshes, out = {}, {}
+        for label, (kind, job) in jobs.items():
+            shape = tuple(job["mesh"].items())
+            if shape not in meshes:
+                meshes[shape] = mesh_of(job["mesh"])
+            out[label] = KINDS[kind](job, meshes[shape])
+        if rank == 0:
+            with open(os.path.join(d, "out.pkl"), "wb") as f:
+                pickle.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_of(shape: dict):
+    """A mesh from {"dcn": .., "data": .., "model": ..}."""
+    from kvpress_tpu_torch.parallel import make_mesh, make_mesh_hybrid
+
+    return make_mesh_hybrid(**shape) if "dcn" in shape else make_mesh(**shape)
+
+
+def as_numpy(t):
+    if t is None:
+        return None
+    return t.numpy().copy() if t.dtype in (torch.bool, torch.uint8, torch.int8) else \
+        t.detach().float().numpy()
+
+
+def gathered(t, mesh, batch: bool = True):
+    """A rank's shard of a cache or pool tensor gathered over ``mesh``: kv
+    heads, then the batch (or slot) axis."""
+    from kvpress_tpu_torch.parallel import gather_batch, gather_heads
+
+    if t is None or mesh is None:
+        return as_numpy(t)
+    t = gather_heads(t, mesh)
+    return as_numpy(gather_batch(t, mesh, dim=1) if batch else t)
+
+
+def port_params(job: dict):
+    import kvpress_tpu_torch as kt
+
+    return kt.params_from_jax(job["params"], job["cfg"], device="cpu", dtype=torch.float32)
+
+
+# --------------------------------------------------------------------- #
+# Runner jobs
+
+
+def prefill(job: dict, mesh=None) -> dict:
+    """The port's prefill of ``job`` (its numpy params, ids (B, S) and press;
+    the runner and params sharded over ``mesh``): the last logits and the
+    cache, and with ``job["decode"]`` the logits of one greedy token after
+    it, all gathered over the mesh."""
+    import kvpress_tpu_torch as kt
+    from kvpress_tpu_torch.parallel import data_shard, gather_batch, shard_params
+
+    params = port_params(job)
+    runner = kt.Runner.create(job["cfg"], attn_impl=job.get("attn_impl", "xla"),
+                              decode_kernel=False, device="cpu", mesh=mesh)
+    ids = torch.from_numpy(np.asarray(job["ids"], np.int64))
+    if mesh is not None:
+        params, ids = shard_params(params, mesh), data_shard(ids, mesh)
+    logits, cache, _ = runner.prefill(params, ids, press=job.get("press"), compute_logits=True,
+                                      dtype=torch.float32)
+    rows = (lambda t: t) if mesh is None else (lambda t: gather_batch(t, mesh))
+    out = dict(logits=as_numpy(rows(logits)), length=cache.length.numpy().copy(),
+               offset=int(cache.offset))
+    for name in ("keys", "values", "mask"):
+        out[name] = gathered(getattr(cache, name), mesh)
+    if job.get("decode"):
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        step, _, _ = runner.forward(params, tok, cache, logits_last_only=True)
+        out["decode"] = as_numpy(rows(step))
+    return out
+
+
+def shards(job: dict, mesh) -> dict:
+    """{model rank: {name: the rank's shard_params tensor as numpy}}; the
+    layers' tensors named ``<layer>.<name>``."""
+    from kvpress_tpu_torch.parallel import shard_params
+
+    sp = shard_params(port_params(job) if "module" not in job else job["module"], mesh)
+    mine = {f"{l}.{n}": as_numpy(p.data) for l, layer in enumerate(sp.layers)
+            for n, p in layer.named_parameters(recurse=False)}
+    mine.update({n: as_numpy(p.data) for n, p in sp.named_parameters(recurse=False)})
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (mesh.get_local_rank("model"), mine))
+    return dict(every)
+
+
+def cache_roundtrip(job: dict, mesh) -> dict:
+    """``shard_cache`` of the job's cache: the local shapes, and the shards
+    gathered back."""
+    from kvpress_tpu_torch.parallel import shard_cache
+
+    cache = job["cache"]
+    local = shard_cache(cache, mesh)
+    return dict(shape=tuple(local.keys.shape), mask_shape=tuple(local.mask.shape),
+                **{n: gathered(getattr(local, n), mesh) for n in ("keys", "values", "mask")})
+
+
+# --------------------------------------------------------------------- #
+# Engine jobs
+
+
+def serve(job: dict, mesh=None) -> dict:
+    """One engine run of ``job`` (requests (context ids, question ids,
+    max_new_tokens) and the engine's keywords) on the port, over ``mesh``
+    when it is given: the answers, the stats that are not times, the pool
+    gathered over the mesh, the slots this rank held and its local pool's
+    shape."""
+    import kvpress_tpu_torch as kt
+    from kvpress_tpu_torch import serving
+
+    params = port_params(job)
+    runner = kt.Runner.create(job["cfg"], attn_impl="xla", decode_kernel=False, device="cpu")
+    eng = serving.ServingEngine(runner, params, mesh=mesh, **job["engine"])
+    reqs = [serving.Request(list(c), list(q), n) for c, q, n in job["requests"]]
+    answers = eng.run(reqs)
+    sc = eng.sc
+    split = eng.own.stop - eng.own.start != eng.n_slots
+    pool = dict(lengths=sc.lengths.numpy().copy(), offsets=sc.offsets.numpy().copy(),
+                bits=sc.bits)
+    for name in ("keys", "values", "mask", "key_scales", "value_scales"):
+        pool[name] = gathered(getattr(sc, name), mesh, batch=split)
+    stats = {k: v for k, v in eng.last_stats.items() if not k.endswith("_s")}
+    return dict(answers=answers, stats=stats, pool=pool, own=(eng.own.start, eng.own.stop),
+                local_keys=tuple(sc.keys.shape))
+
+
+def batch(job: dict, mesh=None) -> list:
+    """``KVPressPipeline.batch(mesh=)`` on the toy tokenizer."""
+    import kvpress_tpu_torch as kt
+    from toy_tokenizer import ToyTokenizer
+
+    cfg = job["cfg"]
+    pipe = kt.KVPressPipeline(kt.Runner.create(cfg, device="cpu"), port_params(job),
+                              ToyTokenizer(cfg.vocab_size))
+    return pipe.batch(mesh=mesh, **job["batch"])
+
+
+KINDS = {"prefill": prefill, "shards": shards, "cache_roundtrip": cache_roundtrip,
+         "serve": serve, "batch": batch}
