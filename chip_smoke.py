@@ -123,30 +123,30 @@
    Then ``Runner.prefill_chunked`` at 32K over int4 KV on its fused route
    (``flash_attention_quant`` at 4 bits) held against its dense route
    (``fused_int4_check``; also the peak memory of chunked and one-shot
-   prefill), and a Llama-3.1-8B-class body (16 of 32 layers, random int4 weights)
+   prefill), and a Llama-3.1-8B-class body (8 of 32 layers, random int4 weights)
    through the pipeline with int4 KV, Knorm and a 131,072-token context in
    chunks of 8,192 (``long_context_run``). Then the other architectures at
-   full width: the Qwen3-8B body (36 layers, bf16, q/k-norm; ``qwen3_run``)
-   and the Gemma-3-27B body (int4, cut to 31 of its 62 layers, sliding
+   full width: the Qwen3-8B body (18 of 36 layers, bf16, q/k-norm;
+   ``qwen3_run``) and the Gemma-3-27B body (int4, cut to 18 of its 62 layers, sliding
    layers with window 1,024, a SigLIP tower; ``gemma3_run``) through the
    pipeline at 32K,
    Knorm and bf16 KV (Qwen3 also ExpectedAttention), Gemma3 with 4 images
    one-shot and with ``context_chunk=8192``: the or-mask on every layer's prefill, the window
    on the sliding layers' flash and decode launches, the sliding layers
    uncompressed; each also held against the dense path (Qwen3 at depth 1
-   and 36, Gemma3 cut to 6 layers at 4,096 tokens with two images), and
-   Qwen3's decode rate and idle share. Then the Gemma-3-12B body (24 of
+   and 18, Gemma3 cut to 6 layers at 4,096 tokens with two images), and
+   Qwen3's decode rate and idle share. Then the Gemma-3-12B body (12 of
    its 48 layers, bf16, head_dim 256; ``gemma3_12b_run``) at 32K: Knorm with the
    4 images one-shot and chunked, ObservedAttention and
    AdaKV(ObservedAttention) without images, Knorm with int8 KV, every
    launch on a head_dim-256 instantiation; cut to 6 layers against the
    dense path at depth 1 and 6 with two images. Then the Phi-3-mini-4k body
-   (32 layers, bf16, head_dim 96, 32/32 heads; ``phi3_run``) with a
+   (16 of 32 layers, bf16, head_dim 96, 32/32 heads; ``phi3_run``) with a
    3,840-token context: Knorm with bf16, int8 and int4 KV (int4 weights),
    with int8 KV chunked by 1,024, and AdaKV(Knorm) compact on the head-wise
    runner, every launch on a head_dim-96 instantiation of the payload its
    options ask for; its prefill breakdown, decode rate and idle share; held
-   against the dense path at depth 1 and 32. Every prefill's wall time and
+   against the dense path at depth 1 and 16. Every prefill's wall time and
    peak memory are printed. The launch counts are set to 0 before each run
    and read after it, and every kernel of a path must have been launched in
    it. A 2,048-token run of each kernel path is also held against the dense
@@ -169,7 +169,7 @@
    plain version checked, each check with its planted fault; phase 2 also
    holds ``decode_attention`` at the slot step's ragged shape (8 slots of
    8,449, each slot's causality and window in the mask). Tensor-parallel
-   serving (``tp_serving_run``): S2's mix through ``ServingEngine(mesh=)``
+   serving (``tp_serving_run``): 8 requests of S2's mix through ``ServingEngine(mesh=)``
    over a world of one over NCCL in this process, its answers, host lengths
    and offsets and every pool tensor identical to the single-process
    engine's (a world of one sums over one rank), decode 16 a slot step and
@@ -178,7 +178,21 @@
    device; gloo takes CUDA tensors), ``model=2`` and ``data=2``, 8 requests
    of 2,048 and 4,096 tokens each: every answer teacher-forced against the
    single-process runner, host lengths, each rank's launches and the (16, 4)
-   or (32, 8) heads its kernels took.
+   or (32, 8) heads its kernels took. Context parallelism (``cp_run``):
+   ``context_parallel_generate`` at the flagship shape over a world of one
+   over NCCL at 32K (Knorm 0.5, 32 new tokens, bf16 then int8 shards): flash
+   16 a prefill, lengths and layer 0's kept keys the single-process
+   prefill's, tokens teacher-forced against it, the wall time, peak memory
+   and a decode step's busy time and idle share beside the single-process
+   step's; then a 4-rank world sharing the card over gloo (gloo's send and
+   recv do not take CUDA tensors: each ring block goes through host
+   memory), seq 4 over 16,384 tokens (bf16, int8, and fused: the host
+   loop's tokens) and model 2 x seq 2 over 8,192, teacher-forced against
+   ``ChunkPress(Knorm(0.5), 4096)``, with each rank's flash launches (16
+   (r + 1) on seq rank r), lengths and heads. Phase 2 holds flash at the
+   ring's block shapes (prior 4,096, 8,192, 12,288 over 4,096 keys; a
+   window of 1,024 at head_dim 64 and 256, with rows that see no key, and
+   the LSE combine with the diagonal block against the dense attention).
 4. Timings: prefill at 32K under each press and chunked (int8 KV; int4 KV
    on both routes), and decode at batch 4 x 32K
    context, ratio 0.5 (Knorm: int4 KV + int8 weights, decode kernel on and
@@ -374,7 +388,8 @@ def visible_pairs(mask, prior: int, T: int, length: int | None = None,
 # Phase 2: each kernel against its plain version at the main-path shapes
 
 
-def kernel_checks(kt, torch, report):
+def kernel_checks(kt, torch, report, ring_only: bool = False):
+    """Phase 2; ``ring_only``: the context-parallel ring's block shapes alone."""
     from kvpress_tpu_torch.cache import dequantize_kv, quantize_kv
     from kvpress_tpu_torch.ops import decode as dec
     from kvpress_tpu_torch.ops.attention import (NEG_INF, attention_bias, gqa_attention,
@@ -585,8 +600,8 @@ def kernel_checks(kt, torch, report):
         elif window:            # a windowed prefill: rows hole + 256 .. + 511 see the hole
             assert window >= 768 and T >= 2 * window
             hole = T // 2
-        else:
-            hole = prior // 2 if prior else min(512, T // 4)
+        else:                   # a ring block behind the diagonal (prior >= S) too
+            hole = min(prior, S) // 2 if prior else min(512, T // 4)
         lo = max(0, hole + 256 - prior)
         hi = min(T, lo + 512)
         faults = {"one skipped key step": with_rows(lo, hi, plain_rows(
@@ -633,6 +648,10 @@ def kernel_checks(kt, torch, report):
                 kr, vr = kd.repeat_interleave(G_, 1), vd.repeat_interleave(G_, 1)
                 lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, kr, vr, is_causal=True, scale=kw["sm_scale"]), 3)
+            elif lib_mask == "full":    # a ring block behind the diagonal: every key seen
+                kr, vr = kd.repeat_interleave(G_, 1), vd.repeat_interleave(G_, 1)
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, kr, vr, scale=kw["sm_scale"]), 5)
             elif lib_mask == "lower_right":
                 # No keep-mask, a prior: the causal mask aligned to the last of
                 # the slots the rows can see (prior + T) is the same.
@@ -663,6 +682,116 @@ def kernel_checks(kt, torch, report):
     def quantized(kd, vd, bits):
         (kq, ks), (vq, vs) = quantize_kv(kd, bits), quantize_kv(vd, bits)
         return [kq, vq, ks, vs]
+
+    def ring_window_case(variant, q, k, v, prior, window, iters=5):
+        """A sliding layer's ring block one behind the diagonal: T = S,
+        ``prior`` >= S and a window shorter than the block, so rows from
+        ``S - 1 + window - prior`` on see no key of it. The live rows against
+        the plain version (output and LSE); the dead rows must store 0 and LSE
+        -inf (the plain version's LSE is finite, near -2e38); then the block
+        combined by ``lse_combine`` with its diagonal block, from the kernel
+        and from the plain version, against the dense windowed attention over
+        both blocks, and the combine with the block's weight taken as 1
+        rejected."""
+        from kvpress_tpu_torch.parallel.ring import lse_combine
+
+        B_, Hq_, T_, D_ = q.shape
+        Hkv_, S_ = k.shape[1], k.shape[2]
+        G_ = Hq_ // Hkv_
+        kw = dict(sm_scale=D_ ** -0.5, window=window)
+        label = f"flash_attention[{variant}]"
+        call = lambda: fl.flash_attention(q, k, v, prior, return_lse=True, **kw)
+        got, lse = call()
+        torch.cuda.synchronize()
+        again, lse_again = call()
+        torch.cuda.synchronize()
+        if not (torch.equal(got, again) and torch.equal(lse, lse_again)):
+            failures.append(f"{label}: two launches differ")
+        plain = fl.flash_attention_plain
+        (ref, ref_lse), plain_ms = timed(
+            lambda: plain_rows(plain, q, [k, v], prior, None, 0, T_, 1024, **kw))
+        n_live = max(0, min(T_, S_ - 1 + window - prior))
+        dead_ok = (bool((got[:, :, n_live:] == 0).all())
+                   and bool((lse[..., n_live:] == float("-inf")).all())
+                   and bool((ref_lse[..., n_live:] < -1e37).all()))
+        if not (0 < n_live < T_ and dead_ok):
+            failures.append(f"{label}: rows {n_live}.. with no visible key are not 0 with LSE "
+                            "-inf (the plain version's LSE finite below -1e37)")
+        lse_err = (lse[..., :n_live] - ref_lse[..., :n_live]).abs().max().item()
+        if not lse_err <= LSE_LIMIT:
+            failures.append(f"{label}: row logsumexp differs by {lse_err:.3e} > {LSE_LIMIT}")
+        live = lambda t: t[:, :, :n_live]
+        hole = S_ - window // 2           # slots every row 0 .. 511 sees
+        faults = {"the window not applied": live(plain_rows(
+                      plain, q, [k, v], prior, None, 0, T_, 1024, **{**kw, "window": None})[0]),
+                  "one skipped key step": live(torch.cat([plain_rows(
+                      plain, q, [k, v], prior, fault_mask(None, B_, S_, hole, hkv=Hkv_), 0, 512,
+                      512, **kw)[0], ref[:, :, 512:]], 2))}
+        ms = kernel_ms(call, "flash_sm90", iters)
+        kr, vr = k.repeat_interleave(G_, 1), v.repeat_interleave(G_, 1)
+        allowed = allowed_mask(None, B_, prior, T_, S_, window=window, hkv=1, g=1)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=allowed,
+                                                             scale=kw["sm_scale"]), 3)
+        del kr, vr, allowed
+        seen = torch.clamp(S_ - 1 + window - prior - torch.arange(T_), 0, S_)
+        flops = 4 * D_ * G_ * B_ * Hkv_ * int(seen.sum())
+        moved = nbytes(q, got, lse) + nbytes(k, v) * (S_ - max(0, prior - window + 1)) // S_
+        record("flash_attention", variant, live(got), live(ref), faults, ms, plain_ms, moved,
+               flops, lib)
+
+        # The ring's combine: the diagonal block (prior 0) first, then this one.
+        kd2, vd2 = rnd(B_, Hkv_, T_, D_), rnd(B_, Hkv_, T_, D_)
+        dense = plain_rows(plain, q, [torch.cat([k, kd2], 2), torch.cat([v, vd2], 2)], S_,
+                           None, 0, T_, 1024, **kw)[0]
+        start = (torch.zeros((B_, Hq_, T_, D_), device=dev),
+                 torch.full((B_, Hq_, T_), float("-inf"), device=dev))
+        diag = fl.flash_attention(q, kd2, vd2, 0, return_lse=True, **kw)
+        diag_plain = plain_rows(plain, q, [kd2, vd2], 0, None, 0, T_, 1024, **kw)
+        ring_out = lse_combine(*lse_combine(*start, *diag), got, lse)[0].to(q.dtype)
+        ring_plain = lse_combine(*lse_combine(*start, *diag_plain), ref, ref_lse)[0].to(q.dtype)
+        out1, lse1 = lse_combine(*start, *diag)
+        weight_one = (torch.exp(lse1 - torch.logaddexp(lse1, lse))[..., None] * out1
+                      + got.float()).to(q.dtype)
+        rows = {what: compare(x, dense)[1] for what, x in (
+            ("kernel blocks", ring_out), ("plain blocks", ring_plain),
+            ("planted: the block's weight taken as 1", weight_one))}
+        report(f"    ring combine with the diagonal block against the dense windowed attention "
+               f"over both: worst row {rows}; {T_ - n_live} rows of the block see no key")
+        if not (rows["kernel blocks"] <= ROW_LIMIT and rows["plain blocks"] <= ROW_LIMIT
+                and rows["planted: the block's weight taken as 1"] > ROW_LIMIT):
+            failures.append(f"{label}: the ring's combine over the block: worst rows {rows} "
+                            f"(limit {ROW_LIMIT})")
+
+    def ring_blocks():
+        """Context parallelism (parallel/ring.py): each ring step launches
+        flash_attention on a block of T = S = Sl queries and keys with
+        ``prior`` = (query block - key block) * Sl, a block wholly in the
+        past at prior >= S, which chunked prefill never launches (S = prior
+        + T there). The gloo world's seq 4 blocks of the flagship (Sl 4,096)
+        at prior 4,096, 8,192 and 12,288, each with its row LSE; a sliding
+        layer's block behind the diagonal (window 1,024: rows with no
+        visible key) at head_dim 64 and at Gemma-3-12B's 256 (GQA 16/8)."""
+        B, T = 1, CP_BLOCK
+        q, kd, vd = rnd(B, Hq, T, D), rnd(B, Hkv, T, D), rnd(B, Hkv, T, D)
+        for prior in (T, 2 * T, 3 * T):
+            flash_case("flash_attention", f"bf16 B1 T{T} S{T} prior{prior} ring block", None, q,
+                       [kd, vd], prior, None, chunk=1024, iters=5, lib_mask="full")
+        ring_window_case(f"bf16 B1 T{T} S{T} prior{T} ring block window 1024", q, kd, vd, T,
+                         1024)
+        del q, kd, vd
+        q, kd, vd = rnd(B, 16, T, 256), rnd(B, 8, T, 256), rnd(B, 8, T, 256)
+        flash_case("flash_attention", f"bf16 B1 T{T} S{T} prior{T} D256 GQA 16/8 ring block",
+                   None, q, [kd, vd], T, None, chunk=1024, iters=5, lib_mask="full")
+        ring_window_case(f"bf16 B1 T{T} S{T} prior{T} D256 GQA 16/8 ring block window 1024", q,
+                         kd, vd, T, 1024)
+        del q, kd, vd
+        torch.cuda.empty_cache()
+
+    if ring_only:
+        ring_blocks()
+        if failures:
+            raise AssertionError("; ".join(failures))
+        return results
 
     # flash_attention: prefill-shaped, B=1, T=S=8192, random keep-mask (every
     # tile takes the keep-bit test).
@@ -788,6 +917,8 @@ def kernel_checks(kt, torch, report):
                None, q, [kd, vd], prior, None, chunk=256, iters=3, lib_mask="lower_right")
     del q, kd, vd
     torch.cuda.empty_cache()
+
+    ring_blocks()
 
     def or_case(variant, q, k, v, prior, window, kg, span, chunk, iters, lower_fault=False):
         """flash_attention with the same-image or-mask (no keep-mask, as a
@@ -4382,8 +4513,8 @@ def serving_check(kt, torch, tokenizer_cls, params, report):
 # Tensor-parallel serving: parallel/, ServingEngine(mesh=)
 
 
-TP_CONTEXTS = SV_CONTEXTS     # the world of one: S2's mix (int8 slots), whole
-TP_REQUESTS = SV_REQUESTS
+TP_CONTEXTS = SV_CONTEXTS     # the world of one: S2's contexts (int8 slots)
+TP_REQUESTS = SV_REQUESTS // 2     # the first 8 requests of S2's mix, for the script's time
 TP_NEW = SV_NEW
 TP_GLOO_CONTEXTS = (2048, 4096)   # the 2-rank worlds over gloo: short contexts
 TP_GLOO_REQUESTS = 8
@@ -4630,11 +4761,314 @@ def tp_serving_check(kt, torch, tokenizer_cls, params, report):
     return tp_serving_run(kt, torch, tokenizer_cls, params, report, worlds=("model2",))
 
 
-# The 8B-class and Gemma-3-12B pipeline runs use the first half of their
-# layers, for the whole script's time (its multi-pass phase added about 70 s);
-# every layer does the same work at the same shapes.
-LONG_CONTEXT_RUN_LAYERS = 16
-GEMMA3_12B_RUN_LAYERS = 24
+# --------------------------------------------------------------------- #
+# Context parallelism: parallel/ring, context_prefill, decode
+
+
+CP_CONTEXT = CONTEXT_TOKENS   # the world of one: the flagship's 32K, whole
+CP_NEW = 32
+CP_BLOCK = 4096               # the gloo worlds' block of the sequence (Sl)
+CP_GLOO_NEW = 16
+# The 4-rank world shares the one card over gloo: seq 4 over 16,384 tokens
+# (bf16 and int8 shards, host loop and fused), and model 2 x seq 2 over 8,192.
+CP_GLOO_JOBS = {
+    "seq4 bf16": dict(shape={"seq": 4}, context=4 * CP_BLOCK, quantized=False, fused=False),
+    "seq4 int8": dict(shape={"seq": 4}, context=4 * CP_BLOCK, quantized=True, fused=False),
+    "seq4 bf16 fused": dict(shape={"seq": 4}, context=4 * CP_BLOCK, quantized=False, fused=True),
+    "model2 x seq2 bf16": dict(shape={"seq": 2, "model": 2}, context=2 * CP_BLOCK,
+                               quantized=False, fused=False),
+}
+
+
+def cp_context(torch, n: int, vocab: int) -> list[int]:
+    return torch.randint(0, vocab, (n,), generator=torch.Generator().manual_seed(n)).tolist()
+
+
+def cp_rank(rank: int, world: int, d: str):
+    """One rank of the 4-rank world on the one card (its own process, started
+    by ``cp_gloo_world``): gloo through a FileStore under ``d``, the
+    flagship's params drawn as ``main_path`` draws them, and for each job of
+    ``d/job.json`` its mesh, ``context_parallel_generate`` with Knorm(0.5)
+    (launch counts set to 0 before and read after, the (query, kv) heads
+    each flash launch took) and ``context_parallel_prefill`` again for the
+    per-layer lengths. Writes ``d/rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import kvpress_tpu_torch as kt
+    from kvpress_tpu_torch.parallel import ring as ring_mod
+    from kvpress_tpu_torch.parallel import (SeqShard, context_parallel_generate,
+                                            context_parallel_prefill, make_seq_mesh,
+                                            shard_params)
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"rank {rank}: no CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with open(f"{d}/job.json") as f:
+        jobs = json.load(f)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{d}/store", world), rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT))
+    try:
+        cfg = flagship_config(16)
+        params = kt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                dtype=torch.bfloat16, device=dev)
+        heads = set()
+        flash = ring_mod.flash_attention
+
+        def recording(q, k, *a, **kw):
+            heads.add((q.shape[1], k.shape[1]))
+            return flash(q, k, *a, **kw)
+
+        ring_mod.flash_attention = recording
+        out = {}
+        for label, job in jobs.items():
+            shape = job["shape"]
+            mesh = make_seq_mesh(shape["seq"], shape.get("model", 1), device_type="cuda")
+            model = "model" in mesh.mesh_dim_names
+            runner = kt.Runner.create(cfg, attn_impl="flash", device=dev,
+                                      mesh=mesh if model else None)
+            p = shard_params(params, mesh) if model else params
+            ids = torch.tensor([job["ids"]], device=dev)
+            kw = dict(runner=runner, mesh=mesh, press=kt.KnormPress(0.5),
+                      quantized=job["quantized"], kv_bits=8)
+            heads.clear()
+            staged = SeqShard.staged_blocks
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            toks = context_parallel_generate(p, ids, max_new_tokens=CP_GLOO_NEW,
+                                             fused=job["fused"], **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launched(read_counts())
+            lengths = context_parallel_prefill(p, ids, **kw)[2].tolist()
+            out[label] = dict(tokens=toks[0].tolist(), counts=counts, heads=sorted(heads),
+                              lengths=lengths, wall=wall, seq_rank=mesh.get_local_rank("seq"),
+                              staged=SeqShard.staged_blocks - staged)
+            del p
+            torch.cuda.empty_cache()
+        with open(f"{d}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def cp_gloo_world(kt, torch, params, report, tie, labels=tuple(CP_GLOO_JOBS)):
+    """The 4-rank world on the one card over gloo (``CP_GLOO_JOBS``): every
+    rank's tokens alike, teacher-forced against the single-process runner
+    with ``ChunkPress(KnormPress(0.5), CP_BLOCK)`` (the same math by
+    construction); the fused loop's tokens the host loop's; each rank's
+    lengths (Knorm's half of its block), flash launches (16 (r + 1) a
+    prefill on seq rank r: a block in the future is skipped) and heads."""
+    import tempfile
+
+    cfg = flagship_config(16)
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    jobs = {label: dict(CP_GLOO_JOBS[label], ids=cp_context(torch, CP_GLOO_JOBS[label]["context"],
+                                                            vocab)) for label in labels}
+    d = tempfile.mkdtemp(dir=ROOT / "build")
+    with open(f"{d}/job.json", "w") as f:
+        json.dump(jobs, f)
+    start = time.perf_counter()
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'tests')!r}]; "
+            f"import chip_smoke; chip_smoke.cp_rank(int(sys.argv[1]), 4, {d!r})")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], cwd=ROOT) for r in range(4)]
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                raise AssertionError(f"CP gloo world: a rank failed (exit codes "
+                                     f"{[p.poll() for p in procs]})")
+            if time.perf_counter() - start > TP_RANK_TIMEOUT:
+                raise AssertionError(f"CP gloo world: it did not end in {TP_RANK_TIMEOUT} s")
+            time.sleep(0.2)
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"CP gloo world: a rank failed (exit codes "
+                                 f"{[p.returncode for p in procs]})")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    world_s = time.perf_counter() - start
+    ranks = [json.load(open(f"{d}/rank{r}.json")) for r in range(4)]
+    runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=params.device)
+    knorm = kt.KnormPress(0.5)
+    for label, job in jobs.items():
+        toks = ranks[0][label]["tokens"]
+        if any(r[label]["tokens"] != toks for r in ranks):
+            raise AssertionError(f"CP {label}: the ranks' tokens differ")
+        n_seq = job["shape"]["seq"]
+        n_flip, worst, cache, _ = serving_reference(
+            kt, torch, runner, params, kt.ChunkPress(knorm, chunk_length=CP_BLOCK),
+            (job["ids"], [job["ids"][-1]]), toks, quantized=job["quantized"], kv_bits=8)
+        del cache
+        check_teacher_forced(f"CP {label}", n_flip, worst, len(toks), tie)
+        tp = job["shape"].get("model", 1)
+        want_heads = [[cfg.num_heads // tp, cfg.num_kv_heads // tp]]
+        for r, out in enumerate(ranks):
+            got = out[label]
+            flash = got["counts"].get("flash_attention", 0)
+            if flash != L * (got["seq_rank"] + 1) or set(got["counts"]) - {
+                    "flash_attention", "flash_attention_bf16", "flash_attention_d64",
+                    "flash_attention_bf16_d64"}:
+                raise AssertionError(f"CP {label} rank {r}: launches {got['counts']}, not "
+                                     f"flash_attention {L * (got['seq_rank'] + 1)} alone")
+            if got["lengths"] != [knorm.n_kept(CP_BLOCK)] * L:
+                raise AssertionError(f"CP {label} rank {r}: lengths {got['lengths']}")
+            if got["heads"] != want_heads:
+                raise AssertionError(f"CP {label} rank {r}: flash took heads {got['heads']}, "
+                                     f"not {want_heads[0]}")
+        report(f"  CP {label} ({job['context']} tokens, {n_seq} seq blocks of {CP_BLOCK}, "
+               f"{CP_GLOO_NEW} new): teacher-forced against the single-process runner with "
+               f"ChunkPress(Knorm(0.5), {CP_BLOCK}): {n_flip} near-tie flips, the widest gap "
+               f"{worst:.4f} (limit {tie:.4f}); per rank: flash launches "
+               f"{[r[label]['counts'].get('flash_attention', 0) for r in ranks]}, (query, kv) "
+               f"heads {ranks[0][label]['heads']}, lengths {knorm.n_kept(CP_BLOCK)} a layer, "
+               f"blocks through host memory {[r[label]['staged'] for r in ranks]}; the generate "
+               f"call {max(r[label]['wall'] for r in ranks):.2f} s (gloo through the host: no "
+               f"multi-card speed)")
+    if "seq4 bf16 fused" in jobs and "seq4 bf16" in jobs:
+        if ranks[0]["seq4 bf16 fused"]["tokens"] != ranks[0]["seq4 bf16"]["tokens"]:
+            raise AssertionError("CP seq4: the fused loop's tokens differ from the host loop's")
+        report("  CP seq4: the fused loop's tokens are the host loop's")
+    report(f"  CP gloo world of 4 ranks: {world_s:.1f} s (spawn and weights included)")
+
+
+def cp_world_of_one(kt, torch, params, report, tie):
+    """The flagship at 32K through ``context_parallel_generate`` over a world
+    of one over NCCL in this process, Knorm(0.5), 32 new tokens, bf16 and
+    then int8 shards; against the single-process runner on the same weights:
+    equal kept lengths per layer (and layer 0's kept keys bit-equal: they do
+    not depend on attention), tokens teacher-forced within the bf16 tie
+    limit, flash launched 16 times a prefill; the wall time and peak memory
+    of each, and one decode step's device busy time and idle share beside
+    the single-process step's. Returns the runs' launch counts and the CP
+    flash launches."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from kvpress_tpu_torch.parallel import (context_parallel_decode_step,
+                                            context_parallel_generate, context_parallel_prefill,
+                                            grow_shards, make_seq_mesh)
+
+    cfg = flagship_config(16)
+    L, dev = cfg.num_layers, params.device
+    runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=dev)
+    knorm = kt.KnormPress(0.5)
+    ctx = cp_context(torch, CP_CONTEXT, cfg.vocab_size)
+    ids = torch.tensor([ctx], device=dev)
+    totals = {}
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", init_method=f"file://{store}/nccl", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT))
+    try:
+        mesh = make_seq_mesh(1, device_type="cuda")
+        for quantized in (False, True):
+            label = f"CP world of one over {dist.get_backend()}, {'int8' if quantized else 'bf16'} shards"
+            kw = dict(runner=runner, mesh=mesh, press=knorm, quantized=quantized, kv_bits=8)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            toks = context_parallel_generate(params, ids, max_new_tokens=CP_NEW, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counts = read_counts()
+            for name, n in counts.items():
+                totals[name] = totals.get(name, 0) + n
+            if counts["flash_attention"] != L or counts["flash_attention_quant"] or \
+                    counts["decode_attention"]:
+                raise AssertionError(f"{label}: launches {launched(counts)}, not flash_attention "
+                                     f"{L} alone")
+            shards = context_parallel_prefill(params, ids, **kw)
+            _, cache, _ = runner.prefill(params, ids, press=knorm, quantized=quantized, kv_bits=8)
+            if shards[2].tolist() != cache.length.tolist():
+                raise AssertionError(f"{label}: lengths {shards[2].tolist()}, the single-process "
+                                     f"prefill's {cache.length.tolist()}")
+            n0 = int(cache.length[0])
+            if not torch.equal(shards[0][0][..., :n0, :], cache.keys[0][..., :n0, :]):
+                raise AssertionError(f"{label}: layer 0's kept keys differ")
+            del shards, cache
+            got = toks[0].tolist()
+            n_flip, worst, cache, _ = serving_reference(kt, torch, runner, params, knorm,
+                                                        (ctx, [ctx[-1]]), got,
+                                                        quantized=quantized, kv_bits=8)
+            del cache
+            check_teacher_forced(label, n_flip, worst, len(got), tie)
+            report(f"  {label}: {CP_CONTEXT} tokens, {CP_NEW} new: {wall:.2f} s, peak memory "
+                   f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} GiB over the "
+                   f"{held / 2**30:.3f} GiB held before); launches {launched(counts)}; lengths "
+                   f"and layer 0's kept keys the single-process prefill's; teacher-forced: "
+                   f"{n_flip} near-tie flips, the widest gap {worst:.4f} (limit {tie:.4f})")
+        # One decode step, context parallel (the dense split-KV partials) and
+        # single-process (the decode kernel), over the same Knorm cache.
+        shards = grow_shards(context_parallel_prefill(params, ids, runner=runner, mesh=mesh,
+                                                      press=knorm), 64)
+        tok = ids[:, -1:]
+        cp_wall, cp_k = device_kernels(lambda: context_parallel_decode_step(
+            params, tok, shards, CP_CONTEXT, runner=runner, mesh=mesh), 4)
+        _, cache, _ = runner.prefill(params, ids, press=knorm)
+        cache = kt.resize(cache, int(cache.length.max()) + 64)
+        sp_wall, sp_k = device_kernels(lambda: runner.forward(params, tok, cache,
+                                                              logits_last_only=True), 4)
+        readings = []
+        for name, wall_ms, kernels in (("context parallel", cp_wall, cp_k),
+                                       ("single-process", sp_wall, sp_k)):
+            busy = sum(ms for ms, _ in kernels.values())
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:3]
+            readings.append(f"{name} {wall_ms:.2f} ms a step, device busy {busy:.2f} ms, idle "
+                            f"{1 - busy / wall_ms:.1%} (largest: "
+                            + ", ".join(f"{k[:40]} {v[0]:.3f} ms" for k, v in top) + ")")
+        report("  CP world of one, one decode step over the 32K Knorm cache: "
+               + "; ".join(readings))
+        del shards, cache
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    totals["flash_attention_cp"] = totals["flash_attention"]
+    return totals
+
+
+def cp_run(kt, torch, tokenizer_cls, params, report, worlds=("one", "gloo"),
+           labels=tuple(CP_GLOO_JOBS)):
+    """Context-parallel prefill and distributed decode at the flagship shape:
+    the world of one over NCCL against the single-process path, then the
+    4-rank gloo world on the one card (its jobs ``labels``). Returns the
+    world of one's launch counts, with the ring's flash launches as
+    ``flash_attention_cp``."""
+    from kvpress_tpu_torch.ops import _build
+
+    _build.build()          # before any rank is spawned (a no-op once built)
+    tie = F32_RATIO * 2 * serving_noise(kt, torch, params, report)   # the TP phase's limit
+    counts = cp_world_of_one(kt, torch, params, report, tie) if "one" in worlds else {}
+    if "gloo" in worlds:
+        cp_gloo_world(kt, torch, params, report, tie, labels)
+    return counts
+
+
+def cp_check(kt, torch, tokenizer_cls, params, report):
+    """The ring mutant's check: the seq 4 world's bf16 host loop (a world of
+    one has a single ring step, so a wrong combine shows only across ranks)."""
+    cp_run(kt, torch, tokenizer_cls, params, report, worlds=("gloo",), labels=("seq4 bf16",))
+
+
+# The other bodies' pipeline runs use the first quarter of their layers
+# (the 8B-class and Gemma-3-12B bodies) or the first half (Qwen3-8B,
+# Phi-3-mini), for the whole script's time (inside 1,200 s on a slow run
+# with the context-parallel phase); every layer does the same work at the
+# same shapes, and each kind of layer is kept.
+LONG_CONTEXT_RUN_LAYERS = 8
+GEMMA3_12B_RUN_LAYERS = 12
+QWEN3_RUN_LAYERS = 18
+PHI3_RUN_LAYERS = 16
 
 
 def long_context_run(kt, torch, tokenizer_cls, report):
@@ -5254,14 +5688,14 @@ def pipeline_run(kt, torch, label, pipe, prefills, needed, unwanted, report, **k
 
 
 def qwen3_run(kt, torch, tokenizer_cls, report):
-    """The Qwen3-8B body at full width and depth (seeded random bf16 weights,
-    q/k-norm spread) through ``KVPressPipeline`` with Knorm(0.5) and with
-    ExpectedAttention(0.5), bf16 KV, a 32,768-token context, the two
-    questions and 32 new tokens; then its
+    """The Qwen3-8B body at full width, its first ``QWEN3_RUN_LAYERS`` of 36
+    layers (seeded random bf16 weights, q/k-norm spread), through
+    ``KVPressPipeline`` with Knorm(0.5) and with ExpectedAttention(0.5), bf16
+    KV, a 32,768-token context, the two questions and 32 new tokens; then its
     decode rate and idle share over the compressed cache, and the kernel
-    path against the dense path at depth 1 and 36. Returns the launch
-    counts."""
-    cfg = qwen3_8b_config()
+    path against the dense path at depth 1 and ``QWEN3_RUN_LAYERS``.
+    Returns the launch counts."""
+    cfg = qwen3_8b_config(QWEN3_RUN_LAYERS)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(36)
     t0 = time.perf_counter()
@@ -5293,7 +5727,7 @@ def qwen3_run(kt, torch, tokenizer_cls, report):
     del pipe
     torch.cuda.empty_cache()
 
-    # Where the prefill's time goes, on the body cut to 4 of its 36 layers
+    # Where the prefill's time goes, on the body cut to 4 of its layers
     # (every layer does the same work); then decode over the compressed
     # cache: tok/s (B=1, 32 steps, median of 3 passes) and one step's device
     # breakdown (idle share).
@@ -5334,9 +5768,9 @@ def qwen3_run(kt, torch, tokenizer_cls, report):
     return counts
 
 
-# The Gemma-3-27B pipeline runs' depth: 31 of its 62 layers (26 sliding, 5
-# global) keep the whole script near 700 s since the decode-time phase came.
-GEMMA3_27B_RUN_LAYERS = 31
+# The Gemma-3-27B pipeline runs' depth: 18 of its 62 layers (15 sliding, 3
+# global), for the whole script's time.
+GEMMA3_27B_RUN_LAYERS = 18
 
 
 def gemma3_run(kt, torch, tokenizer_cls, report):
@@ -5593,8 +6027,9 @@ def phi3_mini_4k_config(num_layers: int = 32):
 
 
 def phi3_run(kt, torch, tokenizer_cls, report):
-    """The Phi-3-mini-4k body at full width and depth (32 layers, seeded
-    random bf16 weights, head_dim 96, one query head per kv head) through
+    """The Phi-3-mini-4k body at full width, its first ``PHI3_RUN_LAYERS`` of
+    32 layers (seeded random bf16 weights, head_dim 96, one query head per kv
+    head), through
     ``KVPressPipeline`` with a 3,840-token context, the two questions (152
     and 4 tokens) and 32 new tokens, within its 4,096 positions: (a) Knorm,
     bf16 KV; (b) Knorm, int8 KV (the 152-token question on
@@ -5603,9 +6038,9 @@ def phi3_run(kt, torch, tokenizer_cls, report):
     with the head-wise decode. Every launch must be a head_dim-96 one, on the
     payload its options ask for, and the layer lengths right. Then the
     prefill's device breakdown, decode tok/s at B=1 with its idle share, and
-    the kernel path against the dense path at depth 1 and 32. Returns the
-    launch counts of the runs."""
-    cfg = phi3_mini_4k_config()
+    the kernel path against the dense path at depth 1 and ``PHI3_RUN_LAYERS``.
+    Returns the launch counts of the runs."""
+    cfg = phi3_mini_4k_config(PHI3_RUN_LAYERS)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(96)
     t0 = time.perf_counter()
@@ -5685,7 +6120,7 @@ def phi3_run(kt, torch, tokenizer_cls, report):
     del params4
     torch.cuda.empty_cache()
 
-    # Where the prefill's time goes (all 32 layers), then decode over the
+    # Where the prefill's time goes (every layer of the run), then decode over the
     # compressed cache: tok/s (B=1, 32 steps, median of 3 passes) and one
     # step's device breakdown (idle share).
     ids = torch.randint(3, cfg.vocab_size, (1, T), generator=gen, device=dev)
@@ -5946,6 +6381,9 @@ SOURCES = {
     "decode_headwise": ("decode_headwise", _CSRC + "decode_headwise.cu",
                         "kvpress_tpu/ops/decode_headwise.py:236", "bf16 B4 T1 16K ragged",
                         "decode_headwise_d64"),
+    # a context-parallel ring step's block behind the diagonal (seq 4, Sl 4,096)
+    "flash_attention_ring": ("flash_attention", _CSRC + "flash.cu", "kvpress_tpu/ops/flash.py:154",
+                             "bf16 B1 T4096 S4096 prior4096 ring block", "flash_attention_cp"),
     # the Duo split decode's two buffers (flagship, 32K)
     "decode_attention_duo_retrieval": ("decode_attention", _CSRC + "decode.cu",
                                        "kvpress_tpu/ops/decode.py:212",
@@ -6183,13 +6621,21 @@ def main() -> int:
     for name, n in tp_serving_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] += n
     report(f"  the tensor-parallel phase took {time.perf_counter() - t_phase:.1f} s")
+    report("phase 3: context-parallel prefill and distributed decode at the flagship shape: a "
+           f"world of one over NCCL at {CP_CONTEXT} tokens against the single-process path "
+           "(bf16 and int8 shards), then a 4-rank world over gloo on the one card (seq 4 at "
+           f"{4 * CP_BLOCK} tokens: bf16, int8, fused; model 2 x seq 2 at {2 * CP_BLOCK})")
+    t_phase = time.perf_counter()
+    for name, n in cp_run(kt, torch, ToyTokenizer, params, report).items():
+        launches[name] = launches.get(name, 0) + n
+    report(f"  the context-parallel phase took {time.perf_counter() - t_phase:.1f} s")
     report("phase 3: chunked prefill's int4 routes at the flagship shape, 32K")
     for name, n in fused_int4_check(kt, torch, params, report).items():
         launches[name] += n
     report("phase 3: the 8B-class body at 131,072 tokens, chunked")
     for name, n in long_context_run(kt, torch, ToyTokenizer, report).items():
         launches[name] += n
-    report("phase 3: the Qwen3-8B body at full width and depth, 32K")
+    report(f"phase 3: the Qwen3-8B body at full width, {QWEN3_RUN_LAYERS} of 36 layers, 32K")
     for name, n in qwen3_run(kt, torch, ToyTokenizer, report).items():
         launches[name] += n
     report(f"phase 3: the Gemma-3-27B body (int4, {GEMMA3_27B_RUN_LAYERS} of 62 layers) with 4 "
@@ -6202,7 +6648,8 @@ def main() -> int:
            "chunked, paths A and AdaKV(Observed), int8 KV, 32K")
     for name, n in gemma3_12b_run(kt, torch, ToyTokenizer, report).items():
         launches[name] += n
-    report("phase 3: the Phi-3-mini-4k body (bf16, 32 layers, head_dim 96, 32/32 heads), "
+    report(f"phase 3: the Phi-3-mini-4k body (bf16, {PHI3_RUN_LAYERS} of 32 layers, head_dim 96, "
+           "32/32 heads), "
            f"{PHI3_CONTEXT_TOKENS} tokens: Knorm with bf16, int8 and int4 KV, chunked by "
            f"{PHI3_CHUNK_TOKENS}, AdaKV(Knorm) compact")
     for name, n in phi3_run(kt, torch, ToyTokenizer, report).items():

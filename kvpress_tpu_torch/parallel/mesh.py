@@ -77,6 +77,23 @@ def make_mesh_hybrid(dcn: int = 1, data: int = 1, model: int = 1,
                             mesh_dim_names=("dcn", "data", "model"))
 
 
+def make_seq_mesh(seq: int, model: int = 1, order: tuple[str, str] = ("model", "seq"),
+                  device_type: Optional[str] = None):
+    """A mesh with a ``"seq"`` axis for context parallelism: ``("seq",)``
+    when ``model`` is 1, else the two axes in ``order``. Ranks fill the mesh
+    in row-major order, as JAX's ``devices.reshape`` does, so rank ``r`` of
+    a ``("model", "seq")`` mesh is model ``r // seq``, seq ``r % seq``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if model == 1:
+        return init_device_mesh(_device_type(device_type), (seq,), mesh_dim_names=("seq",))
+    if sorted(order) != ["model", "seq"]:
+        raise ValueError(f"order must hold 'model' and 'seq', got {order}")
+    sizes = {"model": model, "seq": seq}
+    return init_device_mesh(_device_type(device_type), tuple(sizes[a] for a in order),
+                            mesh_dim_names=tuple(order))
+
+
 def _batch_axes(mesh) -> tuple[str, ...]:
     """The data-like axes of ``mesh``, ``"dcn"`` outermost."""
     return tuple(a for a in ("dcn", "data") if a in mesh.mesh_dim_names)
@@ -129,6 +146,72 @@ def _all_gather(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
 def model_shard(mesh, device) -> ModelShard:
     return ModelShard(group=mesh.get_group("model"), rank=mesh.get_local_rank("model"),
                       size=axis_size(mesh, "model"), device=torch.device(device))
+
+
+def _stage_through_host(group, device) -> bool:
+    # gloo's send and recv read and write the tensor's memory from the host:
+    # a CUDA pointer aborts the rank ("writev: Bad address", torch 2.11, one
+    # H100), while its collectives take CUDA tensors.
+    return torch.device(device).type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard(ModelShard):
+    """A rank's place on the ``"seq"`` axis (context parallelism): its block
+    of the sequence is ``rank``, of ``size``. Besides the collectives of
+    ``ModelShard`` it has the ring's rotation (``rotate``), the counterpart
+    of ``jax.lax.ppermute`` with the permutation ``i -> i + 1``.
+
+    ``staged``: the rotation moves each block through host memory (a gloo
+    group and CUDA tensors), counted in ``SeqShard.staged_blocks``."""
+    staged: bool = False
+
+    staged_blocks = 0        # blocks a staged rotation moved, over the process
+
+    def rotate(self, *tensors: torch.Tensor) -> list[torch.Tensor]:
+        """Each tensor sent to seq rank ``rank + 1`` and replaced by the one
+        that seq rank ``rank - 1`` sent (mod ``size``). A world of one
+        returns them as they are."""
+        if self.size == 1:
+            return list(tensors)
+        nxt = dist.get_global_rank(self.group, (self.rank + 1) % self.size)
+        prv = dist.get_global_rank(self.group, (self.rank - 1) % self.size)
+        send = [t.contiguous() for t in tensors]
+        if self.staged:
+            send = [t.cpu() for t in send]
+            SeqShard.staged_blocks += len(send)
+        recv = [torch.empty_like(t) for t in send]
+        ops = [op for s, r in zip(send, recv)
+               for op in (dist.P2POp(dist.isend, s, nxt, self.group),
+                          dist.P2POp(dist.irecv, r, prv, self.group))]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if self.staged:
+            recv = [r.to(t.device, non_blocking=True) for r, t in zip(recv, tensors)]
+        return recv
+
+
+def seq_shard(mesh, device) -> SeqShard:
+    """The rank's ``SeqShard`` of ``mesh``'s ``"seq"`` axis."""
+    group = mesh.get_group("seq")
+    return SeqShard(group=group, rank=mesh.get_local_rank("seq"), size=axis_size(mesh, "seq"),
+                    device=torch.device(device), staged=_stage_through_host(group, device))
+
+
+def seq_block(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
+    """This rank's block of ``x`` along the sequence dimension ``dim`` (ids
+    (B, S) by default): the counterpart of sharding over ``P(None, "seq")``."""
+    size, rank = axis_size(mesh, "seq"), mesh.get_local_rank("seq")
+    if x.shape[dim] % size:
+        raise ValueError(f"a sequence of {x.shape[dim]} does not split over {size} seq shards")
+    return _block(x, dim, rank, size)
+
+
+def gather_seq(x: torch.Tensor, mesh, dim: int = 3) -> torch.Tensor:
+    """Every seq shard's block of ``x`` along ``dim`` (the slot axis of a
+    cache block ``(L, B, H, Sl, D)`` by default), in seq order: the global
+    array of a tensor sharded over ``"seq"``."""
+    return _all_gather(x, mesh.get_group("seq"), axis_size(mesh, "seq"), dim)
 
 
 def validate_tp(cfg: ModelConfig, model_parallel: int) -> None:

@@ -15,6 +15,15 @@ A press sees the rank's kv heads only. Three classes (``ROADMAP.md``,
 The presses of ``MESH_PRESSES`` are held against the JAX package under a
 mesh; every other press raises ``NotImplementedError`` naming its ROADMAP
 item.
+
+Over a ``"seq"`` mesh (context parallelism, ``parallel/context_prefill.py``
+and ``parallel/decode.py``) a press compresses each rank's block of the
+sequence on its own: the single-device ``ChunkPress(press, S / N)``. It sees
+its block's queries and no attention probabilities, and a decode-time press
+its own shard with per-shard targets. ``SEQ_PRESSES`` (prefill) and
+``SEQ_DECODE_PRESSES`` (decode) are held against the JAX package's
+``context_parallel_prefill`` and ``context_parallel_decode_step``; every
+other press raises ``NotImplementedError`` naming ROADMAP Queue A item 19.
 """
 
 from __future__ import annotations
@@ -51,3 +60,22 @@ def check_press(press) -> None:
         inner = getattr(press, attr, None)
         if inner is not None:
             check_press(inner)
+
+
+# Context parallelism: the presses held against JAX's shard-local runs.
+SEQ_PRESSES = ("KnormPress", "StreamingLLMPress", "SnapKVPress", "KeyDiffPress", "BasePress")
+SEQ_DECODE_PRESSES = ("DecodingPress", "CompressionRatioDecodingPress")
+SEQ_ITEM = "19"
+
+
+def check_seq_press(press, decode: bool = False) -> None:
+    """Raise ``NotImplementedError`` unless ``press`` runs shard-local over a
+    ``"seq"`` mesh: a prefill press of ``SEQ_PRESSES``, or (``decode``) a
+    decode-time press of ``SEQ_DECODE_PRESSES`` over one of them."""
+    name = type(press).__name__
+    allowed = SEQ_DECODE_PRESSES if decode else SEQ_PRESSES
+    if name not in allowed:
+        raise NotImplementedError(f"{name} does not run over a seq mesh yet: ROADMAP Queue A item "
+                                  f"{SEQ_ITEM} (presses under context parallelism)")
+    if decode:
+        check_seq_press(press.base_press)

@@ -68,7 +68,8 @@ class CAMPress(DecodingPress):
         probs = window_attention_probs(ctx.queries[:, :, -1:], keys, ctx.scale, length - 1)
         valid = torch.arange(S, device=keys.device) < length
         attn_sum = attn_sum + torch.where(valid, group_mean(probs[:, :, 0], H), 0.0)
-        buf, buf_len, steps, do, n_top, _ = self._advance(ctx, state, length, S)
+        buf, buf_len, steps, hit, n_top, target = self._advance(ctx, state, length, S)
+        do = hit and length > target
         rng_step = state["rng_step"] + 1
         if do:
             scores = self._score_buffer(ctx, buf, keys, values, length).mean(dim=1)   # (B, S)
@@ -83,7 +84,7 @@ class CAMPress(DecodingPress):
                                   attn_sum.new_zeros((B, H, S - n_top))], dim=2)
             length = n_top
             mask = torch.ones((B, H, S), dtype=torch.bool, device=keys.device)
-        state = self._finish_state(buf, buf_len, steps, do)
+        state = self._finish_state(buf, buf_len, steps, do, hit, False)
         state.update(attn_sum=attn_sum, rng_step=rng_step)
         return keys, values, length, mask, state
 

@@ -13,8 +13,10 @@ the payload and scales ride the same gather: nothing is requantized.
 ``Runner.prefill_chunked``'s compression pass uses BudgetDecodingPress.
 
 ``target_value_vec`` gives the serving engine's per-slot targets from the
-host's per-slot positions. Not ported yet: ``sync_state`` (the distributed
-decode's replicated counters, ROADMAP Queue A item 16).
+host's per-slot positions. ``sync_state=True`` (the distributed decode,
+``parallel/decode.py``) resets the counters and the buffer on every interval
+hit, whether or not this shard compressed, so every shard's state stays the
+same.
 """
 
 from __future__ import annotations
@@ -105,8 +107,9 @@ class DecodingPress(BasePress):
 
     def _advance(self, ctx, state, length: int, S: int):
         """Ring-buffer append of this call's hidden states and the interval
-        counters. Returns (buf, buf_len, steps, do, n_top, target): ``do`` when
-        the interval is hit and the cache is longer than the target."""
+        counters. Returns (buf, buf_len, steps, interval_hit, n_top, target):
+        the cache is compressed when the interval is hit and it is longer
+        than the target."""
         T = ctx.hidden.shape[1]
         buf = state["buffer"]
         buf_size = buf.shape[1]
@@ -118,8 +121,8 @@ class DecodingPress(BasePress):
         steps = state["steps"] + 1
         n_top = min(self.target_bound(ctx, buf_size), S)
         target = int(self.target_value(ctx, length))
-        do = steps >= self.compression_interval and length > target
-        return buf, buf_len, steps, do, n_top, target
+        interval_hit = steps >= self.compression_interval
+        return buf, buf_len, steps, interval_hit, n_top, target
 
     def _score_buffer(self, ctx, buf, keys, values, length: int) -> torch.Tensor:
         """The cache's scores against the buffered window, slots past
@@ -136,31 +139,35 @@ class DecodingPress(BasePress):
         return torch.where(valid, scores, torch.full_like(scores, NEG_INF))
 
     @staticmethod
-    def _finish_state(buf, buf_len, steps, do) -> dict:
-        if do:
+    def _finish_state(buf, buf_len, steps, do, interval_hit, sync_state) -> dict:
+        if (interval_hit if sync_state else do):
             steps = buf_len = 0
         return {"buffer": buf, "buf_len": buf_len, "steps": steps}
 
-    def decode_compress(self, ctx, keys, values, length: int, mask, state):
+    def decode_compress(self, ctx, keys, values, length: int, mask, state, sync_state=False):
         """Returns (keys, values, length, mask, state): every slot ordered by
         score and the length cut to the target when the interval is hit and
-        the cache is longer than the target; else all as given."""
+        the cache is longer than the target; else all as given.
+        ``sync_state``: the counters reset on every interval hit."""
         S = keys.shape[2]
-        buf, buf_len, steps, do, n_top, target = self._advance(ctx, state, length, S)
+        buf, buf_len, steps, hit, n_top, target = self._advance(ctx, state, length, S)
+        do = hit and length > target
         if do:
             idx = order_desc(self._score_buffer(ctx, buf, keys, values, length), n_top)
             keys, values = _gather_front(keys, idx), _gather_front(values, idx)
             length = min(target, n_top)
             mask = torch.ones(keys.shape[:3], dtype=torch.bool, device=keys.device)
-        return keys, values, length, mask, self._finish_state(buf, buf_len, steps, do)
+        return keys, values, length, mask, self._finish_state(buf, buf_len, steps, do, hit,
+                                                              sync_state)
 
     def decode_compress_quantized(self, ctx, keys, values, key_scales, value_scales,
-                                  kv_bits: int, length: int, mask, state):
+                                  kv_bits: int, length: int, mask, state, sync_state=False):
         """``decode_compress`` over int8 / packed-int4 payloads: scored on a
         dequantized transient, gathered at payload width with the scales
         (no requantization)."""
         S = keys.shape[2]
-        buf, buf_len, steps, do, n_top, target = self._advance(ctx, state, length, S)
+        buf, buf_len, steps, hit, n_top, target = self._advance(ctx, state, length, S)
+        do = hit and length > target
         if do:
             dt = ctx.hidden.dtype
             scores = self._score_buffer(ctx, buf, dequantize_kv(keys, key_scales, kv_bits, dt),
@@ -172,7 +179,7 @@ class DecodingPress(BasePress):
             length = min(target, n_top)
             mask = torch.ones(keys.shape[:3], dtype=torch.bool, device=keys.device)
         return (keys, values, key_scales, value_scales, length, mask,
-                self._finish_state(buf, buf_len, steps, do))
+                self._finish_state(buf, buf_len, steps, do, hit, sync_state))
 
     def score_dynamic(self, dctx: LayerCtx, keys, values, length: int) -> torch.Tensor:
         """The base press's scores against a valid length."""
@@ -264,8 +271,9 @@ class PrefillDecodingPress(BasePress):
         return self.decoding_press is None or self.decoding_press.supports_quantized_decode
 
     def decode_compress_quantized(self, ctx, keys, values, key_scales, value_scales,
-                                  kv_bits: int, length: int, mask, state):
+                                  kv_bits: int, length: int, mask, state, sync_state=False):
         if self.decoding_press is None:
             return keys, values, key_scales, value_scales, length, mask, state
         return self.decoding_press.decode_compress_quantized(
-            ctx, keys, values, key_scales, value_scales, kv_bits, length, mask, state)
+            ctx, keys, values, key_scales, value_scales, kv_bits, length, mask, state,
+            sync_state=sync_state)

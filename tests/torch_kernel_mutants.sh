@@ -4,7 +4,7 @@
 #
 #     bash tests/torch_kernel_mutants.sh
 #
-# It makes thirty-three copies of the port in a temporary directory, each with one
+# It makes thirty-four copies of the port in a temporary directory, each with one
 # kernel deliberately broken in its CUDA source (in the column sums a query
 # stage dropped and every stage taken without the causal test, a key tile
 # dropped from the row logsumexp; in the head-wise decode the tail, one
@@ -52,7 +52,11 @@
 # breaks tensor parallelism: a layer drops its all-reduce over "model" after
 # wd (tp_mlp_all_reduce), and chip_smoke.tp_serving_check (the model 2 world
 # over gloo on the one card) runs in it; tests/test_torch_parallel.py and
-# tests/test_torch_serving_parallel.py fail on it too.
+# tests/test_torch_serving_parallel.py fail on it too. One more breaks context
+# parallelism: the ring combines each block with weight 1 in place of
+# exp(lse_blk - lse_new) (cp_ring_block_weight), and chip_smoke.cp_check (the
+# seq 4 world over gloo on the one card) runs in it;
+# tests/test_torch_context_prefill.py fails on it too.
 # Every copy must be rejected; the script exits 1 if one passes or if a
 # mutation did not apply. Mutant names given as arguments run those alone.
 set -u
@@ -67,7 +71,7 @@ mutants="colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
          pipeline_rerotation_offset compact_masked_past_length duo_inverse_permutation
          kvzip_pass_writes_context kvcompose_rebuild_order serving_append_late
          serving_insert_slot serving_dead_lane_advance serving_tokens_in_place
-         tp_mlp_all_reduce"
+         tp_mlp_all_reduce cp_ring_block_weight"
 for m in ${@:-$mutants}; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
@@ -82,6 +86,7 @@ for m in ${@:-$mutants}; do
   ca=$d/kvpress_tpu_torch/cache.py
   du=$d/kvpress_tpu_torch/ops/duo_decode.py
   sv=$d/kvpress_tpu_torch/serving.py
+  rg=$d/kvpress_tpu_torch/parallel/ring.py
   check=kernel_checks
   case $m in
     colsum_query_tile)
@@ -161,6 +166,9 @@ for m in ${@:-$mutants}; do
     tp_mlp_all_reduce)
       sed -i 's/^        shard.all_reduce(mlp)$/        pass/' "$rn"
       check=tp_serving_check ;;
+    cp_ring_block_weight)
+      sed -i 's/    w_blk = torch.where(dead, 0.0, torch.exp(lse_blk - lse_new))/    w_blk = torch.where(dead, 0.0, torch.ones_like(lse_new))/' "$rg"
+      check=cp_check ;;
   esac
   changed=$(diff -r kvpress_tpu_torch "$d/kvpress_tpu_torch" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
@@ -177,7 +185,7 @@ try:
     if os.environ["CHECK"] in ("bucketed_check", "rerotation_check", "compact_masked_check",
                                "duo_split_check", "kvzip_context_check",
                                "kvcompose_rebuild_check", "serving_check",
-                               "tp_serving_check"):
+                               "tp_serving_check", "cp_check"):
         dev = torch.device("cuda")
         params = kt.init_params(chip_smoke.flagship_config(16),
                                 torch.Generator(device=dev).manual_seed(0),

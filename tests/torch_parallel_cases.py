@@ -24,20 +24,38 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def run_world(world: int, jobs: dict, tmp_path) -> dict:
+def run_world(world: int, jobs: dict, tmp_path, cases: str = __name__) -> dict:
     """{label: rank 0's result} of ``jobs`` on a gloo world of ``world``
-    ranks."""
+    ranks; ``cases`` names the module whose ``KINDS`` and ``mesh_of`` the
+    ranks use."""
+    return finish_world(start_world(world, jobs, tmp_path, cases))
+
+
+def start_world(world: int, jobs: dict, tmp_path, cases: str = __name__):
+    """``run_world`` started and not waited for: the caller computes its
+    references meanwhile, then calls ``finish_world`` on the handle."""
     d = os.path.join(str(tmp_path), f"world-{world}-{len(os.listdir(tmp_path))}")
     os.makedirs(d)
     with open(os.path.join(d, "in.pkl"), "wb") as f:
         pickle.dump(jobs, f)
-    mp.start_processes(_rank, args=(world, d), nprocs=world, start_method="spawn")
+    ctx = mp.start_processes(_rank, args=(world, d, cases), nprocs=world, join=False,
+                             start_method="spawn")
+    return ctx, d
+
+
+def finish_world(handle) -> dict:
+    ctx, d = handle
+    while not ctx.join():
+        pass
     with open(os.path.join(d, "out.pkl"), "rb") as f:
         return pickle.load(f)
 
 
-def _rank(rank: int, world: int, d: str):
+def _rank(rank: int, world: int, d: str, cases: str = __name__):
+    import importlib
+
     torch.set_num_threads(1)
+    module = importlib.import_module(cases)
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(d, "store"), world),
                             rank=rank, world_size=world)
     try:
@@ -47,8 +65,8 @@ def _rank(rank: int, world: int, d: str):
         for label, (kind, job) in jobs.items():
             shape = tuple(job["mesh"].items())
             if shape not in meshes:
-                meshes[shape] = mesh_of(job["mesh"])
-            out[label] = KINDS[kind](job, meshes[shape])
+                meshes[shape] = module.mesh_of(job["mesh"])
+            out[label] = module.KINDS[kind](job, meshes[shape])
         if rank == 0:
             with open(os.path.join(d, "out.pkl"), "wb") as f:
                 pickle.dump(out, f)
