@@ -193,12 +193,34 @@
    ring's block shapes (prior 4,096, 8,192, 12,288 over 4,096 keys; a
    window of 1,024 at head_dim 64 and 256, with rows that see no key, and
    the LSE combine with the diagonal block against the dense attention).
+   KVzap training and its surrogate served (``kvzap_run``, phase "KZ"): (a)
+   ``init_params_int8`` at Llama-3.1-8B's published shape (32 layers,
+   128,256 words, untied; int4 layers, int8 embedding and head) with its
+   time and peak (the weights alone), then one pipeline call at 8,192
+   tokens (Knorm 0.5, int4 KV, both questions, 16 new; flash and int4
+   ``decode_attention`` counted exactly); (b) ``collect_scores`` at the
+   flagship's width over 16 repeat prompts of synthetic 1,024-word
+   documents (a chat-template stub tokenizer), 256 tokens each, document
+   0's layers 0 and 15 held against their float64 recomputation from the
+   captured probabilities, hidden states and values, X against the hidden
+   states; (c) ``train_linear`` (R^2 > 0) and ``train_mlp`` at its defaults
+   (the validation loss falls); (d) the trained MLP through the pipeline over
+   an 8,192-word document: KVzap(0.5), DMS(KVzap) at the median target mask
+   only and with ``decoding=True`` (masked slots grow through the steps),
+   the surrogate through ``save_kvzap_model`` / ``load_kvzap_model`` and the
+   int8 params through ``utils.save_params`` / ``load_params`` (bit-equal,
+   the same answers), a decode step under ``utils.profile_trace`` (the trace
+   names the decode kernel); (e) DMS(KVzap) compact served under a mesh: 2
+   requests of 2,048 tokens through the world of one over NCCL (identical to
+   one process) and the ``model=2`` gloo world (heads (16, 4), answers
+   teacher-forced, the compacted lengths the reference's).
 4. Timings: prefill at 32K under each press and chunked (int8 KV; int4 KV
    on both routes), and decode at batch 4 x 32K
    context, ratio 0.5 (Knorm: int4 KV + int8 weights, decode kernel on and
    off; path B: bf16 KV at batch 1 and 4, head-wise kernel against the dense
    route and the decode kernel over the same cache), on a synchronized host
-   clock, medians, with profiler breakdowns (device busy time, idle share,
+   clock, medians (decode: of DECODE_REPS loops a pass), with profiler
+   breakdowns (device busy time, idle share,
    largest kernels; no sort kernel may run in the decode-kernel step). Per
    kernel (phase 2): its device time from the profiler beside its bound,
    its plain version's time and, where one PyTorch call computes the same,
@@ -3916,12 +3938,25 @@ def must_reject(what, check, *args):
     raise AssertionError(f"a serving check passed its planted fault: {what}")
 
 
+_NOISE: dict = {}      # id(params): (params, serving_noise's reading)
+
+
 def serving_noise(kt, torch, params, report) -> float:
     """What bf16 rounding alone moves the two largest logits of the
     single-request path: a SV_SMALL_CONTEXT-token request (Knorm 0.5, a
     24-token question, 32 steps fed the bf16 path's greedy tokens) on the
     dense route in bf16 against float32. Returns the largest |difference| of
-    the float32 path's two largest logits over the steps."""
+    the float32 path's two largest logits over the steps; measured once for
+    a params object (the phases that read it share the reading)."""
+    held = _NOISE.get(id(params))
+    if held is not None and held[0] is params:
+        return held[1]
+    eps = _serving_noise(kt, torch, params, report)
+    _NOISE[id(params)] = (params, eps)
+    return eps
+
+
+def _serving_noise(kt, torch, params, report) -> float:
     cfg = flagship_config(16)
     dev = params.device
     dense = kt.Runner.create(cfg, attn_impl="xla", decode_kernel=False, device=dev)
@@ -4527,6 +4562,16 @@ TP_GLOO_WORLDS = {"model2": {"data": 1, "model": 2}, "data2": {"data": 2, "model
 TP_RANK_TIMEOUT = 600         # seconds for a 2-rank world, and for a collective in it
 
 
+def tp_press(kt, spec=None):
+    """The press of a tensor-parallel run: Knorm(0.5), or (``spec``) DMS over
+    the KVzap surrogate of the ``.npz`` at ``spec["path"]`` with its
+    threshold and ``compact``."""
+    if spec is None:
+        return kt.KnormPress(0.5)
+    return kt.DMSPress(kt.KVzapPress(surrogate=kt.load_kvzap_model(spec["path"])),
+                       threshold=spec["threshold"], compact=spec["compact"])
+
+
 def tp_rank(rank: int, world: int, d: str):
     """One rank of a 2-rank world on the one card (its own process, started
     by ``tp_gloo_world``): gloo through a FileStore under ``d``, the
@@ -4571,8 +4616,9 @@ def tp_rank(rank: int, world: int, d: str):
         ll.flash_attention_quant = recording("flash_attention_quant", ll.flash_attention_quant)
         sv.decode_attention = recording("decode_attention", sv.decode_attention)
         eng = kt.ServingEngine(runner, params, n_slots=SV_SLOTS, capacity=job["cap"],
-                               press=kt.KnormPress(0.5), question_bucket=SV_QUESTION_BUCKET,
-                               fetch_lag=SV_FETCH_LAG, mesh=mesh)
+                               press=tp_press(kt, job.get("press")),
+                               question_bucket=SV_QUESTION_BUCKET, fetch_lag=SV_FETCH_LAG,
+                               mesh=mesh)
         torch.cuda.synchronize()
         reset_counts()
         answers = eng.run([kt.Request(*r) for r in job["reqs"]])
@@ -4588,12 +4634,13 @@ def tp_rank(rank: int, world: int, d: str):
         dist.destroy_process_group()
 
 
-def tp_world_of_one(kt, torch, params, report):
-    """The flagship engine (8 slots, int8 slots, Knorm(0.5)) over a world of
-    one over NCCL, against the single-process engine on the same card and
-    requests: with a world of one a shard is the whole and an all-reduce a
-    copy, so the answers, the host lengths and offsets and every pool tensor
-    must be identical. Returns the mesh run's launch counts."""
+def tp_world_of_one(kt, torch, params, report, press=None, reqs=None, label="TP"):
+    """The flagship engine (8 slots, int8 slots, ``press``: Knorm(0.5) unless
+    given) over a world of one over NCCL, against the single-process engine
+    on the same card and requests (S2's mix unless given): with a world of
+    one a shard is the whole and an all-reduce a copy, so the answers, the
+    host lengths and offsets and every pool tensor must be identical.
+    Returns the mesh run's launch counts."""
     import datetime
     import tempfile
 
@@ -4604,10 +4651,10 @@ def tp_world_of_one(kt, torch, params, report):
     cfg = flagship_config(16)
     L, dev = cfg.num_layers, params.device
     runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=dev)
-    knorm = kt.KnormPress(0.5)
-    reqs = serving_requests(torch.Generator().manual_seed(16), cfg.vocab_size,
-                            [TP_CONTEXTS[i % 2] for i in range(TP_REQUESTS)], TP_NEW)
-    kw = dict(n_slots=SV_SLOTS, capacity=serving_capacity(cfg, knorm, reqs), press=knorm,
+    press = press or kt.KnormPress(0.5)
+    reqs = reqs or serving_requests(torch.Generator().manual_seed(16), cfg.vocab_size,
+                                    [TP_CONTEXTS[i % 2] for i in range(TP_REQUESTS)], TP_NEW)
+    kw = dict(n_slots=SV_SLOTS, capacity=serving_capacity(cfg, press, reqs), press=press,
               quantized=True, kv_bits=8, question_bucket=SV_QUESTION_BUCKET,
               fetch_lag=SV_FETCH_LAG)
     names = ("keys", "values", "key_scales", "value_scales", "mask", "lengths", "offsets")
@@ -4619,13 +4666,13 @@ def tp_world_of_one(kt, torch, params, report):
         pool = {n: getattr(eng.sc, n).clone() for n in names}
         return answers, counts, eng.last_stats["decode_steps"], pool
 
-    ref = run("TP reference: the single-process engine, int8 slots")
+    ref = run(f"{label} reference: the single-process engine, int8 slots")
     store = tempfile.mkdtemp(dir=ROOT / "build")
     dist.init_process_group("nccl", init_method=f"file://{store}/nccl", rank=0, world_size=1,
                             timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT))
     try:
         mesh = make_mesh(1, 1)
-        got = run(f"TP world of one over {dist.get_backend()} (mesh "
+        got = run(f"{label} world of one over {dist.get_backend()} (mesh "
                   f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}), int8 slots", mesh)
     finally:
         dist.destroy_process_group()
@@ -4637,13 +4684,14 @@ def tp_world_of_one(kt, torch, params, report):
             if not torch.equal(a[3][n], b[3][n]):
                 raise AssertionError(f"{label}: the pool's {n} differ")
 
-    identical("TP world of one", ref, got)
+    identical(f"{label} world of one", ref, got)
     planted = (ref[0], ref[1], ref[2], dict(ref[3], keys=ref[3]["keys"].clone()))
     planted[3]["keys"].view(-1)[12345] += 1
     must_reject("one pool code moved", identical, "planted", planted, got)
     steps, n_adm = got[2], len(reqs)
-    check_serving_launches("TP world of one", got[1], steps, "int8", L * n_adm, L * n_adm, L)
-    report(f"  TP world of one: answers, host lengths and offsets and the pool "
+    check_serving_launches(f"{label} world of one", got[1], steps, "int8", L * n_adm,
+                           L * n_adm, L)
+    report(f"  {label} world of one: answers, host lengths and offsets and the pool "
            f"({', '.join(names[:5])}) identical to the single-process engine's; launches per "
            f"rank: decode_attention {got[1]['decode_attention'] / steps:g} a slot step, flash "
            f"{(got[1]['flash_attention'] + got[1]['flash_attention_quant']) / n_adm:g} an "
@@ -4652,23 +4700,27 @@ def tp_world_of_one(kt, torch, params, report):
     return got[1]
 
 
-def tp_gloo_world(kt, torch, params, report, name: str, tie: float):
+def tp_gloo_world(kt, torch, params, report, name: str, tie: float, spec=None, reqs=None,
+                  label="TP"):
     """A 2-rank world on the one card over gloo (``TP_GLOO_WORLDS[name]``):
     the ranks' answers teacher-forced against the single-process runner
     (the bf16 tie limit of the serving phase), their host lengths, the
-    launch counts per rank, and the head counts each rank's kernels took."""
+    launch counts per rank, and the head counts each rank's kernels took.
+    ``spec``: the press (``tp_press``; Knorm(0.5) without it); ``reqs``:
+    the requests (TP_GLOO_REQUESTS of TP_GLOO_CONTEXTS without them)."""
     import tempfile
 
     cfg = flagship_config(16)
     L, shape = cfg.num_layers, TP_GLOO_WORLDS[name]
     tp = shape["model"]
-    knorm = kt.KnormPress(0.5)
-    reqs = serving_requests(torch.Generator().manual_seed(17), cfg.vocab_size,
-                            [TP_GLOO_CONTEXTS[i % 2] for i in range(TP_GLOO_REQUESTS)],
-                            TP_GLOO_NEW)
+    press = tp_press(kt, spec)
+    reqs = reqs or serving_requests(torch.Generator().manual_seed(17), cfg.vocab_size,
+                                    [TP_GLOO_CONTEXTS[i % 2] for i in range(TP_GLOO_REQUESTS)],
+                                    TP_GLOO_NEW)
     d = tempfile.mkdtemp(dir=ROOT / "build")
     with open(f"{d}/job.json", "w") as f:
-        json.dump(dict(shape=shape, reqs=reqs, cap=serving_capacity(cfg, knorm, reqs)), f)
+        json.dump(dict(shape=shape, reqs=reqs, cap=serving_capacity(cfg, press, reqs),
+                       press=spec), f)
     start = time.perf_counter()
     # Each rank is a fresh interpreter that imports this file (not a fork,
     # and not a re-run of whatever script imported it); a rank that fails
@@ -4679,13 +4731,14 @@ def tp_gloo_world(kt, torch, params, report, name: str, tie: float):
     try:
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs):
-                raise AssertionError(f"TP {name}: a rank failed (exit codes "
+                raise AssertionError(f"{label} {name}: a rank failed (exit codes "
                                      f"{[p.poll() for p in procs]})")
             if time.perf_counter() - start > TP_RANK_TIMEOUT:
-                raise AssertionError(f"TP {name}: the world did not end in {TP_RANK_TIMEOUT} s")
+                raise AssertionError(f"{label} {name}: the world did not end in "
+                                     f"{TP_RANK_TIMEOUT} s")
             time.sleep(0.2)
         if any(p.returncode != 0 for p in procs):
-            raise AssertionError(f"TP {name}: a rank failed (exit codes "
+            raise AssertionError(f"{label} {name}: a rank failed (exit codes "
                                  f"{[p.returncode for p in procs]})")
     finally:
         for p in procs:
@@ -4697,35 +4750,48 @@ def tp_gloo_world(kt, torch, params, report, name: str, tie: float):
     answers = ranks[0]["answers"]
     for r in ranks[1:]:
         if r["answers"] != answers or r["lengths"] != ranks[0]["lengths"]:
-            raise AssertionError(f"TP {name}: the ranks' host states differ")
+            raise AssertionError(f"{label} {name}: the ranks' host states differ")
     runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=params.device)
-    flips, widest = [], 0.0
+    flips, widest, kept = [], 0.0, []
     for req, got in zip(reqs, answers):
-        n_flip, worst, cache, _ = serving_reference(kt, torch, runner, params, knorm, req, got)
-        check_teacher_forced(f"TP {name}", n_flip, worst, len(got), tie)
+        n_flip, worst, cache, _ = serving_reference(kt, torch, runner, params, press, req, got)
+        check_teacher_forced(f"{label} {name}", n_flip, worst, len(got), tie)
         flips.append(n_flip)
         widest = max(widest, worst)
+        # A compacting press's layers keep their longest head's count.
+        n = len(req[0])
+        kept.append(cache.mask[:, 0, :, :n].sum(-1).amax(-1).tolist())
         del cache
     served = {s: r for s, r in enumerate(range(len(reqs)))}
-    check_host_lengths(f"TP {name}", torch.tensor(ranks[0]["lengths"]),
-                       torch.tensor(ranks[0]["offsets"]), served, reqs, answers,
-                       knorm.exact_kept)
+    lengths, offsets = torch.tensor(ranks[0]["lengths"]), torch.tensor(ranks[0]["offsets"])
+    if spec is None:
+        check_host_lengths(f"{label} {name}", lengths, offsets, served, reqs, answers,
+                           press.exact_kept)
+    else:
+        for s, r in served.items():
+            want = [k + len(reqs[r][1]) + len(answers[r]) - 1 for k in kept[r]]
+            if lengths[:, s].tolist() != want:
+                raise AssertionError(f"{label} {name}: slot {s} holds lengths "
+                                     f"{lengths[:, s].tolist()}, the reference's compacted "
+                                     f"layers need {want}")
     steps = ranks[0]["stats"]["decode_steps"]
     want_heads = [[cfg.num_heads // tp, cfg.num_kv_heads // tp]]
     for r, out in enumerate(ranks):
         c = out["counts"]
-        check_serving_launches(f"TP {name} rank {r}", dict.fromkeys(counters(), 0) | c, steps,
-                               "bf16", 2 * L * len(reqs), 0, L)
+        check_serving_launches(f"{label} {name} rank {r}", dict.fromkeys(counters(), 0) | c,
+                               steps, "bf16", 2 * L * len(reqs), 0, L)
         if any(v != want_heads for v in out["heads"].values()):
-            raise AssertionError(f"TP {name} rank {r}: the kernels took heads {out['heads']}, "
-                                 f"not {want_heads[0]}")
-        report(f"  TP {name} rank {r} (gloo, CUDA tensors, one card): pool {out['local_pool']} "
+            raise AssertionError(f"{label} {name} rank {r}: the kernels took heads "
+                                 f"{out['heads']}, not {want_heads[0]}")
+        report(f"  {label} {name} rank {r} (gloo, CUDA tensors, one card): pool "
+               f"{out['local_pool']} "
                f"holding slots {out['own']}; launches: decode_attention "
                f"{c['decode_attention'] / steps:g} a slot step, flash_attention "
                f"{c['flash_attention'] / len(reqs):g} an admission; (query, kv) heads "
                f"{out['heads']}")
     st = ranks[0]["stats"]
-    report(f"  TP {name}: {len(reqs)} requests of {TP_GLOO_CONTEXTS} tokens, {TP_GLOO_NEW} new, "
+    report(f"  {label} {name}: {len(reqs)} requests of {sorted({len(r[0]) for r in reqs})} "
+           f"tokens, {reqs[0][2]} new, "
            f"teacher-forced against the single-process runner: near-tie flips {flips}, the "
            f"widest {widest:.4f} (limit {tie:.4f}); host lengths as predicted; {steps} slot "
            f"steps, inter-token gap p50 / max {st['p50_intertoken_gap_s'] * 1e3:.1f} / "
@@ -5058,6 +5124,474 @@ def cp_check(kt, torch, tokenizer_cls, params, report):
     """The ring mutant's check: the seq 4 world's bf16 host loop (a world of
     one has a single ring step, so a wrong combine shows only across ranks)."""
     cp_run(kt, torch, tokenizer_cls, params, report, worlds=("gloo",), labels=("seq4 bf16",))
+
+
+# --------------------------------------------------------------------- #
+# KVzap training and its surrogate served: training/, init_params_int8,
+# utils/ (phase "KZ")
+
+
+KZ_CONTEXT = 8192             # the pipeline runs' contexts, the 8B body's included
+KZ_NEW = 16                   # new tokens an answer
+KZ_DOCS = 16                  # the collector's synthetic documents
+KZ_WORDS = 1024               # words a document: repeat prompts of about 2,070 tokens
+KZ_TOKENS = 256               # collect_scores' n_tokens a document: N = 4,096
+KZ_WORD_POOL = 4096           # distinct words the documents draw from
+# The collector's log-targets against their float64 recomputation from the
+# same captured probabilities, hidden states and values: float32 rounding
+# moves them by about 1e-6; dropping the ||Wo . v|| factor moves them by
+# its log, about 2 on random weights (PERF.md).
+KZ_Y_LIMIT = 1e-3
+KZ_TP_CONTEXT = 2048          # the DMS(KVzap) requests served under a mesh
+KZ_TP_REQUESTS = 2
+KZ_TP_NEW = 16
+
+
+def chat_stub(tokenizer_cls, vocab_size: int):
+    """``tokenizer_cls`` (the toy word tokenizer) with what
+    ``repeat_prompt_tokenization`` calls: a chat template (``<|role|>
+    content <|end|>`` a message) and character offsets of its whitespace
+    tokens."""
+    class ChatStub(tokenizer_cls):
+        chat_template = "<|role|> content <|end|>"
+
+        def apply_chat_template(self, messages, tokenize=False, add_generation_prompt=False):
+            text = "".join(f"<|{m['role']}|> {m['content']} <|end|> " for m in messages)
+            return self.encode(text) if tokenize else text
+
+        def __call__(self, text, return_offsets_mapping=False, add_special_tokens=False):
+            spans = [(m.start(), m.end()) for m in re.finditer(r"\S+", text)]
+            out = {"input_ids": [self._tok2id(text[a:b]) for a, b in spans]}
+            if return_offsets_mapping:
+                out["offset_mapping"] = spans
+            return out
+
+    return ChatStub(vocab_size=vocab_size)
+
+
+def kz_documents(n: int, words: int, seed: int = 18) -> list[str]:
+    """``n`` synthetic documents of ``words`` words (of KZ_WORD_POOL), from a
+    seed: the stand-in for the reference's Nemotron documents."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [" ".join(f"d{i}" for i in rng.integers(0, KZ_WORD_POOL, words)) for _ in range(n)]
+
+
+def kz_pipeline(kt, torch, label, runner, params, tok, report, questions, press, needed,
+                unwanted=(), context=None, **kw):
+    """One ``KVPressPipeline`` call over ``context`` (KZ_CONTEXT distinct
+    words unless given) with the launch counts set to 0 before it and read
+    after it. Returns (answers, counts, the prefill's layer lengths, the
+    prefill's masked fraction or None)."""
+    prefills = []
+
+    def summarize(cache):
+        return None if cache.mask is None else float(kt.masked_fraction(cache))
+
+    pipe = kt.KVPressPipeline(timed_runner(kt, torch, runner, prefills, summarize), params, tok)
+    context = context or " ".join(f"w{i}" for i in range(KZ_CONTEXT))
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pipe(context, questions=questions, press=press, max_new_tokens=KZ_NEW, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    answers = out["answers"]
+    if len(answers) != len(questions) or not all(isinstance(a, str) and a for a in answers):
+        raise AssertionError(f"{label}: bad answers {answers!r}")
+    check_run(label, counts, needed, unwanted)
+    lengths, masked = prefills[-1][3:5]
+    report(f"  {label}: {seconds:.2f} s in all, {prefill_reading(prefills)}, layer lengths "
+           f"{sorted(set(lengths))}, masked fraction after the prefill {masked}, launches "
+           f"{launched(counts)}, answer tokens {[len(a.split()) for a in answers]}")
+    return answers, counts, lengths, masked
+
+
+def masked_slots(torch, cache) -> int:
+    """The valid slots whose keep bit is clear, over every layer and head."""
+    pos = torch.arange(cache.max_size, device=cache.mask.device)
+    valid = pos < cache.length.to(pos.device)[:, None]                   # (L, S)
+    return int((valid[:, None, None] & ~cache.mask).sum())
+
+
+def check_counts(label, counts, want):
+    got = {name: counts.get(name, 0) for name in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, predicted {want}")
+
+
+def kz_init_8b(kt, torch, tokenizer_cls, dev, report):
+    """(a) ``init_params_int8`` at Llama-3.1-8B's published shape (32 layers,
+    the 128,256-word vocabulary, untied): int4 layers and int8 embeddings
+    drawn on the card ``dev``, then one pipeline call (8,192 tokens,
+    Knorm(0.5), int4 KV, both questions, 16 new tokens). Returns its launch
+    counts."""
+    from kvpress_tpu_torch import utils
+
+    cfg = dataclasses.replace(llama31_8b_config(32), vocab_size=128256,
+                              tie_word_embeddings=False)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = kt.init_params_int8(cfg, torch.Generator(device=dev).manual_seed(8), bits=4,
+                                 int8_embeddings=True, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stats = utils.memory_stats()
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    report(f"  KZ 8B init_params_int8 (int4 layers, int8 embedding and head, 128,256 words): "
+           f"{seconds:.2f} s, {weights / 2**30:.3f} GiB of weights, peak "
+           f"{(stats['peak_bytes_in_use'] - held) / 2**30:.3f} GiB over the "
+           f"{held / 2**30:.3f} GiB held (of {stats['bytes_limit'] / 2**30:.1f})")
+    # A bf16 copy of one layer's matrices would be 436 MB, of the embedding 1 GB.
+    if stats["peak_bytes_in_use"] - held > weights + 64 * 2**20:
+        raise AssertionError("KZ 8B: the init held more than its weights")
+    if params.embed.dtype != torch.int8 or params.layers[0].wq.dtype != torch.uint8:
+        raise AssertionError("KZ 8B: the draws are not int8 / int4 payloads")
+    runner = kt.Runner.create(cfg, device=dev)
+    tok = tokenizer_cls(vocab_size=cfg.vocab_size)
+    _, counts, lengths, _ = kz_pipeline(
+        kt, torch, "KZ 8B Knorm(0.5), int4 KV", runner, params, tok, report, QUESTIONS,
+        kt.KnormPress(0.5), ("flash_attention", "decode_attention"), ("flash_attention_quant",),
+        quantized=True, kv_bits=4)
+    L = cfg.num_layers
+    if lengths != [KZ_CONTEXT // 2] * L:
+        raise AssertionError(f"KZ 8B: layer lengths {lengths}")
+    # The prefill and the 152-token question on flash (the int4 buffer
+    # dequantized), the 4-token question and 15 steps an answer on decode.
+    check_counts("KZ 8B", counts, {"flash_attention_bf16_d128": 2 * L,
+                                   "decode_attention_int4_d128": L * (1 + 2 * (KZ_NEW - 1)),
+                                   "flash_attention": 2 * L,
+                                   "decode_attention": L * (1 + 2 * (KZ_NEW - 1))})
+    del params, runner
+    torch.cuda.empty_cache()
+    return counts
+
+
+def recording_collector(kt, captured: dict, layers):
+    """The collector press, keeping for ``layers`` what it read: the
+    attention probabilities, hidden states and values, and its state."""
+    base = kt.training.kvzap.KVzipScoreCollector
+
+    @dataclasses.dataclass(frozen=True)
+    class Recording(base):
+        def layer_compress(self, ctx, keys, values, length, mask, state=None):
+            out = super().layer_compress(ctx, keys, values, length, mask, state)
+            if ctx.layer_idx in layers:
+                captured[ctx.layer_idx] = dict(probs=ctx.attn_probs.clone(),
+                                               hidden=ctx.hidden.clone(),
+                                               values=values.clone(), wo=ctx.layer_params,
+                                               state=out[4], spans=self)
+            return out
+
+    return Recording
+
+
+def kz_target64(kt, torch, cfg, rec):
+    """A layer's KVzip+ log-targets (n, H_kv) recomputed in float64 from what
+    the collector read."""
+    from kvpress_tpu_torch.models.llama import dequant_weight
+
+    sp = rec["spans"]
+    prompt = slice(sp.start_prompt, sp.end_prompt)
+    rep = slice(sp.start_rep, sp.end_rep)
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = Hq // Hkv
+    probs = rec["probs"][0][:, rep, prompt].double()                      # (Hq, r, n)
+    h = rec["hidden"][0].double()
+    scores = probs / torch.linalg.vector_norm(h[rep], dim=-1)[None, :, None]
+    wo = dequant_weight(rec["wo"], "wo", torch.float64).reshape(Hq, D, -1)
+    v = rec["values"][0].double()[:, prompt].repeat_interleave(G, dim=0)  # (Hq, n, D)
+    wov = torch.linalg.vector_norm(torch.einsum("hnd,hde->hne", v, wo), dim=-1)
+    y = (scores * wov[:, None, :]).amax(dim=1).reshape(Hkv, G, -1).amax(dim=1)
+    return torch.log(y).T
+
+
+def kz_collect(kt, torch, tokenizer_cls, params, report):
+    """(b) ``collect_scores`` at the flagship's full width (bf16 weights):
+    KZ_DOCS repeat prompts of synthetic documents, KZ_TOKENS tokens of each.
+    Document 0's layers 0 and L - 1 are held against their float64
+    recomputation (KZ_Y_LIMIT) and X against the captured hidden states.
+    Returns (X (N, L, E), y (N, L, H_kv))."""
+    import numpy as np
+
+    from kvpress_tpu_torch.training import kvzap as kz
+
+    cfg = flagship_config(16)
+    dev = params.device
+    L = cfg.num_layers
+    runner = kt.Runner.create(cfg, device=dev)
+    tok = chat_stub(tokenizer_cls, cfg.vocab_size)
+    docs = kz_documents(KZ_DOCS, KZ_WORDS)
+    Xs, ys, ms, peaks, lens = [], [], [], [], []
+    captured = {}
+    plain = kz.KVzipScoreCollector
+    for i, doc in enumerate(docs):
+        ids, *spans = kt.training.repeat_prompt_tokenization(tok, doc)
+        rng = np.random.default_rng(i)
+        sel = np.random.default_rng(i).permutation(spans[1] - spans[0])[:KZ_TOKENS]
+        if i == 0:
+            kz.KVzipScoreCollector = recording_collector(kt, captured, (0, L - 1))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            X, y = kt.training.collect_scores(runner, params, ids, tuple(spans), rng=rng,
+                                              n_tokens=KZ_TOKENS)
+            torch.cuda.synchronize()
+        finally:
+            kz.KVzipScoreCollector = plain
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() - held)
+        lens.append(len(ids))
+        if i == 0:
+            worst = 0.0
+            for l, rec in captured.items():
+                want = kz_target64(kt, torch, cfg, rec)[sel]
+                err = (y[l].double() - want).abs().max().item()
+                worst = max(worst, err)
+                if not err <= KZ_Y_LIMIT:
+                    raise AssertionError(f"KZ collector: layer {l}'s targets are {err:.3e} off "
+                                         f"their float64 recomputation (limit {KZ_Y_LIMIT})")
+                hidden = rec["hidden"][0, spans[0]:spans[1]].float()[sel]
+                if not torch.equal(X[l], hidden):
+                    raise AssertionError(f"KZ collector: layer {l}'s X is not the layer's "
+                                         "hidden states")
+            report(f"  KZ collector, document 0 ({len(ids)} tokens, spans {spans}): layers "
+                   f"{sorted(captured)} within {worst:.3e} of their float64 recomputation "
+                   f"(limit {KZ_Y_LIMIT}); X the captured hidden states, bit for bit")
+            del captured
+        Xs.append(X.transpose(0, 1))
+        ys.append(y.transpose(0, 1))
+    X, y = torch.cat(Xs), torch.cat(ys)
+    if not (torch.isfinite(X).all() and torch.isfinite(y).all()):
+        raise AssertionError("KZ collector: non-finite targets")
+    report(f"  KZ collector: {KZ_DOCS} documents of {KZ_WORDS} words (repeat prompts of "
+           f"{min(lens)}-{max(lens)} tokens), {KZ_TOKENS} tokens each: X {tuple(X.shape)}, y "
+           f"{tuple(y.shape)} (y from {y.min().item():.3f} to {y.max().item():.3f}, median "
+           f"{y.median().item():.3f}); {statistics.median(ms):.1f} ms a document (median; "
+           f"{min(ms):.1f}-{max(ms):.1f}, the first {ms[0]:.1f}), peak "
+           f"{max(peaks) / 2**30:.3f} GiB over what was held")
+    return X, y
+
+
+def kz_train(kt, torch, X, y, report):
+    """(c) ``train_linear`` and ``train_mlp`` (its defaults) on the collected
+    tensors: the last epoch's validation loss below the first, the linear
+    fit's R^2 on the training set above 0. Returns (linear, mlp)."""
+    t0 = time.perf_counter()
+    linear = kt.training.train_linear(X, y)
+    torch.cuda.synchronize()
+    lin_s = time.perf_counter() - t0
+    pred = torch.einsum("nle,leh->nlh", X, linear["w"]) + linear["b"]
+    r2 = 1 - (((pred - y) ** 2).sum() / ((y - y.mean(0)) ** 2).sum()).item()
+    t0 = time.perf_counter()
+    mlp, metrics = kt.training.train_mlp(X, y)
+    torch.cuda.synchronize()
+    mlp_s = time.perf_counter() - t0
+    hist = metrics["history"]
+    report(f"  KZ train_linear: {lin_s:.2f} s, R^2 on the training set {r2:.4f}; train_mlp "
+           f"(hidden 512, {len(hist)} epochs, batch 512, lr 1e-3): {mlp_s:.2f} s, validation "
+           f"loss {[round(h['val_loss'], 4) for h in hist]}, training loss first / last "
+           f"{hist[0]['train_loss']:.4f} / {hist[-1]['train_loss']:.4f}")
+    if not r2 > 0:
+        raise AssertionError(f"KZ train_linear: R^2 {r2:.4f} on the training set")
+    if not hist[-1]["val_loss"] < hist[0]["val_loss"]:
+        raise AssertionError(f"KZ train_mlp: validation loss {hist[0]['val_loss']:.4f} -> "
+                             f"{hist[-1]['val_loss']:.4f}")
+    return linear, mlp
+
+
+def kz_serve(kt, torch, tokenizer_cls, params, params8, mlp, threshold, report):
+    """(d) The trained MLP surrogate through ``KVPressPipeline`` over a
+    KZ_CONTEXT-word document of the training documents' kind: KVzap(0.5),
+    DMS(KVzap) mask only, DMS(KVzap) decoding; the surrogate and the int8
+    params through their savers and loaders; a decode step under
+    ``utils.profile_trace``. Returns the launch counts."""
+    import shutil
+    import tempfile
+
+    from kvpress_tpu_torch import utils
+
+    cfg = flagship_config(16)
+    L, dev = cfg.num_layers, params.device
+    runner = kt.Runner.create(cfg, device=dev)
+    tok = tokenizer_cls(vocab_size=cfg.vocab_size)
+    totals = {name: 0 for name in read_counts()}
+    # Two questions: the 152-token one and the prefill on flash, the 4-token
+    # one and 15 steps an answer on decode; one question: 15 steps.
+    two = {"flash_attention": 2 * L, "decode_attention": L * (1 + 2 * (KZ_NEW - 1))}
+    one = {"flash_attention": 2 * L, "decode_attention": L * (KZ_NEW - 1)}
+    half = KZ_CONTEXT // 2
+    document = kz_documents(1, KZ_CONTEXT, seed=19)[0]
+    runs = {}
+
+    def run(label, p, press, questions, want, **kw):
+        answers, counts, lengths, masked = kz_pipeline(
+            kt, torch, label, runner, p, tok, report, questions, press,
+            ("flash_attention", "decode_attention"), context=document, **kw)
+        check_counts(label, counts, want)
+        for name, n in counts.items():
+            totals[name] += n
+        runs[label] = (answers, lengths, masked)
+        return answers, lengths, masked
+
+    kvzap = kt.KVzapPress(0.5, surrogate=mlp)
+    answers, lengths, _ = run("KZ KVzap(0.5), the trained MLP", params, kvzap, QUESTIONS, two)
+    if lengths != [half] * L:
+        raise AssertionError(f"KZ KVzap: layer lengths {lengths}")
+    _, lengths, masked = run("KZ DMS(KVzap) mask only, threshold the median target", params,
+                             kt.DMSPress(kvzap, threshold=threshold), QUESTIONS, two)
+    if lengths != [KZ_CONTEXT] * L or not 0 < masked < 1:
+        raise AssertionError(f"KZ DMS: layer lengths {sorted(set(lengths))}, masked fraction "
+                             f"{masked}")
+    decoding = kt.DMSPress(kvzap, threshold=threshold, decoding=True)
+    recorded = []
+
+    class Recording(type(runner)):
+        def forward(self, *args, **kw):
+            out = super().forward(*args, **kw)
+            if kw.get("phase") == "decode":
+                recorded.append(masked_slots(torch, out[1]))
+            return out
+
+        def prefill(self, *args, **kw):
+            out = super().prefill(*args, **kw)
+            recorded.append(masked_slots(torch, out[1]))
+            return out
+
+    saved = runner
+    runner = Recording(**{f.name: getattr(saved, f.name) for f in dataclasses.fields(saved)})
+    _, _, masked0 = run("KZ DMS(KVzap, decoding=True)", params, decoding, QUESTIONS[:1], one)
+    runner = saved
+    # Each decode call pushes its tokens' scores into the rings: the ones that
+    # leave below the threshold clear their slots' bits.
+    if not (0 < masked0 < 1 and len(recorded) == KZ_NEW + 1 and recorded[-1] > recorded[0]):
+        raise AssertionError(f"KZ DMS decoding: masked fraction {masked0} after the prefill; "
+                             f"masked slots {recorded}")
+    report(f"  KZ DMS decoding: {recorded[0]} masked slots after the prefill (a fraction of "
+           f"{masked0:.4f}), {recorded[1]} after the question, {recorded[-1]} after "
+           f"{len(recorded) - 2} decode steps")
+
+    # Round trips: the surrogate through its .npz, the int8 params through
+    # save_params / load_params.
+    d = ROOT / "build" / "kz"
+    d.mkdir(parents=True, exist_ok=True)
+    kt.save_kvzap_model(str(d / "mlp.npz"), mlp)
+    again, _, _ = run("KZ KVzap(0.5), the surrogate read back", params,
+                      kt.KVzapPress(0.5, surrogate=kt.load_kvzap_model(str(d / "mlp.npz"))),
+                      QUESTIONS, two)
+    if again != answers:
+        raise AssertionError("KZ: the surrogate read back answers otherwise")
+    knorm = kt.KnormPress(0.5)
+    before, _, _ = run("KZ Knorm(0.5), int8 params", params8, knorm, QUESTIONS, two)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    utils.save_params(str(d / "params8.pt"), params8)
+    save_s = time.perf_counter() - t0
+    size = (d / "params8.pt").stat().st_size
+    t0 = time.perf_counter()
+    back = utils.load_params(str(d / "params8.pt"), device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    (d / "params8.pt").unlink()
+    a = dict(params8.named_parameters())
+    b = dict(back.named_parameters())
+    if a.keys() != b.keys() or not all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                                       for k in a):
+        raise AssertionError("KZ: the int8 params read back are not bit-equal")
+    after, _, _ = run("KZ Knorm(0.5), int8 params read back", back, knorm, QUESTIONS, two)
+    if after != before:
+        raise AssertionError("KZ: the int8 params read back answer otherwise")
+    report(f"  KZ save_params / load_params of the int8 flagship ({size / 2**30:.3f} GiB on "
+           f"disk): save {save_s:.2f} s, load {load_s:.2f} s; every tensor bit-equal, the "
+           "greedy answers identical")
+    del back
+
+    # A decode step under the profiler.
+    ids = torch.randint(3, cfg.vocab_size, (1, KZ_CONTEXT),
+                        generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    _, cache, _ = runner.prefill(params, ids, press=knorm)
+    cache = kt.resize(cache, half + 2)
+    reset_counts()
+    with utils.profile_trace(tempfile.mkdtemp(dir=d)) as trace_dir:
+        runner.forward(params, ids[:, -1:], cache, logits_last_only=True)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    for name, n in counts.items():
+        totals[name] += n
+    traces = list(Path(trace_dir).glob("*.pt.trace.json"))
+    text = traces[0].read_text() if len(traces) == 1 else ""
+    if "decode_kernel" not in text or counts["decode_attention"] != L:
+        raise AssertionError(f"KZ profile_trace: {len(traces)} trace files; a decode_attention "
+                             f"kernel named: {'decode_kernel' in text}")
+    report(f"  KZ profile_trace around one decode step: {traces[0].name} "
+           f"({len(text) / 2**20:.2f} MiB) names the decode_attention kernel "
+           f"({text.count('decode_kernel')} mentions; {counts['decode_attention']} launches)")
+    shutil.rmtree(trace_dir)
+    return totals
+
+
+def kz_mesh(kt, torch, params, path, threshold, report):
+    """(e) DMS(KVzap) compact with the trained surrogate served under a mesh:
+    KZ_TP_REQUESTS requests of KZ_TP_CONTEXT tokens through the world of one
+    over NCCL (identical to the single-process engine) and the model 2 gloo
+    world (each rank's heads, answers teacher-forced, the compacted
+    lengths). Returns the world of one's launch counts."""
+    from kvpress_tpu_torch.ops import _build
+
+    _build.build()
+    cfg = flagship_config(16)
+    reqs = serving_requests(torch.Generator().manual_seed(18), cfg.vocab_size,
+                            [KZ_TP_CONTEXT] * KZ_TP_REQUESTS, KZ_TP_NEW)
+    spec = dict(path=str(path), threshold=threshold, compact=True)
+    counts = tp_world_of_one(kt, torch, params, report, press=tp_press(kt, spec), reqs=reqs,
+                             label="KZ DMS(KVzap) compact")
+    tie = F32_RATIO * 2 * serving_noise(kt, torch, params, report)
+    tp_gloo_world(kt, torch, params, report, "model2", tie, spec=spec, reqs=reqs,
+                  label="KZ DMS(KVzap) compact")
+    return counts
+
+
+def kvzap_run(kt, torch, tokenizer_cls, params, params8, report, parts=("a", "b", "c", "d",
+                                                                         "e")):
+    """Phase "KZ": (a) ``init_params_int8`` at the 8B shape, (b) the collector,
+    (c) the trainers, (d) the trained surrogate through the pipeline with the
+    savers and loaders and the profiler, (e) served under a mesh. Returns the
+    launch counts of (a), (d) and (e)'s world of one."""
+    totals = {name: 0 for name in read_counts()}
+
+    def add(counts):
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+
+    if "a" in parts:
+        add(kz_init_8b(kt, torch, tokenizer_cls, params.device, report))
+    if "b" not in parts:
+        return totals
+    X, y = kz_collect(kt, torch, tokenizer_cls, params, report)
+    if "c" not in parts:
+        return totals
+    _, mlp = kz_train(kt, torch, X, y, report)
+    threshold = float(y.median())
+    del X, y
+    torch.cuda.empty_cache()
+    if "d" in parts:
+        add(kz_serve(kt, torch, tokenizer_cls, params, params8, mlp, threshold, report))
+    if "e" in parts:
+        path = ROOT / "build" / "kz" / "mlp.npz"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        kt.save_kvzap_model(str(path), mlp)
+        add(kz_mesh(kt, torch, params, path, threshold, report))
+    return totals
+
+
+def kvzap_check(kt, torch, tokenizer_cls, params, report):
+    """The collector mutant's check: (b) alone."""
+    kvzap_run(kt, torch, tokenizer_cls, params, None, report, parts=("b",))
 
 
 # The other bodies' pipeline runs use the first quarter of their layers
@@ -5757,7 +6291,7 @@ def qwen3_run(kt, torch, tokenizer_cls, report):
     c = dataclasses.replace(cache, length=base_len, offset=base_off)
     breakdown("Qwen3-8B decode step", lambda: runner.forward(params, ids[:, -1:], c,
                                                              logits_last_only=True),
-              8, report, top=4)
+              DECODE_PROFILE_ITERS, report, top=4)
     del cache, c
     torch.cuda.empty_cache()
     for depth in (1, cfg.num_layers):
@@ -6147,7 +6681,7 @@ def phi3_run(kt, torch, tokenizer_cls, report):
     c = dataclasses.replace(cache, length=base_len, offset=base_off)
     breakdown("Phi-3-mini decode step", lambda: plain_runner.forward(params, ids[:, -1:], c,
                                                                      logits_last_only=True),
-              8, report, top=4)
+              DECODE_PROFILE_ITERS, report, top=4)
     del cache, c
     torch.cuda.empty_cache()
     for depth in (1, cfg.num_layers):
@@ -6204,6 +6738,13 @@ def model_reference_check(kt, torch, label, cfg, params, report, ids=None, input
 # Phase 4: timings
 
 
+# Timed decode loops of 32 steps a pass and route in phase 4, and decode
+# steps a profiler breakdown averages over (the other phases' 4): both keep
+# the whole script inside its time with phase "KZ".
+DECODE_REPS = 2
+DECODE_PROFILE_ITERS = 4
+
+
 def timings(kt, torch, params, params8, report):
     cfg = flagship_config(16)
     dev = torch.device("cuda")
@@ -6256,7 +6797,7 @@ def timings(kt, torch, params, params8, report):
     for decode_kernel in (True, False, True, False):
         r = kt.Runner.create(cfg, decode_kernel=decode_kernel, device=dev)
         rates = []
-        for _ in range(3):
+        for _ in range(DECODE_REPS):
             c = dataclasses.replace(cache, length=base_len, offset=base_off)
             tok = tok0
             torch.cuda.synchronize()
@@ -6274,7 +6815,8 @@ def timings(kt, torch, params, params8, report):
         r = kt.Runner.create(cfg, decode_kernel=decode_kernel, device=dev)
         c = dataclasses.replace(cache, length=base_len, offset=base_off)
         names = breakdown(f"decode step (decode_kernel={decode_kernel})",
-                          lambda: r.forward(params8, tok0, c, logits_last_only=True), 8, report)
+                          lambda: r.forward(params8, tok0, c, logits_last_only=True),
+                          DECODE_PROFILE_ITERS, report)
         # The decode kernel finds its live steps itself: no sort in the step.
         sorts = [name for name in names if "sort" in name.lower()]
         if decode_kernel and sorts:
@@ -6321,7 +6863,7 @@ def timings(kt, torch, params, params8, report):
         for _ in range(2):
             for name, r in routes.items():
                 rates = []
-                for _ in range(3):
+                for _ in range(DECODE_REPS):
                     c = dataclasses.replace(cache, length=base_len, offset=base_off)
                     tok = tok0
                     torch.cuda.synchronize()
@@ -6338,7 +6880,8 @@ def timings(kt, torch, params, params8, report):
         for name, r in routes.items():
             c = dataclasses.replace(cache, length=base_len, offset=base_off)
             breakdown(f"decode step, B={B}, path B cache, {name}",
-                      lambda: r.forward(params, tok0, c, logits_last_only=True), 8, report, top=4)
+                      lambda: r.forward(params, tok0, c, logits_last_only=True),
+                      DECODE_PROFILE_ITERS, report, top=4)
         del cache, c
         torch.cuda.empty_cache()
 
@@ -6629,6 +7172,14 @@ def main() -> int:
     for name, n in cp_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] = launches.get(name, 0) + n
     report(f"  the context-parallel phase took {time.perf_counter() - t_phase:.1f} s")
+    report("phase 3: KVzap training and its surrogate served (KZ): init_params_int8 at the "
+           "Llama-3.1-8B shape, the collector at the flagship's width, train_linear and "
+           "train_mlp, the trained surrogate through the pipeline with its savers and loaders "
+           "and the profiler, DMS(KVzap) compact under a mesh")
+    t_phase = time.perf_counter()
+    for name, n in kvzap_run(kt, torch, ToyTokenizer, params, params8, report).items():
+        launches[name] = launches.get(name, 0) + n
+    report(f"  the KVzap phase took {time.perf_counter() - t_phase:.1f} s")
     report("phase 3: chunked prefill's int4 routes at the flagship shape, 32K")
     for name, n in fused_int4_check(kt, torch, params, report).items():
         launches[name] += n

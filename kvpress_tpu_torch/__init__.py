@@ -3,7 +3,7 @@
 The same modules and names as the JAX package (config, rope, cache,
 ops.attention, ops.flash, ops.decode, ops.observed_colsum,
 ops.decode_headwise, ops.duo_decode, models.llama, models.convert, models.siglip, presses,
-pipeline, serving, parallel), in
+pipeline, serving, parallel, training, utils), in
 PyTorch. The JAX package's Pallas kernels are hand-written CUDA kernels for
 ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -15,11 +15,11 @@ from .cache import (KVCache, compact_masked, dequantize_kv, init_cache, masked_f
 from .config import ModelConfig, tiny_config
 from .models.convert import (convert_state_dict, from_torch_model, from_torch_multimodal,
                              multimodal_embeds, params_from_jax)
-from .models.llama import (Runner, init_params, quantize_layer_int4, quantize_params_int4,
-                           quantize_params_int8)
+from .models.llama import (Runner, init_params, init_params_int8, quantize_layer_int4,
+                           quantize_params_int4, quantize_params_int8)
 from .models.siglip import VisionConfig, VisionTower, encode_images, init_vision_params
 from .ops.duo_decode import DuoSplitCache, build_duo_split, duo_decode_step
-from . import parallel
+from . import parallel, training, utils
 from .pipeline import KVPressPipeline
 from .serving import Request, ServingEngine, SlotCache, init_slot_cache
 from .presses import (AdaKVPress, BasePress, BlockPress, CAMPress, CapPress, ChunkKVPress,
@@ -45,6 +45,7 @@ __all__ = [
     "KVCache", "init_cache", "quantize_kv", "dequantize_kv", "resize", "shrink",
     "valid_mask", "ModelConfig", "tiny_config", "convert_state_dict", "from_torch_model",
     "from_torch_multimodal", "multimodal_embeds", "params_from_jax", "Runner", "init_params",
+    "init_params_int8",
     "quantize_layer_int4", "quantize_params_int4", "quantize_params_int8", "VisionConfig",
     "VisionTower", "encode_images", "init_vision_params",
     "KVPressPipeline", "AdaKVPress", "BasePress", "CapPress", "CompactorPress", "CURPress",
@@ -63,5 +64,5 @@ __all__ = [
     "RestoreKVPress", "apply_lora", "init_random_gates", "init_random_lora",
     "load_fastkvzip_gates", "load_restore_artifacts", "save_fastkvzip_gates",
     "save_restore_artifacts", "Request", "ServingEngine", "SlotCache", "init_slot_cache",
-    "parallel",
+    "parallel", "training", "utils",
 ]

@@ -159,7 +159,7 @@ def masked_fraction(cache: KVCache) -> torch.Tensor:
     return (masked / torch.clamp(valid.sum(), min=1)).to(torch.float32).cpu()
 
 
-def compact_masked(cache: KVCache) -> KVCache:
+def compact_masked(cache: KVCache, shard=None) -> KVCache:
     """Move each head's kept (mask-True, valid) entries to the front of its
     buffer, in their order, and drop each layer's length to its longest
     head's kept count; the mask then marks each head's prefix (the
@@ -169,7 +169,9 @@ def compact_masked(cache: KVCache) -> KVCache:
     plus one layer's gather. Follow with ``resize`` to free the memory.
 
     Slots at or past a layer's length carry mask True by convention; they
-    are left out of the kept set."""
+    are left out of the kept set. Under a tensor-parallel mesh (``shard``,
+    the runner's ``ModelShard``) a layer's length is its longest head's over
+    every rank, as on one device."""
     if cache.mask is None:
         return cache
     S = cache.max_size
@@ -184,7 +186,7 @@ def compact_masked(cache: KVCache) -> KVCache:
                     buf[l], 2, order[..., None].expand(*order.shape, buf.shape[-1])))
         counts = keep.sum(dim=-1)                                     # (B, H)
         cache.mask[l].copy_(pos < counts[..., None])
-        lengths[l] = int(counts.max())
+        lengths[l] = int(counts.max()) if shard is None else shard.max(int(counts.max()))
     return dataclasses.replace(cache, length=lengths)
 
 

@@ -143,14 +143,25 @@ def init_layer(cfg: ModelConfig, generator: torch.Generator, dtype: torch.dtype,
                device: torch.device) -> dict[str, torch.Tensor]:
     """One layer's random weights, as ``init_params`` draws them: N(0, 0.02)
     matrices, zero biases, unit norms."""
+    t = {name: _normal(generator, device, dtype, *shape)
+         for name, shape in _matrix_shapes(cfg).items()}
+    return {**t, **_norms_and_biases(cfg, dtype, device)}
+
+
+def _matrix_shapes(cfg: ModelConfig) -> dict[str, tuple[int, int]]:
+    """A layer's (in, out) matrix shapes."""
     E, Fd = cfg.hidden_size, cfg.intermediate_size
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    shapes = {"wq": (E, Hq * D), "wk": (E, Hkv * D), "wv": (E, Hkv * D),
-              "wo": (Hq * D, E), "wg": (E, Fd), "wu": (E, Fd), "wd": (Fd, E)}
-    t = {name: _normal(generator, device, dtype, *shape) for name, shape in shapes.items()}
+    return {"wq": (E, Hq * D), "wk": (E, Hkv * D), "wv": (E, Hkv * D),
+            "wo": (Hq * D, E), "wg": (E, Fd), "wu": (E, Fd), "wd": (Fd, E)}
+
+
+def _norms_and_biases(cfg: ModelConfig, dtype: torch.dtype, device: torch.device) -> dict:
+    """A layer's unit norms and zero biases, those the config has."""
+    E, Hq, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     zeros = lambda n: torch.zeros(n, dtype=dtype, device=device)
     ones = lambda n: torch.ones(n, dtype=dtype, device=device)
-    t["ln1"], t["ln2"] = ones(E), ones(E)
+    t = {"ln1": ones(E), "ln2": ones(E)}
     if cfg.attention_bias:
         t["bq"], t["bk"], t["bv"] = zeros(Hq * D), zeros(Hkv * D), zeros(Hkv * D)
     if cfg.qk_norm:
@@ -173,6 +184,59 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return LlamaModel(embed, layers, torch.ones(E, dtype=dtype, device=device), head)
 
 
+def init_params_int8(cfg: ModelConfig, generator: torch.Generator,
+                     dtype: torch.dtype = torch.bfloat16, bits: int = 8,
+                     int8_embeddings: bool = False, device: DeviceLike = "cuda") -> LlamaModel:
+    """Random init straight into int8 or packed-int4 payloads with their
+    per-output-channel scales, as the JAX ``init_params_int8`` lays them out,
+    for models whose bf16 copy would not fit beside its quantized one.
+
+    int8: payloads uniform in [-127, 127] with scale 0.02/127 of shape
+    (1, out); int4 (``bits=4``): uint8 payloads (in/2, out) uniform over
+    0..255 with scales (2, out) of 0.02/7. Norms are ones and biases zeros in
+    ``dtype`` (the compute dtype). ``int8_embeddings`` draws an int8
+    embedding with ``embed_scale`` (V, 1) and, when the embeddings are
+    untied, an int8 head with ``lm_head_scale`` (1, V); otherwise both are
+    N(0, 0.02) in ``dtype``. Drawn a layer at a time from ``generator``,
+    which must live on ``device``: no bf16 copy of the model exists."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    device = resolve_device(device)
+    E, V = cfg.hidden_size, cfg.vocab_size
+
+    def draw_int8(*shape):
+        return torch.randint(-127, 128, shape, generator=generator, device=device,
+                             dtype=torch.int8)
+
+    def full(n_rows, out, value):
+        return torch.full((n_rows, out), value, dtype=torch.float32, device=device)
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        t = {}
+        for name, (n_in, out) in _matrix_shapes(cfg).items():
+            if bits == 4:
+                t[name] = torch.randint(0, 256, (n_in // 2, out), generator=generator,
+                                        device=device, dtype=torch.uint8)
+                t[name + "_scale"] = full(2, out, 0.02 / 7.0)
+            else:
+                t[name] = draw_int8(n_in, out)
+                t[name + "_scale"] = full(1, out, 0.02 / 127.0)
+        layers.append({**t, **_norms_and_biases(cfg, dtype, device)})
+    extra, head = {}, None
+    if int8_embeddings:
+        embed = draw_int8(V, E)
+        extra["embed_scale"] = full(V, 1, 0.02 / 127.0)
+        if not cfg.tie_word_embeddings:
+            head = draw_int8(E, V)
+            extra["lm_head_scale"] = full(1, V, 0.02 / 127.0)
+    else:
+        embed = _normal(generator, device, dtype, V, E)
+        if not cfg.tie_word_embeddings:
+            head = _normal(generator, device, dtype, E, V)
+    return LlamaModel(embed, layers, torch.ones(E, dtype=dtype, device=device), head, extra)
+
+
 def _lin(h: torch.Tensor, layer, name: str) -> torch.Tensor:
     """h @ layer.<name>, reading quantized weights with their
     per-output-channel scales.
@@ -181,11 +245,13 @@ def _lin(h: torch.Tensor, layer, name: str) -> torch.Tensor:
     (in/2, out)): the low nibbles hold the first half of the contraction
     axis and the high nibbles the second, each with a +8 offset, like the
     int4 KV cache; two half-width products, each with its own (out,) scale
-    from the (2, out) ``<name>_scale``."""
+    from the (2, out) ``<name>_scale``. A float weight of another dtype than
+    ``h`` is cast to ``h``'s, as JAX promotes a float32 activation against
+    bf16 weights (a prefill into a float32 cache, KVzap's collector)."""
     w = layer.get(name)
     scale = layer.get(name + "_scale")
     if scale is None:
-        return h @ w
+        return h @ (w if w.dtype == h.dtype else w.to(h.dtype))
     if w.dtype == torch.uint8:
         E2 = w.shape[-2]
         lo = (w & 0xF).to(h.dtype) - 8
@@ -998,7 +1064,8 @@ class Runner:
         collect = {}
         if dms is not None:
             collect = dict(collect_fn=dms.press.chunk_score_fn,
-                           collect_arg=dms.press.chunk_score_arg)
+                           collect_arg=dms.press.chunk_score_arg if self.shard is None else
+                           dms.press.chunk_score_arg_local(self.shard, cfg.num_kv_heads))
         elif post is not None:
             collect = dict(collect_fn=post.chunk_score_fn, collect_arg=post.chunk_score_arg)
         all_scores = []

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, and loaded
 with ``ctypes``. No PyTorch header is included, so a build takes seconds.
-Libraries go to ``build/kernels/`` at the repository root, named by a hash
-of their sources, so an edited source is rebuilt and an unchanged one is
-loaded as it is.
+Libraries go to ``build/kernels/`` at the repository root (or to the
+directory given to ``utils.enable_compile_cache``), named by a hash of their
+sources, so an edited source is rebuilt and an unchanged one is loaded as it
+is.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises when that is not 0.
@@ -47,10 +48,18 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_build_dir: Path | None = None      # set by set_build_dir
 
 
 def build_dir() -> Path:
-    return CSRC.parent.parent / "build" / "kernels"
+    return _build_dir or CSRC.parent.parent / "build" / "kernels"
+
+
+def set_build_dir(path) -> None:
+    """Build and load the libraries under ``path`` from now on (None: the
+    default ``build/kernels/``). Libraries loaded already stay loaded."""
+    global _build_dir
+    _build_dir = None if path is None else Path(path).resolve()
 
 
 def _nvcc() -> str:

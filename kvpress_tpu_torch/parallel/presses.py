@@ -14,7 +14,11 @@ A press sees the rank's kv heads only. Three classes (``ROADMAP.md``,
 
 The presses of ``MESH_PRESSES`` are held against the JAX package under a
 mesh; every other press raises ``NotImplementedError`` naming its ROADMAP
-item.
+item. ``KVzapPress`` (class (b)) reads its rank's columns of the
+surrogate's output layer; ``DMSPress`` thresholds each of the rank's heads
+on its own (its prefill mask, its decode ring), and a ``compact=True``
+layer is as long as its longest head over every rank
+(``cache.compact_masked``).
 
 Over a ``"seq"`` mesh (context parallelism, ``parallel/context_prefill.py``
 and ``parallel/decode.py``) a press compresses each rank's block of the
@@ -32,10 +36,12 @@ from __future__ import annotations
 SCORERS = ("KnormPress", "SnapKVPress", "PyramidKVPress", "ObservedAttentionPress",
            "StreamingLLMPress", "ExpectedAttentionPress", "KeyDiffPress", "LagKVPress")
 DECODING = ("DecodingPress", "CompressionRatioDecodingPress")
-MESH_PRESSES = SCORERS + DECODING + ("AdaKVPress", "PrefillDecodingPress", "BasePress")
+MESH_PRESSES = SCORERS + DECODING + ("AdaKVPress", "PrefillDecodingPress", "BasePress",
+                                     "DMSPress", "KVzapPress")
 
-# ROADMAP Queue A item 18: the presses refused under a mesh, one item each.
-MESH_ITEMS = {name: f"18.{i}" for i, name in enumerate((
+# ROADMAP Queue A item 18: one item a press, numbered in this order; the
+# presses of MESH_PRESSES among them are done and left out of MESH_ITEMS.
+_ITEM_ORDER = {name: f"18.{i}" for i, name in enumerate((
     # (a) shard-local arithmetic, not yet held against JAX under a mesh
     "CapPress", "CURPress", "CriticalKVPress", "KeyRerotationPress",
     "PerLayerCompressionPress", "ThinKPress", "ChunkPress", "ComposedPress", "MergingPress",
@@ -47,6 +53,7 @@ MESH_ITEMS = {name: f"18.{i}" for i, name in enumerate((
     "TOVAPress", "CriticalAdaKVPress", "ChunkKVPress", "LUKVPress", "SimLayerKVPress",
     "CompactorPress", "LeverageScorePress", "NonCausalAttnPress", "CAMPress", "KVzipPress",
     "KVzipChunkScorer", "KVComposePress", "KVComposeCollector"), start=1)}
+MESH_ITEMS = {name: item for name, item in _ITEM_ORDER.items() if name not in MESH_PRESSES}
 
 
 def check_press(press) -> None:

@@ -369,7 +369,7 @@ class KVPressPipeline:
             # each head's kept entries to the front of its buffer, each
             # layer's length to its longest head's count; the resize below
             # then frees the rest.
-            cache = compact_masked(cache)
+            cache = compact_masked(cache, self.runner.shard)
         compressed = int(cache.length.max())
         logger.debug("Context Length: %d", context_length)
         logger.debug("Compressed Context Length: %d", compressed)

@@ -80,6 +80,11 @@ class BasePress:
     def chunk_score_arg(self):
         return None
 
+    def chunk_score_arg_local(self, shard, n_local: int):
+        """``chunk_score_arg`` for a rank of a tensor-parallel mesh that
+        holds ``n_local`` kv heads (``shard``: its ``ModelShard``)."""
+        return self.chunk_score_arg
+
     def wants_probs(self, q_len: int) -> bool:
         """Whether the runner should take the attention path that
         materializes probabilities (O(S^2) memory) for a ``q_len``-token call."""

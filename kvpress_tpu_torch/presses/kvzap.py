@@ -1,7 +1,11 @@
 """KVzapPress: learned surrogate scoring (reference kvzap_press.py,
 arXiv:2601.07891; port of ``kvpress_tpu/presses/kvzap.py``). A per-layer
 linear map or two-layer GELU MLP takes the hidden states to per-kv-head
-scores. The trainer comes with ROADMAP Queue A item 17.
+scores. ``training.kvzap`` collects the targets and trains the surrogate.
+
+Under a tensor-parallel mesh a rank scores its own kv heads: the columns of
+the output layer (``w2``/``b2``, or ``w``/``b``) from kv head
+``shard.rank * H_kv`` on.
 
 The surrogate is a dict of stacked (L, ...) arrays (numpy or tensors) from a
 local ``.npz`` file (the reference downloads ``nvidia/KVzap-{mlp,linear}-*``):
@@ -19,16 +23,25 @@ import torch.nn.functional as F
 from .base import LayerCtx, ScorerPress, layer_tensor
 
 
-def kvzap_apply(surrogate: dict, layer_idx: int, hidden: torch.Tensor) -> torch.Tensor:
-    """hidden (B, S, E) -> scores (B, H_kv, S) for one layer."""
+def kvzap_apply(surrogate: dict, layer_idx: int, hidden: torch.Tensor,
+                heads: Optional[slice] = None) -> torch.Tensor:
+    """hidden (B, S, E) -> scores (B, H_kv, S) for one layer; ``heads``
+    keeps those kv heads' output columns only."""
     h = hidden.to(torch.float32)
     w = lambda name: layer_tensor(surrogate[name], layer_idx, h.device)
+    cols = slice(None) if heads is None else heads
     if "w1" in surrogate:
         z = F.gelu(h @ w("w1") + w("b1"), approximate="none")
-        out = z @ w("w2") + w("b2")
+        out = z @ w("w2")[:, cols] + w("b2")[cols]
     else:
-        out = h @ w("w") + w("b")
+        out = h @ w("w")[:, cols] + w("b")[cols]
     return out.transpose(1, 2)
+
+
+def local_heads(shard, n_local: int) -> Optional[slice]:
+    """The kv heads of a rank that holds ``n_local`` of them (None without a
+    mesh)."""
+    return None if shard is None else slice(shard.rank * n_local, (shard.rank + 1) * n_local)
 
 
 def save_kvzap_model(path: str, surrogate: dict) -> None:
@@ -42,8 +55,10 @@ def load_kvzap_model(path: str) -> dict:
 
 def _kvzap_chunk_scores(arg, layer_idx, hidden, keys, values):
     """Per-token chunk scoring: the surrogate scores each token from its own
-    hidden state, so a chunk's scores are exact."""
-    return kvzap_apply(arg, layer_idx, hidden)
+    hidden state, so a chunk's scores are exact. ``arg``: the surrogate, or
+    (surrogate, heads) under a mesh (``chunk_score_arg_local``)."""
+    surrogate, heads = arg if isinstance(arg, tuple) else (arg, None)
+    return kvzap_apply(surrogate, layer_idx, hidden, heads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +75,9 @@ class KVzapPress(ScorerPress):
     def chunk_score_arg(self):
         return self.surrogate
 
+    def chunk_score_arg_local(self, shard, n_local: int):
+        return self.surrogate, local_heads(shard, n_local)
+
     def score(self, ctx: LayerCtx, keys, values):
         if self.surrogate is None:
             raise ValueError("KVzap surrogate not loaded; pass surrogate=load_kvzap_model(path)")
@@ -67,4 +85,5 @@ class KVzapPress(ScorerPress):
             raise ValueError(f"KVzapPress scores each slot from its own hidden state: it has "
                              f"{ctx.hidden.shape[1]} for {keys.shape[2]} slots (chunked "
                              f"prefill's compression pass keeps only the last window's)")
-        return kvzap_apply(self.surrogate, ctx.layer_idx, ctx.hidden)
+        return kvzap_apply(self.surrogate, ctx.layer_idx, ctx.hidden,
+                           local_heads(ctx.shard, keys.shape[1]))

@@ -706,7 +706,7 @@ class ServingEngine:
                 cache = press.apply_post_mask(cache, press_state)
         if press is not None and getattr(press, "host_compact", False):
             # Head-wise compaction lets a masked admission fit a small slot.
-            cache = compact_masked(cache)
+            cache = compact_masked(cache, runner.shard)
 
         pre_row = logits[0, -1]
         if key is not None:

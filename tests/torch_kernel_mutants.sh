@@ -56,7 +56,11 @@
 # parallelism: the ring combines each block with weight 1 in place of
 # exp(lse_blk - lse_new) (cp_ring_block_weight), and chip_smoke.cp_check (the
 # seq 4 world over gloo on the one card) runs in it;
-# tests/test_torch_context_prefill.py fails on it too.
+# tests/test_torch_context_prefill.py fails on it too. One more breaks the
+# KVzap collector: its targets drop the ||Wo . v|| factor
+# (kvzap_collector_wov), and chip_smoke.kvzap_check (the collector at the
+# flagship's width, held against its float64 recomputation) runs in it;
+# tests/test_torch_training.py fails on it too.
 # Every copy must be rejected; the script exits 1 if one passes or if a
 # mutation did not apply. Mutant names given as arguments run those alone.
 set -u
@@ -71,7 +75,7 @@ mutants="colsum_query_tile colsum_diagonal lse_key_tile headwise_tail headwise_p
          pipeline_rerotation_offset compact_masked_past_length duo_inverse_permutation
          kvzip_pass_writes_context kvcompose_rebuild_order serving_append_late
          serving_insert_slot serving_dead_lane_advance serving_tokens_in_place
-         tp_mlp_all_reduce cp_ring_block_weight"
+         tp_mlp_all_reduce cp_ring_block_weight kvzap_collector_wov"
 for m in ${@:-$mutants}; do
   d=$(mktemp -d)/$m
   mkdir -p "$d"
@@ -87,6 +91,7 @@ for m in ${@:-$mutants}; do
   du=$d/kvpress_tpu_torch/ops/duo_decode.py
   sv=$d/kvpress_tpu_torch/serving.py
   rg=$d/kvpress_tpu_torch/parallel/ring.py
+  kz=$d/kvpress_tpu_torch/training/kvzap.py
   check=kernel_checks
   case $m in
     colsum_query_tile)
@@ -169,6 +174,9 @@ for m in ${@:-$mutants}; do
     cp_ring_block_weight)
       sed -i 's/    w_blk = torch.where(dead, 0.0, torch.exp(lse_blk - lse_new))/    w_blk = torch.where(dead, 0.0, torch.ones_like(lse_new))/' "$rg"
       check=cp_check ;;
+    kvzap_collector_wov)
+      sed -i 's/        scores = scores \* wov.reshape(B, Hq, 1, -1)$/        scores = scores * 1.0/' "$kz"
+      check=kvzap_check ;;
   esac
   changed=$(diff -r kvpress_tpu_torch "$d/kvpress_tpu_torch" | grep -c '^>')
   echo "== mutant $m: $changed changed line(s)"
@@ -185,7 +193,7 @@ try:
     if os.environ["CHECK"] in ("bucketed_check", "rerotation_check", "compact_masked_check",
                                "duo_split_check", "kvzip_context_check",
                                "kvcompose_rebuild_check", "serving_check",
-                               "tp_serving_check", "cp_check"):
+                               "tp_serving_check", "cp_check", "kvzap_check"):
         dev = torch.device("cuda")
         params = kt.init_params(chip_smoke.flagship_config(16),
                                 torch.Generator(device=dev).manual_seed(0),

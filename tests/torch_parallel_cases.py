@@ -114,7 +114,11 @@ def prefill(job: dict, mesh=None) -> dict:
     """The port's prefill of ``job`` (its numpy params, ids (B, S) and press;
     the runner and params sharded over ``mesh``): the last logits and the
     cache, and with ``job["decode"]`` the logits of one greedy token after
-    it, all gathered over the mesh."""
+    it, all gathered over the mesh. ``job["chunk"]``: ``prefill_chunked`` in
+    chunks of that size; ``job["compact"]``: ``compact_masked`` after the
+    prefill; ``job["decode_steps"]``: that many greedy tokens through the
+    press's decode phase (its state threaded), their logits as
+    ``"steps"`` and the cache after them."""
     import kvpress_tpu_torch as kt
     from kvpress_tpu_torch.parallel import data_shard, gather_batch, shard_params
 
@@ -124,11 +128,28 @@ def prefill(job: dict, mesh=None) -> dict:
     ids = torch.from_numpy(np.asarray(job["ids"], np.int64))
     if mesh is not None:
         params, ids = shard_params(params, mesh), data_shard(ids, mesh)
-    logits, cache, _ = runner.prefill(params, ids, press=job.get("press"), compute_logits=True,
-                                      dtype=torch.float32)
+    press = job.get("press")
+    kw = dict(press=press, compute_logits=True, dtype=torch.float32)
+    if job.get("chunk"):
+        logits, cache, state = runner.prefill_chunked(params, ids, chunk_size=job["chunk"], **kw)
+    else:
+        logits, cache, state = runner.prefill(params, ids, **kw)
+    if job.get("compact"):
+        cache = kt.compact_masked(cache, runner.shard)
     rows = (lambda t: t) if mesh is None else (lambda t: gather_batch(t, mesh))
+    steps = []
+    if job.get("decode_steps"):
+        cache = kt.resize(cache, ids.shape[1] + job["decode_steps"])
+        for _ in range(job["decode_steps"]):
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            logits, cache, state = runner.forward(params, tok, cache, press=press,
+                                                  press_state=state, phase="decode",
+                                                  logits_last_only=True)
+            steps.append(as_numpy(rows(logits)))
     out = dict(logits=as_numpy(rows(logits)), length=cache.length.numpy().copy(),
                offset=int(cache.offset))
+    if steps:
+        out["steps"] = np.stack(steps)
     for name in ("keys", "values", "mask"):
         out[name] = gathered(getattr(cache, name), mesh)
     if job.get("decode"):
