@@ -169,16 +169,23 @@
    plain version checked, each check with its planted fault; phase 2 also
    holds ``decode_attention`` at the slot step's ragged shape (8 slots of
    8,449, each slot's causality and window in the mask). Tensor-parallel
-   serving (``tp_serving_run``): 8 requests of S2's mix through ``ServingEngine(mesh=)``
+   serving (``tp_serving_run``): 4 requests of S2's mix through ``ServingEngine(mesh=)``
    over a world of one over NCCL in this process, its answers, host lengths
    and offsets and every pool tensor identical to the single-process
    engine's (a world of one sums over one rank), decode 16 a slot step and
-   flash 16 + ``flash_attention_quant`` 16 an admission; then worlds of two
-   spawned ranks sharing the card over gloo (NCCL refuses two ranks on one
-   device; gloo takes CUDA tensors), ``model=2`` and ``data=2``, 8 requests
-   of 2,048 and 4,096 tokens each: every answer teacher-forced against the
-   single-process runner, host lengths, each rank's launches and the (16, 4)
-   or (32, 8) heads its kernels took. Context parallelism (``cp_run``):
+   flash 16 + ``flash_attention_quant`` 16 an admission; the same for each
+   shard-local press of ROADMAP items 18.1-18.11 (two requests of 2,048 and
+   4,096 tokens a press), with its prefill timed on the rank's runner and
+   on one process, and CriticalKV's ``||Wo v||`` per rank against the
+   single device's heads (bf16 and int4 weights, two planted faults); then
+   a world of two spawned ranks sharing the card over gloo (NCCL refuses two
+   ranks on one device; gloo takes CUDA tensors) with a ``model=2`` and a
+   ``data=2`` mesh, 4 requests of 2,048 and 4,096 tokens each (``model=2``
+   also CriticalKV, KeyRerotation, Composed(Knorm, ThinK) and Block(Knorm),
+   2 requests each):
+   every answer teacher-forced against the single-process runner, host
+   lengths, each rank's launches and the (16, 4) or (32, 8) heads its
+   kernels took. Context parallelism (``cp_run``):
    ``context_parallel_generate`` at the flagship shape over a world of one
    over NCCL at 32K (Knorm 0.5, 32 new tokens, bf16 then int8 shards): flash
    16 a prefill, lengths and layer 0's kept keys the single-process
@@ -219,7 +226,7 @@
    context, ratio 0.5 (Knorm: int4 KV + int8 weights, decode kernel on and
    off; path B: bf16 KV at batch 1 and 4, head-wise kernel against the dense
    route and the decode kernel over the same cache), on a synchronized host
-   clock, medians (decode: of DECODE_REPS loops a pass), with profiler
+   clock, medians (decode: of DECODE_REPS loops of DECODE_STEPS a pass), with profiler
    breakdowns (device busy time, idle share,
    largest kernels; no sort kernel may run in the decode-kernel step). Per
    kernel (phase 2): its device time from the profiler beside its bound,
@@ -2571,13 +2578,25 @@ def mask_presses_run(kt, torch, tokenizer_cls, params, report, labels=None):
             peak = torch.cuda.max_memory_allocated() - held
             plain = inner.layer_compress(ctx, keys, values, S, mask)
             n_changed = int((merged[1][:, :, :half] != plain[1][:, :, :half]).any(-1).sum())
+            # The scatter-adds sum in index order: a second call gives the
+            # same bits (the world of one's engine runs rely on it).
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            again = press.layer_compress(ctx, keys, values, S, mask)
+            end.record()
+            torch.cuda.synchronize()
+            same = torch.equal(again[1], merged[1])
             report(f"    one layer's merge at 32K: peak {peak / 2**30:.3f} GiB over the "
                    f"{held / 2**30:.3f} GiB held (similarity slices of "
                    f"{kt.presses.merging.SIM_BYTES >> 20} MiB); {n_changed} of {Hkv * half} "
-                   f"kept values merged in the captured layer")
+                   f"kept values merged in the captured layer; a second call "
+                   f"{start.elapsed_time(end):.2f} ms, "
+                   f"{'bit-equal' if same else 'different values'}")
             if n_changed == 0:
                 failures.append(f"{name}: no kept value of the captured layer changed")
-            del merged, plain
+            if not same:
+                failures.append(f"{name}: two merges of one layer differ")
+            del merged, plain, again
         del k_m, v_m
         torch.cuda.empty_cache()
 
@@ -3892,6 +3911,7 @@ SV_SMALL_CONTEXT = 2048       # the sampling check's contexts and the bf16 readi
 SV_TF = 4                     # requests teacher-forced in each run but S1 (all of them)
 SV_INTERVAL = 16              # S4's compression interval
 SV_SAMPLE_NEW = 32            # new tokens a request of the sampling check
+SV_S7_ONE = 4                 # S7's requests at one slot (8 at eight)
 # A served token is the single-request path's argmax, or within a tie limit
 # of it in that path's logits: F32_RATIO x 2 x what bf16 rounding alone moves
 # the two largest logits of the single-request path (its dense route in bf16
@@ -4013,6 +4033,11 @@ def serving_reference(kt, torch, runner, params, press, req, got, quantized=Fals
     else:
         logits, cache, state = runner.prefill(params, ids, **kw)
     kept = cache.length.clone()
+    if getattr(press, "rerotates", False):
+        # Rerotated keys sit at positions 0..n-1: the engine continues from
+        # the kept length.
+        cache = dataclasses.replace(cache, offset=torch.tensor(int(kept.max()),
+                                                               dtype=torch.int32))
     cache = kt.resize(cache, int(kept.max()) + len(q) + len(got) + 1)
     if q:
         logits, cache, _ = runner.forward(params, torch.tensor([q], device=dev), cache,
@@ -4063,18 +4088,21 @@ def check_slot_rows(torch, label, sc, slot, cache, kept, n_rows):
                                      f"{limit:.3e})")
 
 
-def check_host_lengths(label, lengths, offsets, served, reqs, answers, kept_of):
+def check_host_lengths(label, lengths, offsets, served, reqs, answers, kept_of,
+                       rerotates=False):
     """Each slot's host lengths and offset after the run: the kept context,
     the question and the tokens appended (every generated token but the
-    last) of the last request it served."""
+    last) of the last request it served. A ``rerotates`` press's offset
+    continues from the kept length."""
     for s, r in served.items():
         ctx, q = reqs[r][0], reqs[r][1]
         n = len(answers[r]) - 1
         want = [kept_of(len(ctx)) + len(q) + n] * lengths.shape[0]
-        if lengths[:, s].tolist() != want or int(offsets[s]) != len(ctx) + len(q) + n:
+        offset = (want[0] if rerotates else len(ctx) + len(q) + n)
+        if lengths[:, s].tolist() != want or int(offsets[s]) != offset:
             raise AssertionError(f"{label}: slot {s} (request {r}) holds lengths "
                                  f"{lengths[:, s].tolist()}, offset {int(offsets[s])}; the "
-                                 f"request needs {want[0]} and {len(ctx) + len(q) + n}")
+                                 f"request needs {want[0]} and {offset}")
 
 
 def check_serving_launches(label, counts, steps, kind, flash, quant, L):
@@ -4239,7 +4267,8 @@ def serving_run(kt, torch, tokenizer_cls, params, report, labels=None):
       S5  context_chunk 4,096, interleave, context_cache 2: 16 requests over 4
           contexts of 16,384 tokens, 12 LRU hits;
       S6  KVPressPipeline.batch() on 8 strings of 8,192 words;
-      S7  8 requests of 8,192 tokens at 1 slot and at 8: the batching reading;
+      S7  8 requests of 8,192 tokens at 8 slots, the first 4 at 1: the
+          batching reading;
     and the sampling check (4 requests of 2,048 tokens). Checks: answers
     teacher-forced against the single-request path (all of S1, SV_TF of each
     other run), the pool rows of each such request that was last in its slot
@@ -4460,14 +4489,17 @@ def serving_run(kt, torch, tokenizer_cls, params, report, labels=None):
         torch.cuda.empty_cache()
 
     if wanted("S7"):
-        reqs7 = serving_requests(gen, V, [SV_CONTEXTS[0]] * 8)
+        all7 = serving_requests(gen, V, [SV_CONTEXTS[0]] * 8)
         rates = {}
         for n_slots in (1, SV_SLOTS):
+            # One slot serves its requests one after the other at one rate:
+            # the first SV_S7_ONE of them, for the script's time.
+            reqs7 = all7[:SV_S7_ONE] if n_slots == 1 else all7
             eng = kt.ServingEngine(runner, params, n_slots=n_slots, question_bucket=SV_QUESTION_BUCKET,
                                    fetch_lag=SV_FETCH_LAG, press=knorm,
                                    capacity=serving_capacity(cfg, knorm, reqs7))
             answers, counts, eng, served = serving_once(
-                kt, torch, f"S7, 8 requests of {SV_CONTEXTS[0]:,} tokens, Knorm(0.5), "
+                kt, torch, f"S7, {len(reqs7)} requests of {SV_CONTEXTS[0]:,} tokens, Knorm(0.5), "
                 f"{n_slots} slot{'s' if n_slots > 1 else ''}",
                 lambda: eng.run([kt.Request(*r) for r in reqs7]), report)
             add(counts)
@@ -4549,25 +4581,51 @@ def serving_check(kt, torch, tokenizer_cls, params, report):
 
 
 TP_CONTEXTS = SV_CONTEXTS     # the world of one: S2's contexts (int8 slots)
-TP_REQUESTS = SV_REQUESTS // 2     # the first 8 requests of S2's mix, for the script's time
+TP_REQUESTS = SV_REQUESTS // 4     # the first 4 requests of S2's mix, for the script's time
 TP_NEW = SV_NEW
 TP_GLOO_CONTEXTS = (2048, 4096)   # the 2-rank worlds over gloo: short contexts
-TP_GLOO_REQUESTS = 8
+TP_GLOO_REQUESTS = 4
 TP_GLOO_NEW = 16
 # The 2-rank worlds share the one card over gloo (NCCL refuses two ranks on
 # one device); gloo takes CUDA tensors for all_reduce and all_gather.
 TP_GLOO_WORLDS = {"model2": {"data": 1, "model": 2}, "data2": {"data": 2, "model": 1}}
+# The shard-local presses of ROADMAP Queue A items 18.1-18.11 under a mesh:
+# each over a world of one (int8 slots), two requests a press; four of them
+# also in the model 2 gloo world (Block there all-gathers its candidate sets
+# at four kv heads of eight a rank).
+TP_LOCAL_CONTEXTS = (2048, 4096)
+TP_LOCAL_NEW = 16
+TP_LOCAL_PRESSES = {
+    "CAP": lambda kt, L: kt.CapPress(0.5),
+    "CUR": lambda kt, L: kt.CURPress(0.5, use_random_leverage=True),
+    "CriticalKV(Knorm)": lambda kt, L: kt.CriticalKVPress(kt.KnormPress(0.5)),
+    "KeyRerotation(Knorm)": lambda kt, L: kt.KeyRerotationPress(kt.KnormPress(0.5)),
+    "PerLayerCompression(Knorm)": lambda kt, L: kt.PerLayerCompressionPress(
+        kt.KnormPress(0.5), compression_ratios=tuple(0.25 + 0.5 * (l % 2) for l in range(L))),
+    "ThinK": lambda kt, L: kt.ThinKPress(0.5, window_size=32),
+    "Chunk(Knorm)": lambda kt, L: kt.ChunkPress(kt.KnormPress(0.5), chunk_length=1024),
+    "Composed(Knorm, ThinK)": lambda kt, L: kt.ComposedPress(
+        (kt.KnormPress(0.5), kt.ThinKPress(0.5, window_size=32))),
+    "Merging(Knorm)": lambda kt, L: kt.MergingPress(kt.KnormPress(0.5)),
+    "Block(Knorm)": lambda kt, L: kt.BlockPress(kt.KnormPress(0.5), block_size=512),
+    "Finch": lambda kt, L: kt.FinchPress(0.5, window_size=64),
+}
+TP_LOCAL_GLOO = ("CriticalKV(Knorm)", "KeyRerotation(Knorm)", "Composed(Knorm, ThinK)",
+                 "Block(Knorm)")
 
 
 TP_RANK_TIMEOUT = 600         # seconds for a 2-rank world, and for a collective in it
 
 
 def tp_press(kt, spec=None):
-    """The press of a tensor-parallel run: Knorm(0.5), or (``spec``) DMS over
-    the KVzap surrogate of the ``.npz`` at ``spec["path"]`` with its
-    threshold and ``compact``."""
+    """The press of a tensor-parallel run: Knorm(0.5); (``spec`` a name) a
+    press of TP_LOCAL_PRESSES at the flagship's depth; or (``spec`` a dict)
+    DMS over the KVzap surrogate of the ``.npz`` at ``spec["path"]`` with
+    its threshold and ``compact``."""
     if spec is None:
         return kt.KnormPress(0.5)
+    if isinstance(spec, str):
+        return TP_LOCAL_PRESSES[spec](kt, flagship_config(16).num_layers)
     return kt.DMSPress(kt.KVzapPress(surrogate=kt.load_kvzap_model(spec["path"])),
                        threshold=spec["threshold"], compact=spec["compact"])
 
@@ -4575,10 +4633,12 @@ def tp_press(kt, spec=None):
 def tp_rank(rank: int, world: int, d: str):
     """One rank of a 2-rank world on the one card (its own process, started
     by ``tp_gloo_world``): gloo through a FileStore under ``d``, the
-    flagship's params drawn as ``main_path`` draws them and sharded over the
-    mesh of ``d/job.json``, one engine run over bf16 slots on its requests.
-    Each rank writes its answers, host lengths and offsets, launch counts
-    and the (query, kv) head counts its kernels took to ``d/rank<r>.json``."""
+    flagship's params drawn as ``main_path`` draws them, one engine run over
+    bf16 slots for each of the runs of ``d/job.json`` (a mesh shape of
+    TP_GLOO_WORLDS, a press and its requests; a mesh made once a shape).
+    Each rank writes, for each run, its answers, host lengths and offsets,
+    launch counts and the (query, kv) head counts its kernels took to
+    ``d/rank<r>.json``."""
     import datetime
 
     import torch
@@ -4599,7 +4659,7 @@ def tp_rank(rank: int, world: int, d: str):
                             world_size=world,
                             timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT))
     try:
-        mesh = make_mesh(**job["shape"], device_type="cuda")
+        meshes = {}
         cfg = flagship_config(16)
         params = kt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                 dtype=torch.bfloat16, device=dev)
@@ -4615,38 +4675,64 @@ def tp_rank(rank: int, world: int, d: str):
         ll.flash_attention = recording("flash_attention", ll.flash_attention)
         ll.flash_attention_quant = recording("flash_attention_quant", ll.flash_attention_quant)
         sv.decode_attention = recording("decode_attention", sv.decode_attention)
-        eng = kt.ServingEngine(runner, params, n_slots=SV_SLOTS, capacity=job["cap"],
-                               press=tp_press(kt, job.get("press")),
-                               question_bucket=SV_QUESTION_BUCKET, fetch_lag=SV_FETCH_LAG,
-                               mesh=mesh)
-        torch.cuda.synchronize()
-        reset_counts()
-        answers = eng.run([kt.Request(*r) for r in job["reqs"]])
-        torch.cuda.synchronize()
-        out = dict(answers=answers, lengths=eng.sc.lengths.tolist(),
-                   offsets=eng.sc.offsets.tolist(), counts=launched(read_counts()),
-                   heads={k: sorted(v) for k, v in heads.items()},
-                   local_pool=list(eng.sc.keys.shape), own=[eng.own.start, eng.own.stop],
-                   stats={k: v for k, v in eng.last_stats.items() if not isinstance(v, list)})
+        outs = []
+        for run in job["runs"]:
+            if run["world"] not in meshes:
+                meshes[run["world"]] = make_mesh(**TP_GLOO_WORLDS[run["world"]],
+                                                 device_type="cuda")
+            heads.clear()
+            eng = kt.ServingEngine(runner, params, n_slots=SV_SLOTS, capacity=run["cap"],
+                                   press=tp_press(kt, run["press"]),
+                                   question_bucket=SV_QUESTION_BUCKET, fetch_lag=SV_FETCH_LAG,
+                                   mesh=meshes[run["world"]])
+            torch.cuda.synchronize()
+            reset_counts()
+            answers = eng.run([kt.Request(*r) for r in run["reqs"]])
+            torch.cuda.synchronize()
+            outs.append(dict(answers=answers, lengths=eng.sc.lengths.tolist(),
+                             offsets=eng.sc.offsets.tolist(), counts=launched(read_counts()),
+                             heads={k: sorted(v) for k, v in heads.items()},
+                             local_pool=list(eng.sc.keys.shape),
+                             own=[eng.own.start, eng.own.stop],
+                             stats={k: v for k, v in eng.last_stats.items()
+                                    if not isinstance(v, list)}))
+            del eng
+            torch.cuda.empty_cache()
         with open(f"{d}/rank{rank}.json", "w") as f:
-            json.dump(out, f)
+            json.dump(outs, f)
     finally:
         dist.destroy_process_group()
 
 
-def tp_world_of_one(kt, torch, params, report, press=None, reqs=None, label="TP"):
-    """The flagship engine (8 slots, int8 slots, ``press``: Knorm(0.5) unless
-    given) over a world of one over NCCL, against the single-process engine
-    on the same card and requests (S2's mix unless given): with a world of
-    one a shard is the whole and an all-reduce a copy, so the answers, the
-    host lengths and offsets and every pool tensor must be identical.
-    Returns the mesh run's launch counts."""
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """A world of one over NCCL in this process (its store under the
+    git-ignored ``build/``), and its ("data" 1, "model" 1) mesh."""
     import datetime
     import tempfile
 
     import torch.distributed as dist
 
     from kvpress_tpu_torch.parallel import make_mesh
+
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", init_method=f"file://{store}/nccl", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT))
+    try:
+        yield make_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_world_of_one(kt, torch, params, report, press=None, reqs=None, label="TP", mesh=None):
+    """The flagship engine (8 slots, int8 slots, ``press``: Knorm(0.5) unless
+    given) over a world of one over NCCL (``mesh``, or one made here),
+    against the single-process engine on the same card and requests (S2's
+    mix unless given): with a world of one a shard is the whole and an
+    all-reduce a copy, so the answers, the host lengths and offsets and
+    every pool tensor must be identical. Returns the mesh run's launch
+    counts."""
+    import torch.distributed as dist
 
     cfg = flagship_config(16)
     L, dev = cfg.num_layers, params.device
@@ -4667,15 +4753,10 @@ def tp_world_of_one(kt, torch, params, report, press=None, reqs=None, label="TP"
         return answers, counts, eng.last_stats["decode_steps"], pool
 
     ref = run(f"{label} reference: the single-process engine, int8 slots")
-    store = tempfile.mkdtemp(dir=ROOT / "build")
-    dist.init_process_group("nccl", init_method=f"file://{store}/nccl", rank=0, world_size=1,
-                            timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT))
-    try:
-        mesh = make_mesh(1, 1)
+    world = contextlib.nullcontext(mesh) if mesh is not None else nccl_world_of_one()
+    with world as mesh:
         got = run(f"{label} world of one over {dist.get_backend()} (mesh "
                   f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}), int8 slots", mesh)
-    finally:
-        dist.destroy_process_group()
 
     def identical(label, a, b):
         if a[0] != b[0]:
@@ -4700,27 +4781,27 @@ def tp_world_of_one(kt, torch, params, report, press=None, reqs=None, label="TP"
     return got[1]
 
 
-def tp_gloo_world(kt, torch, params, report, name: str, tie: float, spec=None, reqs=None,
-                  label="TP"):
-    """A 2-rank world on the one card over gloo (``TP_GLOO_WORLDS[name]``):
-    the ranks' answers teacher-forced against the single-process runner
-    (the bf16 tie limit of the serving phase), their host lengths, the
-    launch counts per rank, and the head counts each rank's kernels took.
-    ``spec``: the press (``tp_press``; Knorm(0.5) without it); ``reqs``:
-    the requests (TP_GLOO_REQUESTS of TP_GLOO_CONTEXTS without them)."""
+def tp_gloo_world(kt, torch, params, report, tie: float, runs, label="TP"):
+    """A 2-rank world on the one card over gloo, one engine run for each of
+    ``runs`` (``(name, spec, reqs)``: the mesh ``TP_GLOO_WORLDS[name]``; the
+    press, ``tp_press``; the requests, TP_GLOO_REQUESTS of TP_GLOO_CONTEXTS
+    when None): the ranks' answers teacher-forced against the
+    single-process runner (the bf16 tie limit of the serving phase), their
+    host lengths, the launch counts per rank, and the head counts each
+    rank's kernels took."""
     import tempfile
 
     cfg = flagship_config(16)
-    L, shape = cfg.num_layers, TP_GLOO_WORLDS[name]
-    tp = shape["model"]
-    press = tp_press(kt, spec)
-    reqs = reqs or serving_requests(torch.Generator().manual_seed(17), cfg.vocab_size,
-                                    [TP_GLOO_CONTEXTS[i % 2] for i in range(TP_GLOO_REQUESTS)],
-                                    TP_GLOO_NEW)
+    runs = [(name, spec, reqs or serving_requests(
+        torch.Generator().manual_seed(17), cfg.vocab_size,
+        [TP_GLOO_CONTEXTS[i % 2] for i in range(TP_GLOO_REQUESTS)], TP_GLOO_NEW))
+        for name, spec, reqs in runs]
     d = tempfile.mkdtemp(dir=ROOT / "build")
     with open(f"{d}/job.json", "w") as f:
-        json.dump(dict(shape=shape, reqs=reqs, cap=serving_capacity(cfg, press, reqs),
-                       press=spec), f)
+        json.dump(dict(runs=[
+            dict(world=name, press=spec, reqs=reqs,
+                 cap=serving_capacity(cfg, tp_press(kt, spec), reqs))
+            for name, spec, reqs in runs]), f)
     start = time.perf_counter()
     # Each rank is a fresh interpreter that imports this file (not a fork,
     # and not a re-run of whatever script imported it); a rank that fails
@@ -4731,14 +4812,13 @@ def tp_gloo_world(kt, torch, params, report, name: str, tie: float, spec=None, r
     try:
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs):
-                raise AssertionError(f"{label} {name}: a rank failed (exit codes "
+                raise AssertionError(f"{label}: a rank failed (exit codes "
                                      f"{[p.poll() for p in procs]})")
             if time.perf_counter() - start > TP_RANK_TIMEOUT:
-                raise AssertionError(f"{label} {name}: the world did not end in "
-                                     f"{TP_RANK_TIMEOUT} s")
+                raise AssertionError(f"{label}: the world did not end in {TP_RANK_TIMEOUT} s")
             time.sleep(0.2)
         if any(p.returncode != 0 for p in procs):
-            raise AssertionError(f"{label} {name}: a rank failed (exit codes "
+            raise AssertionError(f"{label}: a rank failed (exit codes "
                                  f"{[p.returncode for p in procs]})")
     finally:
         for p in procs:
@@ -4747,11 +4827,28 @@ def tp_gloo_world(kt, torch, params, report, name: str, tie: float, spec=None, r
             p.wait()
     wall = time.perf_counter() - start
     ranks = [json.load(open(f"{d}/rank{r}.json")) for r in range(2)]
+    runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=params.device)
+    for i, (name, spec, reqs) in enumerate(runs):
+        tp_gloo_check(kt, torch, params, report, runner, name, tie, spec, reqs,
+                      [r[i] for r in ranks], f"{label} {spec}" if isinstance(spec, str)
+                      else label)
+    report(f"  {label}: {len(runs)} run{'s' if len(runs) > 1 else ''} "
+           f"({', '.join(sorted({name for name, _, _ in runs}))}) in a world of {wall:.1f} s "
+           "(spawn and weights included; gloo through the host: no multi-card speed)")
+
+
+def tp_gloo_check(kt, torch, params, report, runner, name, tie, spec, reqs, ranks, label):
+    """One run of a gloo world (``ranks``: each rank's output) against the
+    single-process runner: equal host states on the ranks, answers within
+    the tie limit, host lengths (a compacting press's: its reference
+    layers'), launches and head counts per rank."""
+    cfg = flagship_config(16)
+    L, tp = cfg.num_layers, TP_GLOO_WORLDS[name]["model"]
+    press = tp_press(kt, spec)
     answers = ranks[0]["answers"]
     for r in ranks[1:]:
         if r["answers"] != answers or r["lengths"] != ranks[0]["lengths"]:
             raise AssertionError(f"{label} {name}: the ranks' host states differ")
-    runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=params.device)
     flips, widest, kept = [], 0.0, []
     for req, got in zip(reqs, answers):
         n_flip, worst, cache, _ = serving_reference(kt, torch, runner, params, press, req, got)
@@ -4764,9 +4861,9 @@ def tp_gloo_world(kt, torch, params, report, name: str, tie: float, spec=None, r
         del cache
     served = {s: r for s, r in enumerate(range(len(reqs)))}
     lengths, offsets = torch.tensor(ranks[0]["lengths"]), torch.tensor(ranks[0]["offsets"])
-    if spec is None:
+    if not isinstance(spec, dict):
         check_host_lengths(f"{label} {name}", lengths, offsets, served, reqs, answers,
-                           press.exact_kept)
+                           press.exact_kept, rerotates=getattr(press, "rerotates", False))
     else:
         for s, r in served.items():
             want = [k + len(reqs[r][1]) + len(answers[r]) - 1 for k in kept[r]]
@@ -4795,16 +4892,123 @@ def tp_gloo_world(kt, torch, params, report, name: str, tie: float, spec=None, r
            f"teacher-forced against the single-process runner: near-tie flips {flips}, the "
            f"widest {widest:.4f} (limit {tie:.4f}); host lengths as predicted; {steps} slot "
            f"steps, inter-token gap p50 / max {st['p50_intertoken_gap_s'] * 1e3:.1f} / "
-           f"{st['max_intertoken_gap_s'] * 1e3:.1f} ms, TTFT p50 {st['p50_ttft_s']:.3f} s; the "
-           f"run {st['wall_s']:.2f} s inside a world of {wall:.1f} s (spawn and weights "
-           f"included; gloo through the host: no multi-card speed)")
+           f"{st['max_intertoken_gap_s'] * 1e3:.1f} ms, TTFT p50 {st['p50_ttft_s']:.3f} s, "
+           f"the run {st['wall_s']:.2f} s")
 
 
-def tp_serving_run(kt, torch, tokenizer_cls, params, report, worlds=("one", "model2", "data2")):
+def critical_norm_check(kt, torch, cfg, layer, values, size=2, rows=None, read_global=False):
+    """CriticalKV's ||Wo_h v||_1 on each rank of a model ``size`` mesh (the
+    local config, the rank's rows of ``wo`` from ``shard_layer``) against
+    the single-device norm's slice of the rank's kv heads (both float32
+    products of the same weights and values: within 1e-5 of the scale).
+    Planted faults: ``rows(r)`` a rank takes another rank's rows;
+    ``read_global`` the rank reads the global head count and ``wo``."""
+    from kvpress_tpu_torch.parallel.mesh import local_config, shard_layer
+
+    def norm(cfg, tensors, v):
+        ctx = type("Ctx", (), dict(cfg=cfg, layer_params=tensors))()
+        return kt.CriticalKVPress.vwl1norm(ctx, v)
+
+    want = norm(cfg, layer, values)
+    n = cfg.num_kv_heads // size
+    local = local_config(cfg, size)
+    worst = 0.0
+    for r in range(size):
+        mine = values[:, r * n:(r + 1) * n]
+        if read_global:
+            got = norm(cfg, layer, mine)
+        else:
+            got = norm(local, shard_layer(layer, r if rows is None else rows(r), size), mine)
+        err = ((got - want[:, r * n:(r + 1) * n]).abs().max()
+               / want.abs().max().clamp_min(1e-6)).item()
+        if not err <= 1e-5:
+            raise AssertionError(f"rank {r} of {size}: ||Wo v|| {err:.3e} of its scale off the "
+                                 "single device's heads")
+        worst = max(worst, err)
+    return worst
+
+
+def tp_critical_norm_run(kt, torch, params, report):
+    """``critical_norm_check`` on the flagship's layer 0 in bf16 and in int4
+    (the repacked row-parallel halves), model 2 and 4, over 4,096 bf16
+    values; each planted fault rejected."""
+    from kvpress_tpu_torch.models.llama import quantize_layer_int4
+
+    cfg = flagship_config(16)
+    layer = {n: p.data for n, p in params.layers[0].named_parameters(recurse=False)}
+    int4 = quantize_layer_int4({n: t.float() for n, t in layer.items()})
+    gen = torch.Generator(device=params.device).manual_seed(20)
+    values = torch.randn(1, cfg.num_kv_heads, 4096, cfg.head_dim, generator=gen,
+                         device=params.device, dtype=torch.bfloat16)
+    errs = {}
+    for name, tensors in (("bf16", layer), ("int4", int4)):
+        for size in (2, 4):
+            errs[f"{name} model {size}"] = critical_norm_check(kt, torch, cfg, tensors, values,
+                                                               size)
+        must_reject(f"{name}: a rank takes the next rank's rows of wo", critical_norm_check,
+                    kt, torch, cfg, tensors, values, 2, lambda r: 1 - r)
+        must_reject(f"{name}: a rank reads the global num_heads and wo", critical_norm_check,
+                    kt, torch, cfg, tensors, values, 2, None, True)
+    report(f"  TP CriticalKV's ||Wo v|| per rank against the single device's heads (layer 0, "
+           f"4,096 values): {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} of the scale "
+           "(limit 1e-05); a rank on the next rank's rows of wo and a rank reading the global "
+           "num_heads and wo rejected, bf16 and int4")
+
+
+def tp_local_presses_run(kt, torch, params, report):
+    """Items 18.1-18.11 at the flagship shape: each press over a world of one
+    over NCCL (int8 slots, TP_LOCAL_CONTEXTS, TP_LOCAL_NEW new), identical
+    to the single-process engine, its launch counts held; and one prefill of
+    the longer context timed on the rank's (sharded) runner and on the
+    single-process runner (synchronized host clock, the better of two).
+    Returns the mesh runs' launch counts."""
+    from kvpress_tpu_torch.parallel import shard_params
+
+    cfg = flagship_config(16)
+    dev = params.device
+    single = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=dev)
+    totals = {}
+    times = {}
+    with nccl_world_of_one() as mesh:
+        sharded = single.sharded(mesh)
+        local = shard_params(params, mesh)
+        for i, label in enumerate(TP_LOCAL_PRESSES):
+            press = tp_press(kt, label)
+            reqs = serving_requests(torch.Generator().manual_seed(20 + i), cfg.vocab_size,
+                                    TP_LOCAL_CONTEXTS, TP_LOCAL_NEW)
+            counts = tp_world_of_one(kt, torch, params, report, press=press, reqs=reqs,
+                                     label=f"TP {label}", mesh=mesh)
+            for name, n in counts.items():
+                totals[name] = totals.get(name, 0) + n
+            ids = torch.tensor([reqs[1][0]], device=dev)
+            best = {}
+            for which, runner, p in (("one process", single, params),
+                                     ("world of one", sharded, local)):
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runner.prefill(p, ids, press=press)
+                    torch.cuda.synchronize()
+                    best[which] = min(best.get(which, 1e9), time.perf_counter() - t0)
+            times[label] = best
+        del local
+    torch.cuda.empty_cache()
+    report(f"  TP items 18.1-18.11, prefill of {TP_LOCAL_CONTEXTS[1]:,} tokens (ms, the "
+           "better of two) on one process / on the world of one's rank: " + "; ".join(
+               f"{k} {v['one process'] * 1e3:.1f} / {v['world of one'] * 1e3:.1f}"
+               for k, v in times.items()))
+    return totals
+
+
+def tp_serving_run(kt, torch, tokenizer_cls, params, report,
+                   worlds=("one", "local", "model2", "data2")):
     """Tensor-parallel serving at the flagship shape: the world of one over
-    NCCL held identical to the single-process engine, then the 2-rank gloo
-    worlds (model 2, data 2) on the one card teacher-forced against the
-    single-process runner. Returns the world of one's launch counts."""
+    NCCL held identical to the single-process engine (Knorm, then
+    (``"local"``) each press of items 18.1-18.11 and CriticalKV's norm per
+    rank with its planted faults), then one 2-rank gloo world on the one
+    card (a model 2 mesh with Knorm and the presses of TP_LOCAL_GLOO, a data
+    2 mesh with Knorm) teacher-forced against the single-process runner.
+    Returns the worlds of one's launch counts."""
     from kvpress_tpu_torch.ops import _build
 
     # Built here, before any rank is spawned: ranks never race nvcc into one
@@ -4813,11 +5017,22 @@ def tp_serving_run(kt, torch, tokenizer_cls, params, report, worlds=("one", "mod
     counts = {}
     if "one" in worlds:
         counts = tp_world_of_one(kt, torch, params, report)
+    if "local" in worlds:
+        tp_critical_norm_run(kt, torch, params, report)
+        for name, n in tp_local_presses_run(kt, torch, params, report).items():
+            counts[name] = counts.get(name, 0) + n
     gloo = [w for w in worlds if w in TP_GLOO_WORLDS]
     if gloo:
+        # One world of spawned ranks for every run: a mesh a shape.
         tie = F32_RATIO * 2 * serving_noise(kt, torch, params, report)
+        cfg = flagship_config(16)
+        local = serving_requests(torch.Generator().manual_seed(19), cfg.vocab_size,
+                                 TP_LOCAL_CONTEXTS, TP_GLOO_NEW)
+        runs = []
         for name in gloo:
-            tp_gloo_world(kt, torch, params, report, name, tie)
+            runs += [(name, None, None)] + ([(name, spec, local) for spec in TP_LOCAL_GLOO]
+                                            if name == "model2" else [])
+        tp_gloo_world(kt, torch, params, report, tie, runs)
     return counts
 
 
@@ -5551,7 +5766,7 @@ def kz_mesh(kt, torch, params, path, threshold, report):
     counts = tp_world_of_one(kt, torch, params, report, press=tp_press(kt, spec), reqs=reqs,
                              label="KZ DMS(KVzap) compact")
     tie = F32_RATIO * 2 * serving_noise(kt, torch, params, report)
-    tp_gloo_world(kt, torch, params, report, "model2", tie, spec=spec, reqs=reqs,
+    tp_gloo_world(kt, torch, params, report, tie, [("model2", spec, reqs)],
                   label="KZ DMS(KVzap) compact")
     return counts
 
@@ -6738,10 +6953,12 @@ def model_reference_check(kt, torch, label, cfg, params, report, ids=None, input
 # Phase 4: timings
 
 
-# Timed decode loops of 32 steps a pass and route in phase 4, and decode
-# steps a profiler breakdown averages over (the other phases' 4): both keep
-# the whole script inside its time with phase "KZ".
+# Timed decode loops of DECODE_STEPS steps, DECODE_REPS a pass and route in
+# phase 4, and decode steps a profiler breakdown averages over (the other
+# phases' 4): they keep the whole script inside its time with phases "KZ"
+# and "TP".
 DECODE_REPS = 2
+DECODE_STEPS = 16
 DECODE_PROFILE_ITERS = 4
 
 
@@ -6787,7 +7004,7 @@ def timings(kt, torch, params, params8, report):
         breakdown(f"prefill 32K chunked, {label}", call, 1, report, top=8)
     del params4
 
-    B, steps = DECODE_BATCH, 32
+    B, steps = DECODE_BATCH, DECODE_STEPS
     ids = torch.randint(3, cfg.vocab_size, (B, CONTEXT_TOKENS), generator=gen, device=dev)
     _, cache, _ = runner.prefill(params8, ids, press=press, quantized=True, kv_bits=4)
     cache = kt.resize(cache, CONTEXT_TOKENS // 2 + steps + 1)
@@ -7158,8 +7375,9 @@ def main() -> int:
         launches[name] += n
     report(f"  the serving phase took {time.perf_counter() - t_phase:.1f} s")
     report("phase 3: tensor-parallel serving at the flagship shape: a world of one over NCCL "
-           "against the single-process engine, then model 2 and data 2 worlds over gloo on the "
-           "one card")
+           "against the single-process engine (Knorm, then each press of items 18.1-18.11), then "
+           "model 2 (Knorm, CriticalKV, KeyRerotation, Composed, Block) and data 2 worlds over "
+           "gloo on the one card")
     t_phase = time.perf_counter()
     for name, n in tp_serving_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] += n

@@ -14,11 +14,16 @@ A press sees the rank's kv heads only. Three classes (``ROADMAP.md``,
 
 The presses of ``MESH_PRESSES`` are held against the JAX package under a
 mesh; every other press raises ``NotImplementedError`` naming its ROADMAP
-item. ``KVzapPress`` (class (b)) reads its rank's columns of the
-surrogate's output layer; ``DMSPress`` thresholds each of the rank's heads
-on its own (its prefill mask, its decode ring), and a ``compact=True``
-layer is as long as its longest head over every rank
-(``cache.compact_masked``).
+item, also as a stage of ``ComposedPress`` or inside another wrapper.
+Class (a) reads the rank's shapes from its tensors and ``ctx.cfg`` (the
+rank's ``local_config``): ``CriticalKVPress`` multiplies by the rank's rows
+of ``wo`` (an int4 payload's repacked halves), ``BlockPress`` splits the
+hidden size over every rank's kv heads and all-gathers the candidate sets,
+and every rank of a rerotating or compacting press ends at one length.
+``KVzapPress`` (class (b)) reads its rank's columns of the surrogate's
+output layer; ``DMSPress`` thresholds each of the rank's heads on its own
+(its prefill mask, its decode ring), and a ``compact=True`` layer is as
+long as its longest head over every rank (``cache.compact_masked``).
 
 Over a ``"seq"`` mesh (context parallelism, ``parallel/context_prefill.py``
 and ``parallel/decode.py``) a press compresses each rank's block of the
@@ -34,15 +39,18 @@ from __future__ import annotations
 
 # Class (a), and the wrappers that run over them.
 SCORERS = ("KnormPress", "SnapKVPress", "PyramidKVPress", "ObservedAttentionPress",
-           "StreamingLLMPress", "ExpectedAttentionPress", "KeyDiffPress", "LagKVPress")
+           "StreamingLLMPress", "ExpectedAttentionPress", "KeyDiffPress", "LagKVPress",
+           "CapPress", "CURPress")
+WRAPPERS = ("CriticalKVPress", "KeyRerotationPress", "PerLayerCompressionPress", "ThinKPress",
+            "ChunkPress", "ComposedPress", "MergingPress", "BlockPress", "FinchPress")
 DECODING = ("DecodingPress", "CompressionRatioDecodingPress")
-MESH_PRESSES = SCORERS + DECODING + ("AdaKVPress", "PrefillDecodingPress", "BasePress",
-                                     "DMSPress", "KVzapPress")
+MESH_PRESSES = SCORERS + WRAPPERS + DECODING + ("AdaKVPress", "PrefillDecodingPress",
+                                                "BasePress", "DMSPress", "KVzapPress")
 
 # ROADMAP Queue A item 18: one item a press, numbered in this order; the
 # presses of MESH_PRESSES among them are done and left out of MESH_ITEMS.
 _ITEM_ORDER = {name: f"18.{i}" for i, name in enumerate((
-    # (a) shard-local arithmetic, not yet held against JAX under a mesh
+    # (a) shard-local arithmetic
     "CapPress", "CURPress", "CriticalKVPress", "KeyRerotationPress",
     "PerLayerCompressionPress", "ThinKPress", "ChunkPress", "ComposedPress", "MergingPress",
     "BlockPress", "FinchPress", "DMSPress",
@@ -58,7 +66,7 @@ MESH_ITEMS = {name: item for name, item in _ITEM_ORDER.items() if name not in ME
 
 def check_press(press) -> None:
     """Raise ``NotImplementedError`` unless ``press`` and every press it
-    wraps run under a mesh."""
+    wraps (``ComposedPress``'s stages included) run under a mesh."""
     name = type(press).__name__
     if name not in MESH_PRESSES:
         raise NotImplementedError(f"{name} does not run under a mesh yet: ROADMAP Queue A item "
@@ -67,6 +75,8 @@ def check_press(press) -> None:
         inner = getattr(press, attr, None)
         if inner is not None:
             check_press(inner)
+    for inner in getattr(press, "presses", ()):       # ComposedPress's stages
+        check_press(inner)
 
 
 # Context parallelism: the presses held against JAX's shard-local runs.

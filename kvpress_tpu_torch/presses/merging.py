@@ -6,10 +6,11 @@ the value norms, accumulated in float32; keys are not touched (RoPE-safe).
 The similarity matrix is (B, H, evicted, kept) float32, 8.6 GB a layer at
 32K tokens and the 1B-class width. Its row max and argmax are taken over
 slices of the evicted rows that stay under ``SIM_BYTES``: the same result at
-bounded memory. The scatter-adds are float32 ``index_add_``, whose order of
-accumulation is not JAX's (nor fixed on CUDA): merged values agree within
-float32 rounding. Not a score-then-keep press: chunked prefill refuses it,
-and it refuses a bucketed prefill."""
+bounded memory. The scatter-adds are float32 ``index_put_`` accumulations,
+which sum each target's rows in index order (on CUDA, where ``index_add_``
+adds by atomics in no fixed order, through a sort): the same merged values
+from run to run, within float32 rounding of JAX's. Not a score-then-keep
+press: chunked prefill refuses it, and it refuses a bucketed prefill."""
 
 from __future__ import annotations
 
@@ -112,9 +113,10 @@ class MergingPress(WrappedScorerMixin, BasePress):
         row = (torch.arange(B * H, device=keys.device).reshape(B, H, 1) * n_kept
                + target).reshape(-1)
         value_accum = torch.zeros((B * H * n_kept, D), dtype=torch.float32, device=keys.device)
-        value_accum.index_add_(0, row, (weights[..., None] * evict_v32).reshape(-1, D))
+        value_accum.index_put_((row,), (weights[..., None] * evict_v32).reshape(-1, D),
+                               accumulate=True)
         weight_accum = torch.zeros(B * H * n_kept, dtype=torch.float32, device=keys.device)
-        weight_accum.index_add_(0, row, weights.reshape(-1))
+        weight_accum.index_put_((row,), weights.reshape(-1), accumulate=True)
         value_accum = value_accum.reshape(B, H, n_kept, D)
         weight_accum = weight_accum.reshape(B, H, n_kept)
 

@@ -288,7 +288,9 @@ class CriticalKVPress(WrappedScorerMixin, BasePress):
     @staticmethod
     def vwl1norm(ctx, values: torch.Tensor) -> torch.Tensor:
         """(B, Hkv, S) float32: the group mean of ||Wo_head . v||_1
-        (criticalkv_press.py:57-76), over slices of WOV_BYTES."""
+        (criticalkv_press.py:57-76), over slices of WOV_BYTES. Under a mesh
+        ``ctx.cfg`` counts the rank's heads and ``wo`` holds the rank's rows
+        (``parallel.mesh.shard_layer``), so the product is the rank's heads'."""
         from ..models.llama import dequant_weight
 
         B, Hkv, S, D = values.shape
@@ -651,7 +653,12 @@ class BlockPress(BasePress):
     kept set and the next ``block_size`` slots are scored together, the top
     ``n_kept`` stay. Each candidate set's hidden states are gathered per kv
     head from a per-head split of the hidden size (block_press.py:74). No
-    chunked form: it needs every position's hidden states."""
+    chunked form: it needs every position's hidden states.
+
+    Under a mesh (``ctx.shard``) the split is over every rank's kv heads, and
+    each step all-gathers the candidate sets over "model": the wrapped press
+    sees the hidden states the single device builds (each kv head's part
+    from that head's candidates), and scores the rank's own heads."""
 
     press: ScorerPress = None
     block_size: int = 128
@@ -678,12 +685,16 @@ class BlockPress(BasePress):
         n_kept = int(S * (1 - self.compression_ratio))
         dev = keys.device
         kept_idx = torch.arange(n_kept, device=dev).expand(B, H, n_kept)
-        states = ctx.hidden.reshape(B, S, H, E // H).transpose(1, 2)      # (B, H, S, E/H)
+        shard = ctx.shard
+        Ha = H if shard is None else H * shard.size                        # every kv head
+        states = ctx.hidden.reshape(B, S, Ha, E // Ha).transpose(1, 2)    # (B, Ha, S, E/Ha)
         for i in range(n_kept, S, min(self.block_size, S)):
             end = min(i + self.block_size, S)
             cand = torch.cat([kept_idx, torch.arange(i, end, device=dev).expand(B, H, end - i)],
                              dim=-1)                                        # (B, H, n + b)
-            cand_k, cand_v, cand_states = _gather_seq((keys, values, states), cand)
+            cand_k, cand_v = _gather_seq((keys, values), cand)
+            every = cand if shard is None else shard.all_gather(cand, dim=1)
+            (cand_states,) = _gather_seq((states,), every)
             hidden = cand_states.transpose(1, 2).reshape(B, -1, E)
             sub_scores = self.press.score(dataclasses.replace(ctx, hidden=hidden, attn_probs=None),
                                           cand_k, cand_v).to(torch.float32)

@@ -157,22 +157,33 @@ def test_pipeline_batch_over_a_mesh(world):
     assert results["batch"] == want
 
 
-def test_a_press_of_a_later_item_is_refused_over_a_mesh(tmp_path):
-    """TOVAPress (class (c): one score over every query head) raises
-    NotImplementedError naming its ROADMAP item when the engine is made
-    over a mesh (a gloo world of one)."""
+@pytest.mark.parametrize("make,item", [
+    (lambda: kt.TOVAPress(0.5), "TOVAPress"),
+    # ComposedPress runs under a mesh, but not with a stage across heads.
+    (lambda: kt.ComposedPress((kt.KnormPress(0.5), kt.TOVAPress(0.5))), "TOVAPress"),
+    (lambda: kt.ComposedPress((kt.KnormPress(0.5), kt.ChunkKVPress(kt.KnormPress(0.5)))),
+     "ChunkKVPress"),
+], ids=["tova", "composed_tova", "composed_chunkkv"])
+def test_a_press_of_a_later_item_is_refused_over_a_mesh(tmp_path, make, item):
+    """A press of class (c) (TOVAPress: one score over every query head),
+    alone or as a stage of ComposedPress, raises NotImplementedError naming
+    its ROADMAP item when the engine is made over a mesh (a gloo world of
+    one), and when the sharded Runner prefills with it."""
     import torch.distributed as dist
 
-    from kvpress_tpu_torch.parallel import make_mesh
+    from kvpress_tpu_torch.parallel import make_mesh, shard_params
 
     m = Models.tiny()
     dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
                             world_size=1)
     try:
         mesh = make_mesh(1, 1)
-        with pytest.raises(NotImplementedError, match=f"item {MESH_ITEMS['TOVAPress']} "):
-            kt.ServingEngine(m.runners()[1], m.params_t, press=kt.TOVAPress(0.5), mesh=mesh,
-                             **ENGINE)
+        with pytest.raises(NotImplementedError, match=f"item {MESH_ITEMS[item]} "):
+            kt.ServingEngine(m.runners()[1], m.params_t, press=make(), mesh=mesh, **ENGINE)
+        runner = kt.Runner.create(m.cfg_t, device="cpu", mesh=mesh)
+        ids = torch.arange(3, 35)[None]
+        with pytest.raises(NotImplementedError, match=f"item {MESH_ITEMS[item]} "):
+            runner.prefill(shard_params(m.params_t, mesh), ids, press=make())
         eng = kt.ServingEngine(m.runners()[1], m.params_t, press=kt.KnormPress(0.5),
                                mesh=mesh, **ENGINE)
         assert eng.runner.shard.size == 1 and eng.own == slice(0, 2)

@@ -15,6 +15,8 @@ functions with ``mesh=None`` are the port's single-process run.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 import pickle
 
@@ -106,6 +108,25 @@ def port_params(job: dict):
     return kt.params_from_jax(job["params"], job["cfg"], device="cpu", dtype=torch.float32)
 
 
+@contextlib.contextmanager
+def sketches(job: dict):
+    """``job["sketches"]`` ({layer: (D, 20) array}, the JAX package's draws)
+    in place of ``CURPress``'s own for the job's run."""
+    from kvpress_tpu_torch.presses import cur
+
+    given = job.get("sketches")
+    if given is None:
+        yield
+        return
+    own = cur.CURPress.sketch
+    cur.CURPress.sketch = lambda self, ctx, d, device: torch.from_numpy(
+        np.array(given[ctx.layer_idx], np.float32)).to(device)
+    try:
+        yield
+    finally:
+        cur.CURPress.sketch = own
+
+
 # --------------------------------------------------------------------- #
 # Runner jobs
 
@@ -115,7 +136,8 @@ def prefill(job: dict, mesh=None) -> dict:
     the runner and params sharded over ``mesh``): the last logits and the
     cache, and with ``job["decode"]`` the logits of one greedy token after
     it, all gathered over the mesh. ``job["chunk"]``: ``prefill_chunked`` in
-    chunks of that size; ``job["compact"]``: ``compact_masked`` after the
+    chunks of that size; ``job["kv_bits"]``: a quantized cache of that
+    width (its K/V dequantized, and its key scales); ``job["compact"]``: ``compact_masked`` after the
     prefill; ``job["decode_steps"]``: that many greedy tokens through the
     press's decode phase (its state threaded), their logits as
     ``"steps"`` and the cache after them."""
@@ -130,10 +152,14 @@ def prefill(job: dict, mesh=None) -> dict:
         params, ids = shard_params(params, mesh), data_shard(ids, mesh)
     press = job.get("press")
     kw = dict(press=press, compute_logits=True, dtype=torch.float32)
-    if job.get("chunk"):
-        logits, cache, state = runner.prefill_chunked(params, ids, chunk_size=job["chunk"], **kw)
-    else:
-        logits, cache, state = runner.prefill(params, ids, **kw)
+    if job.get("kv_bits"):
+        kw.update(quantized=True, kv_bits=job["kv_bits"])
+    with sketches(job):
+        if job.get("chunk"):
+            logits, cache, state = runner.prefill_chunked(params, ids, chunk_size=job["chunk"],
+                                                          **kw)
+        else:
+            logits, cache, state = runner.prefill(params, ids, **kw)
     if job.get("compact"):
         cache = kt.compact_masked(cache, runner.shard)
     rows = (lambda t: t) if mesh is None else (lambda t: gather_batch(t, mesh))
@@ -150,6 +176,11 @@ def prefill(job: dict, mesh=None) -> dict:
                offset=int(cache.offset))
     if steps:
         out["steps"] = np.stack(steps)
+    if cache.key_scales is not None:
+        out["key_scales"] = gathered(cache.key_scales, mesh)
+        cache = dataclasses.replace(cache, **{n: kt.dequantize_kv(
+            getattr(cache, n), getattr(cache, n[:-1] + "_scales"), cache.bits, torch.float32)
+            for n in ("keys", "values")})
     for name in ("keys", "values", "mask"):
         out[name] = gathered(getattr(cache, name), mesh)
     if job.get("decode"):
@@ -201,7 +232,8 @@ def serve(job: dict, mesh=None) -> dict:
     runner = kt.Runner.create(job["cfg"], attn_impl="xla", decode_kernel=False, device="cpu")
     eng = serving.ServingEngine(runner, params, mesh=mesh, **job["engine"])
     reqs = [serving.Request(list(c), list(q), n) for c, q, n in job["requests"]]
-    answers = eng.run(reqs)
+    with sketches(job):
+        answers = eng.run(reqs)
     sc = eng.sc
     split = eng.own.stop - eng.own.start != eng.n_slots
     pool = dict(lengths=sc.lengths.numpy().copy(), offsets=sc.offsets.numpy().copy(),
@@ -221,8 +253,19 @@ def batch(job: dict, mesh=None) -> list:
     cfg = job["cfg"]
     pipe = kt.KVPressPipeline(kt.Runner.create(cfg, device="cpu"), port_params(job),
                               ToyTokenizer(cfg.vocab_size))
-    return pipe.batch(mesh=mesh, **job["batch"])
+    with sketches(job):
+        return pipe.batch(mesh=mesh, **job["batch"])
+
+
+def refused(job: dict, mesh=None) -> str:
+    """The refusal of ``job["job"]`` run as ``KINDS[job["kind"]]``: its
+    exception's type and message (an AssertionError if it runs)."""
+    try:
+        KINDS[job["kind"]](job["job"], mesh)
+    except (ValueError, TypeError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    raise AssertionError(f"{job['kind']} ran")
 
 
 KINDS = {"prefill": prefill, "shards": shards, "cache_roundtrip": cache_roundtrip,
-         "serve": serve, "batch": batch}
+         "serve": serve, "batch": batch, "refused": refused}
