@@ -174,15 +174,20 @@
    and offsets and every pool tensor identical to the single-process
    engine's (a world of one sums over one rank), decode 16 a slot step and
    flash 16 + ``flash_attention_quant`` 16 an admission; the same for each
-   shard-local press of ROADMAP items 18.1-18.11 (two requests of 2,048 and
-   4,096 tokens a press), with its prefill timed on the rank's runner and
-   on one process, and CriticalKV's ``||Wo v||`` per rank against the
-   single device's heads (bf16 and int4 weights, two planted faults); then
+   shard-local press of ROADMAP items 18.1-18.11 and each head-indexed
+   press of items 18.13, 18.14, 18.16 and 18.17 (Random, QFilter,
+   ExpectedAttentionStats, Duo over seeded artifacts; two requests of 2,048
+   and 4,096 tokens a press), with its prefill timed once on the rank's
+   runner and once on one process; Duo's split-cache decode on the rank's
+   runner against one process's (two decode launches a layer);
+   CriticalKV's ``||Wo v||`` per rank against the single device's heads
+   (bf16 and int4 weights, two planted faults), and a rank's slice of
+   QFilter's filters and Duo's head pattern (one planted fault each); then
    a world of two spawned ranks sharing the card over gloo (NCCL refuses two
    ranks on one device; gloo takes CUDA tensors) with a ``model=2`` and a
    ``data=2`` mesh, 4 requests of 2,048 and 4,096 tokens each (``model=2``
-   also CriticalKV, KeyRerotation, Composed(Knorm, ThinK) and Block(Knorm),
-   2 requests each):
+   also CriticalKV, KeyRerotation, Composed(Knorm, ThinK), Block(Knorm),
+   QFilter and Duo, 2 requests each):
    every answer teacher-forced against the single-process runner, host
    lengths, each rank's launches and the (16, 4) or (32, 8) heads its
    kernels took. Context parallelism (``cp_run``):
@@ -245,6 +250,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import inspect
 import json
 import logging
@@ -4590,11 +4596,12 @@ TP_GLOO_NEW = 16
 # one device); gloo takes CUDA tensors for all_reduce and all_gather.
 TP_GLOO_WORLDS = {"model2": {"data": 1, "model": 2}, "data2": {"data": 2, "model": 1}}
 # The shard-local presses of ROADMAP Queue A items 18.1-18.11 under a mesh:
-# each over a world of one (int8 slots), two requests a press; four of them
-# also in the model 2 gloo world (Block there all-gathers its candidate sets
-# at four kv heads of eight a rank).
+# each over a world of one (int8 slots), two requests a press of 8 new
+# tokens (7 slot steps: the pool's identity shows in the first); four of
+# them also in the model 2 gloo world (Block there all-gathers its candidate
+# sets at four kv heads of eight a rank).
 TP_LOCAL_CONTEXTS = (2048, 4096)
-TP_LOCAL_NEW = 16
+TP_LOCAL_NEW = 8
 TP_LOCAL_PRESSES = {
     "CAP": lambda kt, L: kt.CapPress(0.5),
     "CUR": lambda kt, L: kt.CURPress(0.5, use_random_leverage=True),
@@ -4610,8 +4617,48 @@ TP_LOCAL_PRESSES = {
     "Block(Knorm)": lambda kt, L: kt.BlockPress(kt.KnormPress(0.5), block_size=512),
     "Finch": lambda kt, L: kt.FinchPress(0.5, window_size=64),
 }
+# The head-indexed presses of items 18.13, 18.14, 18.16 and 18.17: each
+# rank reads its slice of a seeded artifact (or of a draw over every kv
+# head) by global head. QFilter and Duo also run in the model 2 gloo world,
+# the only one where a wrong slice shows.
+TP_HEAD_PRESSES = {
+    "QFilter": lambda kt, L: kt.QFilterPress(0.5, q_filters=tp_head_artifacts()["q_filters"]),
+    "ExpectedAttentionStats": lambda kt, L: kt.ExpectedAttentionStatsPress(
+        0.5, stats=tp_head_artifacts()["stats"]),
+    "Duo": lambda kt, L: kt.DuoAttentionPress(0.5, sink_size=DUO_SINK, recent_size=DUO_RECENT,
+                                              head_scores=tp_head_artifacts()["duo"]),
+    "Random": lambda kt, L: tp_random_press(kt),
+}
 TP_LOCAL_GLOO = ("CriticalKV(Knorm)", "KeyRerotation(Knorm)", "Composed(Knorm, ThinK)",
-                 "Block(Knorm)")
+                 "Block(Knorm)", "QFilter", "Duo")
+TP_HEAD_SEED = 21
+
+
+@functools.cache
+def tp_head_artifacts() -> dict:
+    """Seeded stand-ins, at the flagship's shape, for the artifacts indexed
+    by global head: (L, H_kv, D) Q-filters, the (L, Hq, D) / (L, Hq, D, D)
+    query statistics, (L, H_kv) Duo head scores (numpy, made once; every
+    rank of a world makes the same)."""
+    import numpy as np
+
+    cfg = flagship_config(16)
+    L, Hq, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(TP_HEAD_SEED)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    a = f(L, Hq, D, D) * D ** -0.5
+    return dict(q_filters=f(L, Hkv, D),
+                stats={"mu": f(L, Hq, D), "cov": np.einsum("lhij,lhkj->lhik", a, a)},
+                duo=f(L, Hkv))
+
+
+def tp_random_press(kt):
+    """RandomPress(0.5) drawing from a generator on the card at TP_HEAD_SEED
+    (a fresh one a call: two runs of it draw alike)."""
+    import torch
+
+    return kt.RandomPress(0.5, generator=torch.Generator(device="cuda").manual_seed(
+        TP_HEAD_SEED))
 
 
 TP_RANK_TIMEOUT = 600         # seconds for a 2-rank world, and for a collective in it
@@ -4619,13 +4666,15 @@ TP_RANK_TIMEOUT = 600         # seconds for a 2-rank world, and for a collective
 
 def tp_press(kt, spec=None):
     """The press of a tensor-parallel run: Knorm(0.5); (``spec`` a name) a
-    press of TP_LOCAL_PRESSES at the flagship's depth; or (``spec`` a dict)
+    press of TP_LOCAL_PRESSES or TP_HEAD_PRESSES at the flagship's depth; or
+    (``spec`` a dict)
     DMS over the KVzap surrogate of the ``.npz`` at ``spec["path"]`` with
     its threshold and ``compact``."""
     if spec is None:
         return kt.KnormPress(0.5)
     if isinstance(spec, str):
-        return TP_LOCAL_PRESSES[spec](kt, flagship_config(16).num_layers)
+        make = TP_LOCAL_PRESSES.get(spec) or TP_HEAD_PRESSES[spec]
+        return make(kt, flagship_config(16).num_layers)
     return kt.DMSPress(kt.KVzapPress(surrogate=kt.load_kvzap_model(spec["path"])),
                        threshold=spec["threshold"], compact=spec["compact"])
 
@@ -4724,11 +4773,13 @@ def nccl_world_of_one():
         dist.destroy_process_group()
 
 
-def tp_world_of_one(kt, torch, params, report, press=None, reqs=None, label="TP", mesh=None):
-    """The flagship engine (8 slots, int8 slots, ``press``: Knorm(0.5) unless
-    given) over a world of one over NCCL (``mesh``, or one made here),
-    against the single-process engine on the same card and requests (S2's
-    mix unless given): with a world of one a shard is the whole and an
+def tp_world_of_one(kt, torch, params, report, make_press=None, reqs=None, label="TP",
+                    mesh=None):
+    """The flagship engine (8 slots, int8 slots, a press of ``make_press()``
+    made anew for each run, RandomPress's generator at its seed: Knorm(0.5)
+    unless given) over a world of one over NCCL (``mesh``, or one made
+    here), against the single-process engine on the same card and requests
+    (S2's mix unless given): with a world of one a shard is the whole and an
     all-reduce a copy, so the answers, the host lengths and offsets and
     every pool tensor must be identical. Returns the mesh run's launch
     counts."""
@@ -4737,16 +4788,16 @@ def tp_world_of_one(kt, torch, params, report, press=None, reqs=None, label="TP"
     cfg = flagship_config(16)
     L, dev = cfg.num_layers, params.device
     runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=dev)
-    press = press or kt.KnormPress(0.5)
+    make_press = make_press or (lambda: kt.KnormPress(0.5))
     reqs = reqs or serving_requests(torch.Generator().manual_seed(16), cfg.vocab_size,
                                     [TP_CONTEXTS[i % 2] for i in range(TP_REQUESTS)], TP_NEW)
-    kw = dict(n_slots=SV_SLOTS, capacity=serving_capacity(cfg, press, reqs), press=press,
+    kw = dict(n_slots=SV_SLOTS, capacity=serving_capacity(cfg, make_press(), reqs),
               quantized=True, kv_bits=8, question_bucket=SV_QUESTION_BUCKET,
               fetch_lag=SV_FETCH_LAG)
     names = ("keys", "values", "key_scales", "value_scales", "mask", "lengths", "offsets")
 
     def run(label, mesh=None):
-        eng = kt.ServingEngine(runner, params, mesh=mesh, **kw)
+        eng = kt.ServingEngine(runner, params, mesh=mesh, press=make_press(), **kw)
         answers, counts, eng, _ = serving_once(
             kt, torch, label, lambda: eng.run([kt.Request(*r) for r in reqs]), report)
         pool = {n: getattr(eng.sc, n).clone() for n in names}
@@ -4862,8 +4913,10 @@ def tp_gloo_check(kt, torch, params, report, runner, name, tie, spec, reqs, rank
     served = {s: r for s, r in enumerate(range(len(reqs)))}
     lengths, offsets = torch.tensor(ranks[0]["lengths"]), torch.tensor(ranks[0]["offsets"])
     if not isinstance(spec, dict):
-        check_host_lengths(f"{label} {name}", lengths, offsets, served, reqs, answers,
-                           press.exact_kept, rerotates=getattr(press, "rerotates", False))
+        # A mask press (Duo) keeps every slot and clears keep bits.
+        kept_of = getattr(press, "exact_kept", lambda n: n)
+        check_host_lengths(f"{label} {name}", lengths, offsets, served, reqs, answers, kept_of,
+                           rerotates=getattr(press, "rerotates", False))
     else:
         for s, r in served.items():
             want = [k + len(reqs[r][1]) + len(answers[r]) - 1 for k in kept[r]]
@@ -4956,12 +5009,13 @@ def tp_critical_norm_run(kt, torch, params, report):
 
 
 def tp_local_presses_run(kt, torch, params, report):
-    """Items 18.1-18.11 at the flagship shape: each press over a world of one
-    over NCCL (int8 slots, TP_LOCAL_CONTEXTS, TP_LOCAL_NEW new), identical
-    to the single-process engine, its launch counts held; and one prefill of
-    the longer context timed on the rank's (sharded) runner and on the
-    single-process runner (synchronized host clock, the better of two).
-    Returns the mesh runs' launch counts."""
+    """Items 18.1-18.11 and 18.13, 18.14, 18.16, 18.17 at the flagship shape:
+    each press over a world of one over NCCL (int8 slots, TP_LOCAL_CONTEXTS,
+    TP_LOCAL_NEW new), identical to the single-process engine, its launch
+    counts held; one prefill of the longer context timed once on the rank's
+    (sharded) runner and once on the single-process runner (synchronized
+    host clock); and Duo's split-cache decode on the rank's runner
+    (``tp_duo_split_run``). Returns the mesh runs' launch counts."""
     from kvpress_tpu_torch.parallel import shard_params
 
     cfg = flagship_config(16)
@@ -4972,40 +5026,144 @@ def tp_local_presses_run(kt, torch, params, report):
     with nccl_world_of_one() as mesh:
         sharded = single.sharded(mesh)
         local = shard_params(params, mesh)
-        for i, label in enumerate(TP_LOCAL_PRESSES):
-            press = tp_press(kt, label)
+        for i, label in enumerate({**TP_LOCAL_PRESSES, **TP_HEAD_PRESSES}):
             reqs = serving_requests(torch.Generator().manual_seed(20 + i), cfg.vocab_size,
                                     TP_LOCAL_CONTEXTS, TP_LOCAL_NEW)
-            counts = tp_world_of_one(kt, torch, params, report, press=press, reqs=reqs,
-                                     label=f"TP {label}", mesh=mesh)
+            counts = tp_world_of_one(kt, torch, params, report, lambda: tp_press(kt, label),
+                                     reqs=reqs, label=f"TP {label}", mesh=mesh)
             for name, n in counts.items():
                 totals[name] = totals.get(name, 0) + n
             ids = torch.tensor([reqs[1][0]], device=dev)
-            best = {}
+            times[label] = {}
             for which, runner, p in (("one process", single, params),
                                      ("world of one", sharded, local)):
-                for _ in range(2):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    runner.prefill(p, ids, press=press)
-                    torch.cuda.synchronize()
-                    best[which] = min(best.get(which, 1e9), time.perf_counter() - t0)
-            times[label] = best
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runner.prefill(p, ids, press=tp_press(kt, label))
+                torch.cuda.synchronize()
+                times[label][which] = time.perf_counter() - t0
+        for name, n in tp_duo_split_run(kt, torch, params, local, single, sharded,
+                                        report).items():
+            totals[name] = totals.get(name, 0) + n
         del local
     torch.cuda.empty_cache()
-    report(f"  TP items 18.1-18.11, prefill of {TP_LOCAL_CONTEXTS[1]:,} tokens (ms, the "
-           "better of two) on one process / on the world of one's rank: " + "; ".join(
-               f"{k} {v['one process'] * 1e3:.1f} / {v['world of one'] * 1e3:.1f}"
-               for k, v in times.items()))
+    report(f"  TP items 18.1-18.11, 18.13, 18.14, 18.16, 18.17, prefill of "
+           f"{TP_LOCAL_CONTEXTS[1]:,} tokens (ms, once each) on one process / on the world of "
+           "one's rank: " + "; ".join(f"{k} {v['one process'] * 1e3:.1f} / "
+                                      f"{v['world of one'] * 1e3:.1f}" for k, v in times.items()))
     return totals
+
+
+def tp_duo_split_run(kt, torch, params, local, single, sharded, report):
+    """Duo's split-cache decode (item 18.17) on the world of one's sharded
+    runner (``build_duo_split(..., shard=)``, ``duo_decode_step``) against
+    the single-process split decode over one TP_LOCAL_CONTEXTS[1]-token
+    prefill, TP_LOCAL_NEW greedy steps: equal tokens, logits within the
+    depth-16 limit, and two ``decode_attention`` launches a layer a step on
+    the rank. Returns the rank's launch counts."""
+    cfg = flagship_config(16)
+    L, steps = cfg.num_layers, TP_LOCAL_NEW
+    ids = torch.tensor([serving_requests(torch.Generator().manual_seed(24), cfg.vocab_size,
+                                         TP_LOCAL_CONTEXTS[1:])[0][0]], device=params.device)
+
+    def decode(runner, p):
+        press = tp_press(kt, "Duo")
+        logits, cache, _ = runner.prefill(p, ids, press=press, compute_logits=True)
+        cache = kt.resize(cache, cache.max_size + steps + 1)
+        ds = kt.build_duo_split(cache, press.streaming_mask(), DUO_SINK, DUO_RECENT, steps + 1,
+                                shard=runner.shard)
+        tok, toks, rows = logits[:, -1:].argmax(-1), [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        for _ in range(steps):
+            tok, row, ds = kt.duo_decode_step(p, tok, ds, runner=runner)
+            toks.append(tok)
+            rows.append(row)
+        torch.cuda.synchronize()
+        return torch.cat(toks, 1), torch.stack(rows), read_counts(), tuple(ds.keys_r.shape)
+
+    want_toks, want, _, _ = decode(single, params)
+    toks, got, counts, shape = decode(sharded, local)
+    read = rel(torch, got, want)
+    if not torch.equal(toks, want_toks) or not read <= REF_LIMIT[16]:
+        raise AssertionError(f"TP Duo split decode: tokens equal {torch.equal(toks, want_toks)}, "
+                             f"logits {read:.3e} off one process's (limit {REF_LIMIT[16]})")
+    if counts["decode_attention"] != 2 * L * steps:
+        raise AssertionError(f"TP Duo split decode: {counts['decode_attention']} decode "
+                             f"launches, predicted {2 * L * steps}")
+    report(f"  TP Duo split decode on the world of one's rank (retrieval buffer {shape}): "
+           f"{steps} tokens equal to one process's, logits {read:.3e} of their scale off "
+           f"(limit {REF_LIMIT[16]}; identical: {torch.equal(got, want)}); decode_attention "
+           f"{counts['decode_attention'] / steps:g} a step (2 a layer)")
+    return counts
+
+
+def head_slice_check(kt, torch, press, keys, size=2, other=False):
+    """QFilter's scores or Duo's keep-mask on each rank of a model ``size``
+    mesh (the local config, the rank's kv heads of ``keys``) against the
+    single device's at the rank's heads, every layer: scores within 1e-5
+    of their scale, keep bits equal. Planted fault: (``other``) a rank
+    reads the next rank's slice of the artifact."""
+    import types
+
+    from kvpress_tpu_torch.parallel.mesh import local_config
+
+    cfg = flagship_config(16)
+    n = cfg.num_kv_heads // size
+    duo = isinstance(press, kt.DuoAttentionPress)
+
+    def run(layer, c, shard, k):
+        ctx = types.SimpleNamespace(layer_idx=layer, cfg=c, shard=shard)
+        return press._keep(ctx, k.shape[2], k) if duo else press.score(ctx, k, k)
+
+    worst = 0.0
+    for layer in range(cfg.num_layers):
+        want = run(layer, cfg, None, keys)
+        for r in range(size):
+            heads = slice(r * n, (r + 1) * n)
+            shard = types.SimpleNamespace(rank=(r + 1) % size if other else r, size=size)
+            got = run(layer, local_config(cfg, size), shard, keys[:, heads])
+            if duo:
+                if not torch.equal(got, want[:, heads]):
+                    raise AssertionError(f"Duo, layer {layer}, rank {r} of {size}: keep bits "
+                                         "off the single device's heads")
+                continue
+            err = ((got - want[:, heads]).abs().max() / want.abs().max()).item()
+            if not err <= 1e-5:
+                raise AssertionError(f"QFilter, layer {layer}, rank {r} of {size}: scores "
+                                     f"{err:.3e} of their scale off the single device's heads")
+            worst = max(worst, err)
+    return worst
+
+
+def tp_head_slice_run(kt, torch, params, report):
+    """``head_slice_check`` for QFilter's filters and Duo's head pattern at
+    model 2 and 4 over 4,096 bf16 keys at the flagship's kv heads, each with
+    its planted fault (a rank on the next rank's slice) rejected."""
+    cfg = flagship_config(16)
+    gen = torch.Generator(device=params.device).manual_seed(21)
+    keys = torch.randn(1, cfg.num_kv_heads, 4096, cfg.head_dim, generator=gen,
+                       device=params.device, dtype=torch.bfloat16)
+    errs = {}
+    for label in ("QFilter", "Duo"):
+        press = tp_press(kt, label)
+        for size in (2, 4):
+            errs[f"{label} model {size}"] = head_slice_check(kt, torch, press, keys, size)
+        must_reject(f"{label}: a rank reads the next rank's slice", head_slice_check, kt, torch,
+                    press, keys, 2, True)
+    report(f"  TP a rank's slice of the artifact against the single device's heads (16 layers, "
+           f"4,096 keys): {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} of the scale "
+           "(QFilter's scores, limit 1e-05; Duo's keep bits equal); a rank on the next rank's "
+           "slice rejected, QFilter and Duo")
 
 
 def tp_serving_run(kt, torch, tokenizer_cls, params, report,
                    worlds=("one", "local", "model2", "data2")):
     """Tensor-parallel serving at the flagship shape: the world of one over
     NCCL held identical to the single-process engine (Knorm, then
-    (``"local"``) each press of items 18.1-18.11 and CriticalKV's norm per
-    rank with its planted faults), then one 2-rank gloo world on the one
+    (``"local"``) each press of items 18.1-18.11 and 18.13, 18.14, 18.16,
+    18.17, Duo's split decode on the rank, CriticalKV's norm and QFilter's
+    and Duo's slices per rank with their planted faults), then one 2-rank gloo world on the one
     card (a model 2 mesh with Knorm and the presses of TP_LOCAL_GLOO, a data
     2 mesh with Knorm) teacher-forced against the single-process runner.
     Returns the worlds of one's launch counts."""
@@ -5019,6 +5177,7 @@ def tp_serving_run(kt, torch, tokenizer_cls, params, report,
         counts = tp_world_of_one(kt, torch, params, report)
     if "local" in worlds:
         tp_critical_norm_run(kt, torch, params, report)
+        tp_head_slice_run(kt, torch, params, report)
         for name, n in tp_local_presses_run(kt, torch, params, report).items():
             counts[name] = counts.get(name, 0) + n
     gloo = [w for w in worlds if w in TP_GLOO_WORLDS]
@@ -5763,7 +5922,7 @@ def kz_mesh(kt, torch, params, path, threshold, report):
     reqs = serving_requests(torch.Generator().manual_seed(18), cfg.vocab_size,
                             [KZ_TP_CONTEXT] * KZ_TP_REQUESTS, KZ_TP_NEW)
     spec = dict(path=str(path), threshold=threshold, compact=True)
-    counts = tp_world_of_one(kt, torch, params, report, press=tp_press(kt, spec), reqs=reqs,
+    counts = tp_world_of_one(kt, torch, params, report, lambda: tp_press(kt, spec), reqs=reqs,
                              label="KZ DMS(KVzap) compact")
     tie = F32_RATIO * 2 * serving_noise(kt, torch, params, report)
     tp_gloo_world(kt, torch, params, report, tie, [("model2", spec, reqs)],
@@ -7375,9 +7534,10 @@ def main() -> int:
         launches[name] += n
     report(f"  the serving phase took {time.perf_counter() - t_phase:.1f} s")
     report("phase 3: tensor-parallel serving at the flagship shape: a world of one over NCCL "
-           "against the single-process engine (Knorm, then each press of items 18.1-18.11), then "
-           "model 2 (Knorm, CriticalKV, KeyRerotation, Composed, Block) and data 2 worlds over "
-           "gloo on the one card")
+           "against the single-process engine (Knorm, then each press of items 18.1-18.11 and "
+           "Random, QFilter, ExpectedAttentionStats and Duo, Duo's split decode), then model 2 "
+           "(Knorm, CriticalKV, KeyRerotation, Composed, Block, QFilter, Duo) and data 2 worlds "
+           "over gloo on the one card")
     t_phase = time.perf_counter()
     for name, n in tp_serving_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] += n

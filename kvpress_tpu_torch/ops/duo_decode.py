@@ -19,7 +19,15 @@ to the largest count; padded lanes attend a copy of head 0, and the inverse
 permutation never gathers them. The keep-set is fixed at the prefill and
 new tokens are visible to every head, as in the masked decode. bf16 (or
 float32 on the CPU) buffers only; sliding-window models are refused (their
-window layers already keep a windowed buffer)."""
+window layers already keep a windowed buffer).
+
+On a sharded runner (tensor parallelism) a rank splits its own kv heads by
+its columns of the global pattern (``build_duo_split(..., shard=)``) and
+the step all-reduces and gathers the logits as ``Runner`` does. Neither
+buffer is ever empty: the streaming one is padded to at least one head, and
+the retrieval one is as wide as the kv heads (``Hkv - n_s.min(initial=0)``,
+as the JAX package computes it), so a rank holding no retrieval head still
+makes both launches a layer."""
 
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from ..cache import KVCache, clamp_start
+from ..presses.base import local_heads
 from .decode import decode_attention
 
 
@@ -47,16 +56,18 @@ class DuoSplitCache:
 
 
 def build_duo_split(cache: KVCache, streaming_mask: np.ndarray, sink: int, recent: int,
-                    room: int) -> DuoSplitCache:
+                    room: int, *, shard=None) -> DuoSplitCache:
     """Split a prefill cache whose keep-mask Duo set into the two buffers.
     ``streaming_mask`` is the press's (L, Hkv) bool
     (``DuoAttentionPress.streaming_mask()``); ``room`` reserves the append
-    slots of decode in both buffers."""
+    slots of decode in both buffers. ``shard``: the sharded runner's
+    ``ModelShard``, whose rank's cache holds its own kv heads; the rank
+    takes their columns of the global ``streaming_mask``."""
     if cache.is_quantized:
         raise ValueError("build_duo_split takes a bf16 cache (the split buffers are not "
                          "quantized)")
-    sm = np.asarray(streaming_mask, bool)
     L, B, Hkv, S, D = cache.keys.shape
+    sm = np.asarray(streaming_mask, bool)[:, local_heads(shard, Hkv)]
     if S < sink + recent:
         raise ValueError(f"buffer ({S}) smaller than sink+recent ({sink}+{recent}): a split "
                          "cache cannot hold the streaming window; use the masked decode")
@@ -126,6 +137,7 @@ def duo_decode_step(params, tok: torch.Tensor, ds: DuoSplitCache, *, runner):
     G = cfg.num_heads // Hkv
     hr, hs = ds.retr_idx.shape[1], ds.stream_idx.shape[1]
     offset = int(ds.offset)
+    shard = runner.shard
     x = embed_tokens(params, tok, cfg)                                  # (B, 1, E)
     (cos, sin), _ = runner._ropes(torch.full((B, 1), offset, device=x.device))
     scale = _sm_scale(cfg)
@@ -152,9 +164,9 @@ def duo_decode_step(params, tok: torch.Tensor, ds: DuoSplitCache, *, runner):
                                softcap=cfg.logit_softcap)
         o = torch.cat([o_r.reshape(B, hr, G, D), o_s.reshape(B, hs, G, D)], dim=1)
         o = o[:, ds.inv_idx[l]].reshape(B, Hkv * G, 1, D)
-        x = _finish_layer(x, o, layer, cfg)
+        x = _finish_layer(x, o, layer, cfg, shard)
     x = rms_norm(x, params.ln_f, cfg.rms_norm_eps, cfg.rms_one_offset)
-    logits = lm_head_logits(x[:, 0], params, cfg)
+    logits = lm_head_logits(x[:, 0], params, cfg, shard)
     nds = dataclasses.replace(ds, len_r=ds.len_r + 1, len_s=ds.len_s + 1,
                               offset=ds.offset + 1)
     return torch.argmax(logits, dim=-1)[:, None], logits, nds

@@ -7,22 +7,30 @@ A press sees the rank's kv heads only. Three classes (``ROADMAP.md``,
   group queries, and kept by its own top-k. These run as they are.
 - (b) an artifact or a draw by global head index (query statistics,
   Q-filters, a surrogate's outputs, Duo's head pattern, gates, LoRA,
-  random draws): the rank would have to read its slice of the head axis.
+  random draws): the rank reads its slice of the head axis. FastKVzip and
+  RestoreKV also evict by KVzip's bottom-k over every head and wait for it.
 - (c) a decision across heads: ``AdaKVPress`` all-gathers its scores over
   "model" (``LayerCtx.shard``) and keeps its own heads' part; a compacted
   layer's length is the largest over the ranks (``Runner._layer_step``).
 
 The presses of ``MESH_PRESSES`` are held against the JAX package under a
-mesh; every other press raises ``NotImplementedError`` naming its ROADMAP
+mesh (``RandomPress``, whose draws are torch's, against the port's single
+process); every other press raises ``NotImplementedError`` naming its ROADMAP
 item, also as a stage of ``ComposedPress`` or inside another wrapper.
 Class (a) reads the rank's shapes from its tensors and ``ctx.cfg`` (the
 rank's ``local_config``): ``CriticalKVPress`` multiplies by the rank's rows
 of ``wo`` (an int4 payload's repacked halves), ``BlockPress`` splits the
 hidden size over every rank's kv heads and all-gathers the candidate sets,
 and every rank of a rerotating or compacting press ends at one length.
-``KVzapPress`` (class (b)) reads its rank's columns of the surrogate's
-output layer; ``DMSPress`` thresholds each of the rank's heads on its own
-(its prefill mask, its decode ring), and a ``compact=True`` layer is as
+Class (b) reads the rank's slice of its artifact or draw by global head,
+from head ``shard.rank * n_local`` on (``presses.base.local_heads``):
+``KVzapPress`` its columns of the surrogate's output layer, ``QFilterPress``
+its kv heads' filters, ``ExpectedAttentionStatsPress`` its query heads'
+mean and covariance, ``RandomPress`` its rows of a draw over every kv head
+(every rank's generator advances alike), ``DuoAttentionPress`` its columns
+of the global head pattern (and ``ops.duo_decode`` splits the rank's
+cache by them). ``DMSPress`` thresholds each of the rank's heads on its
+own (its prefill mask, its decode ring), and a ``compact=True`` layer is as
 long as its longest head over every rank (``cache.compact_masked``).
 
 Over a ``"seq"`` mesh (context parallelism, ``parallel/context_prefill.py``
@@ -44,8 +52,11 @@ SCORERS = ("KnormPress", "SnapKVPress", "PyramidKVPress", "ObservedAttentionPres
 WRAPPERS = ("CriticalKVPress", "KeyRerotationPress", "PerLayerCompressionPress", "ThinKPress",
             "ChunkPress", "ComposedPress", "MergingPress", "BlockPress", "FinchPress")
 DECODING = ("DecodingPress", "CompressionRatioDecodingPress")
-MESH_PRESSES = SCORERS + WRAPPERS + DECODING + ("AdaKVPress", "PrefillDecodingPress",
-                                                "BasePress", "DMSPress", "KVzapPress")
+# Class (b): each rank reads its slice of the artifact or the draw.
+HEAD_INDEXED = ("KVzapPress", "RandomPress", "QFilterPress", "ExpectedAttentionStatsPress",
+                "DuoAttentionPress")
+MESH_PRESSES = SCORERS + WRAPPERS + DECODING + HEAD_INDEXED + (
+    "AdaKVPress", "PrefillDecodingPress", "BasePress", "DMSPress")
 
 # ROADMAP Queue A item 18: one item a press, numbered in this order; the
 # presses of MESH_PRESSES among them are done and left out of MESH_ITEMS.

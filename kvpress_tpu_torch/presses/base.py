@@ -116,11 +116,19 @@ def float32_budget(length: int, ratio: float) -> int:
     return max(int(np.float32(length) * np.float32(1 - ratio)), 1)
 
 
-def layer_tensor(a, layer_idx: int, device) -> torch.Tensor:
+def local_heads(shard, n_local: int) -> slice:
+    """The heads of a rank that holds ``n_local`` of them, from head
+    ``shard.rank * n_local`` on (every head without a mesh)."""
+    return slice(None) if shard is None else slice(shard.rank * n_local,
+                                                   (shard.rank + 1) * n_local)
+
+
+def layer_tensor(a, layer_idx: int, device, heads: slice = slice(None)) -> torch.Tensor:
     """Layer ``layer_idx`` of a stacked per-layer artifact (a numpy array or
     a tensor; filter banks, query statistics, surrogate weights) as a float32
-    tensor on ``device``: only that layer is copied."""
-    return torch.as_tensor(a[layer_idx], dtype=torch.float32, device=device)
+    tensor on ``device``: only that layer is copied, and of it only the rows
+    ``heads`` of its first axis (a rank's ``local_heads``)."""
+    return torch.as_tensor(a[layer_idx][heads], dtype=torch.float32, device=device)
 
 
 def layer_generator(seed: int, layer_idx: int, device, *streams: int) -> torch.Generator:

@@ -6,7 +6,9 @@ head) scores.
 The scores come from the DuoAttention artifact files (the reference fetches
 them over HTTP, :120-141), given as an (L, H_kv) array. The streaming heads'
 middle slots are cleared in the cache keep-mask; ``ops.duo_decode`` splits
-such a cache into two dense buffers for decode."""
+such a cache into two dense buffers for decode. Under a tensor-parallel mesh
+every rank computes the global (L, H_kv) pattern from the same scores and
+keeps its own kv heads' columns (``local_heads``)."""
 
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ..rope import apply_rope, rope_cos_sin
-from .base import BasePress, LayerCtx
+from .base import BasePress, LayerCtx, local_heads
 from .wrappers import _refuse_bucket
 
 
@@ -108,11 +110,14 @@ class DuoAttentionPress(BasePress):
     def compression_ratio(self):
         return 0.0   # measured (cache.masked_fraction), not set
 
-    def _keep(self, layer_idx: int, length: int, S: int, device) -> torch.Tensor:
-        """(1, H, S) bool: False on a streaming head's slots from sink_size to
-        ``length - recent_size`` (nothing when length is at most sink +
-        recent)."""
-        streaming = torch.as_tensor(self.streaming_mask()[layer_idx], device=device)
+    def _keep(self, ctx: LayerCtx, length: int, keys) -> torch.Tensor:
+        """(1, H, S) bool over the buffer ``keys`` (B, H, S, D) of the layer
+        (the rank's kv heads under a mesh): False on a streaming head's slots
+        from sink_size to ``length - recent_size`` (nothing when length is at
+        most sink + recent)."""
+        S, device = keys.shape[2], keys.device
+        heads = local_heads(ctx.shard, keys.shape[1])
+        streaming = torch.as_tensor(self.streaming_mask()[ctx.layer_idx, heads], device=device)
         pos = torch.arange(S, device=device)
         middle = (pos >= self.sink_size) & (pos < length - self.recent_size)
         if length <= self.sink_size + self.recent_size:
@@ -121,17 +126,15 @@ class DuoAttentionPress(BasePress):
 
     def layer_compress(self, ctx: LayerCtx, keys, values, length, mask, state=None):
         _refuse_bucket(self, ctx)
-        S = keys.shape[2]
-        return keys, values, length, mask & self._keep(ctx.layer_idx, S, S, keys.device), state
+        return keys, values, length, mask & self._keep(ctx, keys.shape[2], keys), state
 
     # -- chunked prefill: eviction by position alone, so the one-shot mask
     # with S replaced by the valid length.
 
     def chunked_compress(self, ctx, keys, values, length: int, mask):
-        return keys, values, length, mask & self._keep(ctx.layer_idx, length, keys.shape[2],
-                                                       keys.device)
+        return keys, values, length, mask & self._keep(ctx, length, keys)
 
     def chunked_compress_quantized(self, ctx, keys, values, key_scales, value_scales,
                                    bits: int, length: int, mask):
         return (keys, values, key_scales, value_scales, length,
-                mask & self._keep(ctx.layer_idx, length, keys.shape[2], keys.device))
+                mask & self._keep(ctx, length, keys))

@@ -5,7 +5,9 @@ set instead of the current prefill.
 
 ``collect_query_stats`` runs a collector press through ``Runner.prefill``
 and sums each layer's Σq and Σqqᵀ over the samples on the host. Artifacts
-are local ``.npz`` files.
+are local ``.npz`` files. Under a tensor-parallel mesh a rank reads the
+statistics of its own query heads (``local_heads`` of the local
+``num_heads``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .base import BasePress, LayerCtx, layer_tensor
+from .base import BasePress, LayerCtx, layer_tensor, local_heads
 from .expected_attention import ExpectedAttentionPress, _rotate_stats
 
 
@@ -31,9 +33,9 @@ class ExpectedAttentionStatsPress(ExpectedAttentionPress):
     def query_statistics(self, ctx: LayerCtx):
         if self.stats is None:
             raise ValueError("stats not loaded; pass stats=load_query_stats(path)")
-        dev = ctx.inv_freq.device
-        mu = layer_tensor(self.stats["mu"], ctx.layer_idx, dev)[None]        # (1, Hq, D)
-        cov = (layer_tensor(self.stats["cov"], ctx.layer_idx, dev)[None]
+        dev, heads = ctx.inv_freq.device, local_heads(ctx.shard, ctx.cfg.num_heads)
+        mu = layer_tensor(self.stats["mu"], ctx.layer_idx, dev, heads)[None]   # (1, Hq, D)
+        cov = (layer_tensor(self.stats["cov"], ctx.layer_idx, dev, heads)[None]
                if self.use_covariance else None)
         return _rotate_stats(ctx, mu, cov, ctx.seq_len, self.n_future_positions)
 

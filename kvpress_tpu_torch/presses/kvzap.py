@@ -20,28 +20,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .base import LayerCtx, ScorerPress, layer_tensor
+from .base import LayerCtx, ScorerPress, layer_tensor, local_heads
 
 
 def kvzap_apply(surrogate: dict, layer_idx: int, hidden: torch.Tensor,
-                heads: Optional[slice] = None) -> torch.Tensor:
+                heads: slice = slice(None)) -> torch.Tensor:
     """hidden (B, S, E) -> scores (B, H_kv, S) for one layer; ``heads``
     keeps those kv heads' output columns only."""
     h = hidden.to(torch.float32)
     w = lambda name: layer_tensor(surrogate[name], layer_idx, h.device)
-    cols = slice(None) if heads is None else heads
     if "w1" in surrogate:
         z = F.gelu(h @ w("w1") + w("b1"), approximate="none")
-        out = z @ w("w2")[:, cols] + w("b2")[cols]
+        out = z @ w("w2")[:, heads] + w("b2")[heads]
     else:
-        out = h @ w("w")[:, cols] + w("b")[cols]
+        out = h @ w("w")[:, heads] + w("b")[heads]
     return out.transpose(1, 2)
-
-
-def local_heads(shard, n_local: int) -> Optional[slice]:
-    """The kv heads of a rank that holds ``n_local`` of them (None without a
-    mesh)."""
-    return None if shard is None else slice(shard.rank * n_local, (shard.rank + 1) * n_local)
 
 
 def save_kvzap_model(path: str, surrogate: dict) -> None:
@@ -57,7 +50,7 @@ def _kvzap_chunk_scores(arg, layer_idx, hidden, keys, values):
     """Per-token chunk scoring: the surrogate scores each token from its own
     hidden state, so a chunk's scores are exact. ``arg``: the surrogate, or
     (surrogate, heads) under a mesh (``chunk_score_arg_local``)."""
-    surrogate, heads = arg if isinstance(arg, tuple) else (arg, None)
+    surrogate, heads = arg if isinstance(arg, tuple) else (arg, slice(None))
     return kvzap_apply(surrogate, layer_idx, hidden, heads)
 
 

@@ -4,7 +4,8 @@ Score = -<q_filter, k>.
 
 The filters are an (L, H_kv, D) array loaded from a local ``.npz`` /
 ``.npy`` / ``.safetensors`` file (the reference downloads
-``nthngdy/<model>_qfilt``)."""
+``nthngdy/<model>_qfilt``). Under a tensor-parallel mesh a rank reads the
+filters of its own kv heads (``local_heads``)."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .base import LayerCtx, ScorerPress, layer_tensor
+from .base import LayerCtx, ScorerPress, layer_tensor, local_heads
 
 
 def load_q_filters(path: str) -> np.ndarray:
@@ -42,5 +43,6 @@ class QFilterPress(ScorerPress):
     def score(self, ctx: LayerCtx, keys, values):
         if self.q_filters is None:
             raise ValueError("Q-filters not loaded; pass q_filters=load_q_filters(path)")
-        filt = layer_tensor(self.q_filters, ctx.layer_idx, keys.device)     # (H_kv, D)
+        filt = layer_tensor(self.q_filters, ctx.layer_idx, keys.device,
+                            local_heads(ctx.shard, keys.shape[1]))         # (H_kv, D)
         return -torch.einsum("bhsd,hd->bhs", keys.to(torch.float32), filt)

@@ -2,7 +2,10 @@
 
 The scores come from a ``torch.Generator`` that the caller makes (on the
 device the model runs on) and seeds; every layer draws from it in turn, so a
-generator seeded alike gives the same kept entries."""
+generator seeded alike gives the same kept entries. Under a tensor-parallel
+mesh every rank draws the scores of every kv head, (B, H_kv * model, S),
+and keeps its own rows: a rank scores its heads as one process does, and
+every rank's generator advances alike."""
 
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ import dataclasses
 
 import torch
 
-from .base import LayerCtx, ScorerPress
+from .base import LayerCtx, ScorerPress, local_heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,5 +26,8 @@ class RandomPress(ScorerPress):
             raise TypeError("RandomPress takes an explicit torch.Generator")
 
     def score(self, ctx: LayerCtx, keys, values):
-        return torch.rand(keys.shape[:-1], generator=self.generator, device=keys.device,
-                          dtype=torch.float32)
+        B, H, S = keys.shape[:-1]
+        size = 1 if ctx.shard is None else ctx.shard.size
+        scores = torch.rand((B, H * size, S), generator=self.generator, device=keys.device,
+                            dtype=torch.float32)
+        return scores[:, local_heads(ctx.shard, H)]

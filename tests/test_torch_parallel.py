@@ -347,9 +347,9 @@ def test_repack_int4_rows_keeps_the_single_device_product():
     assert not torch.allclose(swapped, want, atol=1e-3)
 
 
-@pytest.mark.parametrize("press", [kt.TOVAPress(0.5), kt.QFilterPress(
-    0.5, q_filters=np.zeros((2, 2, 16), np.float32)), kt.CriticalAdaKVPress(kt.KnormPress(0.5))],
-    ids=["tova", "qfilter", "critical_adakv"])
+@pytest.mark.parametrize("press", [kt.TOVAPress(0.5), kt.LUKVPress(kt.KnormPress(0.5)),
+                                   kt.CriticalAdaKVPress(kt.KnormPress(0.5))],
+                         ids=["tova", "lukv", "critical_adakv"])
 def test_presses_of_later_items_are_refused_under_a_mesh(press):
     """A press of class (b) or (c) that is not ported to a mesh raises
     NotImplementedError naming its ROADMAP item (a wrapper: its own)."""

@@ -216,5 +216,5 @@ def test_dms_and_kvzap_run_under_a_mesh_and_keep_their_item_numbers():
         check_press(press)
     assert {"DMSPress", "KVzapPress", "FinchPress"} <= set(MESH_PRESSES)
     assert not {"DMSPress", "KVzapPress", "FinchPress"} & set(MESH_ITEMS)
-    assert (MESH_ITEMS["RandomPress"], MESH_ITEMS["QFilterPress"],
-            MESH_ITEMS["ExpectedAttentionStatsPress"]) == ("18.13", "18.14", "18.16")
+    assert (MESH_ITEMS["FastKVzipPress"], MESH_ITEMS["RestoreKVPress"],
+            MESH_ITEMS["TOVAPress"]) == ("18.18", "18.19", "18.20")

@@ -3,7 +3,10 @@ tensor-parallel mesh: CAP, CUR, CriticalKV, KeyRerotation,
 PerLayerCompression, ThinK, Chunk, Composed, Merging, Block and Finch, each
 on a gloo world of 2 ranks ("model" 2 on the tiny config with GQA 8/4, two
 kv heads a rank) through ``Runner.prefill`` and decode steps (float32 and
-int8 KV, float32 and int4 weights) and ``Runner.prefill_chunked``.
+int8 KV, float32 and int4 weights) and ``Runner.prefill_chunked``; and the
+head-indexed presses of items 18.13, 18.14, 18.16 and 18.17 (Random,
+QFilter, ExpectedAttentionStats, DuoAttention with its split-cache decode),
+whose ranks read their slice of a global-head artifact or draw.
 
 Every sharded run is held against the JAX package's single-device run on
 the same numpy inputs and against the port's single-process run, to
@@ -17,11 +20,14 @@ port's single process. A few runs are also held against
 JAX's GSPMD run over a (data 1, model 2) mesh of its virtual devices. Where
 the single-process port refuses a chunked route, the mesh raises the same
 error. CUR draws the JAX package's sketch (handed to the ranks as numpy).
+RandomPress draws from a torch generator, so it is held against the port's
+single process on the same seed only.
 
 The ranks run ``tests/torch_parallel_cases.py`` (no JAX there), one world
 for the file, started before the parent computes the references."""
 
 import contextlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -34,11 +40,12 @@ from kvpress_tpu.models.llama import quantize_params_int4 as jquant4
 from kvpress_tpu.parallel.mesh import data_sharding, make_mesh as jmake_mesh
 from kvpress_tpu.parallel.mesh import shard_params as jshard_params
 import kvpress_tpu_torch as kt
+from kvpress_tpu.ops import duo_decode as jduo
 from kvpress_tpu_torch.parallel import MESH_ITEMS, MESH_PRESSES, check_press, check_seq_press
 from kvpress_tpu_torch.parallel.mesh import local_config, shard_layer
 from kvpress_tpu_torch.parallel.presses import SEQ_ITEM, WRAPPERS
 from test_torch_parallel import KV_RTOL, LOGIT_TOL, assert_same_prefill, numpy_tree
-from torch_parallel_cases import finish_world, prefill, start_world
+from torch_parallel_cases import duo_split, finish_world, prefill, start_world
 from torch_scorer_cases import jax_sketch
 
 torch.set_num_threads(2)
@@ -82,6 +89,43 @@ PRESSES = {
                                           block_size=16),
     "finch": lambda m: m.FinchPress(0.5, window_size=12),
 }
+
+
+def _head_artifacts(seed=13):
+    """Seeded stand-ins for the artifacts indexed by global head (numpy, for
+    both packages): (L, H_kv, D) Q-filters, the (L, Hq, D) / (L, Hq, D, D)
+    query statistics, and Duo's (L, H_kv) head scores; and two Duo patterns
+    that leave rank 1 of "model" 2 no retrieval head in layer 0 ("layer")
+    and in every layer ("every")."""
+    rng = np.random.default_rng(seed)
+    cfg = kt.tiny_config(**OVER)
+    L, Hq, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    a = f(L, Hq, D, D) * 0.3
+    return dict(q_filters=f(L, Hkv, D),
+                stats={"mu": f(L, Hq, D), "cov": np.einsum("lhij,lhkj->lhik", a, a)},
+                duo=f(L, Hkv),
+                # ratio 0.5 prunes the four lowest: (0, 2), (0, 3), (1, 0), (1, 2)
+                duo_layer=np.array([[5, 6, 1, 2], [3, 7, 4, 8]], np.float32),
+                # (0, 2), (0, 3), (1, 2), (1, 3)
+                duo_every=np.array([[5, 6, 1, 2], [7, 8, 3, 4]], np.float32))
+
+
+ART = _head_artifacts()
+DUO = dict(sink_size=4, recent_size=8)      # S = 48: slots 4-39 of a streaming head cleared
+# label: a press of items 18.13, 18.14, 18.16 and 18.17, made with module
+# m's classes (RandomPress with the port's only: a fresh generator each).
+HEAD_PRESSES = {
+    "qfilter": lambda m: m.QFilterPress(0.5, q_filters=ART["q_filters"]),
+    "expected_attention_stats": lambda m: m.ExpectedAttentionStatsPress(
+        0.5, n_future_positions=16, stats=ART["stats"]),
+    "duo": lambda m: m.DuoAttentionPress(0.5, head_scores=ART["duo"], **DUO),
+    "random": lambda m: m.RandomPress(0.5, generator=torch.Generator().manual_seed(5)),
+}
+DUO_PATTERNS = ("layer", "every")
+DUO_STEPS = 4
+ALL_PRESSES = {**PRESSES, **HEAD_PRESSES}
+
 # route: the rank job's options beyond the press.
 ROUTES = {"oneshot": {}, "int8": dict(kv_bits=8), "int4_weights": {}, "chunked": dict(chunk=CHUNK)}
 CASES = ([(p, "oneshot") for p in PRESSES]
@@ -89,11 +133,14 @@ CASES = ([(p, "oneshot") for p in PRESSES]
          + [(p, "int4_weights") for p in ("critical_knorm", "critical_snapkv")]
          + [(p, "chunked") for p in PRESSES
             if p not in ("cap", "merging", "block_keydiff", "block_kvzap")])
+HEAD_CASES = ([(p, r) for p in ("qfilter", "expected_attention_stats", "duo") for r in ROUTES
+               if (p, r) != ("expected_attention_stats", "chunked")]
+              + [("random", "oneshot"), ("random", "chunked")])
 # The single-process port refuses these chunked; the mesh must say the same.
-REFUSED_CHUNKED = ("cap", "merging", "block_keydiff")
+REFUSED_CHUNKED = ("cap", "merging", "block_keydiff", "expected_attention_stats")
 # Also held against JAX's GSPMD run over its (data 1, model 2) mesh.
 GSPMD = (("critical_knorm", "int4_weights"), ("block_kvzap", "oneshot"),
-         ("composed", "oneshot"))
+         ("composed", "oneshot"), ("duo", "oneshot"))
 # Keys requantized after the press: one code of their scale.
 REQUANTIZED = ("key_rerotation", "think", "composed", "finch")
 
@@ -117,7 +164,7 @@ def _sketches(cfg) -> dict:
 
 def _job(cfg_t, params, p4, ids, label, route):
     job = dict(cfg=cfg_t, params=numpy_tree(p4 if route == "int4_weights" else params), ids=ids,
-               press=PRESSES[label](kt), mesh=MESH, **ROUTES[route])
+               press=ALL_PRESSES[label](kt), mesh=MESH, **ROUTES[route])
     if route != "chunked":
         job["decode_steps"] = DECODE_STEPS
     if label == "cur":
@@ -186,7 +233,7 @@ def jax_run(cfg_j, params, ids, press, chunk=None, kv_bits=None, decode_steps=0,
 def _jax_case(m, label, route, mesh=None):
     cfg_j, params, p4, ids = m["cfg_j"], m["params"], m["p4"], m["ids"]
     opts = ROUTES[route]
-    return jax_run(cfg_j, p4 if route == "int4_weights" else params, ids, PRESSES[label](kj),
+    return jax_run(cfg_j, p4 if route == "int4_weights" else params, ids, ALL_PRESSES[label](kj),
                    chunk=opts.get("chunk"), kv_bits=opts.get("kv_bits"),
                    decode_steps=0 if route == "chunked" else DECODE_STEPS, mesh=mesh)
 
@@ -197,17 +244,50 @@ def world(tmp_path_factory):
     cfg_t = kt.tiny_config(**OVER)
     ids = np.random.default_rng(12).permutation(np.arange(3, cfg_j.vocab_size))[:S][None]
     jobs = {f"{label}-{route}": ("prefill", _job(cfg_t, params, p4, ids, label, route))
-            for label, route in CASES}
+            for label, route in CASES + HEAD_CASES}
     for label in REFUSED_CHUNKED:
         jobs[f"{label}-refused"] = ("refused", dict(kind="prefill", mesh=MESH, job=_job(
             cfg_t, params, p4, ids, label, "chunked")))
+    # The mutant: ranks that draw only their own heads' random scores.
+    jobs["random-local-draw"] = ("prefill", dict(_job(cfg_t, params, p4, ids, "random",
+                                                      "oneshot"), mutant="random_local_draw"))
+    for pattern in DUO_PATTERNS:
+        jobs[f"duo_split-{pattern}"] = ("duo_split", dict(
+            cfg=cfg_t, params=numpy_tree(params), ids=ids, mesh=MESH, steps=DUO_STEPS,
+            room=DUO_STEPS, press=_duo(kt, pattern)))
     handle = start_world(2, jobs, tmp_path_factory.mktemp("local"))
     m = dict(cfg_j=cfg_j, params=params, p4=p4, ids=ids, jobs=jobs)
     # The references, computed while the ranks run.
-    m["jax"] = {k: _jax_case(m, *k) for k in CASES}
-    m["single"] = {k: prefill(dict(jobs["-".join(k)][1], mesh=None)) for k in CASES}
+    m["jax"] = {k: _jax_case(m, *k) for k in CASES + HEAD_CASES if k[0] != "random"}
+    m["single"] = {k: prefill(dict(jobs["-".join(k)][1], mesh=None)) for k in CASES + HEAD_CASES}
+    m["duo_jax"] = {p: _jax_duo_split(cfg_j, params, ids, p) for p in DUO_PATTERNS}
+    m["duo_single"] = {p: duo_split(dict(jobs[f"duo_split-{p}"][1], mesh=None))
+                       for p in DUO_PATTERNS}
     m["got"] = finish_world(handle)
     return m
+
+
+def _duo(m, pattern):
+    return m.DuoAttentionPress(0.5, head_scores=ART[f"duo_{pattern}"], **DUO)
+
+
+def _jax_duo_split(cfg_j, params, ids, pattern):
+    """JAX's split-cache decode on one device: the Duo prefill,
+    ``build_duo_split``, then DUO_STEPS greedy ``duo_decode_step`` calls."""
+    runner, press = kj.Runner.create(cfg_j), _duo(kj, pattern)
+    logits, cache, _ = runner.prefill(params, jnp.asarray(ids), press=press, dtype=jnp.float32,
+                                      compute_logits=True)
+    ds = jduo.build_duo_split(cache, press.streaming_mask(), DUO["sink_size"],
+                              DUO["recent_size"], room=DUO_STEPS)
+    tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    toks, steps = [], []
+    for _ in range(DUO_STEPS):
+        tok, step, ds = jduo.duo_decode_step(params, tok, ds, runner=runner)
+        toks.append(np.asarray(tok))
+        steps.append(np.asarray(step))
+    return dict(prefill=np.asarray(logits[:, -1]), tokens=np.concatenate(toks, axis=1),
+                steps=np.stack(steps), len_r=np.asarray(ds.len_r).tolist(),
+                offset=int(ds.offset))
 
 
 def _assert_same(got, want, label, route, rounding=True):
@@ -250,9 +330,10 @@ def test_local_press_under_a_mesh_matches_jax(world, label, route):
 
 @pytest.mark.parametrize("label", REFUSED_CHUNKED)
 def test_a_chunked_refusal_is_the_single_process_one(world, label):
-    """CAP (no pre-RoPE queries in the compression pass), Merging (its
-    merge) and Block (every position's hidden states) are refused by chunked
-    prefill under the mesh with the single-process port's error."""
+    """CAP and ExpectedAttentionStats (no pre-RoPE queries in the
+    compression pass), Merging (its merge) and Block (every position's
+    hidden states) are refused by chunked prefill under the mesh with the
+    single-process port's error."""
     job = world["jobs"][f"{label}-refused"][1]["job"]
     with pytest.raises((ValueError, TypeError)) as single:
         prefill(dict(job, mesh=None))
@@ -290,8 +371,9 @@ def test_critical_value_norm_of_a_rank_is_its_heads_slice(weights):
 
 def test_the_eleven_run_under_a_mesh_and_the_rest_keep_their_items():
     """Items 18.1-18.11 are in MESH_PRESSES (each with its wrapped presses
-    passing ``check_press``) and out of MESH_ITEMS; classes (b) and (c) keep
-    their numbers; the seq-mesh gate still refuses them (item 19)."""
+    passing ``check_press``) and out of MESH_ITEMS; the rest of class (b)
+    (FastKVzip, RestoreKV) and class (c) keep their numbers; the seq-mesh
+    gate still refuses them (item 19)."""
     eleven = ("CapPress", "CURPress", "CriticalKVPress", "KeyRerotationPress",
               "PerLayerCompressionPress", "ThinKPress", "ChunkPress", "ComposedPress",
               "MergingPress", "BlockPress", "FinchPress")
@@ -299,9 +381,9 @@ def test_the_eleven_run_under_a_mesh_and_the_rest_keep_their_items():
     assert set(WRAPPERS) < set(eleven)
     for make in PRESSES.values():
         check_press(make(kt))
-    assert (MESH_ITEMS["RandomPress"], MESH_ITEMS["RestoreKVPress"], MESH_ITEMS["TOVAPress"],
-            MESH_ITEMS["KVComposeCollector"]) == ("18.13", "18.19", "18.20", "18.32")
-    assert len(MESH_ITEMS) == 6 + 13
+    assert (MESH_ITEMS["FastKVzipPress"], MESH_ITEMS["RestoreKVPress"], MESH_ITEMS["TOVAPress"],
+            MESH_ITEMS["KVComposeCollector"]) == ("18.18", "18.19", "18.20", "18.32")
+    assert len(MESH_ITEMS) == 2 + 13
     for make in PRESSES.values():
         with pytest.raises(NotImplementedError, match=f"item {SEQ_ITEM} "):
             check_seq_press(make(kt))
@@ -309,10 +391,10 @@ def test_the_eleven_run_under_a_mesh_and_the_rest_keep_their_items():
 
 @pytest.mark.parametrize("inner", [
     lambda: kt.TOVAPress(0.5),
-    lambda: kt.QFilterPress(0.5, q_filters=np.zeros((2, 2, 16), np.float32)),
+    lambda: kt.LUKVPress(kt.KnormPress(0.5)),
     lambda: kt.ChunkKVPress(kt.KnormPress(0.5)),
-    lambda: kt.CriticalKVPress(kt.RandomPress(0.5, generator=torch.Generator())),
-], ids=["tova", "qfilter", "chunkkv", "critical_random"])
+    lambda: kt.CriticalKVPress(kt.CompactorPress(0.5)),
+], ids=["tova", "lukv", "chunkkv", "critical_compactor"])
 def test_composed_press_refuses_a_later_item_inside(inner):
     """ComposedPress looks into its stages (and their wrapped presses): a
     stage of class (b) or (c) raises NotImplementedError naming that
@@ -336,3 +418,107 @@ def test_every_name_left_in_mesh_items_is_refused(name):
             object.__setattr__(p, "presses", (kt.KnormPress(0.5), press))
         with pytest.raises(NotImplementedError, match=f"item {MESH_ITEMS[name]} "):
             check_press(p)
+
+
+# --------------------------------------------------------------------- #
+# Items 18.13, 18.14, 18.16 and 18.17: the head-indexed presses
+
+
+@pytest.mark.parametrize("label,route", HEAD_CASES, ids=[f"{p}-{r}" for p, r in HEAD_CASES])
+def test_head_indexed_press_under_a_mesh_matches_jax(world, label, route):
+    """model 2: QFilter, ExpectedAttentionStats and Duo equal the JAX
+    single-device run (Duo also JAX's GSPMD run) and the port's single
+    process; Random the port's single process on the same seed."""
+    got = world["got"][f"{label}-{route}"]
+    if label != "random":
+        _assert_same(got, world["jax"][(label, route)], label, route)
+    _assert_same(got, world["single"][(label, route)], label, route, rounding=False)
+    if (label, route) in GSPMD:
+        _assert_same(got, _jax_case(world, label, route, mesh=jmake_mesh(**MESH)), label,
+                     route)
+    if label == "duo" and route == "oneshot":
+        # Four streaming heads over both layers: slots 4-39 cleared on each.
+        cleared = ~got["mask"][:, 0, :, :S]
+        assert cleared.sum() == 4 * (S - DUO["sink_size"] - DUO["recent_size"])
+
+
+def test_random_ranks_drawing_their_local_shape_are_rejected(world):
+    """The mutant: ranks that draw (B, H_kv local, S) from the generator (the
+    same numbers for different heads) differ from the single process."""
+    got = world["got"]["random-local-draw"]
+    assert_same_prefill(world["got"]["random-oneshot"], world["single"][("random", "oneshot")])
+    with pytest.raises(AssertionError):
+        assert_same_prefill(got, world["single"][("random", "oneshot")])
+
+
+@pytest.mark.parametrize("pattern", DUO_PATTERNS)
+def test_duo_split_decode_on_the_sharded_runner_matches_jax(world, pattern):
+    """Duo's split decode on each rank's heads (``build_duo_split(...,
+    shard=)``, ``duo_decode_step`` on the sharded runner): JAX's
+    single-device tokens and logits, and the port's single process. Rank 1
+    holds no retrieval head in layer 0 ("layer") or in any layer ("every"):
+    its retrieval buffer keeps both its lanes, padded where it holds none
+    (the width is H_kv less the fewest streaming heads of a layer, taken
+    with ``initial=0`` as the JAX package does: H_kv)."""
+    got, want = world["got"][f"duo_split-{pattern}"], world["duo_jax"][pattern]
+    single = world["duo_single"][pattern]
+    for ref in (want, single):
+        np.testing.assert_array_equal(got["tokens"], ref["tokens"])
+        np.testing.assert_allclose(got["prefill"], ref["prefill"], **LOGIT_TOL)
+        np.testing.assert_allclose(got["steps"], ref["steps"], **LOGIT_TOL)
+        assert got["len_r"] == ref["len_r"] and got["offset"] == ref["offset"]
+    # (retrieval, streaming) buffer heads on ranks 0 and 1, and on one device.
+    assert got["heads"] == [(2, 1), (2, 2)] and single["heads"] == [(4, 2)]
+
+
+def _slice_ctx(layer, rank, size, S):
+    """The fields of a LayerCtx the four presses read, for rank ``rank`` of
+    a model ``size`` mesh (one device: ``size`` None)."""
+    cfg = kt.tiny_config(**OVER)
+    return types.SimpleNamespace(
+        layer_idx=layer, seq_len=S, attention_scaling=1.0,
+        shard=None if size is None else types.SimpleNamespace(rank=rank, size=size),
+        cfg=cfg if size is None else local_config(cfg, size),
+        inv_freq=kt.Runner.create(cfg, device="cpu").inv_freq)
+
+
+@pytest.mark.parametrize("label", list(HEAD_PRESSES))
+def test_a_ranks_artifact_slice_is_its_heads_part(label):
+    """A rank's scores (QFilter; ExpectedAttentionStats' statistics and its
+    scores past the sinks; Random's draw from a generator seeded alike) and
+    Duo's keep-mask equal the single device's at the rank's heads, at model
+    2 and 4; the mutant, a rank that reads the other rank's slice, does
+    not."""
+    cfg = kt.tiny_config(**OVER)
+    H, G, S = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, 24
+    g = torch.Generator().manual_seed(1)
+    keys, values = (torch.randn(1, H, S, cfg.head_dim, generator=g) for _ in range(2))
+
+    def run(layer, heads, rank=0, size=None):
+        """(tensor, its head axis' group size: 1 kv heads, G query heads)."""
+        # Duo's "every" pattern: the two ranks' halves differ in each layer.
+        press = _duo(kt, "every") if label == "duo" else HEAD_PRESSES[label](kt)
+        ctx = _slice_ctx(layer, rank, size, S)
+        k, v = keys[:, heads], values[:, heads]
+        if label == "duo":
+            return [(press._keep(ctx, S, k), 1)]
+        if label == "expected_attention_stats":
+            mu, cov = press.query_statistics(ctx)
+            return [(mu, G), (cov, G), (press.score(ctx, k, v)[..., press.n_sink:], 1)]
+        return [(press.score(ctx, k, v), 1)]
+
+    def same(got, want, heads):
+        return all(torch.equal(a, b[:, heads.start * n:heads.stop * n])
+                   for (a, _), (b, n) in zip(got, want))
+
+    rejected = []
+    for layer in range(cfg.num_layers):
+        want = run(layer, slice(None))
+        for size in (2, 4):
+            n = H // size
+            for r in range(size):
+                heads = slice(r * n, (r + 1) * n)
+                assert same(run(layer, heads, r, size), want, heads), (layer, size, r)
+                if size == 2:
+                    rejected.append(not same(run(layer, heads, 1 - r, size), want, heads))
+    assert all(rejected), rejected

@@ -1,8 +1,10 @@
-"""The shard-local presses of ROADMAP Queue A items 18.1-18.11 served over a
-tensor-parallel mesh: ``ServingEngine(mesh=)`` and
-``KVPressPipeline.batch(mesh=)`` on a gloo world of 2 ranks ("model" 2 on
-the tiny config with GQA 8/4, two kv heads a rank), each press against the
-JAX engine on the same requests and the port's single-process engine and
+"""The shard-local presses of ROADMAP Queue A items 18.1-18.11 and the
+head-indexed ones of items 18.13, 18.14, 18.16 and 18.17 (Random, QFilter,
+ExpectedAttentionStats, DuoAttention) served over a tensor-parallel mesh:
+``ServingEngine(mesh=)`` and ``KVPressPipeline.batch(mesh=)`` on a gloo
+world of 2 ranks ("model" 2 on the tiny config with GQA 8/4, two kv heads a
+rank), each press against the JAX engine on the same requests (Random, whose
+draws are torch's: not) and the port's single-process engine and
 ``batch()``.
 
 Held to tests/test_torch_serving_parallel.py's limits: equal answers, equal
@@ -14,6 +16,7 @@ with ``context_chunk`` it refuses Merging and Block (and CAP's chunked
 prefill raises), and the mesh gives the same refusals. The ranks run
 ``tests/torch_parallel_cases.py`` (no JAX there)."""
 
+import pickle
 import types
 
 import pytest
@@ -23,7 +26,7 @@ import kvpress_tpu as kj
 from kvpress_tpu import serving as jserving
 import kvpress_tpu_torch as kt
 from test_torch_parallel import numpy_tree
-from test_torch_parallel_local_presses import OVER, PRESSES, _models, _sketches
+from test_torch_parallel_local_presses import ALL_PRESSES, OVER, _models, _sketches
 from toy_tokenizer import ToyTokenizer
 from torch_parallel_cases import batch, finish_world, serve, start_world
 from torch_scorer_cases import distinct_words
@@ -35,10 +38,11 @@ MESH = {"data": 1, "model": 2}
 NEW = 5
 # One case of each of the 11; the engine as batch() makes it.
 SERVED = ("cap", "cur", "critical_knorm", "key_rerotation", "per_layer", "think", "chunk",
-          "composed", "merging", "block_keydiff", "finch")
+          "composed", "merging", "block_keydiff", "finch",
+          "qfilter", "expected_attention_stats", "duo", "random")
 SLOTS = {"dense": {}, "int8": dict(quantized=True, kv_bits=8)}
-CASES = [(p, "dense") for p in SERVED] + [(p, "int8") for p in ("critical_knorm",
-                                                                "key_rerotation")]
+CASES = [(p, "dense") for p in SERVED] + [(p, "int8") for p in (
+    "critical_knorm", "key_rerotation", "qfilter", "expected_attention_stats", "duo", "random")]
 ENGINE = dict(n_slots=2, capacity=64, question_bucket=4)
 # context_chunk admission: refused at the engine (Merging, Block) or by the
 # chunked prefill (CAP), on one process and over the mesh alike.
@@ -70,7 +74,7 @@ def world(tmp_path_factory):
 
     def job(label, slots, **engine):
         j = dict(cfg=cfg_t, params=tree, requests=reqs, mesh=MESH,
-                 engine=dict(ENGINE, eos_ids=eos, press=PRESSES[label](kt), **SLOTS[slots],
+                 engine=dict(ENGINE, eos_ids=eos, press=ALL_PRESSES[label](kt), **SLOTS[slots],
                              **engine))
         if label == "cur":
             j["sketches"] = _sketches(cfg_t)
@@ -89,11 +93,17 @@ def world(tmp_path_factory):
 
     def jax_engine(label, slots):
         eng = jserving.ServingEngine(kj.Runner.create(cfg_j), params, eos_ids=eos,
-                                     press=PRESSES[label](kj), **ENGINE, **SLOTS[slots])
+                                     press=ALL_PRESSES[label](kj), **ENGINE, **SLOTS[slots])
         return eng.run(requests(jserving, reqs)), eng
 
-    want = {k: jax_engine(*k) for k in CASES}
+    want = {k: jax_engine(*k) for k in CASES if k[0] != "random"}
     return dict(jobs=jobs, want=want, tok=tok, got=finish_world(handle))
+
+
+def _fresh(job):
+    """A copy of ``job`` for the single process, as the ranks unpickled it
+    (RandomPress's generator at its seed)."""
+    return dict(pickle.loads(pickle.dumps(job)), mesh=None)
 
 
 def _view(result):
@@ -109,8 +119,9 @@ def test_engine_over_the_mesh_matches_jax_engine(world, label, slots):
     keep-masks equal the JAX engine's and the port's single-process
     engine's."""
     got = world["got"][f"{label}-{slots}"]
-    assert_same(world["want"][(label, slots)], _view(got))
-    single = serve(dict(world["jobs"][f"{label}-{slots}"][1], mesh=None))
+    if label != "random":
+        assert_same(world["want"][(label, slots)], _view(got))
+    single = serve(_fresh(world["jobs"][f"{label}-{slots}"][1]))
     assert_same(_view(single), _view(got))
     assert got["stats"] == single["stats"]
     assert got["local_keys"][2] == OVER["num_kv_heads"] // 2
@@ -121,7 +132,9 @@ def test_batch_over_the_mesh_answers_as_one_process_and_jax(world, label):
     """``batch(mesh=)`` answers as the single-process ``batch()`` and as the
     JAX engine on the same requests, decoded."""
     got = world["got"][f"{label}-batch"]
-    assert got == batch(dict(world["jobs"][f"{label}-batch"][1], mesh=None))
+    assert got == batch(_fresh(world["jobs"][f"{label}-batch"][1]))
+    if label == "random":
+        return
     answers, _ = world["want"][(label, "dense")]
     assert got == [world["tok"].decode(a, skip_special_tokens=True) for a in answers]
 

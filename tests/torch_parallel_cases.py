@@ -127,6 +127,24 @@ def sketches(job: dict):
         cur.CURPress.sketch = own
 
 
+@contextlib.contextmanager
+def mutant(job: dict):
+    """``job["mutant"]`` in place for the job's run: ``"random_local_draw"``
+    makes ``RandomPress`` draw only the rank's own (B, H_kv local, S)."""
+    from kvpress_tpu_torch.presses import random_press
+
+    if job.get("mutant") != "random_local_draw":
+        yield
+        return
+    own = random_press.RandomPress.score
+    random_press.RandomPress.score = lambda self, ctx, keys, values: torch.rand(
+        keys.shape[:-1], generator=self.generator, device=keys.device, dtype=torch.float32)
+    try:
+        yield
+    finally:
+        random_press.RandomPress.score = own
+
+
 # --------------------------------------------------------------------- #
 # Runner jobs
 
@@ -154,7 +172,7 @@ def prefill(job: dict, mesh=None) -> dict:
     kw = dict(press=press, compute_logits=True, dtype=torch.float32)
     if job.get("kv_bits"):
         kw.update(quantized=True, kv_bits=job["kv_bits"])
-    with sketches(job):
+    with sketches(job), mutant(job):
         if job.get("chunk"):
             logits, cache, state = runner.prefill_chunked(params, ids, chunk_size=job["chunk"],
                                                           **kw)
@@ -188,6 +206,41 @@ def prefill(job: dict, mesh=None) -> dict:
         step, _, _ = runner.forward(params, tok, cache, logits_last_only=True)
         out["decode"] = as_numpy(rows(step))
     return out
+
+
+def duo_split(job: dict, mesh=None) -> dict:
+    """DuoAttention's split-cache decode of ``job`` (its params, ids and
+    Duo press; ``job["steps"]`` greedy tokens, ``job["room"]`` append
+    slots): the prefill, ``build_duo_split`` of the rank's heads, then the
+    steps; their tokens and logits, and every rank's (retrieval, streaming)
+    buffer head counts."""
+    import kvpress_tpu_torch as kt
+    from kvpress_tpu_torch.parallel import shard_params
+
+    params = port_params(job)
+    runner = kt.Runner.create(job["cfg"], device="cpu", mesh=mesh)
+    ids = torch.from_numpy(np.asarray(job["ids"], np.int64))
+    if mesh is not None:
+        params = shard_params(params, mesh)
+    press = job["press"]
+    logits, cache, _ = runner.prefill(params, ids, press=press, compute_logits=True,
+                                      dtype=torch.float32)
+    ds = kt.build_duo_split(cache, press.streaming_mask(), press.sink_size, press.recent_size,
+                            job["room"], shard=runner.shard)
+    heads = [(ds.retr_idx.shape[1], ds.stream_idx.shape[1])]
+    if mesh is not None:
+        heads = [None] * runner.shard.size
+        dist.all_gather_object(heads, (ds.retr_idx.shape[1], ds.stream_idx.shape[1]),
+                               group=runner.shard.group)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    toks, steps = [], []
+    for _ in range(job["steps"]):
+        tok, step, ds = kt.duo_decode_step(params, tok, ds, runner=runner)
+        toks.append(tok.numpy().copy())
+        steps.append(as_numpy(step))
+    return dict(prefill=as_numpy(logits[:, -1]), tokens=np.concatenate(toks, axis=1),
+                steps=np.stack(steps), heads=heads, len_r=ds.len_r.tolist(),
+                offset=int(ds.offset))
 
 
 def shards(job: dict, mesh) -> dict:
@@ -267,5 +320,5 @@ def refused(job: dict, mesh=None) -> str:
     raise AssertionError(f"{job['kind']} ran")
 
 
-KINDS = {"prefill": prefill, "shards": shards, "cache_roundtrip": cache_roundtrip,
-         "serve": serve, "batch": batch, "refused": refused}
+KINDS = {"prefill": prefill, "duo_split": duo_split, "shards": shards,
+         "cache_roundtrip": cache_roundtrip, "serve": serve, "batch": batch, "refused": refused}
