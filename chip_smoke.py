@@ -3914,7 +3914,8 @@ SV_QUESTION_BUCKET = 64
 SV_FETCH_LAG = 4
 SV_CHUNK = 4096               # S5's context_chunk
 SV_SMALL_CONTEXT = 2048       # the sampling check's contexts and the bf16 reading's
-SV_TF = 4                     # requests teacher-forced in each run but S1 (all of them)
+SV_TF = 4                     # requests teacher-forced in each run but S1 (the 8 last in
+# their slots: each context and question length twice, and their pool rows)
 SV_INTERVAL = 16              # S4's compression interval
 SV_SAMPLE_NEW = 32            # new tokens a request of the sampling check
 SV_S7_ONE = 4                 # S7's requests at one slot (8 at eight)
@@ -4276,8 +4277,8 @@ def serving_run(kt, torch, tokenizer_cls, params, report, labels=None):
       S7  8 requests of 8,192 tokens at 8 slots, the first 4 at 1: the
           batching reading;
     and the sampling check (4 requests of 2,048 tokens). Checks: answers
-    teacher-forced against the single-request path (all of S1, SV_TF of each
-    other run), the pool rows of each such request that was last in its slot
+    teacher-forced against the single-request path (the 8 of S1 last in
+    their slots, SV_TF of each other run), the pool rows of each such request that was last in its slot
     against the reference's cache, host lengths, the LRU entries bit-equal
     after their hits, decode_attention exactly 16 times a slot step on the
     payload's instantiation, flash launches per admission as predicted, the
@@ -4352,7 +4353,7 @@ def serving_run(kt, torch, tokenizer_cls, params, report, labels=None):
         check_serving_launches(label, counts, steps, kind, flash, quant, L)
         check_host_lengths(label, eng.sc.lengths, eng.sc.offsets, served, reqs, answers,
                            kept_knorm)
-        idx = list(range(len(reqs))) if label == "S1" else sorted(served.values())[:SV_TF]
+        idx = sorted(served.values())[:None if label == "S1" else SV_TF]
         q = dict(quantized=bool(kv), kv_bits=kv.get("kv_bits", 8))
         teacher_force(label, reqs, answers, eng, served, idx, **q)
         if label == "S1":
@@ -4587,21 +4588,23 @@ def serving_check(kt, torch, tokenizer_cls, params, report):
 
 
 TP_CONTEXTS = SV_CONTEXTS     # the world of one: S2's contexts (int8 slots)
-TP_REQUESTS = SV_REQUESTS // 4     # the first 4 requests of S2's mix, for the script's time
-TP_NEW = SV_NEW
+TP_REQUESTS = SV_REQUESTS // 8     # the first 2 requests of S2's mix, for the script's time
+TP_NEW = SV_NEW // 2          # 32 new tokens a request, for the script's time
 TP_GLOO_CONTEXTS = (2048, 4096)   # the 2-rank worlds over gloo: short contexts
-TP_GLOO_REQUESTS = 4
+TP_GLOO_REQUESTS = 2
 TP_GLOO_NEW = 16
 # The 2-rank worlds share the one card over gloo (NCCL refuses two ranks on
 # one device); gloo takes CUDA tensors for all_reduce and all_gather.
 TP_GLOO_WORLDS = {"model2": {"data": 1, "model": 2}, "data2": {"data": 2, "model": 1}}
 # The shard-local presses of ROADMAP Queue A items 18.1-18.11 under a mesh:
-# each over a world of one (int8 slots), two requests a press of 8 new
-# tokens (7 slot steps: the pool's identity shows in the first); four of
-# them also in the model 2 gloo world (Block there all-gathers its candidate
-# sets at four kv heads of eight a rank).
+# each over a world of one (int8 slots), one request a press of the longer
+# context and 4 new tokens (3 slot steps: the pool's identity shows in the
+# first; a world of one gathers and reduces over itself, so a second
+# request adds nothing there); four of them also in the model 2 gloo world
+# (Block there all-gathers its candidate sets at four kv heads of eight a
+# rank).
 TP_LOCAL_CONTEXTS = (2048, 4096)
-TP_LOCAL_NEW = 8
+TP_LOCAL_NEW = 4
 TP_LOCAL_PRESSES = {
     "CAP": lambda kt, L: kt.CapPress(0.5),
     "CUR": lambda kt, L: kt.CURPress(0.5, use_random_leverage=True),
@@ -4629,8 +4632,32 @@ TP_HEAD_PRESSES = {
                                               head_scores=tp_head_artifacts()["duo"]),
     "Random": lambda kt, L: tp_random_press(kt),
 }
+# The cross-head scorers of items 18.20-18.24: each rank gathers what it
+# reduces across heads over "model" (presses.base.all_heads). TP_CROSS_ONE
+# runs over the world of one; TOVA, CriticalAdaKV (mask form: host lengths
+# independent of ties) and SimLayerKV also in the model 2 gloo world, where
+# a missing gather shows. SimLayerKV's threshold
+# is set on the card before the phase (``tp_lazy_threshold``, into TP_LAZY).
+TP_CROSS_PRESSES = {
+    "TOVA": lambda kt, L: kt.TOVAPress(0.5),
+    "CriticalAdaKV(Knorm)": lambda kt, L: kt.CriticalAdaKVPress(kt.KnormPress(0.5),
+                                                                 compact=True),
+    "CriticalAdaKV(Knorm) mask": lambda kt, L: kt.CriticalAdaKVPress(kt.KnormPress(0.5)),
+    "ChunkKV(Knorm)": lambda kt, L: kt.ChunkKVPress(kt.KnormPress(0.5), chunk_length=1024),
+    "LUKV(Knorm)": lambda kt, L: kt.LUKVPress(kt.KnormPress(0.5), compression_ratio=0.5,
+                                              budget_curves=tp_head_artifacts()["lukv"]),
+    "SimLayerKV": lambda kt, L: kt.SimLayerKVPress(TP_LAZY["threshold"]),
+}
+TP_CROSS_ONE = ("TOVA", "CriticalAdaKV(Knorm)", "ChunkKV(Knorm)", "LUKV(Knorm)", "SimLayerKV")
+TP_LAZY: dict = {}
 TP_LOCAL_GLOO = ("CriticalKV(Knorm)", "KeyRerotation(Knorm)", "Composed(Knorm, ThinK)",
-                 "Block(Knorm)", "QFilter", "Duo")
+                 "Block(Knorm)", "QFilter", "Duo", "TOVA", "CriticalAdaKV(Knorm) mask",
+                 "SimLayerKV")
+# The layer-0 decision check on the model 2 gloo world: the ranks' gathered
+# TOVA scores (within this share of their scale) and CriticalAdaKV(Knorm)'s
+# keep bits (at most this share of them) against one process's.
+TP_DECISION_TOVA = 1e-3
+TP_DECISION_BITS = 1e-3
 TP_HEAD_SEED = 21
 
 
@@ -4638,8 +4665,9 @@ TP_HEAD_SEED = 21
 def tp_head_artifacts() -> dict:
     """Seeded stand-ins, at the flagship's shape, for the artifacts indexed
     by global head: (L, H_kv, D) Q-filters, the (L, Hq, D) / (L, Hq, D, D)
-    query statistics, (L, H_kv) Duo head scores (numpy, made once; every
-    rank of a world makes the same)."""
+    query statistics, (L, H_kv) Duo head scores, a (99, L, H_kv) LU-KV
+    budget curve (uneven per-head budgets; numpy, made once; every rank of
+    a world makes the same)."""
     import numpy as np
 
     cfg = flagship_config(16)
@@ -4649,7 +4677,9 @@ def tp_head_artifacts() -> dict:
     a = f(L, Hq, D, D) * D ** -0.5
     return dict(q_filters=f(L, Hkv, D),
                 stats={"mu": f(L, Hq, D), "cov": np.einsum("lhij,lhkj->lhik", a, a)},
-                duo=f(L, Hkv))
+                duo=f(L, Hkv),
+                lukv=np.random.default_rng(TP_HEAD_SEED + 1).uniform(
+                    0.1, 0.9, (99, L, Hkv)).astype(np.float32))
 
 
 def tp_random_press(kt):
@@ -4666,14 +4696,16 @@ TP_RANK_TIMEOUT = 600         # seconds for a 2-rank world, and for a collective
 
 def tp_press(kt, spec=None):
     """The press of a tensor-parallel run: Knorm(0.5); (``spec`` a name) a
-    press of TP_LOCAL_PRESSES or TP_HEAD_PRESSES at the flagship's depth; or
+    press of TP_LOCAL_PRESSES, TP_HEAD_PRESSES or TP_CROSS_PRESSES at the
+    flagship's depth; or
     (``spec`` a dict)
     DMS over the KVzap surrogate of the ``.npz`` at ``spec["path"]`` with
     its threshold and ``compact``."""
     if spec is None:
         return kt.KnormPress(0.5)
     if isinstance(spec, str):
-        make = TP_LOCAL_PRESSES.get(spec) or TP_HEAD_PRESSES[spec]
+        make = (TP_LOCAL_PRESSES.get(spec) or TP_HEAD_PRESSES.get(spec)
+                or TP_CROSS_PRESSES[spec])
         return make(kt, flagship_config(16).num_layers)
     return kt.DMSPress(kt.KVzapPress(surrogate=kt.load_kvzap_model(spec["path"])),
                        threshold=spec["threshold"], compact=spec["compact"])
@@ -4687,7 +4719,9 @@ def tp_rank(rank: int, world: int, d: str):
     TP_GLOO_WORLDS, a press and its requests; a mesh made once a shape).
     Each rank writes, for each run, its answers, host lengths and offsets,
     launch counts and the (query, kv) head counts its kernels took to
-    ``d/rank<r>.json``."""
+    ``d/rank<r>.json``; with ``job["decision"]`` (context ids), its
+    ``layer0_decisions`` on the model 2 mesh, as they are and under
+    ``cross_head_fault``, to ``d/decision<r>.pt``."""
     import datetime
 
     import torch
@@ -4696,7 +4730,7 @@ def tp_rank(rank: int, world: int, d: str):
     import kvpress_tpu_torch as kt
     from kvpress_tpu_torch import serving as sv
     from kvpress_tpu_torch.models import llama as ll
-    from kvpress_tpu_torch.parallel import make_mesh
+    from kvpress_tpu_torch.parallel import make_mesh, shard_params
 
     if not torch.cuda.is_available():
         raise RuntimeError(f"rank {rank}: no CUDA device")
@@ -4704,6 +4738,7 @@ def tp_rank(rank: int, world: int, d: str):
     torch.cuda.set_device(dev)
     with open(f"{d}/job.json") as f:
         job = json.load(f)
+    TP_LAZY.update(job.get("lazy", {}))
     dist.init_process_group("gloo", store=dist.FileStore(f"{d}/store", world), rank=rank,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT))
@@ -4749,8 +4784,93 @@ def tp_rank(rank: int, world: int, d: str):
             torch.cuda.empty_cache()
         with open(f"{d}/rank{rank}.json", "w") as f:
             json.dump(outs, f)
+        if "decision" in job:
+            if "model2" not in meshes:
+                meshes["model2"] = make_mesh(**TP_GLOO_WORLDS["model2"], device_type="cuda")
+            sharded = runner.sharded(meshes["model2"])
+            local = shard_params(params, meshes["model2"])
+            ids = torch.tensor([job["decision"]], device=dev)
+            out = {}
+            for fault in (False, True):
+                with cross_head_fault(fault):
+                    out[fault] = layer0_decisions(kt, sharded, local, ids)
+            torch.save(out, f"{d}/decision{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def cross_head_fault(on: bool = True):
+    """A planted fault (``on``): every module's ``all_heads`` gives the
+    rank's own heads in place of every rank's (repeated to the gathered
+    width), so a rank decides across its own heads only."""
+    import torch
+
+    from kvpress_tpu_torch.presses import base
+
+    own = base.all_heads
+    mods = [m for n, m in list(sys.modules.items()) if on and n.startswith("kvpress_tpu_torch.")
+            and getattr(m, "all_heads", None) is own]
+    for m in mods:
+        m.all_heads = lambda shard, x, dim=1: x if shard is None else torch.cat(
+            [x] * shard.size, dim)
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.all_heads = own
+
+
+def layer0_decisions(kt, runner, params, ids) -> dict:
+    """Layer 0's decisions across heads on ``runner`` over ``ids``, on the
+    host at the runner's kv heads: TOVA's scores (the last query row's mean
+    over every query head; the pinned last slot left out) and
+    CriticalAdaKV(Knorm)'s keep bits (a flat top across heads)."""
+    from kvpress_tpu_torch.presses import snapkv, wrappers
+
+    seen = {}
+    score, select = snapkv.TOVAPress.score, wrappers.CriticalAdaKVPress._select
+
+    def scoring(self, ctx, keys, values):
+        out = score(self, ctx, keys, values)
+        if ctx.layer_idx == 0:
+            seen["TOVA"] = out[..., :-1].float().cpu()
+        return out
+
+    def selecting(self, ctx, *args, **kw):
+        out = select(self, ctx, *args, **kw)
+        if ctx.layer_idx == 0:
+            seen["CriticalAdaKV"] = out.cpu()
+        return out
+
+    snapkv.TOVAPress.score, wrappers.CriticalAdaKVPress._select = scoring, selecting
+    try:
+        runner.prefill(params, ids, press=kt.TOVAPress(0.5))
+        runner.prefill(params, ids, press=kt.CriticalAdaKVPress(kt.KnormPress(0.5)))
+    finally:
+        snapkv.TOVAPress.score, wrappers.CriticalAdaKVPress._select = score, select
+    return seen
+
+
+def decision_errors(torch, ranks, want):
+    """(The share of their scale by which the ranks' gathered layer-0 TOVA
+    scores are off one process's, the share of CriticalAdaKV's keep bits
+    off); ``ranks``: each rank's ``layer0_decisions``, in model order."""
+    tova = torch.cat([r["TOVA"] for r in ranks], dim=1)
+    err = ((tova - want["TOVA"]).abs().max() / want["TOVA"].abs().max()).item()
+    bits = torch.cat([r["CriticalAdaKV"] for r in ranks], dim=1)
+    return err, (bits != want["CriticalAdaKV"]).float().mean().item()
+
+
+def tp_decision_check(torch, ranks, want):
+    """``decision_errors`` within TP_DECISION_TOVA and TP_DECISION_BITS.
+    Returns them."""
+    err, off = decision_errors(torch, ranks, want)
+    if not (err <= TP_DECISION_TOVA and off <= TP_DECISION_BITS):
+        raise AssertionError(f"TP decision check: TOVA's scores {err:.3e} of their scale off "
+                             f"one process's (limit {TP_DECISION_TOVA}), {off:.3e} of "
+                             f"CriticalAdaKV's keep bits (limit {TP_DECISION_BITS})")
+    return err, off
 
 
 @contextlib.contextmanager
@@ -4832,14 +4952,17 @@ def tp_world_of_one(kt, torch, params, report, make_press=None, reqs=None, label
     return got[1]
 
 
-def tp_gloo_world(kt, torch, params, report, tie: float, runs, label="TP"):
+def tp_gloo_world(kt, torch, params, report, tie: float, runs, label="TP", decision=None):
     """A 2-rank world on the one card over gloo, one engine run for each of
     ``runs`` (``(name, spec, reqs)``: the mesh ``TP_GLOO_WORLDS[name]``; the
     press, ``tp_press``; the requests, TP_GLOO_REQUESTS of TP_GLOO_CONTEXTS
     when None): the ranks' answers teacher-forced against the
     single-process runner (the bf16 tie limit of the serving phase), their
     host lengths, the launch counts per rank, and the head counts each
-    rank's kernels took."""
+    rank's kernels took. With ``decision`` (context ids) the ranks' layer-0
+    decisions across heads on the model 2 mesh are held against one
+    process's (``tp_decision_check``), and so is the planted fault, which
+    the check must reject."""
     import tempfile
 
     cfg = flagship_config(16)
@@ -4852,7 +4975,8 @@ def tp_gloo_world(kt, torch, params, report, tie: float, runs, label="TP"):
         json.dump(dict(runs=[
             dict(world=name, press=spec, reqs=reqs,
                  cap=serving_capacity(cfg, tp_press(kt, spec), reqs))
-            for name, spec, reqs in runs]), f)
+            for name, spec, reqs in runs], lazy=TP_LAZY,
+            **({} if decision is None else dict(decision=decision))), f)
     start = time.perf_counter()
     # Each rank is a fresh interpreter that imports this file (not a fork,
     # and not a re-run of whatever script imported it); a rank that fails
@@ -4883,6 +5007,18 @@ def tp_gloo_world(kt, torch, params, report, tie: float, runs, label="TP"):
         tp_gloo_check(kt, torch, params, report, runner, name, tie, spec, reqs,
                       [r[i] for r in ranks], f"{label} {spec}" if isinstance(spec, str)
                       else label)
+    if decision is not None:
+        got = [torch.load(f"{d}/decision{r}.pt") for r in range(2)]
+        want = layer0_decisions(kt, runner, params, torch.tensor([decision], device=params.device))
+        err, off = tp_decision_check(torch, [g[False] for g in got], want)
+        must_reject("a rank decides across its own heads only", tp_decision_check, torch,
+                    [g[True] for g in got], want)
+        planted = decision_errors(torch, [g[True] for g in got], want)
+        report(f"  {label} model2 layer-0 decisions across heads ({len(decision):,} tokens): the "
+               f"ranks' gathered TOVA scores {err:.3e} of their scale off one process's (limit "
+               f"{TP_DECISION_TOVA}), CriticalAdaKV(Knorm)'s keep bits {off:.3e} off (limit "
+               f"{TP_DECISION_BITS}); the planted fault (a rank deciding across its own heads) "
+               f"rejected at {planted[0]:.3e} and {planted[1]:.3e}")
     report(f"  {label}: {len(runs)} run{'s' if len(runs) > 1 else ''} "
            f"({', '.join(sorted({name for name, _, _ in runs}))}) in a world of {wall:.1f} s "
            "(spawn and weights included; gloo through the host: no multi-card speed)")
@@ -4902,18 +5038,21 @@ def tp_gloo_check(kt, torch, params, report, runner, name, tie, spec, reqs, rank
             raise AssertionError(f"{label} {name}: the ranks' host states differ")
     flips, widest, kept = [], 0.0, []
     for req, got in zip(reqs, answers):
-        n_flip, worst, cache, _ = serving_reference(kt, torch, runner, params, press, req, got)
+        n_flip, worst, cache, ref_kept = serving_reference(kt, torch, runner, params, press, req,
+                                                           got)
         check_teacher_forced(f"{label} {name}", n_flip, worst, len(got), tie)
         flips.append(n_flip)
         widest = max(widest, worst)
-        # A compacting press's layers keep their longest head's count.
+        # A compacting press's layers keep their longest head's count; a
+        # lazy SimLayerKV layer its sink and recent slots.
         n = len(req[0])
-        kept.append(cache.mask[:, 0, :, :n].sum(-1).amax(-1).tolist())
+        kept.append(cache.mask[:, 0, :, :n].sum(-1).amax(-1).tolist() if isinstance(spec, dict)
+                    else ref_kept.tolist())
         del cache
     served = {s: r for s, r in enumerate(range(len(reqs)))}
     lengths, offsets = torch.tensor(ranks[0]["lengths"]), torch.tensor(ranks[0]["offsets"])
-    if not isinstance(spec, dict):
-        # A mask press (Duo) keeps every slot and clears keep bits.
+    if not isinstance(spec, dict) and spec != "SimLayerKV":
+        # A mask press (Duo, CriticalAdaKV) keeps every slot and clears keep bits.
         kept_of = getattr(press, "exact_kept", lambda n: n)
         check_host_lengths(f"{label} {name}", lengths, offsets, served, reqs, answers, kept_of,
                            rerotates=getattr(press, "rerotates", False))
@@ -4924,6 +5063,9 @@ def tp_gloo_check(kt, torch, params, report, runner, name, tie, spec, reqs, rank
                 raise AssertionError(f"{label} {name}: slot {s} holds lengths "
                                      f"{lengths[:, s].tolist()}, the reference's compacted "
                                      f"layers need {want}")
+        if spec == "SimLayerKV":
+            report(f"  {label} {name}: lazy layers per request (the reference's) "
+                   f"{[sum(k < len(r[0]) for k in ks) for r, ks in zip(reqs, kept)]} of {L}")
     steps = ranks[0]["stats"]["decode_steps"]
     want_heads = [[cfg.num_heads // tp, cfg.num_kv_heads // tp]]
     for r, out in enumerate(ranks):
@@ -5008,14 +5150,58 @@ def tp_critical_norm_run(kt, torch, params, report):
            "num_heads and wo rejected, bf16 and int4")
 
 
+def tp_local_requests(torch, cfg, label):
+    """The world of one's request for a press of ``tp_local_presses_run``:
+    one of TP_LOCAL_CONTEXTS[1] tokens, TP_LOCAL_NEW new, drawn from a seed
+    of the press's place in the phase."""
+    i = [*TP_LOCAL_PRESSES, *TP_HEAD_PRESSES, *TP_CROSS_ONE].index(label)
+    return serving_requests(torch.Generator().manual_seed(20 + i), cfg.vocab_size,
+                            TP_LOCAL_CONTEXTS[1:], TP_LOCAL_NEW)
+
+
+def tp_lazy_threshold(kt, torch, params, contexts, report) -> float:
+    """SimLayerKV's threshold for the phase, into TP_LAZY: each layer's lazy
+    score on one process for each of ``contexts`` (id lists; the first is
+    the world of one's), then the midpoint of the widest gap between all of
+    them that leaves the first context both lazy and whole layers."""
+    cfg = flagship_config(16)
+    runner = kt.Runner.create(cfg, attn_impl="flash", decode_kernel=True, device=params.device)
+    scores = []
+
+    class RecordingLazy(kt.SimLayerKVPress):
+        def lazy_score(self, ctx, keys, length):
+            s = super().lazy_score(ctx, keys, length)
+            scores[-1].append(float(s))
+            return s
+
+    for ids in contexts:
+        scores.append([])
+        runner.prefill(params, torch.tensor([ids], device=params.device),
+                       press=RecordingLazy(0.5))
+    every = sorted(x for per in scores for x in per)
+    gaps = sorted(((b - a, (a + b) / 2) for a, b in zip(every, every[1:])), reverse=True)
+    threshold = next((mid for _, mid in gaps if min(scores[0]) < mid < max(scores[0])), None)
+    if threshold is None:
+        raise AssertionError(f"TP SimLayerKV: the lazy scores {scores[0]} are all one")
+    TP_LAZY["threshold"] = threshold
+    report(f"  TP SimLayerKV lazy scores per layer over {[len(c) for c in contexts]} tokens: "
+           + "; ".join(str([round(x, 4) for x in per]) for per in scores)
+           + f"; threshold {threshold:.4f} (the widest gap that splits the first); lazy layers "
+           f"{[sum(x > threshold for x in per) for per in scores]}")
+    return threshold
+
+
 def tp_local_presses_run(kt, torch, params, report):
-    """Items 18.1-18.11 and 18.13, 18.14, 18.16, 18.17 at the flagship shape:
-    each press over a world of one over NCCL (int8 slots, TP_LOCAL_CONTEXTS,
-    TP_LOCAL_NEW new), identical to the single-process engine, its launch
-    counts held; one prefill of the longer context timed once on the rank's
-    (sharded) runner and once on the single-process runner (synchronized
-    host clock); and Duo's split-cache decode on the rank's runner
-    (``tp_duo_split_run``). Returns the mesh runs' launch counts."""
+    """Items 18.1-18.11, 18.13, 18.14, 18.16, 18.17 and 18.20-18.24 at the
+    flagship shape: each press over a world of one over NCCL (int8 slots,
+    ``tp_local_requests``), identical to the single-process engine, its
+    launch counts held; one prefill of the longer context timed once on the
+    rank's (sharded) runner and once on the single-process runner
+    (synchronized host clock; SimLayerKV's lazy layers counted on the
+    rank); Duo's split-cache decode on the rank's runner
+    (``tp_duo_split_run``); CriticalAdaKV compact's head-wise decode on the
+    rank's head-wise runner (``tp_headwise_run``). Returns the mesh runs'
+    launch counts."""
     from kvpress_tpu_torch.parallel import shard_params
 
     cfg = flagship_config(16)
@@ -5026,32 +5212,90 @@ def tp_local_presses_run(kt, torch, params, report):
     with nccl_world_of_one() as mesh:
         sharded = single.sharded(mesh)
         local = shard_params(params, mesh)
-        for i, label in enumerate({**TP_LOCAL_PRESSES, **TP_HEAD_PRESSES}):
-            reqs = serving_requests(torch.Generator().manual_seed(20 + i), cfg.vocab_size,
-                                    TP_LOCAL_CONTEXTS, TP_LOCAL_NEW)
+        for label in (*TP_LOCAL_PRESSES, *TP_HEAD_PRESSES, *TP_CROSS_ONE):
+            reqs = tp_local_requests(torch, cfg, label)
             counts = tp_world_of_one(kt, torch, params, report, lambda: tp_press(kt, label),
                                      reqs=reqs, label=f"TP {label}", mesh=mesh)
             for name, n in counts.items():
                 totals[name] = totals.get(name, 0) + n
-            ids = torch.tensor([reqs[1][0]], device=dev)
+            ids = torch.tensor([reqs[-1][0]], device=dev)
             times[label] = {}
             for which, runner, p in (("one process", single, params),
                                      ("world of one", sharded, local)):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                runner.prefill(p, ids, press=tp_press(kt, label))
+                _, cache, _ = runner.prefill(p, ids, press=tp_press(kt, label))
                 torch.cuda.synchronize()
                 times[label][which] = time.perf_counter() - t0
-        for name, n in tp_duo_split_run(kt, torch, params, local, single, sharded,
-                                        report).items():
-            totals[name] = totals.get(name, 0) + n
+            if label == "SimLayerKV":
+                lazy = [l for l, n in enumerate(cache.length.tolist()) if n < ids.shape[1]]
+                report(f"  TP SimLayerKV on the world of one's rank: {len(lazy)} of "
+                       f"{cfg.num_layers} layers lazy ({lazy}) at threshold "
+                       f"{TP_LAZY['threshold']:.4f}")
+                if not 0 < len(lazy) < cfg.num_layers:
+                    raise AssertionError(f"TP SimLayerKV: {len(lazy)} of {cfg.num_layers} "
+                                         "layers lazy, not a mix")
+            del cache
+        for run in (tp_duo_split_run, tp_headwise_run):
+            for name, n in run(kt, torch, params, local, single, sharded, report).items():
+                totals[name] = totals.get(name, 0) + n
         del local
     torch.cuda.empty_cache()
-    report(f"  TP items 18.1-18.11, 18.13, 18.14, 18.16, 18.17, prefill of "
+    report(f"  TP items 18.1-18.11, 18.13, 18.14, 18.16, 18.17, 18.20-18.24, prefill of "
            f"{TP_LOCAL_CONTEXTS[1]:,} tokens (ms, once each) on one process / on the world of "
            "one's rank: " + "; ".join(f"{k} {v['one process'] * 1e3:.1f} / "
                                       f"{v['world of one'] * 1e3:.1f}" for k, v in times.items()))
     return totals
+
+
+def tp_headwise_run(kt, torch, params, local, single, sharded, report):
+    """CriticalAdaKV(Knorm) compact (item 18.21) on the world of one's
+    head-wise runner (``headwise_kernel=True``; ``sharded``'s mesh) against
+    the single-process head-wise runner: one TP_LOCAL_CONTEXTS[1]-token
+    prefill, TP_LOCAL_NEW greedy steps through ``decode_attention_headwise``
+    at the rank's heads: equal tokens, logits within the depth-16 limit, one
+    head-wise launch a layer a step and no ``decode_attention``. Returns the
+    rank's launch counts."""
+    cfg = flagship_config(16)
+    L, steps = cfg.num_layers, TP_LOCAL_NEW
+    ids = torch.tensor([tp_local_requests(torch, cfg, "CriticalAdaKV(Knorm)")[-1][0]],
+                       device=params.device)
+    hw = dataclasses.replace(single, decode_kernel=False, headwise_kernel=True)
+    hw_sharded = dataclasses.replace(sharded, decode_kernel=False, headwise_kernel=True)
+
+    def decode(runner, p):
+        logits, cache, _ = runner.prefill(p, ids, press=tp_press(kt, "CriticalAdaKV(Knorm)"),
+                                          compute_logits=True)
+        cache = kt.resize(cache, int(cache.length.max()) + steps + 1)
+        tok, toks, rows = logits[:, -1:].argmax(-1), [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        for _ in range(steps):
+            logits, cache, _ = runner.forward(p, tok, cache, logits_last_only=True)
+            tok = logits[:, -1:].argmax(-1)
+            toks.append(tok)
+            rows.append(logits[:, -1].float())
+        torch.cuda.synchronize()
+        return torch.cat(toks, 1), torch.stack(rows), read_counts(), cache.length.tolist()
+
+    want_toks, want, _, want_len = decode(hw, params)
+    toks, got, counts, lengths = decode(hw_sharded, local)
+    read = rel(torch, got, want)
+    if not torch.equal(toks, want_toks) or not read <= REF_LIMIT[16] or lengths != want_len:
+        raise AssertionError(f"TP CriticalAdaKV head-wise decode: tokens equal "
+                             f"{torch.equal(toks, want_toks)}, lengths {lengths} against "
+                             f"{want_len}, logits {read:.3e} off one process's (limit "
+                             f"{REF_LIMIT[16]})")
+    if counts["decode_headwise"] != L * steps or counts["decode_attention"] != 0:
+        raise AssertionError(f"TP CriticalAdaKV head-wise decode: {counts['decode_headwise']} "
+                             f"head-wise and {counts['decode_attention']} decode_attention "
+                             f"launches, predicted {L * steps} and 0")
+    report(f"  TP CriticalAdaKV(Knorm) compact on the world of one's head-wise runner: layer "
+           f"lengths {lengths[:4]}... (the longest head, as one process's), {steps} tokens equal "
+           f"to one process's, logits {read:.3e} of their scale off (limit {REF_LIMIT[16]}; "
+           f"identical: {torch.equal(got, want)}); decode_attention_headwise "
+           f"{counts['decode_headwise'] / steps:g} a step")
+    return counts
 
 
 def tp_duo_split_run(kt, torch, params, local, single, sharded, report):
@@ -5161,12 +5405,15 @@ def tp_serving_run(kt, torch, tokenizer_cls, params, report,
                    worlds=("one", "local", "model2", "data2")):
     """Tensor-parallel serving at the flagship shape: the world of one over
     NCCL held identical to the single-process engine (Knorm, then
-    (``"local"``) each press of items 18.1-18.11 and 18.13, 18.14, 18.16,
-    18.17, Duo's split decode on the rank, CriticalKV's norm and QFilter's
-    and Duo's slices per rank with their planted faults), then one 2-rank gloo world on the one
-    card (a model 2 mesh with Knorm and the presses of TP_LOCAL_GLOO, a data
-    2 mesh with Knorm) teacher-forced against the single-process runner.
-    Returns the worlds of one's launch counts."""
+    (``"local"``) each press of items 18.1-18.11, 18.13, 18.14, 18.16, 18.17
+    and 18.20-18.24, Duo's split decode and CriticalAdaKV's head-wise decode
+    on the rank, CriticalKV's norm and QFilter's and Duo's slices per rank
+    with their planted faults), then one 2-rank gloo world on the one card
+    (a model 2 mesh with Knorm and the presses of TP_LOCAL_GLOO, and the
+    layer-0 decision check across heads with its planted fault; a data 2
+    mesh with Knorm) teacher-forced against the single-process runner.
+    SimLayerKV's threshold is set first (``tp_lazy_threshold``). Returns
+    the worlds of one's launch counts."""
     from kvpress_tpu_torch.ops import _build
 
     # Built here, before any rank is spawned: ranks never race nvcc into one
@@ -5175,23 +5422,32 @@ def tp_serving_run(kt, torch, tokenizer_cls, params, report,
     counts = {}
     if "one" in worlds:
         counts = tp_world_of_one(kt, torch, params, report)
+    gloo = [w for w in worlds if w in TP_GLOO_WORLDS]
+    cfg = flagship_config(16)
+    # The model 2 world's press runs and decision check: one request of
+    # TP_LOCAL_CONTEXTS[0] tokens (a gloo world's admissions go through the
+    # host, and their time moves most from host to host).
+    local = serving_requests(torch.Generator().manual_seed(19), cfg.vocab_size,
+                             TP_LOCAL_CONTEXTS[:1], TP_GLOO_NEW)
+    if "local" in worlds or "model2" in gloo:
+        # SimLayerKV's threshold over the world of one's context and the
+        # model 2 world's.
+        tp_lazy_threshold(kt, torch, params, [tp_local_requests(torch, cfg, "SimLayerKV")[-1][0]]
+                          + [r[0] for r in local], report)
     if "local" in worlds:
         tp_critical_norm_run(kt, torch, params, report)
         tp_head_slice_run(kt, torch, params, report)
         for name, n in tp_local_presses_run(kt, torch, params, report).items():
             counts[name] = counts.get(name, 0) + n
-    gloo = [w for w in worlds if w in TP_GLOO_WORLDS]
     if gloo:
         # One world of spawned ranks for every run: a mesh a shape.
         tie = F32_RATIO * 2 * serving_noise(kt, torch, params, report)
-        cfg = flagship_config(16)
-        local = serving_requests(torch.Generator().manual_seed(19), cfg.vocab_size,
-                                 TP_LOCAL_CONTEXTS, TP_GLOO_NEW)
         runs = []
         for name in gloo:
             runs += [(name, None, None)] + ([(name, spec, local) for spec in TP_LOCAL_GLOO]
                                             if name == "model2" else [])
-        tp_gloo_world(kt, torch, params, report, tie, runs)
+        tp_gloo_world(kt, torch, params, report, tie, runs,
+                      decision=local[0][0] if "model2" in gloo else None)
     return counts
 
 
@@ -7534,10 +7790,12 @@ def main() -> int:
         launches[name] += n
     report(f"  the serving phase took {time.perf_counter() - t_phase:.1f} s")
     report("phase 3: tensor-parallel serving at the flagship shape: a world of one over NCCL "
-           "against the single-process engine (Knorm, then each press of items 18.1-18.11 and "
-           "Random, QFilter, ExpectedAttentionStats and Duo, Duo's split decode), then model 2 "
-           "(Knorm, CriticalKV, KeyRerotation, Composed, Block, QFilter, Duo) and data 2 worlds "
-           "over gloo on the one card")
+           "against the single-process engine (Knorm, then each press of items 18.1-18.11, "
+           "Random, QFilter, ExpectedAttentionStats and Duo, TOVA, CriticalAdaKV, ChunkKV, LUKV "
+           "and SimLayerKV, Duo's split decode, CriticalAdaKV's head-wise decode), then model 2 "
+           "(Knorm, CriticalKV, KeyRerotation, Composed, Block, QFilter, Duo, TOVA, "
+           "CriticalAdaKV, SimLayerKV; the layer-0 decision check) and data 2 worlds over gloo "
+           "on the one card")
     t_phase = time.perf_counter()
     for name, n in tp_serving_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] += n

@@ -31,8 +31,9 @@ all-reduces over ``"model"`` after ``wo`` and after ``wd`` (before Gemma3's
 post-norms, which are not linear), and the head's logits are all-gathered
 over the vocabulary before the softcap. A sharded ``Runner`` (built with
 ``mesh=``) carries the rank's ``ModelShard`` and the local head counts; a
-press that decides across heads (``AdaKVPress``) all-gathers its scores
-over ``"model"`` and keeps its own heads' part.
+press that decides across heads (``AdaKVPress``, ``TOVAPress``, ...)
+all-gathers what it reduces over ``"model"`` (``presses.base.all_heads``)
+and keeps its own heads' part.
 """
 
 from __future__ import annotations

@@ -9,9 +9,20 @@ A press sees the rank's kv heads only. Three classes (``ROADMAP.md``,
   Q-filters, a surrogate's outputs, Duo's head pattern, gates, LoRA,
   random draws): the rank reads its slice of the head axis. FastKVzip and
   RestoreKV also evict by KVzip's bottom-k over every head and wait for it.
-- (c) a decision across heads: ``AdaKVPress`` all-gathers its scores over
-  "model" (``LayerCtx.shard``) and keeps its own heads' part; a compacted
-  layer's length is the largest over the ranks (``Runner._layer_step``).
+- (c) a decision across heads: the press all-gathers what it reduces over
+  "model" (``presses.base.all_heads`` over ``LayerCtx.shard``), decides over
+  every head as one device does, and keeps its own heads' part. Every rank
+  reduces the same values in one device's order, so the ranks agree.
+  ``AdaKVPress`` and ``CriticalAdaKVPress`` gather their scores (and
+  CriticalAdaKV each rank's ``||Wo v||``) for the flat top and the per-head
+  budgets; ``TOVAPress`` and ``SimLayerKVPress`` the last queries'
+  probabilities before the mean over query heads (SimLayerKV's lazy
+  decision is then one host read alike on every rank); ``ChunkKVPress`` the
+  scores before the sum over heads; ``LUKVPress`` sizes every kv head's
+  budget from the curve's whole row and takes its sink's score from the
+  max over every rank. A compacted or cut layer's length is the largest
+  over the ranks (``Runner._layer_step``). A decode-time press over one of
+  them gathers in lockstep at each compressing step.
 
 The presses of ``MESH_PRESSES`` are held against the JAX package under a
 mesh (``RandomPress``, whose draws are torch's, against the port's single
@@ -55,8 +66,11 @@ DECODING = ("DecodingPress", "CompressionRatioDecodingPress")
 # Class (b): each rank reads its slice of the artifact or the draw.
 HEAD_INDEXED = ("KVzapPress", "RandomPress", "QFilterPress", "ExpectedAttentionStatsPress",
                 "DuoAttentionPress")
-MESH_PRESSES = SCORERS + WRAPPERS + DECODING + HEAD_INDEXED + (
-    "AdaKVPress", "PrefillDecodingPress", "BasePress", "DMSPress")
+# Class (c): the ranks gather what they reduce across heads.
+CROSS_HEAD = ("AdaKVPress", "TOVAPress", "CriticalAdaKVPress", "ChunkKVPress", "LUKVPress",
+              "SimLayerKVPress")
+MESH_PRESSES = SCORERS + WRAPPERS + DECODING + HEAD_INDEXED + CROSS_HEAD + (
+    "PrefillDecodingPress", "BasePress", "DMSPress")
 
 # ROADMAP Queue A item 18: one item a press, numbered in this order; the
 # presses of MESH_PRESSES among them are done and left out of MESH_ITEMS.

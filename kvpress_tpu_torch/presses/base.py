@@ -123,6 +123,14 @@ def local_heads(shard, n_local: int) -> slice:
                                                    (shard.rank + 1) * n_local)
 
 
+def all_heads(shard, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """``x`` all-gathered over every rank of ``shard`` along its head axis
+    ``dim``, in model order: the tensor one device holds (``x`` itself
+    without a mesh). A press that decides across heads reduces this, so
+    every rank reaches the same decision, in one device's order."""
+    return x if shard is None else shard.all_gather(x, dim)
+
+
 def layer_tensor(a, layer_idx: int, device, heads: slice = slice(None)) -> torch.Tensor:
     """Layer ``layer_idx`` of a stacked per-layer artifact (a numpy array or
     a tensor; filter banks, query statistics, surrogate weights) as a float32

@@ -6,7 +6,9 @@ over HTTP).
 
 Pruning is head-wise through the cache keep-mask. One-shot only: the JAX
 press has no chunked form, and under a bucketed prefill it scores the pads,
-so the port refuses both."""
+so the port refuses both. Under a mesh a rank sizes every kv head's budget
+from the curve's whole row and keeps its own heads' counts; the sink and
+window slots score the largest score over every rank, plus one."""
 
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .base import BasePress, LayerCtx, ScorerPress
+from .base import BasePress, LayerCtx, ScorerPress, all_heads, local_heads
 from .wrappers import _check_scorer, _rank_desc, _refuse_bucket
 
 
@@ -67,12 +69,14 @@ class LUKVPress(BasePress):
         _refuse_bucket(self, ctx)
         B, H, S, _ = keys.shape
         scores = self.press.score(ctx, keys, values).to(torch.float32)
-        protected = scores.max() + 1
+        protected = all_heads(ctx.shard, scores.amax(dim=(0, 2)), dim=0).max() + 1
         pos = torch.arange(S, device=keys.device)
         if self.sink > 0:
             scores = torch.where(pos < min(self.sink, S), protected, scores)
         if self.window > 0:
             scores = torch.where(pos >= max(0, S - self.window), protected, scores)
-        counts = self._head_keep_counts(ctx.layer_idx, S, H).to(keys.device)
+        every = H if ctx.shard is None else H * ctx.shard.size            # every kv head
+        counts = self._head_keep_counts(ctx.layer_idx, S, every)[local_heads(ctx.shard, H)]
+        counts = counts.to(keys.device)
         keep = _rank_desc(scores) < counts[None, :, None]
         return keys, values, length, mask & keep, state

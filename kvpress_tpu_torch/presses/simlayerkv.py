@@ -4,7 +4,9 @@ simlayerkv_press.py:52-116, arXiv:2410.13846; port of
 on the sink and the recent window exceeds ``lazy_threshold``, the layer's
 cache is cut to sink + recent; otherwise it stays whole. Layers keep
 different lengths, which the cache carries per layer. Each layer's decision
-is one host read."""
+is one host read. Under a mesh the last queries' probabilities of every
+rank's query heads are gathered before the mean, so every rank reads the
+same decision and cuts the layer to the same length."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 
 from ..cache import dequantize_kv
 from ..ops.attention import window_attention_probs
-from .base import BasePress, LayerCtx
+from .base import BasePress, LayerCtx, all_heads
 from .wrappers import _compact_order, _gather_seq, _refuse_bucket, compact_by_mask
 
 
@@ -42,8 +44,8 @@ class SimLayerKVPress(BasePress):
         (those of the ``length`` valid slots) on the first ``n_initial`` and
         the last ``n_recent`` valid slots (reference :60-72)."""
         S = keys.shape[2]
-        attn = window_attention_probs(ctx.queries[:, :, -self.n_last:], keys, ctx.scale,
-                                      length - self.n_last)
+        attn = all_heads(ctx.shard, window_attention_probs(
+            ctx.queries[:, :, -self.n_last:], keys, ctx.scale, length - self.n_last))
         pos = torch.arange(S, device=keys.device)
         if length < S:
             attn = torch.where(pos < length, attn, 0.0)

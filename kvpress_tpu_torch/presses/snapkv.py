@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from ..ops.attention import (chunked_observed_colsums, chunked_window_probs_mean,
                              window_attention_probs, window_probs_mean_from_lse)
 from ..ops.observed_colsum import observed_colsums_flash
-from .base import LayerCtx, ScorerPress
+from .base import LayerCtx, ScorerPress, all_heads
 
 
 def avg_pool_1d(x: torch.Tensor, kernel: int) -> torch.Tensor:
@@ -106,7 +106,9 @@ class SnapKVPress(ScorerPress):
 @dataclasses.dataclass(frozen=True)
 class TOVAPress(ScorerPress):
     """Attention of the last token, mean over all query heads, shared across
-    kv heads (reference tova_press.py:44-60)."""
+    kv heads (reference tova_press.py:44-60). Under a mesh the last row's
+    probabilities of every rank's query heads are gathered before the mean,
+    so every rank scores as one device does."""
 
     def score(self, ctx: LayerCtx, keys, values):
         B, Hkv, S, _ = keys.shape
@@ -115,7 +117,7 @@ class TOVAPress(ScorerPress):
         else:
             attn = window_attention_probs(ctx.queries[:, :, -1:], keys, ctx.scale,
                                           S - 1)[..., :-1]
-        scores = attn.mean(dim=1)[:, 0]                   # (B, S-1)
+        scores = all_heads(ctx.shard, attn).mean(dim=1)[:, 0]              # (B, S-1)
         return _pin(scores[:, None].expand(B, Hkv, S - 1), 1)
 
     def dynamic_score(self, ctx: LayerCtx, keys, values, length: int):
@@ -125,7 +127,7 @@ class TOVAPress(ScorerPress):
         row = min(max(length - 1, 0), ctx.queries.shape[2] - 1)
         attn = window_attention_probs(ctx.queries[:, :, row:row + 1], keys, ctx.scale,
                                       length - 1)
-        scores = attn.mean(dim=1)[:, 0][:, None].expand(B, Hkv, S)
+        scores = all_heads(ctx.shard, attn).mean(dim=1)[:, 0][:, None].expand(B, Hkv, S)
         last = torch.arange(S, device=keys.device) == length - 1
         return torch.where(last, scores.max() + 1.0, scores)
 

@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from ..cache import dequantize_kv, quantize_kv
 from ..ops.attention import NEG_INF
 from ..rope import apply_rope, rerotate_cos_sin
-from .base import BasePress, ScorerPress, float32_budget, order_desc, topk_keep
+from .base import (BasePress, ScorerPress, all_heads, float32_budget, local_heads, order_desc,
+                   topk_keep)
 
 BIG = torch.finfo(torch.float32).max
 # Slots of one slice of CriticalKV's ||Wo.v||_1: the slice's float32
@@ -147,13 +148,11 @@ def _top_across_heads(ctx, scores: torch.Tensor, n_kept: int) -> torch.Tensor:
     over every rank's heads (the scores all-gathered over "model", the
     budget sized over all kv heads) and the rank keeps its own heads'
     part."""
-    shard = ctx.shard
     H = scores.shape[1]
-    if shard is not None:
-        scores = shard.all_gather(scores, dim=1)
+    scores = all_heads(ctx.shard, scores)
     B, Ha, S = scores.shape
     keep = (_rank_desc(scores.reshape(B, Ha * S)) < n_kept * Ha).reshape(B, Ha, S)
-    return keep if shard is None else keep[:, shard.rank * H:(shard.rank + 1) * H]
+    return keep[:, local_heads(ctx.shard, H)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,18 +350,26 @@ class CriticalAdaKVPress(BasePress):
 
     def _select(self, ctx, scores, values, n_kept: int, n_safe: int, valid=None):
         """The three stages on (B, H, S) scores: the keep mask (B, H, S).
-        ``valid`` re-masks slots to NEG_INF after the rescale."""
-        B, H, S = scores.shape
+        ``valid`` re-masks slots to NEG_INF after the rescale. Under a mesh
+        the safeguarded scores and ``||Wo v||`` of every rank's heads are
+        gathered, the stages run over all of them, and the rank keeps its
+        own heads' part."""
+        H = scores.shape[1]
         scores = torch.where(_rank_desc(scores) < n_safe, BIG, scores)
-        top = _rank_desc(scores.reshape(B, H * S)) < n_kept * H
-        head_budgets = top.reshape(B, H, S).sum(dim=(0, 2))               # (H,)
+        both = all_heads(ctx.shard, torch.stack((scores, CriticalKVPress.vwl1norm(ctx, values))),
+                         dim=2)
+        scores, norms = both[0], both[1]
+        B, Ha, S = scores.shape
+        top = _rank_desc(scores.reshape(B, Ha * S)) < n_kept * Ha
+        head_budgets = top.reshape(B, Ha, S).sum(dim=(0, 2))              # (Ha,)
         stage1 = (head_budgets.to(torch.float32) * self.first_stage_ratio).to(torch.int64)
         scores = torch.where(_rank_desc(scores) < stage1[None, :, None], BIG, scores)
-        scores = (scores + self.epsilon) * CriticalKVPress.vwl1norm(ctx, values)
+        scores = (scores + self.epsilon) * norms
         if valid is not None:
             scores = torch.where(valid, scores, NEG_INF)
         scores = torch.where(_rank_desc(scores) < head_budgets[None, :, None], BIG, scores)
-        return (_rank_desc(scores.reshape(B, H * S)) < n_kept * H).reshape(B, H, S)
+        keep = (_rank_desc(scores.reshape(B, Ha * S)) < n_kept * Ha).reshape(B, Ha, S)
+        return keep[:, local_heads(ctx.shard, H)]
 
     def layer_compress(self, ctx, keys, values, length, mask, state=None):
         if self.compression_ratio == 0.0:
@@ -554,7 +561,8 @@ class ChunkKVPress(BasePress):
     """Keep whole chunks of ``chunk_length`` slots: a chunk scores the mean
     over its slots of the wrapped press's scores summed over heads
     (reference chunkkv_press.py:51-125). A context shorter than one chunk
-    goes to the wrapped press."""
+    goes to the wrapped press. Under a mesh the scores of every rank's heads
+    are gathered before the sum, so every rank keeps the same chunks."""
 
     press: ScorerPress = None
     chunk_length: int = 20
@@ -585,7 +593,7 @@ class ChunkKVPress(BasePress):
         n_complete, rem = divmod(S, cl)
         if n_complete == 0:
             return self.press.layer_compress(ctx, keys, values, length, mask, state)
-        scores = self.press.score(ctx, keys, values).to(torch.float32)
+        scores = all_heads(ctx.shard, self.press.score(ctx, keys, values).to(torch.float32))
         chunk_scores = scores[..., :n_complete * cl].sum(dim=1).reshape(B, n_complete, cl)
         chunk_scores = chunk_scores.mean(dim=-1)                           # (B, n_complete)
         if rem:
@@ -619,6 +627,7 @@ class ChunkKVPress(BasePress):
             return keep, order
         n_buf = -(-S // cl)
         pad = n_buf * cl - S
+        scores = all_heads(ctx.shard, scores)
         per_chunk = F.pad(torch.where(valid, scores, 0.0).sum(dim=1), (0, pad))
         per_chunk = per_chunk.reshape(B, n_buf, cl).sum(dim=-1)
         counts = F.pad(valid.to(torch.float32), (0, pad)).reshape(n_buf, cl).sum(dim=-1)

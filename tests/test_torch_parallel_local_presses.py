@@ -6,7 +6,10 @@ kv heads a rank) through ``Runner.prefill`` and decode steps (float32 and
 int8 KV, float32 and int4 weights) and ``Runner.prefill_chunked``; and the
 head-indexed presses of items 18.13, 18.14, 18.16 and 18.17 (Random,
 QFilter, ExpectedAttentionStats, DuoAttention with its split-cache decode),
-whose ranks read their slice of a global-head artifact or draw.
+whose ranks read their slice of a global-head artifact or draw; and the
+cross-head scorers of items 18.20-18.24 (TOVA, CriticalAdaKV, ChunkKV,
+LUKV, SimLayerKV, and DecodingPress(TOVA) and ChunkKV(TOVA) over them),
+whose ranks gather what they reduce across heads.
 
 Every sharded run is held against the JAX package's single-device run on
 the same numpy inputs and against the port's single-process run, to
@@ -124,7 +127,39 @@ HEAD_PRESSES = {
 }
 DUO_PATTERNS = ("layer", "every")
 DUO_STEPS = 4
-ALL_PRESSES = {**PRESSES, **HEAD_PRESSES}
+
+
+def _lukv_curve(seed=14):
+    """A seeded (99, L, H_kv) LU-KV curve whose prune fractions differ
+    between the ranks' heads: rank 0's two heads 0.1-0.4, rank 1's 0.6-0.9."""
+    rng = np.random.default_rng(seed)
+    L = kt.tiny_config().num_layers
+    return np.concatenate([rng.uniform(0.1, 0.4, (99, L, 2)), rng.uniform(0.6, 0.9, (99, L, 2))],
+                          axis=-1).astype(np.float32)
+
+
+LUKV_CURVE = _lukv_curve()
+# SimLayerKV's lazy scores on the 48-token context are 0.405 (layer 0) and
+# 0.362 (layer 1): 0.38 makes layer 0 lazy alone.
+LAZY = 0.38
+# label: a press of items 18.20-18.24 (and two compositions over TOVA), made
+# with module m's classes.
+CROSS_PRESSES = {
+    "tova": lambda m: m.TOVAPress(0.5),
+    "critical_ada_knorm": lambda m: m.CriticalAdaKVPress(m.KnormPress(0.5)),
+    "critical_ada_knorm_compact": lambda m: m.CriticalAdaKVPress(m.KnormPress(0.5),
+                                                                 compact=True),
+    # 48 slots: four chunks of 10 and a partial tail of 8.
+    "chunkkv_knorm": lambda m: m.ChunkKVPress(m.KnormPress(0.5), chunk_length=10),
+    "lukv_knorm": lambda m: m.LUKVPress(m.KnormPress(0.5), compression_ratio=0.5, sink=2,
+                                        window=4, budget_curves=LUKV_CURVE),
+    "simlayerkv": lambda m: m.SimLayerKVPress(lazy_threshold=LAZY, n_recent=16),
+    # Compresses at decode steps 2 and 4: 50 and 42 slots to 40.
+    "decoding_tova": lambda m: m.DecodingPress(m.TOVAPress(), compression_interval=2,
+                                               target_size=40, hidden_states_buffer_size=8),
+    "chunkkv_tova": lambda m: m.ChunkKVPress(m.TOVAPress(0.5), chunk_length=10),
+}
+ALL_PRESSES = {**PRESSES, **HEAD_PRESSES, **CROSS_PRESSES}
 
 # route: the rank job's options beyond the press.
 ROUTES = {"oneshot": {}, "int8": dict(kv_bits=8), "int4_weights": {}, "chunked": dict(chunk=CHUNK)}
@@ -136,11 +171,17 @@ CASES = ([(p, "oneshot") for p in PRESSES]
 HEAD_CASES = ([(p, r) for p in ("qfilter", "expected_attention_stats", "duo") for r in ROUTES
                if (p, r) != ("expected_attention_stats", "chunked")]
               + [("random", "oneshot"), ("random", "chunked")])
+CROSS_CASES = ([("tova", r) for r in ROUTES]
+               + [("critical_ada_knorm", "oneshot"), ("critical_ada_knorm_compact", "oneshot"),
+                  ("critical_ada_knorm", "chunked"), ("chunkkv_knorm", "oneshot"),
+                  ("chunkkv_knorm", "chunked"), ("lukv_knorm", "oneshot"),
+                  ("simlayerkv", "oneshot"), ("simlayerkv", "chunked"),
+                  ("decoding_tova", "oneshot"), ("chunkkv_tova", "oneshot")])
 # The single-process port refuses these chunked; the mesh must say the same.
-REFUSED_CHUNKED = ("cap", "merging", "block_keydiff", "expected_attention_stats")
+REFUSED_CHUNKED = ("cap", "merging", "block_keydiff", "expected_attention_stats", "lukv_knorm")
 # Also held against JAX's GSPMD run over its (data 1, model 2) mesh.
 GSPMD = (("critical_knorm", "int4_weights"), ("block_kvzap", "oneshot"),
-         ("composed", "oneshot"), ("duo", "oneshot"))
+         ("composed", "oneshot"), ("duo", "oneshot"), ("tova", "oneshot"))
 # Keys requantized after the press: one code of their scale.
 REQUANTIZED = ("key_rerotation", "think", "composed", "finch")
 
@@ -193,6 +234,7 @@ def jax_run(cfg_j, params, ids, press, chunk=None, kv_bits=None, decode_steps=0,
     runner = kj.Runner.create(cfg_j, attn_impl="xla")
     p, x = params, jnp.asarray(ids)
     kw = dict(press=press, dtype=jnp.float32, compute_logits=True)
+    decoding = getattr(press, "compresses_decode", False)
     if kv_bits:
         kw.update(quantized=True, kv_bits=kv_bits)
     scope = contextlib.nullcontext()
@@ -200,19 +242,26 @@ def jax_run(cfg_j, params, ids, press, chunk=None, kv_bits=None, decode_steps=0,
         p, x, scope = jshard_params(params, mesh), jax.device_put(x, data_sharding(mesh)), mesh
     with scope:
         if chunk:
-            logits, cache, _ = runner.prefill_chunked(p, x, chunk_size=chunk, **kw)
+            logits, cache, state = runner.prefill_chunked(p, x, chunk_size=chunk, **kw)
         elif mesh is not None:
-            logits, cache, _ = jax.jit(lambda p, x, press: runner.prefill(p, x, **dict(
+            logits, cache, state = jax.jit(lambda p, x, press: runner.prefill(p, x, **dict(
                 kw, press=press)), static_argnames=("press",))(p, x, press)
         else:
-            logits, cache, _ = runner.prefill(p, x, **kw)
+            logits, cache, state = runner.prefill(p, x, **kw)
         steps = []
         if decode_steps:
             cache = kj.cache.resize(cache, ids.shape[1] + decode_steps)
-            step = _jax_step(cfg_j)
+            if decoding:
+                # A decode-time press compresses in the steps: its state threaded.
+                step = jax.jit(lambda p, tok, cache, state: runner.forward(
+                    p, tok, cache, press=press, press_state=state, phase="decode",
+                    logits_last_only=True))
+            else:
+                plain = _jax_step(cfg_j)
+                step = lambda p, tok, cache, state: (*plain(p, tok, cache), state)
             for _ in range(decode_steps):
                 tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
-                logits, cache = step(p, tok, cache)
+                logits, cache, state = step(p, tok, cache, state)
                 steps.append(np.asarray(logits))
     out = dict(logits=np.asarray(logits), length=np.asarray(cache.length),
                offset=int(cache.offset),
@@ -244,13 +293,17 @@ def world(tmp_path_factory):
     cfg_t = kt.tiny_config(**OVER)
     ids = np.random.default_rng(12).permutation(np.arange(3, cfg_j.vocab_size))[:S][None]
     jobs = {f"{label}-{route}": ("prefill", _job(cfg_t, params, p4, ids, label, route))
-            for label, route in CASES + HEAD_CASES}
+            for label, route in CASES + HEAD_CASES + CROSS_CASES}
     for label in REFUSED_CHUNKED:
         jobs[f"{label}-refused"] = ("refused", dict(kind="prefill", mesh=MESH, job=_job(
             cfg_t, params, p4, ids, label, "chunked")))
     # The mutant: ranks that draw only their own heads' random scores.
     jobs["random-local-draw"] = ("prefill", dict(_job(cfg_t, params, p4, ids, "random",
                                                       "oneshot"), mutant="random_local_draw"))
+    # The mutant: ranks that decide across their own heads only.
+    jobs["tova-local-decision"] = ("prefill", dict(_job(cfg_t, params, p4, ids, "tova",
+                                                        "oneshot"),
+                                                   mutant="cross_head_local_decision"))
     for pattern in DUO_PATTERNS:
         jobs[f"duo_split-{pattern}"] = ("duo_split", dict(
             cfg=cfg_t, params=numpy_tree(params), ids=ids, mesh=MESH, steps=DUO_STEPS,
@@ -258,8 +311,9 @@ def world(tmp_path_factory):
     handle = start_world(2, jobs, tmp_path_factory.mktemp("local"))
     m = dict(cfg_j=cfg_j, params=params, p4=p4, ids=ids, jobs=jobs)
     # The references, computed while the ranks run.
-    m["jax"] = {k: _jax_case(m, *k) for k in CASES + HEAD_CASES if k[0] != "random"}
-    m["single"] = {k: prefill(dict(jobs["-".join(k)][1], mesh=None)) for k in CASES + HEAD_CASES}
+    every = CASES + HEAD_CASES + CROSS_CASES
+    m["jax"] = {k: _jax_case(m, *k) for k in every if k[0] != "random"}
+    m["single"] = {k: prefill(dict(jobs["-".join(k)][1], mesh=None)) for k in every}
     m["duo_jax"] = {p: _jax_duo_split(cfg_j, params, ids, p) for p in DUO_PATTERNS}
     m["duo_single"] = {p: duo_split(dict(jobs[f"duo_split-{p}"][1], mesh=None))
                        for p in DUO_PATTERNS}
@@ -331,9 +385,9 @@ def test_local_press_under_a_mesh_matches_jax(world, label, route):
 @pytest.mark.parametrize("label", REFUSED_CHUNKED)
 def test_a_chunked_refusal_is_the_single_process_one(world, label):
     """CAP and ExpectedAttentionStats (no pre-RoPE queries in the
-    compression pass), Merging (its merge) and Block (every position's
-    hidden states) are refused by chunked prefill under the mesh with the
-    single-process port's error."""
+    compression pass), Merging (its merge), Block (every position's hidden
+    states) and LUKV (one-shot only) are refused by chunked prefill under
+    the mesh with the single-process port's error."""
     job = world["jobs"][f"{label}-refused"][1]["job"]
     with pytest.raises((ValueError, TypeError)) as single:
         prefill(dict(job, mesh=None))
@@ -381,20 +435,21 @@ def test_the_eleven_run_under_a_mesh_and_the_rest_keep_their_items():
     assert set(WRAPPERS) < set(eleven)
     for make in PRESSES.values():
         check_press(make(kt))
-    assert (MESH_ITEMS["FastKVzipPress"], MESH_ITEMS["RestoreKVPress"], MESH_ITEMS["TOVAPress"],
-            MESH_ITEMS["KVComposeCollector"]) == ("18.18", "18.19", "18.20", "18.32")
-    assert len(MESH_ITEMS) == 2 + 13
+    assert (MESH_ITEMS["FastKVzipPress"], MESH_ITEMS["RestoreKVPress"],
+            MESH_ITEMS["CompactorPress"], MESH_ITEMS["KVComposeCollector"]) == (
+        "18.18", "18.19", "18.25", "18.32")
+    assert len(MESH_ITEMS) == 2 + 8
     for make in PRESSES.values():
         with pytest.raises(NotImplementedError, match=f"item {SEQ_ITEM} "):
             check_seq_press(make(kt))
 
 
 @pytest.mark.parametrize("inner", [
-    lambda: kt.TOVAPress(0.5),
-    lambda: kt.LUKVPress(kt.KnormPress(0.5)),
-    lambda: kt.ChunkKVPress(kt.KnormPress(0.5)),
+    lambda: kt.LeverageScorePress(0.5),
+    lambda: kt.NonCausalAttnPress(0.5),
+    lambda: kt.CAMPress(kt.KnormPress(0.5)),
     lambda: kt.CriticalKVPress(kt.CompactorPress(0.5)),
-], ids=["tova", "lukv", "chunkkv", "critical_compactor"])
+], ids=["leverage", "noncausal", "cam", "critical_compactor"])
 def test_composed_press_refuses_a_later_item_inside(inner):
     """ComposedPress looks into its stages (and their wrapped presses): a
     stage of class (b) or (c) raises NotImplementedError naming that
@@ -522,3 +577,60 @@ def test_a_ranks_artifact_slice_is_its_heads_part(label):
                 if size == 2:
                     rejected.append(not same(run(layer, heads, 1 - r, size), want, heads))
     assert all(rejected), rejected
+
+
+# --------------------------------------------------------------------- #
+# Items 18.20-18.24: the cross-head scorers
+
+
+@pytest.mark.parametrize("label,route", CROSS_CASES, ids=[f"{p}-{r}" for p, r in CROSS_CASES])
+def test_cross_head_press_under_a_mesh_matches_jax(world, label, route):
+    """model 2: TOVA, CriticalAdaKV (mask form and compact), ChunkKV, LUKV,
+    SimLayerKV, DecodingPress(TOVA) and ChunkKV(TOVA) equal the JAX
+    single-device run (TOVA also JAX's GSPMD run) and the port's single
+    process, though each decides over heads that two ranks hold."""
+    got = world["got"][f"{label}-{route}"]
+    _assert_same(got, world["jax"][(label, route)], label, route)
+    _assert_same(got, world["single"][(label, route)], label, route, rounding=False)
+    if (label, route) in GSPMD:
+        _assert_same(got, _jax_case(world, label, route, mesh=jmake_mesh(**MESH)), label,
+                     route)
+    if label == "simlayerkv":
+        # Layer 0 lazy, cut to sink + recent; layer 1 whole.
+        assert got["length"][0] < got["length"][1], got["length"]
+        return
+    if got["mask"] is None:
+        return
+    kept = got["mask"][:, 0, :, :S].sum(-1)                                # (L, H_kv)
+    if label == "lukv_knorm":
+        # Rank 0's heads prune less than rank 1's.
+        assert kept[:, :2].min() > kept[:, 2:].max(), kept
+    if label.startswith("critical_ada"):
+        # The budgets of a flat top across heads: the heads keep unequal counts.
+        assert (kept.min(-1) < kept.max(-1)).all(), kept
+
+
+def test_cross_head_local_decision_mutant_is_rejected(world):
+    """The mutant: ranks whose ``all_heads`` gives their own heads in place
+    of every rank's (TOVA's mean over the rank's four query heads) keep
+    another set than JAX."""
+    want = world["jax"][("tova", "oneshot")]
+    assert_same_prefill(world["got"]["tova-oneshot"], want)
+    with pytest.raises(AssertionError):
+        assert_same_prefill(world["got"]["tova-local-decision"], want)
+
+
+def test_the_cross_head_five_run_under_a_mesh_and_not_over_seq():
+    """Items 18.20-18.24 pass ``check_press``, also inside AdaKV, ChunkKV
+    and DecodingPress; MESH_ITEMS holds the 10 names of items 18.18, 18.19
+    and 18.25-18.32; the seq-mesh gate still refuses the five (item 19)."""
+    five = ("TOVAPress", "CriticalAdaKVPress", "ChunkKVPress", "LUKVPress", "SimLayerKVPress")
+    assert set(five) <= set(MESH_PRESSES) and not set(five) & set(MESH_ITEMS)
+    assert sorted(MESH_ITEMS.values()) == ["18.18", "18.19"] + [f"18.{i}" for i in
+                                                                range(25, 33)]
+    for press in ([make(kt) for make in CROSS_PRESSES.values()]
+                  + [kt.AdaKVPress(kt.TOVAPress(0.5)), kt.ChunkKVPress(kt.TOVAPress(0.5))]):
+        check_press(press)
+    for make in CROSS_PRESSES.values():
+        with pytest.raises(NotImplementedError, match=f"item {SEQ_ITEM} "):
+            check_seq_press(make(kt), decode=isinstance(make(kt), kt.DecodingPress))

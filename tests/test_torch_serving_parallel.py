@@ -158,15 +158,15 @@ def test_pipeline_batch_over_a_mesh(world):
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: kt.TOVAPress(0.5), "TOVAPress"),
-    # ComposedPress runs under a mesh, but not with a stage across heads.
-    (lambda: kt.ComposedPress((kt.KnormPress(0.5), kt.TOVAPress(0.5))), "TOVAPress"),
-    (lambda: kt.ComposedPress((kt.KnormPress(0.5), kt.ChunkKVPress(kt.KnormPress(0.5)))),
-     "ChunkKVPress"),
-], ids=["tova", "composed_tova", "composed_chunkkv"])
+    (lambda: kt.CompactorPress(0.5), "CompactorPress"),
+    # ComposedPress runs under a mesh, but not with a stage of a later item.
+    (lambda: kt.ComposedPress((kt.KnormPress(0.5), kt.CompactorPress(0.5))), "CompactorPress"),
+    (lambda: kt.ComposedPress((kt.KnormPress(0.5), kt.NonCausalAttnPress(0.5))),
+     "NonCausalAttnPress"),
+], ids=["compactor", "composed_compactor", "composed_noncausal"])
 def test_a_press_of_a_later_item_is_refused_over_a_mesh(tmp_path, make, item):
-    """A press of class (c) (TOVAPress: one score over every query head),
-    alone or as a stage of ComposedPress, raises NotImplementedError naming
+    """A press of class (c) (CompactorPress: its scores normalized over
+    every head), alone or as a stage of ComposedPress, raises NotImplementedError naming
     its ROADMAP item when the engine is made over a mesh (a gloo world of
     one), and when the sharded Runner prefills with it."""
     import torch.distributed as dist

@@ -1,6 +1,8 @@
-"""The shard-local presses of ROADMAP Queue A items 18.1-18.11 and the
+"""The shard-local presses of ROADMAP Queue A items 18.1-18.11, the
 head-indexed ones of items 18.13, 18.14, 18.16 and 18.17 (Random, QFilter,
-ExpectedAttentionStats, DuoAttention) served over a tensor-parallel mesh:
+ExpectedAttentionStats, DuoAttention) and three cross-head ones of items
+18.20, 18.21 and 18.24 (TOVA, CriticalAdaKV, SimLayerKV) served over a
+tensor-parallel mesh:
 ``ServingEngine(mesh=)`` and ``KVPressPipeline.batch(mesh=)`` on a gloo
 world of 2 ranks ("model" 2 on the tiny config with GQA 8/4, two kv heads a
 rank), each press against the JAX engine on the same requests (Random, whose
@@ -36,10 +38,17 @@ torch.set_num_threads(2)
 
 MESH = {"data": 1, "model": 2}
 NEW = 5
-# One case of each of the 11; the engine as batch() makes it.
+# One case of each of the 11, the head-indexed four and three cross-head
+# presses; the engine as batch() makes it.
 SERVED = ("cap", "cur", "critical_knorm", "key_rerotation", "per_layer", "think", "chunk",
           "composed", "merging", "block_keydiff", "finch",
-          "qfilter", "expected_attention_stats", "duo", "random")
+          "qfilter", "expected_attention_stats", "duo", "random",
+          "tova", "critical_ada_knorm", "simlayerkv")
+# SimLayerKV's lazy scores on the three contexts (layers 0, 1) are 0.520 and
+# 0.562 (40 tokens), 0.695 and 0.695 (30), 0.470 and 0.429 (44): at 0.54
+# the first has layer 1 lazy alone, the second both, the third neither.
+PRESSES = dict(ALL_PRESSES,
+               simlayerkv=lambda m: m.SimLayerKVPress(lazy_threshold=0.54, n_recent=16))
 SLOTS = {"dense": {}, "int8": dict(quantized=True, kv_bits=8)}
 CASES = [(p, "dense") for p in SERVED] + [(p, "int8") for p in (
     "critical_knorm", "key_rerotation", "qfilter", "expected_attention_stats", "duo", "random")]
@@ -74,7 +83,7 @@ def world(tmp_path_factory):
 
     def job(label, slots, **engine):
         j = dict(cfg=cfg_t, params=tree, requests=reqs, mesh=MESH,
-                 engine=dict(ENGINE, eos_ids=eos, press=ALL_PRESSES[label](kt), **SLOTS[slots],
+                 engine=dict(ENGINE, eos_ids=eos, press=PRESSES[label](kt), **SLOTS[slots],
                              **engine))
         if label == "cur":
             j["sketches"] = _sketches(cfg_t)
@@ -93,7 +102,7 @@ def world(tmp_path_factory):
 
     def jax_engine(label, slots):
         eng = jserving.ServingEngine(kj.Runner.create(cfg_j), params, eos_ids=eos,
-                                     press=ALL_PRESSES[label](kj), **ENGINE, **SLOTS[slots])
+                                     press=PRESSES[label](kj), **ENGINE, **SLOTS[slots])
         return eng.run(requests(jserving, reqs)), eng
 
     want = {k: jax_engine(*k) for k in CASES if k[0] != "random"}

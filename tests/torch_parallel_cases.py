@@ -130,19 +130,35 @@ def sketches(job: dict):
 @contextlib.contextmanager
 def mutant(job: dict):
     """``job["mutant"]`` in place for the job's run: ``"random_local_draw"``
-    makes ``RandomPress`` draw only the rank's own (B, H_kv local, S)."""
-    from kvpress_tpu_torch.presses import random_press
+    makes ``RandomPress`` draw only the rank's own (B, H_kv local, S);
+    ``"cross_head_local_decision"`` makes ``presses.base.all_heads`` (every
+    module's binding of it) return the rank's own heads in place of every
+    rank's (repeated to the gathered width)."""
+    import sys
 
-    if job.get("mutant") != "random_local_draw":
-        yield
-        return
-    own = random_press.RandomPress.score
-    random_press.RandomPress.score = lambda self, ctx, keys, values: torch.rand(
-        keys.shape[:-1], generator=self.generator, device=keys.device, dtype=torch.float32)
+    from kvpress_tpu_torch.presses import base, random_press
+
+    kind = job.get("mutant")
+    if kind == "random_local_draw":
+        patched = [(random_press.RandomPress, "score", lambda self, ctx, keys, values: torch.rand(
+            keys.shape[:-1], generator=self.generator, device=keys.device, dtype=torch.float32))]
+    elif kind == "cross_head_local_decision":
+        def own_heads(shard, x, dim=1):
+            return x if shard is None else torch.cat([x] * shard.size, dim)
+
+        patched = [(m, "all_heads", own_heads) for n, m in list(sys.modules.items())
+                   if n.startswith("kvpress_tpu_torch.")
+                   and getattr(m, "all_heads", None) is base.all_heads]
+    else:
+        patched = []
+    own = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    for obj, name, fn in patched:
+        setattr(obj, name, fn)
     try:
         yield
     finally:
-        random_press.RandomPress.score = own
+        for obj, name, fn in own:
+            setattr(obj, name, fn)
 
 
 # --------------------------------------------------------------------- #
