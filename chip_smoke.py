@@ -182,7 +182,11 @@
    runner against one process's (two decode launches a layer);
    CriticalKV's ``||Wo v||`` per rank against the single device's heads
    (bf16 and int4 weights, two planted faults), and a rank's slice of
-   QFilter's filters and Duo's head pattern (one planted fault each); then
+   QFilter's filters and Duo's head pattern (one planted fault each); the
+   cross-head presses of items 18.20-18.28 (TOVA, CriticalAdaKV, ChunkKV,
+   LUKV, SimLayerKV, Compactor; LeverageScore's and NonCausalAttn's
+   prefills; CAM(Knorm)'s prefill and 16 compressing decode steps on the
+   rank's runner), each identical to one process; then
    a world of two spawned ranks sharing the card over gloo (NCCL refuses two
    ranks on one device; gloo takes CUDA tensors) with a ``model=2`` and a
    ``data=2`` mesh, 4 requests of 2,048 and 4,096 tokens each (``model=2``
@@ -4593,6 +4597,9 @@ TP_NEW = SV_NEW // 2          # 32 new tokens a request, for the script's time
 TP_GLOO_CONTEXTS = (2048, 4096)   # the 2-rank worlds over gloo: short contexts
 TP_GLOO_REQUESTS = 2
 TP_GLOO_NEW = 16
+# New tokens of a press's run in the model 2 gloo world: the press decides
+# at the admission, and every later slot step reads its kept cache alike.
+TP_GLOO_PRESS_NEW = 8
 # The 2-rank worlds share the one card over gloo (NCCL refuses two ranks on
 # one device); gloo takes CUDA tensors for all_reduce and all_gather.
 TP_GLOO_WORLDS = {"model2": {"data": 1, "model": 2}, "data2": {"data": 2, "model": 1}}
@@ -4632,12 +4639,16 @@ TP_HEAD_PRESSES = {
                                               head_scores=tp_head_artifacts()["duo"]),
     "Random": lambda kt, L: tp_random_press(kt),
 }
-# The cross-head scorers of items 18.20-18.24: each rank gathers what it
-# reduces across heads over "model" (presses.base.all_heads). TP_CROSS_ONE
-# runs over the world of one; TOVA, CriticalAdaKV (mask form: host lengths
-# independent of ties) and SimLayerKV also in the model 2 gloo world, where
-# a missing gather shows. SimLayerKV's threshold
-# is set on the card before the phase (``tp_lazy_threshold``, into TP_LAZY).
+# The cross-head scorers of items 18.20-18.24 and the normalized scorers of
+# items 18.25-18.27: each rank gathers what it reduces across heads over
+# "model" (presses.base.all_heads; the Compactor family its raw scores
+# before the z-norm) and draws LeverageScore's sketch at every kv head.
+# TP_CROSS_ONE runs over the world of one; TOVA, CriticalAdaKV (mask form:
+# host lengths independent of ties), SimLayerKV and Compactor also in the
+# model 2 gloo world, where a missing gather shows. LeverageScore and
+# NonCausalAttn, which every Compactor run computes, only take the timed
+# prefill pair (TP_PREFILL_ONE). SimLayerKV's threshold is set on the card
+# before the phase (``tp_lazy_threshold``, into TP_LAZY).
 TP_CROSS_PRESSES = {
     "TOVA": lambda kt, L: kt.TOVAPress(0.5),
     "CriticalAdaKV(Knorm)": lambda kt, L: kt.CriticalAdaKVPress(kt.KnormPress(0.5),
@@ -4647,15 +4658,28 @@ TP_CROSS_PRESSES = {
     "LUKV(Knorm)": lambda kt, L: kt.LUKVPress(kt.KnormPress(0.5), compression_ratio=0.5,
                                               budget_curves=tp_head_artifacts()["lukv"]),
     "SimLayerKV": lambda kt, L: kt.SimLayerKVPress(TP_LAZY["threshold"]),
+    "Compactor": lambda kt, L: kt.CompactorPress(0.5),
+    "LeverageScore": lambda kt, L: kt.LeverageScorePress(0.5),
+    "NonCausalAttn": lambda kt, L: kt.NonCausalAttnPress(0.5),
 }
-TP_CROSS_ONE = ("TOVA", "CriticalAdaKV(Knorm)", "ChunkKV(Knorm)", "LUKV(Knorm)", "SimLayerKV")
+TP_CROSS_ONE = ("TOVA", "CriticalAdaKV(Knorm)", "ChunkKV(Knorm)", "LUKV(Knorm)", "SimLayerKV",
+                "Compactor")
+TP_PREFILL_ONE = ("LeverageScore", "NonCausalAttn")
 TP_LAZY: dict = {}
 TP_LOCAL_GLOO = ("CriticalKV(Knorm)", "KeyRerotation(Knorm)", "Composed(Knorm, ThinK)",
                  "Block(Knorm)", "QFilter", "Duo", "TOVA", "CriticalAdaKV(Knorm) mask",
-                 "SimLayerKV")
+                 "SimLayerKV", "Compactor")
+# CAM(Knorm) (item 18.28) on the world of one's sharded runner: a
+# TP_LOCAL_CONTEXTS[1]-token prefill and TP_CAM_STEPS greedy decode steps,
+# compressing to the target at steps 4, 8, 12 and 16 (the engine refuses
+# CAM: its merge runs in the decode steps).
+TP_CAM = dict(compression_interval=4, target_size=3072, merge_budget=32)
+TP_CAM_STEPS = 16
 # The layer-0 decision check on the model 2 gloo world: the ranks' gathered
-# TOVA scores (within this share of their scale) and CriticalAdaKV(Knorm)'s
-# keep bits (at most this share of them) against one process's.
+# TOVA scores, Compactor's scores and CAM(Knorm)'s merged values at its
+# first compression (within this share of their scale), CriticalAdaKV(Knorm)'s
+# keep bits (at most this share of them) and CAM's kept slots (equal)
+# against one process's.
 TP_DECISION_TOVA = 1e-3
 TP_DECISION_BITS = 1e-3
 TP_HEAD_SEED = 21
@@ -4680,6 +4704,12 @@ def tp_head_artifacts() -> dict:
                 duo=f(L, Hkv),
                 lukv=np.random.default_rng(TP_HEAD_SEED + 1).uniform(
                     0.1, 0.9, (99, L, Hkv)).astype(np.float32))
+
+
+def tp_cam_press(kt, **kw):
+    """CAMPress(Knorm) at TP_CAM, updated by ``kw`` (its torch draws at every
+    kv head)."""
+    return kt.CAMPress(base_press=kt.KnormPress(), **dict(TP_CAM, **kw))
 
 
 def tp_random_press(kt):
@@ -4720,8 +4750,8 @@ def tp_rank(rank: int, world: int, d: str):
     Each rank writes, for each run, its answers, host lengths and offsets,
     launch counts and the (query, kv) head counts its kernels took to
     ``d/rank<r>.json``; with ``job["decision"]`` (context ids), its
-    ``layer0_decisions`` on the model 2 mesh, as they are and under
-    ``cross_head_fault``, to ``d/decision<r>.pt``."""
+    ``layer0_decisions`` on the model 2 mesh, as they are and under each of
+    TP_DECISION_FAULTS, to ``d/decision<r>.pt``."""
     import datetime
 
     import torch
@@ -4791,8 +4821,8 @@ def tp_rank(rank: int, world: int, d: str):
             local = shard_params(params, meshes["model2"])
             ids = torch.tensor([job["decision"]], device=dev)
             out = {}
-            for fault in (False, True):
-                with cross_head_fault(fault):
+            for fault, planted in {None: contextlib.nullcontext, **TP_DECISION_FAULTS}.items():
+                with planted():
                     out[fault] = layer0_decisions(kt, sharded, local, ids)
             torch.save(out, f"{d}/decision{rank}.pt")
     finally:
@@ -4821,15 +4851,47 @@ def cross_head_fault(on: bool = True):
             m.all_heads = own
 
 
+@contextlib.contextmanager
+def own_draw_fault(size: int = 2):
+    """A planted fault: a rank of a model ``size`` mesh draws
+    LeverageScore's sketch and CAM's uniforms at its own kv heads' count
+    (repeated to every head's width, so the rank keeps that draw)."""
+    from kvpress_tpu_torch.presses import cam, compactor
+
+    sketch, uniforms = compactor.LeverageScorePress.sketch, cam.CAMPress.draw_uniforms
+
+    def own(shape):
+        return (shape[0], shape[1] // size, *shape[2:])
+
+    compactor.LeverageScorePress.sketch = lambda self, ctx, shape, device: sketch(
+        self, ctx, own(shape), device).repeat(1, size, 1, 1)
+    cam.CAMPress.draw_uniforms = lambda self, layer, step, shape, device: uniforms(
+        self, layer, step, own(shape), device).repeat(1, size, 1)
+    try:
+        yield
+    finally:
+        compactor.LeverageScorePress.sketch, cam.CAMPress.draw_uniforms = sketch, uniforms
+
+
+# The planted faults of the layer-0 decision check: a rank deciding across
+# its own heads only; a rank drawing at its own heads only.
+TP_DECISION_FAULTS = {"cross_head": cross_head_fault, "own_draw": own_draw_fault}
+
+
 def layer0_decisions(kt, runner, params, ids) -> dict:
     """Layer 0's decisions across heads on ``runner`` over ``ids``, on the
     host at the runner's kv heads: TOVA's scores (the last query row's mean
-    over every query head; the pinned last slot left out) and
-    CriticalAdaKV(Knorm)'s keep bits (a flat top across heads)."""
-    from kvpress_tpu_torch.presses import snapkv, wrappers
+    over every query head; the pinned last slot left out),
+    CriticalAdaKV(Knorm)'s keep bits (a flat top across heads), Compactor's
+    scores (z-normed over every head), and CAM(Knorm)'s kept slots and
+    merged values at its first compression (a prefill of all but the last
+    ``compression_interval`` ids, which are then fed one a decode step,
+    teacher-forced, the target half the context)."""
+    from kvpress_tpu_torch.presses import cam, compactor, snapkv, wrappers
 
     seen = {}
     score, select = snapkv.TOVAPress.score, wrappers.CriticalAdaKVPress._select
+    compact, merge = compactor.CompactorPress.score, cam.CAMPress.merge
 
     def scoring(self, ctx, keys, values):
         out = score(self, ctx, keys, values)
@@ -4843,34 +4905,70 @@ def layer0_decisions(kt, runner, params, ids) -> dict:
             seen["CriticalAdaKV"] = out.cpu()
         return out
 
-    snapkv.TOVAPress.score, wrappers.CriticalAdaKVPress._select = scoring, selecting
+    def compacting(self, ctx, keys, values):
+        out = compact(self, ctx, keys, values)
+        if ctx.layer_idx == 0:
+            seen["Compactor"] = out.float().cpu()
+        return out
+
+    def merging(self, keys, values, length, steps, scores, kept, *args):
+        out = merge(self, keys, values, length, steps, scores, kept, *args)
+        if "CAM merged" not in seen:            # layer 0's first compression
+            seen["CAM kept"], seen["CAM merged"] = kept.cpu(), out.float().cpu()
+        return out
+
+    patched = ((snapkv.TOVAPress, "score", scoring),
+               (wrappers.CriticalAdaKVPress, "_select", selecting),
+               (compactor.CompactorPress, "score", compacting), (cam.CAMPress, "merge", merging))
+    own = [(cls, name, getattr(cls, name)) for cls, name, _ in patched]
+    for cls, name, fn in patched:
+        setattr(cls, name, fn)
     try:
         runner.prefill(params, ids, press=kt.TOVAPress(0.5))
         runner.prefill(params, ids, press=kt.CriticalAdaKVPress(kt.KnormPress(0.5)))
+        runner.prefill(params, ids, press=kt.CompactorPress(0.5))
+        n, steps = ids.shape[1], TP_CAM["compression_interval"]
+        press = tp_cam_press(kt, target_size=n // 2)
+        _, cache, state = runner.prefill(params, ids[:, :n - steps], press=press)
+        cache = kt.resize(cache, n)
+        for t in range(n - steps, n):
+            _, cache, state = runner.forward(params, ids[:, t:t + 1], cache, press=press,
+                                             press_state=state, phase="decode",
+                                             logits_last_only=True)
     finally:
-        snapkv.TOVAPress.score, wrappers.CriticalAdaKVPress._select = score, select
+        for cls, name, fn in own:
+            setattr(cls, name, fn)
     return seen
 
 
-def decision_errors(torch, ranks, want):
-    """(The share of their scale by which the ranks' gathered layer-0 TOVA
-    scores are off one process's, the share of CriticalAdaKV's keep bits
-    off); ``ranks``: each rank's ``layer0_decisions``, in model order."""
-    tova = torch.cat([r["TOVA"] for r in ranks], dim=1)
-    err = ((tova - want["TOVA"]).abs().max() / want["TOVA"].abs().max()).item()
+def decision_errors(torch, ranks, want) -> dict:
+    """How far the ranks' layer-0 decisions (``ranks``: each rank's
+    ``layer0_decisions``, in model order) are off one process's: TOVA's
+    scores, Compactor's scores and CAM's merged values (gathered over the
+    heads) as a share of their scale; the share of CriticalAdaKV's keep bits
+    off; whether every rank kept CAM's slots."""
+    def off(name):
+        got = torch.cat([r[name] for r in ranks], dim=1)
+        return ((got - want[name]).abs().max() / want[name].abs().max()).item()
+
     bits = torch.cat([r["CriticalAdaKV"] for r in ranks], dim=1)
-    return err, (bits != want["CriticalAdaKV"]).float().mean().item()
+    return {"TOVA": off("TOVA"),
+            "CriticalAdaKV bits": (bits != want["CriticalAdaKV"]).float().mean().item(),
+            "Compactor": off("Compactor"), "CAM merged": off("CAM merged"),
+            "CAM kept": all(torch.equal(r["CAM kept"], want["CAM kept"]) for r in ranks)}
 
 
-def tp_decision_check(torch, ranks, want):
-    """``decision_errors`` within TP_DECISION_TOVA and TP_DECISION_BITS.
-    Returns them."""
-    err, off = decision_errors(torch, ranks, want)
-    if not (err <= TP_DECISION_TOVA and off <= TP_DECISION_BITS):
-        raise AssertionError(f"TP decision check: TOVA's scores {err:.3e} of their scale off "
-                             f"one process's (limit {TP_DECISION_TOVA}), {off:.3e} of "
-                             f"CriticalAdaKV's keep bits (limit {TP_DECISION_BITS})")
-    return err, off
+def tp_decision_check(torch, ranks, want) -> dict:
+    """``decision_errors`` within TP_DECISION_TOVA (TOVA, Compactor, CAM's
+    merged values), TP_DECISION_BITS (CriticalAdaKV's bits), CAM's kept
+    slots equal. Returns them."""
+    e = decision_errors(torch, ranks, want)
+    if not (e["TOVA"] <= TP_DECISION_TOVA and e["CriticalAdaKV bits"] <= TP_DECISION_BITS
+            and e["Compactor"] <= TP_DECISION_TOVA and e["CAM merged"] <= TP_DECISION_TOVA
+            and e["CAM kept"]):
+        raise AssertionError(f"TP decision check: {e} (limits {TP_DECISION_TOVA} of the scale, "
+                             f"{TP_DECISION_BITS} of the bits, CAM's kept slots equal)")
+    return e
 
 
 @contextlib.contextmanager
@@ -4961,8 +5059,8 @@ def tp_gloo_world(kt, torch, params, report, tie: float, runs, label="TP", decis
     host lengths, the launch counts per rank, and the head counts each
     rank's kernels took. With ``decision`` (context ids) the ranks' layer-0
     decisions across heads on the model 2 mesh are held against one
-    process's (``tp_decision_check``), and so is the planted fault, which
-    the check must reject."""
+    process's (``tp_decision_check``), and so are the planted faults of
+    TP_DECISION_FAULTS, which the check must reject."""
     import tempfile
 
     cfg = flagship_config(16)
@@ -5010,15 +5108,19 @@ def tp_gloo_world(kt, torch, params, report, tie: float, runs, label="TP", decis
     if decision is not None:
         got = [torch.load(f"{d}/decision{r}.pt") for r in range(2)]
         want = layer0_decisions(kt, runner, params, torch.tensor([decision], device=params.device))
-        err, off = tp_decision_check(torch, [g[False] for g in got], want)
-        must_reject("a rank decides across its own heads only", tp_decision_check, torch,
-                    [g[True] for g in got], want)
-        planted = decision_errors(torch, [g[True] for g in got], want)
-        report(f"  {label} model2 layer-0 decisions across heads ({len(decision):,} tokens): the "
-               f"ranks' gathered TOVA scores {err:.3e} of their scale off one process's (limit "
-               f"{TP_DECISION_TOVA}), CriticalAdaKV(Knorm)'s keep bits {off:.3e} off (limit "
-               f"{TP_DECISION_BITS}); the planted fault (a rank deciding across its own heads) "
-               f"rejected at {planted[0]:.3e} and {planted[1]:.3e}")
+        fmt = lambda e: ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+                                  for k, v in e.items())
+        e = tp_decision_check(torch, [g[None] for g in got], want)
+        planted = {}
+        for fault in TP_DECISION_FAULTS:
+            must_reject(f"a rank under {fault}", tp_decision_check, torch,
+                        [g[fault] for g in got], want)
+            planted[fault] = decision_errors(torch, [g[fault] for g in got], want)
+        report(f"  {label} model2 layer-0 decisions across heads ({len(decision):,} tokens; CAM at "
+               f"its first compression, {len(want['CAM kept'][0]):,} slots kept): the ranks "
+               f"against one process: {fmt(e)} (limits {TP_DECISION_TOVA} of the scale, "
+               f"{TP_DECISION_BITS} of the bits); the planted faults rejected: " + "; ".join(
+                   f"{k} ({fmt(v)})" for k, v in planted.items()))
     report(f"  {label}: {len(runs)} run{'s' if len(runs) > 1 else ''} "
            f"({', '.join(sorted({name for name, _, _ in runs}))}) in a world of {wall:.1f} s "
            "(spawn and weights included; gloo through the host: no multi-card speed)")
@@ -5154,7 +5256,8 @@ def tp_local_requests(torch, cfg, label):
     """The world of one's request for a press of ``tp_local_presses_run``:
     one of TP_LOCAL_CONTEXTS[1] tokens, TP_LOCAL_NEW new, drawn from a seed
     of the press's place in the phase."""
-    i = [*TP_LOCAL_PRESSES, *TP_HEAD_PRESSES, *TP_CROSS_ONE].index(label)
+    i = [*TP_LOCAL_PRESSES, *TP_HEAD_PRESSES, *TP_CROSS_ONE, *TP_PREFILL_ONE,
+         "CAM(Knorm)"].index(label)
     return serving_requests(torch.Generator().manual_seed(20 + i), cfg.vocab_size,
                             TP_LOCAL_CONTEXTS[1:], TP_LOCAL_NEW)
 
@@ -5192,16 +5295,17 @@ def tp_lazy_threshold(kt, torch, params, contexts, report) -> float:
 
 
 def tp_local_presses_run(kt, torch, params, report):
-    """Items 18.1-18.11, 18.13, 18.14, 18.16, 18.17 and 18.20-18.24 at the
-    flagship shape: each press over a world of one over NCCL (int8 slots,
-    ``tp_local_requests``), identical to the single-process engine, its
-    launch counts held; one prefill of the longer context timed once on the
-    rank's (sharded) runner and once on the single-process runner
-    (synchronized host clock; SimLayerKV's lazy layers counted on the
-    rank); Duo's split-cache decode on the rank's runner
-    (``tp_duo_split_run``); CriticalAdaKV compact's head-wise decode on the
-    rank's head-wise runner (``tp_headwise_run``). Returns the mesh runs'
-    launch counts."""
+    """Items 18.1-18.11, 18.13, 18.14, 18.16, 18.17 and 18.20-18.28 at the
+    flagship shape: each press but those of TP_PREFILL_ONE and CAM over a
+    world of one over NCCL (int8 slots, ``tp_local_requests``), identical to
+    the single-process engine, its launch counts held; one prefill of the
+    longer context timed once on the rank's (sharded) runner and once on the
+    single-process runner (synchronized host clock; SimLayerKV's lazy
+    layers counted on the rank; TP_PREFILL_ONE's two caches identical);
+    Duo's split-cache decode on the rank's runner (``tp_duo_split_run``);
+    CriticalAdaKV compact's head-wise decode on the rank's head-wise runner
+    (``tp_headwise_run``); CAM's prefill and decode on the rank's runner
+    (``tp_cam_run``). Returns the mesh runs' launch counts."""
     from kvpress_tpu_torch.parallel import shard_params
 
     cfg = flagship_config(16)
@@ -5212,14 +5316,15 @@ def tp_local_presses_run(kt, torch, params, report):
     with nccl_world_of_one() as mesh:
         sharded = single.sharded(mesh)
         local = shard_params(params, mesh)
-        for label in (*TP_LOCAL_PRESSES, *TP_HEAD_PRESSES, *TP_CROSS_ONE):
+        for label in (*TP_LOCAL_PRESSES, *TP_HEAD_PRESSES, *TP_CROSS_ONE, *TP_PREFILL_ONE):
             reqs = tp_local_requests(torch, cfg, label)
-            counts = tp_world_of_one(kt, torch, params, report, lambda: tp_press(kt, label),
-                                     reqs=reqs, label=f"TP {label}", mesh=mesh)
-            for name, n in counts.items():
-                totals[name] = totals.get(name, 0) + n
+            if label not in TP_PREFILL_ONE:
+                counts = tp_world_of_one(kt, torch, params, report, lambda: tp_press(kt, label),
+                                         reqs=reqs, label=f"TP {label}", mesh=mesh)
+                for name, n in counts.items():
+                    totals[name] = totals.get(name, 0) + n
             ids = torch.tensor([reqs[-1][0]], device=dev)
-            times[label] = {}
+            times[label], caches = {}, []
             for which, runner, p in (("one process", single, params),
                                      ("world of one", sharded, local)):
                 torch.cuda.synchronize()
@@ -5227,6 +5332,17 @@ def tp_local_presses_run(kt, torch, params, report):
                 _, cache, _ = runner.prefill(p, ids, press=tp_press(kt, label))
                 torch.cuda.synchronize()
                 times[label][which] = time.perf_counter() - t0
+                caches.append(cache)
+            if label in TP_PREFILL_ONE:
+                same = {n: torch.equal(getattr(caches[0], n), getattr(caches[1], n))
+                        for n in ("length", "keys", "values")}
+                if not all(same.values()):
+                    raise AssertionError(f"TP {label}: the rank's prefill against one "
+                                         f"process's, identical: {same}")
+                report(f"  TP {label} on the world of one's rank: lengths "
+                       f"{caches[1].length.tolist()[:2]}... and kept K/V identical to one "
+                       "process's prefill")
+            del caches
             if label == "SimLayerKV":
                 lazy = [l for l, n in enumerate(cache.length.tolist()) if n < ids.shape[1]]
                 report(f"  TP SimLayerKV on the world of one's rank: {len(lazy)} of "
@@ -5236,12 +5352,12 @@ def tp_local_presses_run(kt, torch, params, report):
                     raise AssertionError(f"TP SimLayerKV: {len(lazy)} of {cfg.num_layers} "
                                          "layers lazy, not a mix")
             del cache
-        for run in (tp_duo_split_run, tp_headwise_run):
+        for run in (tp_duo_split_run, tp_headwise_run, tp_cam_run):
             for name, n in run(kt, torch, params, local, single, sharded, report).items():
                 totals[name] = totals.get(name, 0) + n
         del local
     torch.cuda.empty_cache()
-    report(f"  TP items 18.1-18.11, 18.13, 18.14, 18.16, 18.17, 18.20-18.24, prefill of "
+    report(f"  TP items 18.1-18.11, 18.13, 18.14, 18.16, 18.17, 18.20-18.27, prefill of "
            f"{TP_LOCAL_CONTEXTS[1]:,} tokens (ms, once each) on one process / on the world of "
            "one's rank: " + "; ".join(f"{k} {v['one process'] * 1e3:.1f} / "
                                       f"{v['world of one'] * 1e3:.1f}" for k, v in times.items()))
@@ -5295,6 +5411,58 @@ def tp_headwise_run(kt, torch, params, local, single, sharded, report):
            f"to one process's, logits {read:.3e} of their scale off (limit {REF_LIMIT[16]}; "
            f"identical: {torch.equal(got, want)}); decode_attention_headwise "
            f"{counts['decode_headwise'] / steps:g} a step")
+    return counts
+
+
+def tp_cam_run(kt, torch, params, local, single, sharded, report):
+    """CAM(Knorm) (item 18.28) on the world of one's sharded runner
+    (``sharded``'s mesh) against the single-process runner: one
+    TP_LOCAL_CONTEXTS[1]-token prefill, then TP_CAM_STEPS greedy decode
+    steps through the press's decode phase, compressing to the target every
+    ``compression_interval`` steps: tokens, lengths and K/V identical, and
+    ``decode_attention`` once a layer a step on the rank. Returns the rank's
+    launch counts."""
+    cfg = flagship_config(16)
+    L, steps = cfg.num_layers, TP_CAM_STEPS
+    ids = torch.tensor([tp_local_requests(torch, cfg, "CAM(Knorm)")[-1][0]],
+                       device=params.device)
+
+    def decode(runner, p):
+        press = tp_cam_press(kt)
+        logits, cache, state = runner.prefill(p, ids, press=press, compute_logits=True)
+        cache = kt.resize(cache, ids.shape[1] + steps)
+        tok, toks = logits[:, -1:].argmax(-1), []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache, state = runner.forward(p, tok, cache, press=press,
+                                                  press_state=state, phase="decode",
+                                                  logits_last_only=True)
+            tok = logits[:, -1:].argmax(-1)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        return torch.cat(toks, 1), cache, read_counts(), time.perf_counter() - t0
+
+    want_toks, want, _, t_one = decode(single, params)
+    toks, got, counts, t_rank = decode(sharded, local)
+    same = {"tokens": torch.equal(toks, want_toks),
+            **{n: torch.equal(getattr(got, n), getattr(want, n))
+               for n in ("length", "offset", "keys", "values")}}
+    if not all(same.values()):
+        raise AssertionError(f"TP CAM(Knorm) on the rank against one process, identical: {same}")
+    if got.length.tolist() != [TP_CAM["target_size"]] * L:
+        raise AssertionError(f"TP CAM(Knorm): lengths {got.length.tolist()} after {steps} "
+                             f"steps, not the target {TP_CAM['target_size']}")
+    if counts["decode_attention"] != L * steps:
+        raise AssertionError(f"TP CAM(Knorm): {counts['decode_attention']} decode launches, "
+                             f"predicted {L * steps}")
+    report(f"  TP CAM(Knorm) on the world of one's rank ({ids.shape[1]:,}-token prefill, "
+           f"{steps} decode steps compressing to {TP_CAM['target_size']:,} every "
+           f"{TP_CAM['compression_interval']}): tokens, lengths and K/V identical to one "
+           f"process's; decode_attention {counts['decode_attention'] / steps:g} a step; the "
+           f"steps {t_one * 1e3 / steps:.1f} ms a step on one process, {t_rank * 1e3 / steps:.1f} "
+           "on the rank (host clock)")
     return counts
 
 
@@ -5405,13 +5573,14 @@ def tp_serving_run(kt, torch, tokenizer_cls, params, report,
                    worlds=("one", "local", "model2", "data2")):
     """Tensor-parallel serving at the flagship shape: the world of one over
     NCCL held identical to the single-process engine (Knorm, then
-    (``"local"``) each press of items 18.1-18.11, 18.13, 18.14, 18.16, 18.17
-    and 18.20-18.24, Duo's split decode and CriticalAdaKV's head-wise decode
-    on the rank, CriticalKV's norm and QFilter's and Duo's slices per rank
-    with their planted faults), then one 2-rank gloo world on the one card
-    (a model 2 mesh with Knorm and the presses of TP_LOCAL_GLOO, and the
-    layer-0 decision check across heads with its planted fault; a data 2
-    mesh with Knorm) teacher-forced against the single-process runner.
+    (``"local"``) each press of items 18.1-18.11, 18.13, 18.14, 18.16, 18.17,
+    18.20-18.25, LeverageScore's and NonCausalAttn's prefills, Duo's split
+    decode, CriticalAdaKV's head-wise decode and CAM's decode on the rank,
+    CriticalKV's norm and QFilter's and Duo's slices per rank with their
+    planted faults), then one 2-rank gloo world on the one card (a model 2
+    mesh with Knorm and the presses of TP_LOCAL_GLOO, and the layer-0
+    decision check across heads with its two planted faults; a data 2 mesh
+    with Knorm) teacher-forced against the single-process runner.
     SimLayerKV's threshold is set first (``tp_lazy_threshold``). Returns
     the worlds of one's launch counts."""
     from kvpress_tpu_torch.ops import _build
@@ -5428,7 +5597,7 @@ def tp_serving_run(kt, torch, tokenizer_cls, params, report,
     # TP_LOCAL_CONTEXTS[0] tokens (a gloo world's admissions go through the
     # host, and their time moves most from host to host).
     local = serving_requests(torch.Generator().manual_seed(19), cfg.vocab_size,
-                             TP_LOCAL_CONTEXTS[:1], TP_GLOO_NEW)
+                             TP_LOCAL_CONTEXTS[:1], TP_GLOO_PRESS_NEW)
     if "local" in worlds or "model2" in gloo:
         # SimLayerKV's threshold over the world of one's context and the
         # model 2 world's.
@@ -7791,11 +7960,12 @@ def main() -> int:
     report(f"  the serving phase took {time.perf_counter() - t_phase:.1f} s")
     report("phase 3: tensor-parallel serving at the flagship shape: a world of one over NCCL "
            "against the single-process engine (Knorm, then each press of items 18.1-18.11, "
-           "Random, QFilter, ExpectedAttentionStats and Duo, TOVA, CriticalAdaKV, ChunkKV, LUKV "
-           "and SimLayerKV, Duo's split decode, CriticalAdaKV's head-wise decode), then model 2 "
-           "(Knorm, CriticalKV, KeyRerotation, Composed, Block, QFilter, Duo, TOVA, "
-           "CriticalAdaKV, SimLayerKV; the layer-0 decision check) and data 2 worlds over gloo "
-           "on the one card")
+           "Random, QFilter, ExpectedAttentionStats and Duo, TOVA, CriticalAdaKV, ChunkKV, LUKV, "
+           "SimLayerKV and Compactor, LeverageScore's and NonCausalAttn's prefills, Duo's split "
+           "decode, CriticalAdaKV's head-wise decode, CAM's decode), then model 2 (Knorm, "
+           "CriticalKV, KeyRerotation, Composed, Block, QFilter, Duo, TOVA, CriticalAdaKV, "
+           "SimLayerKV, Compactor; the layer-0 decision check) and data 2 worlds over gloo on "
+           "the one card")
     t_phase = time.perf_counter()
     for name, n in tp_serving_run(kt, torch, ToyTokenizer, params, report).items():
         launches[name] += n

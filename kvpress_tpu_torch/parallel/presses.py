@@ -20,9 +20,18 @@ A press sees the rank's kv heads only. Three classes (``ROADMAP.md``,
   decision is then one host read alike on every rank); ``ChunkKVPress`` the
   scores before the sum over heads; ``LUKVPress`` sizes every kv head's
   budget from the curve's whole row and takes its sink's score from the
-  max over every rank. A compacted or cut layer's length is the largest
-  over the ranks (``Runner._layer_step``). A decode-time press over one of
-  them gathers in lockstep at each compressing step.
+  max over every rank. The Compactor family gathers its raw scores before
+  the z-norm (``NonCausalAttnPress``, ``LeverageScorePress``, and both
+  children of ``CompactorPress``), normalizes them as one device does and
+  keeps the rank's rows; ``LeverageScorePress`` draws its sketch at every
+  kv head and keeps the rank's rows; ``CompactorPress`` takes its sinks'
+  score from the max over every rank. ``CAMPress`` gathers its scores
+  before the mean over kv heads, so every rank keeps and merges into the
+  same slots, and draws its uniforms at every kv head and keeps the rank's
+  rows; its attention sum and merge are per kv head. A compacted or cut
+  layer's length is the largest over the ranks (``Runner._layer_step``). A
+  decode-time press over one of them gathers in lockstep at each
+  compressing step.
 
 The presses of ``MESH_PRESSES`` are held against the JAX package under a
 mesh (``RandomPress``, whose draws are torch's, against the port's single
@@ -68,7 +77,8 @@ HEAD_INDEXED = ("KVzapPress", "RandomPress", "QFilterPress", "ExpectedAttentionS
                 "DuoAttentionPress")
 # Class (c): the ranks gather what they reduce across heads.
 CROSS_HEAD = ("AdaKVPress", "TOVAPress", "CriticalAdaKVPress", "ChunkKVPress", "LUKVPress",
-              "SimLayerKVPress")
+              "SimLayerKVPress", "CompactorPress", "LeverageScorePress", "NonCausalAttnPress",
+              "CAMPress")
 MESH_PRESSES = SCORERS + WRAPPERS + DECODING + HEAD_INDEXED + CROSS_HEAD + (
     "PrefillDecodingPress", "BasePress", "DMSPress")
 

@@ -17,6 +17,12 @@ from (seed, layer, rng_step) (``draw_uniforms``), so the two take other
 draws; the merge takes the uniforms as an argument, so a test can hand it
 JAX's. Its scatter-add is ``index_put_(accumulate=True)`` in float32, whose
 order of summation may differ from XLA's.
+
+Under a tensor-parallel mesh a rank holds some of the kv heads
+(``LayerCtx.shard``): it gathers the scores of every rank's heads before
+their mean, so every rank keeps the same slots, and draws the uniforms at
+every kv head and keeps its rows. The attention sum and the merge are per
+kv head, and each kv head's query heads are on its rank.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import dataclasses
 import torch
 
 from ..ops.attention import window_attention_probs
-from .base import layer_generator, order_desc
+from .base import all_heads, layer_generator, local_heads, order_desc
 from .decoding import DecodingPress
 from .snapkv import group_mean
 
@@ -54,7 +60,9 @@ class CAMPress(DecodingPress):
         return states
 
     def draw_uniforms(self, layer_idx: int, rng_step: int, shape, device) -> torch.Tensor:
-        """The merge's uniforms in [0, 1), from (seed, layer, rng_step)."""
+        """The merge's uniforms in [0, 1), from (seed, layer, rng_step);
+        ``shape`` (B, H_kv, k) at every kv head of the model, under a mesh
+        too."""
         gen = layer_generator(self.seed, layer_idx, device, rng_step)
         return torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
 
@@ -72,11 +80,13 @@ class CAMPress(DecodingPress):
         do = hit and length > target
         rng_step = state["rng_step"] + 1
         if do:
-            scores = self._score_buffer(ctx, buf, keys, values, length).mean(dim=1)   # (B, S)
+            scores = all_heads(ctx.shard, self._score_buffer(ctx, buf, keys, values, length))
+            scores = scores.mean(dim=1)                                               # (B, S)
             kept = torch.sort(order_desc(scores, n_top), dim=-1).values              # (B, n)
+            every = H if ctx.shard is None else H * ctx.shard.size
             uniforms = self.draw_uniforms(ctx.layer_idx, rng_step,
-                                          (B, H, min(self.compression_interval, S)),
-                                          keys.device)
+                                          (B, every, min(self.compression_interval, S)),
+                                          keys.device)[:, local_heads(ctx.shard, H)]
             values = self.merge(keys, values, length, steps, scores, kept, attn_sum, uniforms)
             keys, values = (torch.cat([x.gather(2, kept[:, None, :, None].expand(
                 B, H, n_top, x.shape[-1])), x[:, :, n_top:]], dim=2) for x in (keys, values))

@@ -10,7 +10,13 @@ pad rows before the Gram matrix; the z-norm takes masked moments.
 
 ``LeverageScorePress`` draws its Gaussian sketch from a generator seeded
 from (seed, layer), not the JAX package's numbers;
-``compute_leverage_scores`` takes the sketch as an argument."""
+``compute_leverage_scores`` takes the sketch as an argument.
+
+Under a tensor-parallel mesh a rank holds some of the kv heads
+(``LayerCtx.shard``). The z-norm gathers the raw scores of every rank's
+heads, normalizes them as one device does and keeps the rank's rows;
+LeverageScore draws its sketch at every kv head and keeps the rank's rows;
+Compactor's sinks take the largest blended score over every rank."""
 
 from __future__ import annotations
 
@@ -20,23 +26,35 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .base import LayerCtx, ScorerPress, layer_generator
+from .base import LayerCtx, ScorerPress, all_heads, layer_generator, local_heads
 from .snapkv import avg_pool_1d
 
 JITTERS = (1e-2, 1e-1, 1.0)
 
 
 def _z_norm(scores: torch.Tensor, valid: Optional[torch.Tensor] = None,
-            n_valid: int = 0) -> torch.Tensor:
+            n_valid: int = 0, shard=None) -> torch.Tensor:
     """z-norm over the whole tensor (ddof 1); with ``valid`` (S,), the
-    moments over its ``n_valid`` valid slots of every row only."""
+    moments over its ``n_valid`` valid slots of every row only. Under a mesh
+    (``shard``) the (B, H, S) scores of every rank's heads are gathered
+    first, so that the moments are one device's, and the rank's rows come
+    back."""
+    H = scores.shape[1]
+    scores = all_heads(shard, scores)
     if valid is None:
-        return (scores - scores.mean()) / torch.clamp(torch.std(scores, correction=1), min=1e-6)
-    B, H, _ = scores.shape
-    cnt = float(B * H * n_valid)
-    mean = scores.masked_fill(~valid, 0.0).sum() / cnt
-    var = ((scores - mean) ** 2).masked_fill(~valid, 0.0).sum() / (cnt - 1.0)
-    return (scores - mean) / torch.clamp(torch.sqrt(var), min=1e-6)
+        out = (scores - scores.mean()) / torch.clamp(torch.std(scores, correction=1), min=1e-6)
+    else:
+        B, Ha, _ = scores.shape
+        cnt = float(B * Ha * n_valid)
+        mean = scores.masked_fill(~valid, 0.0).sum() / cnt
+        var = ((scores - mean) ** 2).masked_fill(~valid, 0.0).sum() / (cnt - 1.0)
+        out = (scores - mean) / torch.clamp(torch.sqrt(var), min=1e-6)
+    return out[:, local_heads(shard, H)]
+
+
+def _max_over_heads(shard, scores: torch.Tensor) -> torch.Tensor:
+    """The largest of the (B, H, S) ``scores`` over every rank's heads."""
+    return all_heads(shard, scores.amax(dim=(0, 2)), dim=0).max()
 
 
 def _needs_one_query_a_slot(press, ctx: LayerCtx, S: int, *fields: str):
@@ -110,7 +128,7 @@ class NonCausalAttnPress(ScorerPress):
             # avg_pool_1d divides by the whole kernel (count_include_pad), so
             # zeroed pads reproduce the exact length's edge.
             scores = scores.masked_fill(~valid, 0.0)
-        return _z_norm(avg_pool_1d(scores, 3), valid, n_valid)
+        return _z_norm(avg_pool_1d(scores, 3), valid, n_valid, ctx.shard)
 
     def score(self, ctx: LayerCtx, keys, values):
         return self._score_impl(ctx, keys, values)
@@ -132,7 +150,7 @@ class LeverageScorePress(ScorerPress):
 
     def sketch(self, ctx: LayerCtx, shape, device) -> torch.Tensor:
         """The (B, Hkv, d, sketch_dimension) Gaussian sketch of this press and
-        layer."""
+        layer (``shape`` at every kv head of the model, under a mesh too)."""
         gen = layer_generator(self.seed, ctx.layer_idx, device)
         return torch.randn((*shape, self.sketch_dimension), generator=gen, device=device,
                            dtype=torch.float32) / self.sketch_dimension ** 0.5
@@ -161,8 +179,11 @@ class LeverageScorePress(ScorerPress):
         B, Hkv, S, d = keys.shape
         _needs_one_query_a_slot(self, ctx, S, "keys_prerope")
         k_pre = ctx.keys_prerope.to(torch.float32)
-        phi = self.sketch(ctx, (B, Hkv, d), keys.device)
-        return _z_norm(self.compute_leverage_scores(k_pre, phi, valid), valid, n_valid)
+        # Drawn at every rank's heads: a rank's rows are those of one device.
+        every = Hkv if ctx.shard is None else Hkv * ctx.shard.size
+        phi = self.sketch(ctx, (B, every, d), keys.device)[:, local_heads(ctx.shard, Hkv)]
+        return _z_norm(self.compute_leverage_scores(k_pre, phi, valid), valid, n_valid,
+                       ctx.shard)
 
     def score(self, ctx: LayerCtx, keys, values):
         return self._score_impl(ctx, keys, values)
@@ -213,7 +234,7 @@ class CompactorPress(ScorerPress):
         k_sub, v_sub = keys[:, :, left:end], values[:, :, left:end]
         lev, nca = self._children()
         scores = self._blend(lev.score(sub_ctx, k_sub, v_sub), nca.score(sub_ctx, k_sub, v_sub))
-        top = scores.max()
+        top = _max_over_heads(ctx.shard, scores)
         B, H = scores.shape[:2]
         return torch.cat([top.expand(B, H, left), scores, top.expand(B, H, right)], dim=-1)
 
@@ -233,7 +254,7 @@ class CompactorPress(ScorerPress):
         lev, nca = self._children()
         scores = self._blend(lev._score_impl(sub_ctx, k_sub, v_sub, sub_valid, n_valid),
                              nca._score_impl(sub_ctx, k_sub, v_sub, sub_valid, n_valid))
-        top = scores.masked_fill(~sub_valid, float("-inf")).max()
+        top = _max_over_heads(ctx.shard, scores.masked_fill(~sub_valid, float("-inf")))
         scores = F.pad(scores, (left, 0))
         pos = torch.arange(S, device=keys.device)
         protected = (pos < left) | ((pos >= length - right) & (pos < length))

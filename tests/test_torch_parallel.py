@@ -347,11 +347,11 @@ def test_repack_int4_rows_keeps_the_single_device_product():
     assert not torch.allclose(swapped, want, atol=1e-3)
 
 
-@pytest.mark.parametrize("press", [kt.CompactorPress(0.5), kt.KVzipPress(0.5),
-                                   kt.CAMPress(kt.KnormPress(0.5))],
-                         ids=["compactor", "kvzip", "cam"])
+@pytest.mark.parametrize("press", [kt.KVzipPress(0.5), kt.KVComposePress(compression_ratio=0.5),
+                                   kt.FastKVzipPress(0.5)],
+                         ids=["kvzip", "kvcompose", "fastkvzip"])
 def test_presses_of_later_items_are_refused_under_a_mesh(press):
-    """A press of class (c) that is not ported to a mesh raises
+    """A press of class (b) or (c) that is not ported to a mesh raises
     NotImplementedError naming its ROADMAP item (a wrapper: its own)."""
     name = type(press).__name__
     with pytest.raises(NotImplementedError, match=f"item {MESH_ITEMS[name]} "):

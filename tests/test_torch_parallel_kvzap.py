@@ -217,4 +217,4 @@ def test_dms_and_kvzap_run_under_a_mesh_and_keep_their_item_numbers():
     assert {"DMSPress", "KVzapPress", "FinchPress"} <= set(MESH_PRESSES)
     assert not {"DMSPress", "KVzapPress", "FinchPress"} & set(MESH_ITEMS)
     assert (MESH_ITEMS["FastKVzipPress"], MESH_ITEMS["RestoreKVPress"],
-            MESH_ITEMS["CompactorPress"]) == ("18.18", "18.19", "18.25")
+            MESH_ITEMS["KVzipPress"]) == ("18.18", "18.19", "18.29")

@@ -9,7 +9,10 @@ QFilter, ExpectedAttentionStats, DuoAttention with its split-cache decode),
 whose ranks read their slice of a global-head artifact or draw; and the
 cross-head scorers of items 18.20-18.24 (TOVA, CriticalAdaKV, ChunkKV,
 LUKV, SimLayerKV, and DecodingPress(TOVA) and ChunkKV(TOVA) over them),
-whose ranks gather what they reduce across heads.
+whose ranks gather what they reduce across heads; and the normalized
+scorers and CAM of items 18.25-18.28 (Compactor, LeverageScore,
+NonCausalAttn, CAM), whose ranks gather their raw scores before the z-norm
+(and CAM's before its mean over kv heads) and draw at every kv head.
 
 Every sharded run is held against the JAX package's single-device run on
 the same numpy inputs and against the port's single-process run, to
@@ -22,7 +25,10 @@ x * (1 / scale), eager code x / scale), and within KV_RTOL against the
 port's single process. A few runs are also held against
 JAX's GSPMD run over a (data 1, model 2) mesh of its virtual devices. Where
 the single-process port refuses a chunked route, the mesh raises the same
-error. CUR draws the JAX package's sketch (handed to the ranks as numpy).
+error. CUR, LeverageScore and Compactor draw the JAX package's sketches,
+and CAM its uniforms (handed to the ranks as numpy, at every kv head); the
+Compactor family's gathered scores are held against JAX's ``score`` on
+the single process's layer inputs within the scorer tests' 1e-4.
 RandomPress draws from a torch generator, so it is held against the port's
 single process on the same seed only.
 
@@ -49,7 +55,9 @@ from kvpress_tpu_torch.parallel.mesh import local_config, shard_layer
 from kvpress_tpu_torch.parallel.presses import SEQ_ITEM, WRAPPERS
 from test_torch_parallel import KV_RTOL, LOGIT_TOL, assert_same_prefill, numpy_tree
 from torch_parallel_cases import duo_split, finish_world, prefill, start_world
-from torch_scorer_cases import jax_sketch
+from torch_decoding_cases import jax_uniforms
+from torch_scorer_cases import SOLVE_TOL, jax_sketch
+from torch_wrapper_cases import jax_ctx
 
 torch.set_num_threads(2)
 
@@ -159,7 +167,19 @@ CROSS_PRESSES = {
                                                target_size=40, hidden_states_buffer_size=8),
     "chunkkv_tova": lambda m: m.ChunkKVPress(m.TOVAPress(0.5), chunk_length=10),
 }
-ALL_PRESSES = {**PRESSES, **HEAD_PRESSES, **CROSS_PRESSES}
+# label: a press of items 18.25-18.28, made with module m's classes.
+NORM_PRESSES = {
+    "compactor": lambda m: m.CompactorPress(0.5),
+    # A sketch narrower than the head (16): as at the default 48 on a model's
+    # head_dim of 64 or 128, the scores then depend on the draw.
+    "leverage": lambda m: m.LeverageScorePress(0.5, sketch_dimension=8),
+    "noncausal": lambda m: m.NonCausalAttnPress(0.5),
+    # Compresses at decode steps 2 and 4: 50 and 42 slots to 40.
+    "cam_knorm": lambda m: m.CAMPress(base_press=m.KnormPress(), compression_interval=2,
+                                      target_size=40, hidden_states_buffer_size=8,
+                                      merge_budget=4),
+}
+ALL_PRESSES = {**PRESSES, **HEAD_PRESSES, **CROSS_PRESSES, **NORM_PRESSES}
 
 # route: the rank job's options beyond the press.
 ROUTES = {"oneshot": {}, "int8": dict(kv_bits=8), "int4_weights": {}, "chunked": dict(chunk=CHUNK)}
@@ -177,8 +197,13 @@ CROSS_CASES = ([("tova", r) for r in ROUTES]
                   ("chunkkv_knorm", "chunked"), ("lukv_knorm", "oneshot"),
                   ("simlayerkv", "oneshot"), ("simlayerkv", "chunked"),
                   ("decoding_tova", "oneshot"), ("chunkkv_tova", "oneshot")])
+NORM_CASES = [("compactor", "oneshot"), ("compactor", "int8"), ("leverage", "oneshot"),
+              ("noncausal", "oneshot"), ("cam_knorm", "oneshot"), ("cam_knorm", "int8")]
+# Their scores are recorded at each layer and held against JAX's.
+SCORED = ("compactor", "leverage", "noncausal")
 # The single-process port refuses these chunked; the mesh must say the same.
-REFUSED_CHUNKED = ("cap", "merging", "block_keydiff", "expected_attention_stats", "lukv_knorm")
+REFUSED_CHUNKED = ("cap", "merging", "block_keydiff", "expected_attention_stats", "lukv_knorm",
+                   "compactor", "leverage", "noncausal")
 # Also held against JAX's GSPMD run over its (data 1, model 2) mesh.
 GSPMD = (("critical_knorm", "int4_weights"), ("block_kvzap", "oneshot"),
          ("composed", "oneshot"), ("duo", "oneshot"), ("tova", "oneshot"))
@@ -203,6 +228,24 @@ def _sketches(cfg) -> dict:
     return {l: jax_sketch(0, l, (cfg.head_dim, 20)) for l in range(cfg.num_layers)}
 
 
+def _leverage_sketches(cfg, press, batches=(1,)) -> dict:
+    """The JAX package's sketch of ``press`` (LeverageScore, or Compactor's
+    leverage child) for each layer and batch size, over every kv head: JAX
+    draws it at the whole (B, H_kv, D, k), so each shape draws other
+    numbers."""
+    return {(l, b): jax_sketch(press.seed, l, (b, cfg.num_kv_heads, cfg.head_dim,
+                                               press.sketch_dimension))
+            for l in range(cfg.num_layers) for b in batches}
+
+
+def _cam_uniforms(cfg, press, B=1, steps=DECODE_STEPS) -> dict:
+    """The JAX package's CAM uniforms of each (layer, rng_step) over every kv
+    head, at (B, H_kv, k)."""
+    shape = (B, cfg.num_kv_heads, press.compression_interval)
+    return {(l, t): jax_uniforms(press.seed, l, t, shape)
+            for l in range(cfg.num_layers) for t in range(1, steps + 1)}
+
+
 def _job(cfg_t, params, p4, ids, label, route):
     job = dict(cfg=cfg_t, params=numpy_tree(p4 if route == "int4_weights" else params), ids=ids,
                press=ALL_PRESSES[label](kt), mesh=MESH, **ROUTES[route])
@@ -210,6 +253,12 @@ def _job(cfg_t, params, p4, ids, label, route):
         job["decode_steps"] = DECODE_STEPS
     if label == "cur":
         job["sketches"] = _sketches(cfg_t)
+    if label in ("compactor", "leverage"):
+        job["leverage"] = _leverage_sketches(cfg_t, job["press"])
+    if label in SCORED:
+        job["scores"] = True
+    if label == "cam_knorm":
+        job["uniforms"] = _cam_uniforms(cfg_t, job["press"])
     return job
 
 
@@ -293,7 +342,7 @@ def world(tmp_path_factory):
     cfg_t = kt.tiny_config(**OVER)
     ids = np.random.default_rng(12).permutation(np.arange(3, cfg_j.vocab_size))[:S][None]
     jobs = {f"{label}-{route}": ("prefill", _job(cfg_t, params, p4, ids, label, route))
-            for label, route in CASES + HEAD_CASES + CROSS_CASES}
+            for label, route in CASES + HEAD_CASES + CROSS_CASES + NORM_CASES}
     for label in REFUSED_CHUNKED:
         jobs[f"{label}-refused"] = ("refused", dict(kind="prefill", mesh=MESH, job=_job(
             cfg_t, params, p4, ids, label, "chunked")))
@@ -304,6 +353,11 @@ def world(tmp_path_factory):
     jobs["tova-local-decision"] = ("prefill", dict(_job(cfg_t, params, p4, ids, "tova",
                                                         "oneshot"),
                                                    mutant="cross_head_local_decision"))
+    jobs["compactor-local-decision"] = ("prefill", dict(
+        _job(cfg_t, params, p4, ids, "compactor", "oneshot"), mutant="cross_head_local_decision"))
+    # The mutant: ranks that draw the sketch at their own heads only.
+    jobs["leverage-own-draw"] = ("prefill", dict(_job(cfg_t, params, p4, ids, "leverage",
+                                                      "oneshot"), mutant="own_heads_draw"))
     for pattern in DUO_PATTERNS:
         jobs[f"duo_split-{pattern}"] = ("duo_split", dict(
             cfg=cfg_t, params=numpy_tree(params), ids=ids, mesh=MESH, steps=DUO_STEPS,
@@ -311,14 +365,26 @@ def world(tmp_path_factory):
     handle = start_world(2, jobs, tmp_path_factory.mktemp("local"))
     m = dict(cfg_j=cfg_j, params=params, p4=p4, ids=ids, jobs=jobs)
     # The references, computed while the ranks run.
-    every = CASES + HEAD_CASES + CROSS_CASES
+    every = CASES + HEAD_CASES + CROSS_CASES + NORM_CASES
     m["jax"] = {k: _jax_case(m, *k) for k in every if k[0] != "random"}
     m["single"] = {k: prefill(dict(jobs["-".join(k)][1], mesh=None)) for k in every}
+    m["jax_scores"] = {k: _jax_scores(cfg_j, params, k[0], m["single"][k]["score_args"])
+                       for k in NORM_CASES if k[0] in SCORED}
     m["duo_jax"] = {p: _jax_duo_split(cfg_j, params, ids, p) for p in DUO_PATTERNS}
     m["duo_single"] = {p: duo_split(dict(jobs[f"duo_split-{p}"][1], mesh=None))
                        for p in DUO_PATTERNS}
     m["got"] = finish_world(handle)
     return m
+
+
+def _jax_scores(cfg_j, params, label, score_args):
+    """JAX's ``score`` of the press of ``label`` on each layer's inputs of the
+    port's single process (``score_args``: (ctx, keys, values) a layer), as
+    (L, B, H_kv, S); JAX draws its own sketch."""
+    press = ALL_PRESSES[label](kj)
+    return np.stack([np.asarray(press.score(jax_ctx(ctx, cfg_j, params), jnp.asarray(k.numpy()),
+                                            jnp.asarray(v.numpy())))
+                     for ctx, k, v in score_args])
 
 
 def _duo(m, pattern):
@@ -386,8 +452,9 @@ def test_local_press_under_a_mesh_matches_jax(world, label, route):
 def test_a_chunked_refusal_is_the_single_process_one(world, label):
     """CAP and ExpectedAttentionStats (no pre-RoPE queries in the
     compression pass), Merging (its merge), Block (every position's hidden
-    states) and LUKV (one-shot only) are refused by chunked prefill under
-    the mesh with the single-process port's error."""
+    states), LUKV (one-shot only) and the Compactor family (a query a slot)
+    are refused by chunked prefill under the mesh with the single-process
+    port's error."""
     job = world["jobs"][f"{label}-refused"][1]["job"]
     with pytest.raises((ValueError, TypeError)) as single:
         prefill(dict(job, mesh=None))
@@ -436,26 +503,26 @@ def test_the_eleven_run_under_a_mesh_and_the_rest_keep_their_items():
     for make in PRESSES.values():
         check_press(make(kt))
     assert (MESH_ITEMS["FastKVzipPress"], MESH_ITEMS["RestoreKVPress"],
-            MESH_ITEMS["CompactorPress"], MESH_ITEMS["KVComposeCollector"]) == (
-        "18.18", "18.19", "18.25", "18.32")
-    assert len(MESH_ITEMS) == 2 + 8
+            MESH_ITEMS["KVzipPress"], MESH_ITEMS["KVComposeCollector"]) == (
+        "18.18", "18.19", "18.29", "18.32")
+    assert len(MESH_ITEMS) == 2 + 4
     for make in PRESSES.values():
         with pytest.raises(NotImplementedError, match=f"item {SEQ_ITEM} "):
             check_seq_press(make(kt))
 
 
 @pytest.mark.parametrize("inner", [
-    lambda: kt.LeverageScorePress(0.5),
-    lambda: kt.NonCausalAttnPress(0.5),
-    lambda: kt.CAMPress(kt.KnormPress(0.5)),
-    lambda: kt.CriticalKVPress(kt.CompactorPress(0.5)),
-], ids=["leverage", "noncausal", "cam", "critical_compactor"])
+    lambda: kt.KVzipPress(0.5),
+    lambda: kt.KVComposePress(compression_ratio=0.5),
+    lambda: kt.FastKVzipPress(0.5),
+    lambda: kt.PrefillDecodingPress(kt.KVzipPress(0.5), None),
+], ids=["kvzip", "kvcompose", "fastkvzip", "prefill_decoding_kvzip"])
 def test_composed_press_refuses_a_later_item_inside(inner):
     """ComposedPress looks into its stages (and their wrapped presses): a
     stage of class (b) or (c) raises NotImplementedError naming that
     press's item."""
     stage = inner()
-    name = type(getattr(stage, "press", None) if type(stage).__name__ in MESH_PRESSES
+    name = type(getattr(stage, "prefilling_press", None) if type(stage).__name__ in MESH_PRESSES
                 else stage).__name__
     with pytest.raises(NotImplementedError, match=f"item {MESH_ITEMS[name]} "):
         check_press(kt.ComposedPress((kt.KnormPress(0.5), stage)))
@@ -622,15 +689,87 @@ def test_cross_head_local_decision_mutant_is_rejected(world):
 
 def test_the_cross_head_five_run_under_a_mesh_and_not_over_seq():
     """Items 18.20-18.24 pass ``check_press``, also inside AdaKV, ChunkKV
-    and DecodingPress; MESH_ITEMS holds the 10 names of items 18.18, 18.19
-    and 18.25-18.32; the seq-mesh gate still refuses the five (item 19)."""
+    and DecodingPress; MESH_ITEMS holds the 6 names of items 18.18, 18.19
+    and 18.29-18.32; the seq-mesh gate still refuses the five (item 19)."""
     five = ("TOVAPress", "CriticalAdaKVPress", "ChunkKVPress", "LUKVPress", "SimLayerKVPress")
     assert set(five) <= set(MESH_PRESSES) and not set(five) & set(MESH_ITEMS)
     assert sorted(MESH_ITEMS.values()) == ["18.18", "18.19"] + [f"18.{i}" for i in
-                                                                range(25, 33)]
+                                                                range(29, 33)]
     for press in ([make(kt) for make in CROSS_PRESSES.values()]
                   + [kt.AdaKVPress(kt.TOVAPress(0.5)), kt.ChunkKVPress(kt.TOVAPress(0.5))]):
         check_press(press)
     for make in CROSS_PRESSES.values():
+        with pytest.raises(NotImplementedError, match=f"item {SEQ_ITEM} "):
+            check_seq_press(make(kt), decode=isinstance(make(kt), kt.DecodingPress))
+
+
+# --------------------------------------------------------------------- #
+# Items 18.25-18.28: the normalized scorers and CAM
+
+
+@pytest.mark.parametrize("label,route", NORM_CASES, ids=[f"{p}-{r}" for p, r in NORM_CASES])
+def test_normalized_press_under_a_mesh_matches_jax(world, label, route):
+    """model 2: Compactor (float32 and int8 KV), LeverageScore,
+    NonCausalAttn and CAM(Knorm) over four decode steps (float32 and int8
+    KV, JAX's uniforms) equal the JAX single-device run and the port's
+    single process, though each normalizes or averages over heads that two
+    ranks hold. The Compactor family's gathered scores of every layer are
+    within KV_RTOL of their scale of the single process's and within the
+    scorer tests' 1e-4 of JAX's ``score`` on the same layer inputs."""
+    got = world["got"][f"{label}-{route}"]
+    _assert_same(got, world["jax"][(label, route)], label, route)
+    single = world["single"][(label, route)]
+    _assert_same(got, single, label, route, rounding=False)
+    if label in SCORED:
+        assert got["scores"].shape == single["scores"].shape == (
+            kt.tiny_config().num_layers, 1, OVER["num_kv_heads"], S)
+        np.testing.assert_allclose(got["scores"], single["scores"], rtol=0,
+                                   atol=KV_RTOL * np.abs(single["scores"]).max())
+        np.testing.assert_allclose(got["scores"], world["jax_scores"][(label, route)],
+                                   **SOLVE_TOL)
+        # z-normed over every head: mean 0 and std 1 over the gathered scores
+        # (Compactor blends two of them; its sinks hold the max).
+        if label != "compactor":
+            z = got["scores"].reshape(got["scores"].shape[0], -1)
+            np.testing.assert_allclose(z.mean(-1), 0.0, atol=1e-5)
+            np.testing.assert_allclose(z.std(-1, ddof=1), 1.0, atol=1e-5)
+    if label == "cam_knorm":
+        # Compressed at steps 2 and 4: the target after the last.
+        assert (got["length"] == 40).all() and got["offset"] == S + DECODE_STEPS, got["length"]
+
+
+def test_leverage_ranks_drawing_at_their_own_heads_are_rejected(world):
+    """The mutant: ranks that draw LeverageScore's sketch at their own head
+    count (each rank the first heads' sketch) keep another set than JAX."""
+    want = world["jax"][("leverage", "oneshot")]
+    assert_same_prefill(world["got"]["leverage-oneshot"], want)
+    with pytest.raises(AssertionError):
+        assert_same_prefill(world["got"]["leverage-own-draw"], want)
+
+
+def test_compactor_local_decision_mutant_is_rejected(world):
+    """The mutant ``cross_head_local_decision`` on Compactor: ranks that
+    z-norm their own heads' scores and take their own max for the sinks
+    keep another set than JAX."""
+    want = world["jax"][("compactor", "oneshot")]
+    assert_same_prefill(world["got"]["compactor-oneshot"], want)
+    with pytest.raises(AssertionError):
+        assert_same_prefill(world["got"]["compactor-local-decision"], want)
+
+
+def test_the_normalized_four_run_under_a_mesh_and_not_over_seq():
+    """Items 18.25-18.28 pass ``check_press``, Compactor also inside
+    CriticalKV and as a stage of ComposedPress; MESH_ITEMS holds the 6
+    names of items 18.18, 18.19 and 18.29-18.32; the seq-mesh gate still
+    refuses the four (item 19)."""
+    four = ("CompactorPress", "LeverageScorePress", "NonCausalAttnPress", "CAMPress")
+    assert set(four) <= set(MESH_PRESSES) and not set(four) & set(MESH_ITEMS)
+    assert sorted(MESH_ITEMS.values()) == ["18.18", "18.19"] + [f"18.{i}" for i in
+                                                                range(29, 33)]
+    for press in ([make(kt) for make in NORM_PRESSES.values()]
+                  + [kt.CriticalKVPress(kt.CompactorPress(0.5)),
+                     kt.ComposedPress((kt.KnormPress(0.5), kt.NonCausalAttnPress(0.5)))]):
+        check_press(press)
+    for make in NORM_PRESSES.values():
         with pytest.raises(NotImplementedError, match=f"item {SEQ_ITEM} "):
             check_seq_press(make(kt), decode=isinstance(make(kt), kt.DecodingPress))

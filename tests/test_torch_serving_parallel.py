@@ -158,17 +158,18 @@ def test_pipeline_batch_over_a_mesh(world):
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: kt.CompactorPress(0.5), "CompactorPress"),
+    (lambda: kt.KVComposePress(compression_ratio=0.5), "KVComposePress"),
     # ComposedPress runs under a mesh, but not with a stage of a later item.
-    (lambda: kt.ComposedPress((kt.KnormPress(0.5), kt.CompactorPress(0.5))), "CompactorPress"),
-    (lambda: kt.ComposedPress((kt.KnormPress(0.5), kt.NonCausalAttnPress(0.5))),
-     "NonCausalAttnPress"),
-], ids=["compactor", "composed_compactor", "composed_noncausal"])
+    (lambda: kt.ComposedPress((kt.KnormPress(0.5), kt.KVzipPress(0.5))), "KVzipPress"),
+    (lambda: kt.ComposedPress((kt.KnormPress(0.5), kt.KVComposePress(compression_ratio=0.5))),
+     "KVComposePress"),
+], ids=["kvcompose", "composed_kvzip", "composed_kvcompose"])
 def test_a_press_of_a_later_item_is_refused_over_a_mesh(tmp_path, make, item):
-    """A press of class (c) (CompactorPress: its scores normalized over
-    every head), alone or as a stage of ComposedPress, raises NotImplementedError naming
-    its ROADMAP item when the engine is made over a mesh (a gloo world of
-    one), and when the sharded Runner prefills with it."""
+    """A press of class (c) (the KVzip family: budgets over every head of
+    every layer), alone or as a stage of ComposedPress, raises
+    NotImplementedError naming its ROADMAP item when the engine is made over
+    a mesh (a gloo world of one), and when the sharded Runner prefills with
+    it."""
     import torch.distributed as dist
 
     from kvpress_tpu_torch.parallel import make_mesh, shard_params

@@ -1,8 +1,10 @@
 """The shard-local presses of ROADMAP Queue A items 18.1-18.11, the
 head-indexed ones of items 18.13, 18.14, 18.16 and 18.17 (Random, QFilter,
-ExpectedAttentionStats, DuoAttention) and three cross-head ones of items
-18.20, 18.21 and 18.24 (TOVA, CriticalAdaKV, SimLayerKV) served over a
-tensor-parallel mesh:
+ExpectedAttentionStats, DuoAttention), three cross-head ones of items
+18.20, 18.21 and 18.24 (TOVA, CriticalAdaKV, SimLayerKV) and the
+normalized scorers of items 18.25-18.27 (Compactor, LeverageScore,
+NonCausalAttn; LeverageScore and Compactor on the JAX package's sketches)
+served over a tensor-parallel mesh:
 ``ServingEngine(mesh=)`` and ``KVPressPipeline.batch(mesh=)`` on a gloo
 world of 2 ranks ("model" 2 on the tiny config with GQA 8/4, two kv heads a
 rank), each press against the JAX engine on the same requests (Random, whose
@@ -15,8 +17,10 @@ and equal keep-masks (tests/torch_serving_cases.py); ``batch(mesh=)``
 answers the single-process ``batch()`` and the JAX engine's answers
 decoded. The single-process engine admits every one of the 11 one-shot;
 with ``context_chunk`` it refuses Merging and Block (and CAP's chunked
-prefill raises), and the mesh gives the same refusals. The ranks run
-``tests/torch_parallel_cases.py`` (no JAX there)."""
+prefill raises), and the mesh gives the same refusals. CAM (item 18.28)
+merges values in the decode steps, which the serving loop does not run:
+the engine over the mesh refuses it with the single-process error. The
+ranks run ``tests/torch_parallel_cases.py`` (no JAX there)."""
 
 import pickle
 import types
@@ -28,7 +32,8 @@ import kvpress_tpu as kj
 from kvpress_tpu import serving as jserving
 import kvpress_tpu_torch as kt
 from test_torch_parallel import numpy_tree
-from test_torch_parallel_local_presses import ALL_PRESSES, OVER, _models, _sketches
+from test_torch_parallel_local_presses import (ALL_PRESSES, OVER, _leverage_sketches, _models,
+                                               _sketches)
 from toy_tokenizer import ToyTokenizer
 from torch_parallel_cases import batch, finish_world, serve, start_world
 from torch_scorer_cases import distinct_words
@@ -38,12 +43,13 @@ torch.set_num_threads(2)
 
 MESH = {"data": 1, "model": 2}
 NEW = 5
-# One case of each of the 11, the head-indexed four and three cross-head
-# presses; the engine as batch() makes it.
+# One case of each of the 11, the head-indexed four, three cross-head
+# presses and the three normalized scorers; the engine as batch() makes it.
 SERVED = ("cap", "cur", "critical_knorm", "key_rerotation", "per_layer", "think", "chunk",
           "composed", "merging", "block_keydiff", "finch",
           "qfilter", "expected_attention_stats", "duo", "random",
-          "tova", "critical_ada_knorm", "simlayerkv")
+          "tova", "critical_ada_knorm", "simlayerkv",
+          "compactor", "leverage", "noncausal")
 # SimLayerKV's lazy scores on the three contexts (layers 0, 1) are 0.520 and
 # 0.562 (40 tokens), 0.695 and 0.695 (30), 0.470 and 0.429 (44): at 0.54
 # the first has layer 1 lazy alone, the second both, the third neither.
@@ -87,6 +93,9 @@ def world(tmp_path_factory):
                              **engine))
         if label == "cur":
             j["sketches"] = _sketches(cfg_t)
+        if label in ("compactor", "leverage"):
+            # Each admission prefills a batch of one.
+            j["leverage"] = _leverage_sketches(cfg_t, j["engine"]["press"])
         return j
 
     jobs = {f"{label}-{slots}": ("serve", job(label, slots)) for label, slots in CASES}
@@ -98,6 +107,8 @@ def world(tmp_path_factory):
     for label in REFUSED:
         jobs[f"{label}-refused"] = ("refused", dict(kind="serve", mesh=MESH, job=job(
             label, "dense", context_chunk=16)))
+    jobs["cam_knorm-refused"] = ("refused", dict(kind="serve", mesh=MESH,
+                                                 job=job("cam_knorm", "dense")))
     handle = start_world(2, jobs, tmp_path_factory.mktemp("served"))
 
     def jax_engine(label, slots):
@@ -157,3 +168,14 @@ def test_chunked_admission_refusal_is_the_single_process_one(world, label):
     with pytest.raises((ValueError, TypeError)) as single:
         serve(dict(job, mesh=None))
     assert world["got"][f"{label}-refused"] == f"{single.typename}: {single.value}"
+
+
+def test_cam_engine_over_the_mesh_is_refused_as_on_one_process(world):
+    """CAM merges values in its decode steps: ``ServingEngine(CAMPress(...),
+    mesh=)`` raises the single-process engine's ValueError (before the mesh
+    gate)."""
+    job = world["jobs"]["cam_knorm-refused"][1]["job"]
+    with pytest.raises(ValueError) as single:
+        serve(dict(job, mesh=None))
+    assert world["got"]["cam_knorm-refused"] == f"{single.typename}: {single.value}"
+    assert "CAM" in str(single.value)

@@ -110,21 +110,61 @@ def port_params(job: dict):
 
 @contextlib.contextmanager
 def sketches(job: dict):
-    """``job["sketches"]`` ({layer: (D, 20) array}, the JAX package's draws)
-    in place of ``CURPress``'s own for the job's run."""
-    from kvpress_tpu_torch.presses import cur
+    """The JAX package's draws, as numpy, in place of the port's own for the
+    job's run: ``job["sketches"]`` ({layer: (D, 20)}) for ``CURPress``;
+    ``job["leverage"]`` ({(layer, B): (B, H_kv, D, k)}, at every kv head)
+    for ``LeverageScorePress`` (and Compactor's leverage child);
+    ``job["uniforms"]`` ({(layer, rng_step): (B, H_kv, k)}, at every kv
+    head) for ``CAMPress``. A draw of another shape than the one given
+    raises."""
+    from kvpress_tpu_torch.presses import cam, compactor, cur
 
-    given = job.get("sketches")
-    if given is None:
+    def given(table, key, shape):
+        a = np.array(table[key], np.float32)
+        if a.shape != tuple(shape):
+            raise AssertionError(f"draw {key}: asked for {tuple(shape)}, given {a.shape}")
+        return torch.from_numpy(a)
+
+    patched = []
+    if job.get("sketches") is not None:
+        patched.append((cur.CURPress, "sketch", lambda self, ctx, d, device: torch.from_numpy(
+            np.array(job["sketches"][ctx.layer_idx], np.float32)).to(device)))
+    if job.get("leverage") is not None:
+        patched.append((compactor.LeverageScorePress, "sketch",
+                        lambda self, ctx, shape, device: given(
+                            job["leverage"], (ctx.layer_idx, shape[0]),
+                            (*shape, self.sketch_dimension)).to(device)))
+    if job.get("uniforms") is not None:
+        patched.append((cam.CAMPress, "draw_uniforms",
+                        lambda self, layer, step, shape, device: given(
+                            job["uniforms"], (layer, step), shape).to(device)))
+    with _patched(patched):
         yield
-        return
-    own = cur.CURPress.sketch
-    cur.CURPress.sketch = lambda self, ctx, d, device: torch.from_numpy(
-        np.array(given[ctx.layer_idx], np.float32)).to(device)
+
+
+@contextlib.contextmanager
+def _patched(patched):
+    """Each ``(obj, name, value)`` of ``patched`` set for the block."""
+    own = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    for obj, name, value in patched:
+        setattr(obj, name, value)
     try:
         yield
     finally:
-        cur.CURPress.sketch = own
+        for obj, name, value in own:
+            setattr(obj, name, value)
+
+
+def own_heads_draw(draw, size: int):
+    """``draw`` (a ``sketch`` or ``draw_uniforms`` method, called at every kv
+    head) as a rank of a model ``size`` mesh that draws at its own heads'
+    count: its rows are those a draw of that shape gives, the first
+    H_kv / size of every head's draw, repeated to the whole width."""
+    def drawn(self, *args):
+        x = draw(self, *args)
+        n = x.shape[1] // size
+        return x[:, :n].repeat(1, size, *[1] * (x.dim() - 2))
+    return drawn
 
 
 @contextlib.contextmanager
@@ -133,10 +173,12 @@ def mutant(job: dict):
     makes ``RandomPress`` draw only the rank's own (B, H_kv local, S);
     ``"cross_head_local_decision"`` makes ``presses.base.all_heads`` (every
     module's binding of it) return the rank's own heads in place of every
-    rank's (repeated to the gathered width)."""
+    rank's (repeated to the gathered width); ``"own_heads_draw"`` makes
+    ``LeverageScorePress``'s sketch and ``CAMPress``'s uniforms draws at
+    the rank's own head count (``own_heads_draw``)."""
     import sys
 
-    from kvpress_tpu_torch.presses import base, random_press
+    from kvpress_tpu_torch.presses import base, cam, compactor, random_press
 
     kind = job.get("mutant")
     if kind == "random_local_draw":
@@ -149,16 +191,43 @@ def mutant(job: dict):
         patched = [(m, "all_heads", own_heads) for n, m in list(sys.modules.items())
                    if n.startswith("kvpress_tpu_torch.")
                    and getattr(m, "all_heads", None) is base.all_heads]
+    elif kind == "own_heads_draw":
+        size = job["mesh"]["model"]
+        patched = [(compactor.LeverageScorePress, "sketch",
+                    own_heads_draw(compactor.LeverageScorePress.sketch, size)),
+                   (cam.CAMPress, "draw_uniforms", own_heads_draw(cam.CAMPress.draw_uniforms,
+                                                                  size))]
     else:
         patched = []
-    own = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
-    for obj, name, fn in patched:
-        setattr(obj, name, fn)
-    try:
+    with _patched(patched):
         yield
-    finally:
-        for obj, name, fn in own:
-            setattr(obj, name, fn)
+
+
+@contextlib.contextmanager
+def recorded_scores(job: dict, press, mesh, out: dict):
+    """With ``job["scores"]``, the (B, H_kv, S) scores of each layer's
+    ``press.score`` call (its class's method) gathered over the mesh, as
+    ``out["scores"]`` (L, B, H_kv, S); on one process also each call's
+    ``(ctx, keys, values)`` as ``out["score_args"]``."""
+    from kvpress_tpu_torch.parallel import gather_heads
+
+    if not job.get("scores"):
+        yield
+        return
+    cls, seen = type(press), []
+    score = cls.score
+
+    def recording(self, ctx, keys, values):
+        got = score(self, ctx, keys, values)
+        seen.append((ctx, keys.clone(), values.clone(), got))
+        return got
+
+    with _patched([(cls, "score", recording)]):
+        yield
+    out["scores"] = np.stack([as_numpy(s if mesh is None else gather_heads(s, mesh, dim=1))
+                              for _, _, _, s in seen])
+    if mesh is None:
+        out["score_args"] = [a[:3] for a in seen]
 
 
 # --------------------------------------------------------------------- #
@@ -188,7 +257,8 @@ def prefill(job: dict, mesh=None) -> dict:
     kw = dict(press=press, compute_logits=True, dtype=torch.float32)
     if job.get("kv_bits"):
         kw.update(quantized=True, kv_bits=job["kv_bits"])
-    with sketches(job), mutant(job):
+    recorded = {}
+    with sketches(job), mutant(job), recorded_scores(job, press, mesh, recorded):
         if job.get("chunk"):
             logits, cache, state = runner.prefill_chunked(params, ids, chunk_size=job["chunk"],
                                                           **kw)
@@ -200,13 +270,14 @@ def prefill(job: dict, mesh=None) -> dict:
     steps = []
     if job.get("decode_steps"):
         cache = kt.resize(cache, ids.shape[1] + job["decode_steps"])
-        for _ in range(job["decode_steps"]):
-            tok = torch.argmax(logits[:, -1:], dim=-1)
-            logits, cache, state = runner.forward(params, tok, cache, press=press,
-                                                  press_state=state, phase="decode",
-                                                  logits_last_only=True)
-            steps.append(as_numpy(rows(logits)))
-    out = dict(logits=as_numpy(rows(logits)), length=cache.length.numpy().copy(),
+        with sketches(job), mutant(job):
+            for _ in range(job["decode_steps"]):
+                tok = torch.argmax(logits[:, -1:], dim=-1)
+                logits, cache, state = runner.forward(params, tok, cache, press=press,
+                                                      press_state=state, phase="decode",
+                                                      logits_last_only=True)
+                steps.append(as_numpy(rows(logits)))
+    out = dict(recorded, logits=as_numpy(rows(logits)), length=cache.length.numpy().copy(),
                offset=int(cache.offset))
     if steps:
         out["steps"] = np.stack(steps)
